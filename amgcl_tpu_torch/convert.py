@@ -5,7 +5,9 @@ The solver has no weights: its state is the hierarchy. Handing the arrays
 of a hierarchy built elsewhere (the JAX package's ``AMG``, read out with
 ``np.asarray``) to :func:`hierarchy_from_arrays` lets the cycle and the
 Krylov solve be held against that package on an identical hierarchy, so
-solve differences are separated from setup differences.
+solve differences are separated from setup differences; each level gets
+the port's own fused V-cycle handles where it is eligible, so the fused
+legs can be held against the reference's on the same operators.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from amgcl_tpu_torch.ops.device import DenseMatrix, DiaMatrix
 from amgcl_tpu_torch.ops.structured import (GridTentative,
                                             ImplicitSmoothedP,
                                             ImplicitSmoothedR)
+from amgcl_tpu_torch.ops.vcycle import build_fused_down, build_fused_up
 from amgcl_tpu_torch.relaxation.base import ScaledResidualSmoother
 from amgcl_tpu_torch.solver.direct import DenseDirectSolver
 from amgcl_tpu_torch.utils.devices import resolve_device
@@ -30,41 +33,45 @@ def _dia(pair, dtype, device):
     return DiaMatrix([int(o) for o in offsets], data, (n, n))
 
 
+def level_from_arrays(lv, dtype, device) -> Level:
+    """One level of a hierarchy from plain arrays (keys as in
+    :func:`hierarchy_from_arrays`, all but the coarsest level's), with the
+    port's own fused V-cycle handles attached where the level is
+    eligible (``ops/vcycle.py``)."""
+    fine = tuple(int(d) for d in lv["fine"])
+    block = tuple(int(b) for b in lv["block"])
+    coarse = tuple(-(-d // b) for d, b in zip(fine, block))
+    T = GridTentative(fine, block, coarse)
+    A = _dia(lv["A"], dtype, device)
+    P = ImplicitSmoothedP(T, _dia(lv["M"], dtype, device))
+    R = ImplicitSmoothedR(T, _dia(lv["Mt"], dtype, device))
+    relax = ScaledResidualSmoother(torch.tensor(np.asarray(lv["scale"]),
+                                                dtype=dtype, device=device))
+    return Level(A, relax, P, R, build_fused_down(A, R, relax),
+                 build_fused_up(A, P, relax))
+
+
 def hierarchy_from_arrays(levels, coarse_inv, params: AMGParams = None,
                           device=None) -> Hierarchy:
     """``levels``: one dict per level, finest first. Every level has
     ``"A"``: the operator as a DIA pair ``(offsets, data)`` with
-    ``data[k, i] = A[i, i + offsets[k]]``, or as a dense 2-D array. Every
-    level but the last also has ``"M"`` and ``"Mt"`` (DIA pairs of the
-    smoothed transfer's M = ω D⁻¹ A_f and its transpose), ``"fine"`` and
-    ``"block"`` (grid dims and aggregation blocks of the tentative
-    prolongation) and ``"scale"`` (the SPAI-0 diagonal). ``coarse_inv`` is
-    the dense inverse of the last level's operator. ``params`` supplies
-    the dtype and the cycle shape (npre, npost, ncycle, pre_cycles)."""
+    ``data[k, i] = A[i, i + offsets[k]]``, or as a dense 2-D array (the
+    coarsest level only). Every level but the last also has ``"M"`` and
+    ``"Mt"`` (DIA pairs of the smoothed transfer's M = ω D⁻¹ A_f and its
+    transpose), ``"fine"`` and ``"block"`` (grid dims and aggregation
+    blocks of the tentative prolongation) and ``"scale"`` (the SPAI-0
+    diagonal). ``coarse_inv`` is the dense inverse of the last level's
+    operator. ``params`` supplies the dtype and the cycle shape (npre,
+    npost, ncycle, pre_cycles)."""
     prm = params or AMGParams()
     device = resolve_device(device)
     dtype = prm.dtype
-    out = []
-    for i, lv in enumerate(levels):
-        A = lv["A"]
-        if isinstance(A, tuple):
-            A_dev = _dia(A, dtype, device)
-        else:
-            A_dev = DenseMatrix(torch.tensor(np.asarray(A), dtype=dtype,
-                                             device=device))
-        if i == len(levels) - 1:
-            out.append(Level(A_dev, None))
-            continue
-        fine = tuple(int(d) for d in lv["fine"])
-        block = tuple(int(b) for b in lv["block"])
-        coarse = tuple(-(-d // b) for d, b in zip(fine, block))
-        T = GridTentative(fine, block, coarse)
-        scale = torch.tensor(np.asarray(lv["scale"]), dtype=dtype,
-                             device=device)
-        out.append(Level(
-            A_dev, ScaledResidualSmoother(scale),
-            ImplicitSmoothedP(T, _dia(lv["M"], dtype, device)),
-            ImplicitSmoothedR(T, _dia(lv["Mt"], dtype, device))))
+    out = [level_from_arrays(lv, dtype, device) for lv in levels[:-1]]
+    A = levels[-1]["A"]
+    out.append(Level(_dia(A, dtype, device) if isinstance(A, tuple)
+                     else DenseMatrix(torch.tensor(np.asarray(A),
+                                                   dtype=dtype,
+                                                   device=device)), None))
     inv = torch.tensor(np.asarray(coarse_inv), dtype=dtype, device=device)
     return Hierarchy(out, DenseDirectSolver(inv), prm.npre, prm.npost,
                      prm.ncycle, prm.pre_cycles)

@@ -1,10 +1,15 @@
-"""The AMG hierarchy: host-side construction, device-side V/W-cycle.
+"""The AMG hierarchy: construction, device-side V/W-cycle.
 
 Counterpart of ``amgcl_tpu/models/amg.py`` (reference:
-amgcl/amg.hpp:63-557): the hierarchy is built level by level on the host
-in CSR (do_init loop, amg.hpp:467-512), each level's operator, transfer
-operators and smoother state move to the device as tensors, and ``apply``
-runs the multigrid cycle (amg.hpp:514-553) eagerly on the device.
+amgcl/amg.hpp:63-557). On a CUDA device the stencil levels of a
+structured problem are built on the device (``ops/stencil_device.py``)
+and the host loop continues from the first level whose stencil has grown
+past the diagonal-pair regime; otherwise the hierarchy is built level by
+level on the host in CSR (do_init loop, amg.hpp:467-512) and each level's
+operator, transfer operators and smoother state move to the device as
+tensors. ``apply`` runs the multigrid cycle (amg.hpp:514-553) eagerly on
+the device, through the fused whole-leg kernels (``ops/vcycle.py``) at
+every level that has them.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from amgcl_tpu_torch.coarsening.stall import CoarseningStall
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.ops.structured import build_implicit_transfers
+from amgcl_tpu_torch.ops.vcycle import build_fused_down, build_fused_up
 from amgcl_tpu_torch.relaxation.spai0 import Spai0
 from amgcl_tpu_torch.solver.direct import DenseDirectSolver
 from amgcl_tpu_torch.utils.devices import resolve_device
@@ -45,8 +51,8 @@ class AMGParams:
 
 class Level:
     """Device-resident state of one hierarchy level. ``down``/``up`` are
-    the slots of the fused whole-leg V-cycle kernels, not ported yet: they
-    stay None and the cycle composes its legs."""
+    the fused whole-leg handles (``ops/vcycle.py``), or None where the
+    level is not eligible and the cycle composes its legs."""
 
     def __init__(self, A, relax, P=None, R=None, down=None, up=None):
         self.A = A          # device matrix (level operator)
@@ -77,20 +83,33 @@ class Hierarchy:
             if self.coarse is not None:
                 return self.coarse.solve(f)
             return lv.relax.apply(lv.A, f)
-        if self.npre > 0:
-            u = lv.relax.apply(lv.A, f)      # first pre-sweep from zero
-            for _ in range(self.npre - 1):
-                u = lv.relax.apply_pre(lv.A, f, u)
+        if self.npre == 1 and lv.down is not None and lv.down.w is not None:
+            # whole down leg in one pass: pre-smooth from zero, residual,
+            # filtered tentative restriction
+            u, fc = lv.down.zero(f)
         else:
-            u = dev.clear(f)
-        r = dev.residual(f, lv.A, u)
-        fc = dev.spmv(lv.R, r)
+            if self.npre > 0:
+                u = lv.relax.apply(lv.A, f)      # first pre-sweep from zero
+                for _ in range(self.npre - 1):
+                    u = lv.relax.apply_pre(lv.A, f, u)
+            else:
+                u = dev.clear(f)
+            if lv.down is not None:
+                fc = lv.down(f, u)   # one-pass residual + restriction
+            else:
+                fc = dev.spmv(lv.R, dev.residual(f, lv.A, u))
         uc = self.cycle(i + 1, fc)
         for _ in range(self.ncycle - 1):      # W-cycle: extra coarse visits
             rc = dev.residual(fc, self.levels[i + 1].A, uc)
             uc = uc + self.cycle(i + 1, rc)
-        u = u + dev.spmv(lv.P, uc)
-        for _ in range(self.npost):
+        if lv.up is not None and self.npost >= 1:
+            # one pass: prolong + correct + first post-smoothing sweep
+            u = lv.up(f, u, uc)
+            extra = self.npost - 1
+        else:
+            u = u + dev.spmv(lv.P, uc)
+            extra = self.npost
+        for _ in range(extra):
             u = lv.relax.apply_post(lv.A, f, u)
         return u
 
@@ -129,31 +148,77 @@ def _human_bytes(n: float) -> str:
         n /= 1024.0
 
 
+def check_coarse_size(n, prm):
+    """Refuse to densify a coarsest level far above the direct-solve
+    regime (coarsening stalled): an error beats running out of memory."""
+    if prm.direct_coarse and n > max(4 * prm.coarse_enough, 20000):
+        raise RuntimeError(
+            "coarsening stalled at %d unknowns (> coarse_enough=%d); "
+            "cannot build a dense coarse solver this large — adjust "
+            "coarsening parameters or set direct_coarse=False"
+            % (n, prm.coarse_enough))
+
+
 class AMG:
-    """Host-side builder and owner of the device hierarchy.
+    """Builds and owns the device hierarchy.
 
     ``device=None`` means CUDA; without a card that raises unless the
-    caller asks for ``device="cpu"``. Usage::
+    caller asks for ``device="cpu"``. ``device_setup`` chooses where the
+    stencil levels are built: None builds them on the device when it is
+    CUDA and on the host otherwise; True or False force either (a
+    configuration outside the device build's gates takes the host route
+    all the same). Usage::
 
         P = AMG(A, AMGParams(...), device="cuda")
         z = P.hierarchy.apply(r)
     """
 
-    def __init__(self, A, prm: Optional[AMGParams] = None, device=None):
+    def __init__(self, A, prm: Optional[AMGParams] = None, device=None,
+                 device_setup=None):
         self.prm = prm or AMGParams()
         self.device = resolve_device(device)
+        self.device_setup = self.device.type == "cuda" \
+            if device_setup is None else bool(device_setup)
         if not isinstance(A, CSR):
             A = CSR.from_scipy(A)
         self._build(A)
 
     def _build(self, A: CSR):
-        """reference: amgcl/amg.hpp:467-512 do_init"""
+        """reference: amgcl/amg.hpp:467-512 do_init, with the device-setup
+        prefix of amgcl_tpu/models/amg.py:235-267"""
         prm = self.prm
         t0 = time.perf_counter()
-        coarsening = prm.coarsening
+        self.device_built = False
+        self._dev_prefix = []
+        meta_prefix = []
         # per-build state (eps_strong decay, grid dims, setup dtype) lives
         # in this dict, not on the policy object
         ctx = {}
+        t_dev = 0.0            # seconds of the device build that was kept
+        if self.device_setup:
+            from amgcl_tpu_torch.ops import stencil_device as sdev
+            got = sdev.device_build(A, prm, self.device)
+            if got is not None:
+                self.device_built = True
+                t_dev = time.perf_counter() - t0
+                meta_rows = [(m, None, None) for m in got["meta"]]
+                # row 0 is the real fine-level CSR: consumers read
+                # host_levels[0][0] as the system matrix
+                meta_rows[0] = (A, None, None)
+                if got["leftover"] is None:
+                    self.hierarchy = Hierarchy(
+                        got["levels"], got["coarse"], prm.npre, prm.npost,
+                        prm.ncycle, prm.pre_cycles)
+                    self.host_levels = meta_rows
+                    self._setup_done(t0, t_dev)
+                    return
+                # hybrid: the stencil grew past the diagonal-pair regime;
+                # the host loop continues from the fetched coarse level
+                self._dev_prefix = got["levels"]
+                meta_prefix = meta_rows[:-1]
+                A = got["leftover"]
+                ctx["eps_strong"] = got["eps_next"]
+        coarsening = prm.coarsening
         if prm.dtype.itemsize <= 4:
             # a <=32-bit device hierarchy lets the stencil setup algebra
             # run in float32 — same convergence, half the memory traffic
@@ -161,7 +226,7 @@ class AMG:
         host = []
         Acur = A
         while (Acur.nrows > prm.coarse_enough
-               and len(host) + 1 < prm.max_levels):
+               and len(meta_prefix) + len(host) + 1 < prm.max_levels):
             try:
                 P, R = coarsening.transfer_operators(Acur, ctx)
             except CoarseningStall:
@@ -172,32 +237,33 @@ class AMG:
             host.append((Acur, P, R))
             Acur = Ac
         host.append((Acur, None, None))
-        self.host_levels = host
+        self.host_levels = meta_prefix + host
         self._to_device_levels()
+        self._setup_done(t0, t_dev)
+
+    def _setup_done(self, t0, t_dev):
+        """Setup wall time, and its split between the device build and
+        the host loop with the move to the device."""
         self.setup_seconds = time.perf_counter() - t0
+        self.setup_split = {"device_build_s": t_dev,
+                            "host_s": self.setup_seconds - t_dev}
 
     def _to_device_levels(self):
         prm = self.prm
         host = self.host_levels
         dtype, device = prm.dtype, self.device
-        levels = []
-        for Ai, P, R in host[:-1]:
+        levels = list(self._dev_prefix)    # device-built levels come first
+        for Ai, P, R in host[len(levels):-1]:
             # matrix-free smoothed transfers (ops/structured.py)
             P_dev, R_dev = build_implicit_transfers(
                 P._implicit_spec, dtype, device)
             A_dev = dev.to_device(Ai, prm.matrix_format, dtype, device)
-            levels.append(Level(A_dev, prm.relax.build(Ai, dtype, device),
-                                P_dev, R_dev))
+            relax = prm.relax.build(Ai, dtype, device)
+            levels.append(Level(A_dev, relax, P_dev, R_dev,
+                                build_fused_down(A_dev, R_dev, relax),
+                                build_fused_up(A_dev, P_dev, relax)))
         Alast = host[-1][0]
-        if prm.direct_coarse \
-                and Alast.nrows > max(4 * prm.coarse_enough, 20000):
-            # coarsening stalled far above the direct-solve regime:
-            # refusing to densify an enormous matrix beats an OOM
-            raise RuntimeError(
-                "coarsening stalled at %d unknowns (> coarse_enough=%d); "
-                "cannot build a dense coarse solver this large — adjust "
-                "coarsening parameters or set direct_coarse=False"
-                % (Alast.nrows, prm.coarse_enough))
+        check_coarse_size(Alast.nrows, prm)
         A_last = dev.to_device(Alast, prm.matrix_format, dtype, device)
         if prm.direct_coarse:
             coarse = DenseDirectSolver.build(Alast, dtype, device)

@@ -27,10 +27,11 @@ class make_solver:
     refinement: the outer residual b − A x is evaluated in float64 through
     a float64 copy of the operator on the device (``A_dev64``), and up to
     ``refine`` correction solves run in the working precision.
-    ``device=None`` means CUDA (see :class:`AMG`)."""
+    ``device=None`` means CUDA and ``device_setup=None`` builds the
+    stencil levels on the device when it is CUDA (see :class:`AMG`)."""
 
     def __init__(self, A, precond: AMGParams = None, solver: Any = None,
-                 refine: int = 0, device=None):
+                 refine: int = 0, device=None, device_setup=None):
         if not isinstance(A, CSR):
             A = CSR.from_scipy(A)
         self.A_host = A
@@ -38,7 +39,7 @@ class make_solver:
         if not isinstance(precond, AMGParams):
             raise TypeError("precond must be AMGParams, got %r"
                             % type(precond))
-        self.precond = AMG(A, precond, device)
+        self.precond = AMG(A, precond, device, device_setup)
         self.device = self.precond.device
         self.dtype = self.precond.dtype
         self.solver = solver or CG()

@@ -8,17 +8,25 @@ Run from the root of a checkout, with no arguments:
    kernels (``amgcl_tpu_torch/csrc/*.cu``) from the checkout.
 2. Drives the main path once through the package's entry points:
    ``poisson3d(128)`` → ``make_solver(A, AMGParams(dtype=float32),
-   CG(maxiter=100, tol=1e-6), refine=3)``, then solves twice. Every
-   kernel's launch count is set to 0 just before and read just after; the
-   run fails unless the hierarchy has 4 levels of 2,097,152 / 262,144 /
-   32,768 / 1,331 rows, CG takes 12 ± 1 iterations, the true residual
-   (host float64) is ≤ 1e-6, every kernel on the path launched and no
-   plain version ran.
+   CG(maxiter=100, tol=1e-6), refine=3)``, then solves twice. On the card
+   the stencil levels are built on the device and every eligible level
+   runs the fused V-cycle legs. Every kernel's launch count is set to 0
+   just before and read just after; the run fails unless the hierarchy
+   has 4 levels of 2,097,152 / 262,144 / 32,768 / 1,331 rows, CG takes
+   12 ± 1 iterations, the true residual (host float64) is ≤ 1e-6, every
+   kernel on the path launched (each fused leg once per V-cycle at every
+   level that carries it) and no plain version ran.
+   Then the earlier path: the same problem built on the host
+   (``device_setup=False``) with the fused handles removed, so the cycle
+   composes its legs; held to the same limits, within one iteration of
+   the main path, and every earlier kernel must launch on one of the two
+   paths.
 3. Holds each kernel against its plain PyTorch version on the main path's
    own operators (random vectors from a seeded numpy generator), and times
    kernel, plain version and, where one PyTorch call computes the same
    function, that call (CUDA events, median of 20 after warm-up, L2 flushed
-   before each launch), beside the least time the card could take.
+   before each launch), beside the least time the card could take. A fused
+   leg is also timed beside the chain of earlier kernels it replaces.
 
 Prints one JSON line of kernel records, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
@@ -44,7 +52,8 @@ LEVEL_ROWS = [2097152, 262144, 32768, 1331]
 ITERS_EXPECTED = 12
 
 SOURCES = {"dia": "amgcl_tpu_torch/csrc/dia.cu",
-           "vec": "amgcl_tpu_torch/csrc/vec.cu"}
+           "vec": "amgcl_tpu_torch/csrc/vec.cu",
+           "vcycle": "amgcl_tpu_torch/csrc/vcycle.cu"}
 REPLACES = {
     "dia_spmv": "amgcl_tpu/ops/pallas_spmv.py:318",
     "dia_residual": "amgcl_tpu/ops/pallas_spmv.py:389",
@@ -52,9 +61,22 @@ REPLACES = {
     "dia_spmv_dots": "amgcl_tpu/ops/pallas_spmv.py:461",
     "dia_residual_dot": "amgcl_tpu/ops/pallas_spmv.py:552",
     "xr_update": "amgcl_tpu/ops/fused_vec.py:251",
+    "fused_down_sweep": "amgcl_tpu/ops/pallas_vcycle.py:274",
+    "fused_up_sweep": "amgcl_tpu/ops/pallas_vcycle.py:491",
 }
-ON_PATH = ("dia_residual", "dia_scaled_correction", "dia_spmv_dots",
+FUSED = ("fused_down_sweep", "fused_up_sweep")
+#: kernels the earlier (host-setup, composed) path must launch
+EARLIER = ("dia_residual", "dia_scaled_correction", "dia_spmv_dots",
            "dia_residual_dot", "xr_update")
+#: kernels the main path must launch: the fused legs at the stencil
+#: levels, the DIA legs at the host-built level, CG and the refinement
+ON_PATH = EARLIER + FUSED
+
+
+def source_of(name):
+    if name == "xr_update":
+        return SOURCES["vec"]
+    return SOURCES["vcycle" if name in FUSED else "dia"]
 
 
 def card_line():
@@ -68,7 +90,11 @@ def card_line():
 def wrappers():
     from amgcl_tpu_torch.ops import dia_kernels as dk
     from amgcl_tpu_torch.ops import fused_vec as fv
-    return {"dia_spmv": (dk.dia_spmv, dk.dia_spmv_plain),
+    from amgcl_tpu_torch.ops import vcycle_kernels as vk
+    return {"fused_down_sweep": (vk.fused_down_sweep,
+                                 vk.fused_down_sweep_plain),
+            "fused_up_sweep": (vk.fused_up_sweep, vk.fused_up_sweep_plain),
+            "dia_spmv": (dk.dia_spmv, dk.dia_spmv_plain),
             "dia_residual": (dk.dia_residual, dk.dia_residual_plain),
             "dia_scaled_correction": (dk.dia_scaled_correction,
                                       dk.dia_scaled_correction_plain),
@@ -89,64 +115,149 @@ def read_counts():
             {k: plain.calls for k, (_, plain) in wrappers().items()})
 
 
-# -- phase 2: the main path -------------------------------------------------
+# -- phase 2: the main path and the earlier path ------------------------------
 
-def main_path(failures):
-    from amgcl_tpu_torch import AMGParams, CG, make_solver, poisson3d
-    t0 = time.perf_counter()
-    A, rhs = poisson3d(128)
-    t_problem = time.perf_counter() - t0
+def drive(A, rhs, failures, label, device_setup=None, composed=False):
+    """Build and solve twice through make_solver with the counts set to 0
+    just before and read just after. ``composed`` removes every fused
+    handle, so the cycle composes its legs. Returns (solve, counts,
+    summary)."""
+    from amgcl_tpu_torch import AMGParams, CG, make_solver
     reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     solve = make_solver(A, AMGParams(dtype=torch.float32),
-                        CG(maxiter=100, tol=1e-6), refine=3)
+                        CG(maxiter=100, tol=1e-6), refine=3,
+                        device_setup=device_setup)
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
-    print("problem: poisson3d(128), %d rows, %d nnz, built in %.3f s"
-          % (A.nrows, A.nnz, t_problem))
-    print("setup: %.3f s wall (make_solver), %.3f s in AMG._build"
-          % (t_setup, solve.precond.setup_seconds))
-    print(solve.precond)
+    amg = solve.precond
+    hier = amg.hierarchy
+    if composed:
+        for lv in hier.levels:
+            lv.down = lv.up = None
+    split = amg.setup_split
+    print("[%s] setup: %.3f s wall (make_solver), %.3f s in AMG._build: "
+          "%.3f s device build, %.3f s host loop and move to the device; "
+          "device build on: %s; peak device memory %.1f MB"
+          % (label, t_setup, amg.setup_seconds, split["device_build_s"],
+             split["host_s"], amg.device_built,
+             torch.cuda.max_memory_allocated() / 2**20))
+    print(amg)
+    for i, lv in enumerate(hier.levels):
+        print("[%s] level %d: %d rows, %s, fused down: %s (zero guess: %s),"
+              " fused up: %s%s"
+              % (label, i, lv.A.shape[0], type(lv.A).__name__,
+                 lv.down is not None,
+                 lv.down is not None and lv.down.w is not None,
+                 lv.up is not None,
+                 ", halo planes %d" % lv.up.halo_planes
+                 if lv.up is not None else ""))
+    # count V-cycles: one per preconditioner application
+    cycles = [0]
+    apply = hier.apply
+
+    def counted(r):
+        cycles[0] += 1
+        return apply(r)
+
+    hier.apply = counted
     x, info = solve(rhs)
-    print("solve 1 (cold): %d iterations, reported resid %.3e, %.4f s"
-          % (info.iters, info.resid, info.wall_time_s))
+    print("[%s] solve 1 (cold): %d iterations, reported resid %.3e, %.4f s"
+          % (label, info.iters, info.resid, info.wall_time_s))
     first, _ = read_counts()
+    cycles_first = cycles[0]
     x, info = solve(rhs)
     counts, plain_calls = read_counts()
-    print("solve 2 (warm): %d iterations, reported resid %.3e, %.4f s"
-          % (info.iters, info.resid, info.wall_time_s))
+    print("[%s] solve 2 (warm): %d iterations, reported resid %.3e, %.4f s"
+          % (label, info.iters, info.resid, info.wall_time_s))
     x64 = x.double().cpu().numpy()
     true_res = float(np.linalg.norm(rhs - A.spmv(x64))
                      / np.linalg.norm(rhs))
-    print("true relative residual (host float64): %.3e" % true_res)
+    print("[%s] true relative residual (host float64): %.3e"
+          % (label, true_res))
     warm = {k: counts[k] - first[k] for k in counts}
-    print("launches over the main path (setup + 2 solves): %s"
-          % json.dumps(counts))
-    print("launches in the warm solve: %s; per CG iteration: %s"
-          % (json.dumps(warm), json.dumps(
+    warm_cycles = cycles[0] - cycles_first
+    print("[%s] launches (setup + 2 solves): %s" % (label, json.dumps(counts)))
+    print("[%s] launches in the warm solve (%d V-cycles): %s; per CG "
+          "iteration: %s" % (label, warm_cycles, json.dumps(warm), json.dumps(
               {k: round(v / max(info.iters, 1), 3)
                for k, v in warm.items()})))
-    print("plain-version calls over the main path: %s"
-          % json.dumps(plain_calls))
-    profile_solve(solve, rhs, info.wall_time_s * 1e3)
-    rows = [h[0].nrows for h in solve.precond.host_levels]
+    print("[%s] plain-version calls: %s" % (label, json.dumps(plain_calls)))
+    rows = [h[0].nrows for h in amg.host_levels]
     if rows != LEVEL_ROWS:
-        failures.append("levels %s, expected %s" % (rows, LEVEL_ROWS))
+        failures.append("%s: levels %s, expected %s"
+                        % (label, rows, LEVEL_ROWS))
     if abs(info.iters - ITERS_EXPECTED) > 1:
-        failures.append("%d iterations, expected %d ± 1"
-                        % (info.iters, ITERS_EXPECTED))
+        failures.append("%s: %d iterations, expected %d ± 1"
+                        % (label, info.iters, ITERS_EXPECTED))
     if not (np.all(np.isfinite(x64)) and true_res <= 1e-6):
-        failures.append("true residual %.3e > 1e-6" % true_res)
+        failures.append("%s: true residual %.3e > 1e-6" % (label, true_res))
+    if any(plain_calls.values()):
+        failures.append("%s: plain versions ran: %s" % (label, plain_calls))
+    # each fused leg runs once per V-cycle at every level that carries it
+    for name, attr in (("fused_down_sweep", "down"), ("fused_up_sweep", "up")):
+        per_cycle = sum(getattr(lv, attr) is not None for lv in hier.levels)
+        if warm[name] != per_cycle * warm_cycles:
+            failures.append("%s: %s launched %d times in %d V-cycles over "
+                            "%d levels" % (label, name, warm[name],
+                                           warm_cycles, per_cycle))
+    return solve, counts, {
+        "setup_s": t_setup, "device_build_s": split["device_build_s"],
+        "host_setup_s": split["host_s"], "warm_solve_s": info.wall_time_s,
+        "iters": info.iters, "resid": info.resid, "true_resid": true_res,
+        "warm_launches": warm, "warm_cycles": warm_cycles}
+
+
+def device_build_again(A):
+    """The device build once more, its kernels and the fine level's DIA
+    packing already warm: what a rebuild of the same structure costs."""
+    from amgcl_tpu_torch import AMGParams
+    from amgcl_tpu_torch.ops import stencil_device as sdev
+    t0 = time.perf_counter()
+    got = sdev.device_build(A, AMGParams(dtype=torch.float32),
+                            torch.device("cuda"))
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    print("device build again (warm): %.3f s for %d levels"
+          % (t, len(got["levels"])))
+    return t
+
+
+def main_path(failures):
+    from amgcl_tpu_torch import poisson3d
+    t0 = time.perf_counter()
+    A, rhs = poisson3d(128)
+    print("problem: poisson3d(128), %d rows, %d nnz, built in %.3f s"
+          % (A.nrows, A.nnz, time.perf_counter() - t0))
+    # the CUDA context is created here, not inside the first setup, so
+    # the two paths' setup times compare
+    t0 = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    print("CUDA context: %.3f s" % (time.perf_counter() - t0))
+    solve, counts, summary = drive(A, rhs, failures, "main")
+    summary["device_build_again_s"] = device_build_again(A)
+    lv0 = solve.precond.hierarchy.levels[0]
+    if not solve.precond.device_built or lv0.down is None or lv0.up is None:
+        failures.append("main: the stencil levels were not built on the "
+                        "device with both fused legs at level 0")
     for k in ON_PATH:
         if counts[k] == 0:
-            failures.append("kernel %s never launched on the main path" % k)
-    if any(plain_calls.values()):
-        failures.append("plain versions ran on the main path: %s"
-                        % plain_calls)
-    return solve, counts, {
-        "setup_s": t_setup, "warm_solve_s": info.wall_time_s,
-        "iters": info.iters, "resid": info.resid, "true_resid": true_res,
-        "warm_launches": warm}
+            failures.append("main: kernel %s never launched" % k)
+    profile_solve(solve, rhs, summary["warm_solve_s"] * 1e3)
+    # the earlier path: host setup, composed legs
+    _, earlier, e_summary = drive(A, rhs, failures, "earlier",
+                                  device_setup=False, composed=True)
+    if abs(e_summary["iters"] - summary["iters"]) > 1:
+        failures.append("earlier path took %d iterations, main path %d"
+                        % (e_summary["iters"], summary["iters"]))
+    for k in EARLIER:
+        if counts[k] == 0 and earlier[k] == 0:
+            failures.append("kernel %s launched on neither path" % k)
+    summary["earlier_path"] = e_summary
+    summary["earlier_launches"] = earlier
+    return solve, counts, summary
 
 
 def profile_solve(solve, rhs, warm_ms):
@@ -372,6 +483,99 @@ def check_kernels(solve, failures):
     return records
 
 
+def check_fused(solve, failures):
+    """The fused legs against their plain versions on the hierarchy's own
+    L0 and L1 operators (down in zero-guess mode, the main path's, and in
+    base mode; up), timed beside the plain version, the bound and the
+    chain of earlier kernels each leg replaces."""
+    from amgcl_tpu_torch.ops import device as dev
+    from amgcl_tpu_torch.ops import vcycle_kernels as vk
+    L = solve.precond.hierarchy.levels
+    rng = np.random.RandomState(20261017)
+    rtol = 1e-5
+    records = {}
+
+    def vec(n):
+        return torch.as_tensor(rng.standard_normal(n)).to(
+            device="cuda", dtype=torch.float32)
+
+    for i in (0, 1):
+        lv = L[i]
+        A, M, Mt, w, T = lv.A, lv.P.M, lv.R.Mt, lv.relax.scale, lv.R.T
+        dims, (n, nc) = T.fine, T.shape
+        f, u, uc = vec(n), vec(n), vec(nc)
+        s = A.data.element_size()
+        for mode in ("zero", "base", "up"):
+            if mode == "up":
+                name = "fused_up_sweep"
+                args = (A.offsets_t, A.data, M.offsets_t, M.data, w, f, u,
+                        uc, dims)
+                # Σ|terms| of each entry: the plain version on |operands|
+                # with the operators negated, so every subtraction adds
+                terms = vk.fused_up_sweep_plain(
+                    A.offsets_t, -A.data.abs(), M.offsets_t, -M.data.abs(),
+                    w.abs(), f.abs(), u.abs(), uc.abs(), dims)
+
+                def composed():
+                    return lv.relax.apply_post(A, f, u + lv.P.mv(uc))
+                nbytes = (A.data.numel() + M.data.numel() + 4 * n + nc) * s
+                ops = 2 * (live_entries(A) + live_entries(M)) + 4 * n
+                ops_name = "M"
+            else:
+                name = "fused_down_sweep"
+                zero = mode == "zero"
+                x = w if zero else u
+                args = (A.offsets_t, A.data, Mt.offsets_t, Mt.data, f, x,
+                        dims, zero)
+                terms = vk.fused_down_sweep_plain(
+                    A.offsets_t, -A.data.abs(), Mt.offsets_t,
+                    -Mt.data.abs(), f.abs(), x.abs(), dims, zero)
+
+                def composed():
+                    ui = lv.relax.apply(A, f) if zero else u
+                    return lv.R.mv(dev.residual(f, A, ui))
+                nbytes = (A.data.numel() + Mt.data.numel() + 2 * n + nc
+                          + (n if zero else 0)) * s
+                ops = 2 * (live_entries(A) + live_entries(Mt)) + n \
+                    + (n if zero else 0)
+                ops_name = "Mt"
+            kern, plain = wrappers()[name]
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            pairs = list(zip(*(v if isinstance(v, tuple) else (v,)
+                               for v in (got, want, terms))))
+            err = max(float((g - p_).abs().max()) for g, p_, _ in pairs)
+            ratio = max(float(((g - p_).abs() / t.clamp_min(1e-30)).max())
+                        for g, p_, t in pairs)
+            ok = all(bool(((g - p_).abs() <= rtol * t).all())
+                     for g, p_, t in pairs)
+            ms = time_ms(lambda: kern(*args))
+            plain_ms = time_ms(lambda: plain(*args))
+            composed_ms = time_ms(composed)
+            b_ms, b_by = bound(nbytes, ops, torch.float32)
+            label = "L%d %s" % (i, mode)
+            print("%-22s %-8s n=%-8d nA=%-3d n%s=%-3d float32  err %.3e "
+                  "(max |err|/Σ|terms| %.2e, tol %.0e)  ms %.4f  plain %.4f"
+                  "  composed %.4f  bound %.4f (%s, %.1f MB)  %s"
+                  % (name, label, n, len(A.offsets), ops_name,
+                     len(M.offsets if mode == "up" else Mt.offsets), err,
+                     ratio, rtol, ms, plain_ms, composed_ms, b_ms, b_by,
+                     nbytes / 1e6, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("%s %s disagrees with its plain version"
+                                % (name, label))
+            if name not in records:   # the first case: L0, main-path mode
+                records[name] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "composed_ms": composed_ms,
+                    "shape": "%s, fine %s, %d + %d diagonals, float32"
+                             % (label, "x".join(map(str, dims)),
+                                len(A.offsets), len(M.offsets if mode == "up"
+                                                    else Mt.offsets))}
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -387,13 +591,14 @@ def main():
     failures = []
     solve, counts, summary = main_path(failures)
     records = check_kernels(solve, failures)
+    records.update(check_fused(solve, failures))
     print("main path: %s" % json.dumps(summary))
     kernels = []
     for name in REPLACES:
         rec = records[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": SOURCES["vec" if name == "xr_update" else "dia"],
+            "source": source_of(name),
             "replaces": REPLACES[name], "launches": counts[name],
             **rec})
     if failures:

@@ -2,9 +2,11 @@
 versions on the card, at the edge shapes the main path does not reach:
 row counts that are no multiple of the block, columns out of range on
 both sides, rectangular operators, the 512-diagonal limit, an empty
-operator, a grid-stride pass longer than its fixed grid. Also the
-wrappers' refusals and a small solve on the card against the same solve
-on the CPU.
+operator, a grid-stride pass longer than its fixed grid; for the fused
+V-cycle legs odd and small grids, f0 that does not divide 128, a halo of
+two coarse planes and asymmetric offsets. Also the wrappers' refusals,
+bit-identical results from run to run, and small solves on the card
+against the same solves on the CPU.
 
 Every test needs an NVIDIA card and skips without one. On the card, from
 the repo root (the suite's conftest imports JAX, which the port's machine
@@ -20,6 +22,7 @@ import torch
 
 from amgcl_tpu_torch.ops import dia_kernels as dk
 from amgcl_tpu_torch.ops import fused_vec as fv
+from amgcl_tpu_torch.ops import vcycle_kernels as vk
 
 pytestmark = pytest.mark.cuda
 
@@ -221,3 +224,165 @@ def test_small_solve_on_card_matches_cpu(cuda, dtype):
         assert abs(it_gpu - it_cpu) <= 1
     true_res = np.linalg.norm(rhs - A.spmv(x_gpu)) / np.linalg.norm(rhs)
     assert true_res <= 1e-6
+
+
+# -- the fused V-cycle legs (csrc/vcycle.cu) ----------------------------------
+
+def _leg(dims, offs_a, offs_m, device, seed=0):
+    """Random DIA operators A and M (or Mᵀ) on a grid and the vectors of
+    one leg, float32 on ``device``."""
+    n = int(np.prod(dims))
+    nc = int(np.prod(vk.coarse_dims(dims)))
+    rng = np.random.RandomState(seed)
+    cast = lambda a: torch.as_tensor(a).to(device=device,
+                                           dtype=torch.float32)
+    off = lambda o: torch.tensor(o, dtype=torch.int32, device=device)
+    return (off(offs_a), cast(rng.standard_normal((len(offs_a), n))),
+            off(offs_m), cast(rng.standard_normal((len(offs_m), n))),
+            cast(rng.rand(n)), cast(rng.standard_normal(n)),
+            cast(rng.standard_normal(n)), cast(rng.standard_normal(nc)))
+
+
+def _down_terms(oa, a, om, mt, f, u, dims, zero_guess=False):
+    """Σ|terms| of each output entry of the down leg: the plain version on
+    |operands| with the operators negated, so every subtraction adds."""
+    got = vk.fused_down_sweep_plain(oa, -a.abs(), om, -mt.abs(), f.abs(),
+                                    u.abs(), dims, zero_guess)
+    return got[1] if zero_guess else got
+
+
+def _up_terms(oa, a, om, m, w, f, u, uc, dims):
+    return vk.fused_up_sweep_plain(oa, -a.abs(), om, -m.abs(), w.abs(),
+                                   f.abs(), u.abs(), uc.abs(), dims)
+
+
+def _within(got, want, terms, rtol=1e-5):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(((got - want).abs() <= rtol * terms).all()), \
+        float(((got - want).abs() / terms.clamp_min(1e-30)).max())
+
+
+def _plane_offsets(dims):
+    _, f1, f0 = dims
+    s = f1 * f0
+    return (-s, -f0, -1, 0, 1, f0, s)
+
+
+_LEG_CASES = {
+    # name: (dims, A offsets, M offsets)
+    "odd_f2": ((5, 8, 16), None, None),
+    "odd_all": ((3, 5, 7), None, None),
+    "f0_96": ((4, 8, 96), None, None),
+    "f0_20": ((4, 6, 20), None, None),
+    "smallest": ((2, 2, 2), None, None),
+    "f2_2": ((2, 4, 6), None, None),
+    # hA + hM = 3 planes: the up leg reads 2 coarse planes each side
+    "two_plane_halo": ((8, 8, 16), (-256, -129, -1, 0, 1, 129, 256),
+                       (-128, -1, 0, 1, 128)),
+    "one_sided": ((4, 8, 128), (-1024, -128, -1, 0), (-1024, 0, 1, 128)),
+    "opposite_skews": ((4, 8, 128), (0, 1, 128, 1024),
+                       (-1024, -128, -1, 0, 1)),
+    "dz_2": ((4, 8, 128), (-2048, 0, 2048), (-1024, 0, 1024)),
+}
+
+
+def _case(name, device):
+    dims, oa, om = _LEG_CASES[name]
+    oa = oa or _plane_offsets(dims)
+    om = om or _plane_offsets(dims)
+    return dims, _leg(dims, oa, om, device, seed=len(name))
+
+
+@pytest.mark.parametrize("name", sorted(_LEG_CASES))
+def test_fused_down_matches_plain(cuda, name):
+    dims, (oa, a, om, mt, w, f, u, _) = _case(name, cuda)
+    launches = vk.fused_down_sweep.launches
+    got = vk.fused_down_sweep(oa, a, om, mt, f, u, dims)
+    want = vk.fused_down_sweep_plain(oa, a, om, mt, f, u, dims)
+    _within(got, want, _down_terms(oa, a, om, mt, f, u, dims))
+    u_z, rc_z = vk.fused_down_sweep(oa, a, om, mt, f, w, dims,
+                                    zero_guess=True)
+    u_p, rc_p = vk.fused_down_sweep_plain(oa, a, om, mt, f, w, dims,
+                                          zero_guess=True)
+    assert torch.equal(u_z, u_p)              # one product per entry
+    _within(rc_z, rc_p, _down_terms(oa, a, om, mt, f, w, dims, True))
+    assert vk.fused_down_sweep.launches == launches + 2
+
+
+@pytest.mark.parametrize("name", sorted(n for n in _LEG_CASES
+                                        if _LEG_CASES[n][0][0] % 2 == 0))
+def test_fused_up_matches_plain(cuda, name):
+    dims, (oa, a, om, m, w, f, u, uc) = _case(name, cuda)
+    launches = vk.fused_up_sweep.launches
+    got = vk.fused_up_sweep(oa, a, om, m, w, f, u, uc, dims)
+    want = vk.fused_up_sweep_plain(oa, a, om, m, w, f, u, uc, dims)
+    _within(got, want, _up_terms(oa, a, om, m, w, f, u, uc, dims))
+    assert vk.fused_up_sweep.launches == launches + 1
+
+
+def test_fused_legs_are_bit_identical_from_run_to_run(cuda):
+    dims = (16, 32, 64)
+    oa, a, om, m, w, f, u, uc = _leg(dims, _plane_offsets(dims),
+                                     _plane_offsets(dims), cuda)
+
+    def run():
+        return [vk.fused_down_sweep(oa, a, om, m, f, u, dims),
+                *vk.fused_down_sweep(oa, a, om, m, f, w, dims, True),
+                vk.fused_up_sweep(oa, a, om, m, w, f, u, uc, dims)]
+
+    first, again = run(), run()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.parametrize("bad", ["device", "dtype", "float64", "f_shape",
+                                 "uc_shape", "offsets_dtype", "dims"])
+def test_fused_wrappers_refuse_malformed_operands(cuda, bad):
+    dims = (4, 4, 8)
+    oa, a, om, m, w, f, u, uc = _leg(dims, _plane_offsets(dims),
+                                     _plane_offsets(dims), cuda)
+    if bad == "device":
+        u = u.cpu()
+    elif bad == "dtype":
+        f = f.half()
+    elif bad == "float64":
+        a, m, w, f, u, uc = (t.double() for t in (a, m, w, f, u, uc))
+    elif bad == "f_shape":
+        f = f[:-1]
+    elif bad == "uc_shape":
+        uc = uc[:-1]
+    elif bad == "offsets_dtype":
+        oa = oa.long()
+    else:
+        dims = (4, 4, 9)
+    launches = (vk.fused_down_sweep.launches, vk.fused_up_sweep.launches)
+    with pytest.raises(ValueError):
+        vk.fused_up_sweep(oa, a, om, m, w, f, u, uc, dims)
+    if bad != "uc_shape":
+        with pytest.raises(ValueError):
+            vk.fused_down_sweep(oa, a, om, m, f, u, dims)
+    assert (vk.fused_down_sweep.launches, vk.fused_up_sweep.launches) \
+        == launches
+
+
+def test_device_setup_solve_on_card_matches_cpu(cuda):
+    """poisson3d(24) with the stencil levels built on the card and the
+    fused legs launched, against the host build on the CPU: the same level
+    shapes, iterations within one, the true residual within tolerance."""
+    from amgcl_tpu_torch import AMGParams, CG, make_solver, poisson3d
+    A, rhs = poisson3d(24)
+    runs = {}
+    for device, setup in (("cpu", False), (cuda, True)):
+        solve = make_solver(A, AMGParams(dtype=torch.float32),
+                            CG(maxiter=100, tol=1e-6), refine=3,
+                            device=device, device_setup=setup)
+        assert solve.precond.device_built == setup
+        launches = vk.fused_down_sweep.launches
+        x, info = solve(rhs)
+        if setup:
+            assert vk.fused_down_sweep.launches > launches
+        runs[setup] = (info.iters, x.double().cpu().numpy(),
+                       [h[0].nrows for h in solve.precond.host_levels])
+    assert runs[True][2] == runs[False][2]
+    assert abs(runs[True][0] - runs[False][0]) <= 1
+    x = runs[True][1]
+    assert np.linalg.norm(rhs - A.spmv(x)) / np.linalg.norm(rhs) <= 1e-6
