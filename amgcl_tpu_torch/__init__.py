@@ -10,12 +10,23 @@ nothing of it.
     A, rhs = poisson3d(64)
     solve = make_solver(A, AMGParams(), CG(tol=1e-6), refine=3)
     x, info = solve(rhs)           # device=None: CUDA, else an error
+
+Unstructured systems take the windowed-ELL path, e.g. the poisson3Db
+profile with BiCGStab::
+
+    from amgcl_tpu_torch import BiCGStab, fe_like_problem
+    A, rhs = fe_like_problem()
+    solve = make_solver(A, AMGParams(), BiCGStab(maxiter=100, tol=1e-6),
+                        refine=3)
 """
 
 from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.models.amg import AMG, AMGParams
 from amgcl_tpu_torch.models.make_solver import make_solver
+from amgcl_tpu_torch.ops.unstructured import fe_like_problem
+from amgcl_tpu_torch.solver.bicgstab import BiCGStab
 from amgcl_tpu_torch.solver.cg import CG
 from amgcl_tpu_torch.utils.sample_problem import poisson3d
 
-__all__ = ["CSR", "AMG", "AMGParams", "make_solver", "CG", "poisson3d"]
+__all__ = ["CSR", "AMG", "AMGParams", "make_solver", "BiCGStab", "CG",
+           "fe_like_problem", "poisson3d"]

@@ -17,9 +17,10 @@ import torch
 
 from amgcl_tpu_torch.models.amg import AMGParams, Hierarchy, Level
 from amgcl_tpu_torch.ops.device import DenseMatrix, DiaMatrix
-from amgcl_tpu_torch.ops.structured import (GridTentative,
+from amgcl_tpu_torch.ops.structured import (AggTentative, GridTentative,
                                             ImplicitSmoothedP,
                                             ImplicitSmoothedR)
+from amgcl_tpu_torch.ops.unstructured import WindowedEllMatrix
 from amgcl_tpu_torch.ops.vcycle import build_fused_down, build_fused_up
 from amgcl_tpu_torch.relaxation.base import ScaledResidualSmoother
 from amgcl_tpu_torch.solver.direct import DenseDirectSolver
@@ -33,18 +34,38 @@ def _dia(pair, dtype, device):
     return DiaMatrix([int(o) for o in offsets], data, (n, n))
 
 
+def _operator(spec, dtype, device):
+    """A device matrix from plain arrays: a DIA pair, a windowed-ELL dict
+    or a dense 2-D array."""
+    if isinstance(spec, tuple):
+        return _dia(spec, dtype, device)
+    if isinstance(spec, dict):
+        idx = lambda k: torch.tensor(np.asarray(spec[k]), dtype=torch.int32,
+                                     device=device)
+        return WindowedEllMatrix(
+            idx("window_starts"), idx("cols_local"),
+            torch.tensor(np.asarray(spec["vals"]), dtype=dtype,
+                         device=device), spec["shape"], spec["win"])
+    return DenseMatrix(torch.tensor(np.asarray(spec), dtype=dtype,
+                                    device=device))
+
+
 def level_from_arrays(lv, dtype, device) -> Level:
     """One level of a hierarchy from plain arrays (keys as in
     :func:`hierarchy_from_arrays`, all but the coarsest level's), with the
     port's own fused V-cycle handles attached where the level is
     eligible (``ops/vcycle.py``)."""
-    fine = tuple(int(d) for d in lv["fine"])
-    block = tuple(int(b) for b in lv["block"])
-    coarse = tuple(-(-d // b) for d, b in zip(fine, block))
-    T = GridTentative(fine, block, coarse)
-    A = _dia(lv["A"], dtype, device)
-    P = ImplicitSmoothedP(T, _dia(lv["M"], dtype, device))
-    R = ImplicitSmoothedR(T, _dia(lv["Mt"], dtype, device))
+    if "agg" in lv:
+        T = AggTentative.build(np.asarray(lv["agg"]), int(lv["n_agg"]),
+                               device)
+    else:
+        fine = tuple(int(d) for d in lv["fine"])
+        block = tuple(int(b) for b in lv["block"])
+        coarse = tuple(-(-d // b) for d, b in zip(fine, block))
+        T = GridTentative(fine, block, coarse)
+    A = _operator(lv["A"], dtype, device)
+    P = ImplicitSmoothedP(T, _operator(lv["M"], dtype, device))
+    R = ImplicitSmoothedR(T, _operator(lv["Mt"], dtype, device))
     relax = ScaledResidualSmoother(torch.tensor(np.asarray(lv["scale"]),
                                                 dtype=dtype, device=device))
     return Level(A, relax, P, R, build_fused_down(A, R, relax),
@@ -55,23 +76,23 @@ def hierarchy_from_arrays(levels, coarse_inv, params: AMGParams = None,
                           device=None) -> Hierarchy:
     """``levels``: one dict per level, finest first. Every level has
     ``"A"``: the operator as a DIA pair ``(offsets, data)`` with
-    ``data[k, i] = A[i, i + offsets[k]]``, or as a dense 2-D array (the
-    coarsest level only). Every level but the last also has ``"M"`` and
-    ``"Mt"`` (DIA pairs of the smoothed transfer's M = ω D⁻¹ A_f and its
-    transpose), ``"fine"`` and ``"block"`` (grid dims and aggregation
-    blocks of the tentative prolongation) and ``"scale"`` (the SPAI-0
-    diagonal). ``coarse_inv`` is the dense inverse of the last level's
-    operator. ``params`` supplies the dtype and the cycle shape (npre,
-    npost, ncycle, pre_cycles)."""
+    ``data[k, i] = A[i, i + offsets[k]]``, as a windowed-ELL dict (keys
+    ``window_starts``, ``cols_local``, ``vals``, ``shape``, ``win``: the
+    arrays of :class:`~amgcl_tpu_torch.ops.unstructured.WindowedEllMatrix`)
+    or as a dense 2-D array. Every level but the last also has ``"M"``
+    and ``"Mt"`` (the smoothed transfer's M = ω D⁻¹ A_f and its transpose,
+    in the same forms), the tentative prolongation as either ``"fine"``
+    and ``"block"`` (grid dims and aggregation blocks) or ``"agg"`` and
+    ``"n_agg"`` (the aggregate id of each fine point, -1 for none, and
+    the aggregate count), and ``"scale"`` (the SPAI-0 diagonal).
+    ``coarse_inv`` is the dense inverse of the last level's operator.
+    ``params`` supplies the dtype and the cycle shape (npre, npost,
+    ncycle, pre_cycles)."""
     prm = params or AMGParams()
     device = resolve_device(device)
     dtype = prm.dtype
     out = [level_from_arrays(lv, dtype, device) for lv in levels[:-1]]
-    A = levels[-1]["A"]
-    out.append(Level(_dia(A, dtype, device) if isinstance(A, tuple)
-                     else DenseMatrix(torch.tensor(np.asarray(A),
-                                                   dtype=dtype,
-                                                   device=device)), None))
+    out.append(Level(_operator(levels[-1]["A"], dtype, device), None))
     inv = torch.tensor(np.asarray(coarse_inv), dtype=dtype, device=device)
     return Hierarchy(out, DenseDirectSolver(inv), prm.npre, prm.npost,
                      prm.ncycle, prm.pre_cycles)

@@ -27,6 +27,7 @@ from amgcl_tpu_torch.coarsening.stall import CoarseningStall
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.ops.structured import build_implicit_transfers
+from amgcl_tpu_torch.ops.unstructured import WindowedEllMatrix
 from amgcl_tpu_torch.ops.vcycle import build_fused_down, build_fused_up
 from amgcl_tpu_torch.relaxation.spai0 import Spai0
 from amgcl_tpu_torch.solver.direct import DenseDirectSolver
@@ -280,15 +281,20 @@ class AMG:
         return self.prm.dtype
 
     def hierarchy_stats(self):
-        """Per-level rows/nnz/device format plus grid and operator
-        complexity — the source ``__repr__`` renders from."""
+        """Per-level rows/nnz/device format (windowed ELL with its K and
+        window) plus grid and operator complexity — the source
+        ``__repr__`` renders from."""
         host = self.host_levels
         nnz0 = max(host[0][0].nnz, 1)
         rows0 = max(host[0][0].nrows, 1)
-        levels = [{"level": i, "rows": int(Ai.nrows), "nnz": int(Ai.nnz),
+        levels = []
+        for i, ((Ai, _, _), lv) in enumerate(zip(host,
+                                                 self.hierarchy.levels)):
+            row = {"level": i, "rows": int(Ai.nrows), "nnz": int(Ai.nnz),
                    "format": type(lv.A).__name__}
-                  for i, ((Ai, _, _), lv)
-                  in enumerate(zip(host, self.hierarchy.levels))]
+            if isinstance(lv.A, WindowedEllMatrix):
+                row.update(K=lv.A.K, win=lv.A.win)
+            levels.append(row)
         return {
             "n_levels": len(host),
             "operator_complexity": sum(h[0].nnz for h in host) / nnz0,
@@ -312,6 +318,9 @@ class AMG:
             "-----------------------------------------",
         ]
         for lv in st["levels"]:
+            fmt = lv["format"]
+            if "K" in lv:
+                fmt += " (K %d, window %d)" % (lv["K"], lv["win"])
             lines.append("%5d %12d %14d  %s" % (lv["level"], lv["rows"],
-                                                 lv["nnz"], lv["format"]))
+                                                 lv["nnz"], fmt))
         return "\n".join(lines)

@@ -6,6 +6,7 @@ refinement.
 
 from __future__ import annotations
 
+import inspect
 import time
 from typing import Any
 
@@ -81,12 +82,17 @@ class make_solver:
     def _refine_loop(self, apply_precond, rhs, x, iters, hs):
         """While the float64 relative residual exceeds tol (up to
         ``refine`` restarts), solve the correction in working precision
-        and accumulate it in float64. A correction solve's guard flags
-        merge into ``hs`` so a breakdown inside it reaches the report."""
+        and accumulate it in float64. A solver that takes ``abstol`` (CG)
+        stops each correction solve at the global absolute target; one
+        that does not (BiCGStab) stops at its relative tol, as in the
+        reference. A correction solve's guard flags merge into ``hs`` so
+        a breakdown inside it reaches the report."""
         rhs64 = rhs.to(torch.float64)
         nb = float(dev.norm(rhs64))
         scale = nb if nb > 0 else 1.0
         tol = self.solver.tol
+        kw = {"abstol": tol * scale} if "abstol" in inspect.signature(
+            self.solver.solve).parameters else {}
         state = x.to(torch.float64)
         r = dev.residual(rhs64, self.A_dev64, state)
         rt = float(dev.norm(r)) / scale
@@ -94,7 +100,7 @@ class make_solver:
         while rt > tol and k < self.refine:
             dx, it2, _, ch = self.solver.solve(
                 self.A_dev, apply_precond, r.to(rhs.dtype),
-                torch.zeros_like(rhs), abstol=tol * scale)
+                torch.zeros_like(rhs), **kw)
             if hs is not None and ch is not None:
                 hs.flags |= ch.flags
                 hs.first_it = [a if a >= 0 else b

@@ -7,6 +7,9 @@ written against. Formats:
 
 * :class:`DiaMatrix` — diagonal storage; its products go through the
   DIA kernels of :mod:`amgcl_tpu_torch.ops.dia_kernels`.
+* :class:`~amgcl_tpu_torch.ops.unstructured.WindowedEllMatrix` — padded
+  rows binned into tiles with per-tile x windows; its products go through
+  the windowed-ELL kernels of :mod:`amgcl_tpu_torch.ops.well_kernels`.
 * :class:`EllMatrix` — padded-row storage; a gather plus a row sum.
 * :class:`DenseMatrix` — small dense operator; a matrix product.
 """
@@ -17,7 +20,10 @@ import numpy as np
 import torch
 
 from amgcl_tpu_torch.ops import dia_kernels as dk
+from amgcl_tpu_torch.ops import well_kernels as wk
 from amgcl_tpu_torch.ops.csr import CSR
+from amgcl_tpu_torch.ops.unstructured import (WindowedEllMatrix,
+                                              csr_to_windowed_ell)
 from amgcl_tpu_torch.utils.devices import resolve_device
 
 #: ELL row widths are padded up to a multiple of this
@@ -30,6 +36,9 @@ MAX_DIAGS = 512
 MAX_FILL = 16.0
 DIA_MAX_BYTES = 2 << 30
 DENSE_CUTOFF = 2048
+#: widest windowed-ELL window that auto accepts, at 4 bytes a column (the
+#: reference's auto budget, amgcl_tpu/ops/device.py:556)
+WELL_MAX_WIN_BYTES = 4 << 20
 
 
 class DiaMatrix:
@@ -166,10 +175,13 @@ def dia_efficiency(A: CSR):
 
 def to_device(A, fmt: str = "auto", dtype=torch.float32, device=None):
     """Move a host matrix to ``device`` (None means CUDA) in a device
-    format: ``fmt`` is 'auto' | 'dia' | 'ell' | 'dense'. Auto picks dense
-    for small dense-ish matrices, DIA when the matrix is banded enough
-    (at most MAX_DIAGS diagonals, fill at most MAX_FILL, data under
-    DIA_MAX_BYTES), ELL otherwise."""
+    format: ``fmt`` is 'auto' | 'dia' | 'well' | 'ell' | 'dense'. Auto
+    picks dense for small dense-ish matrices, DIA when the matrix is banded
+    enough (at most MAX_DIAGS diagonals, fill at most MAX_FILL, data under
+    DIA_MAX_BYTES), windowed ELL when its widest window fits
+    WELL_MAX_WIN_BYTES, ELL otherwise. That is the JAX package's order off
+    a TPU; its dense-window format, which it tries only on a TPU, is
+    never picked here."""
     from amgcl_tpu_torch.ops.stencil import HostDia
     device = resolve_device(device)
     if isinstance(A, HostDia):
@@ -181,7 +193,7 @@ def to_device(A, fmt: str = "auto", dtype=torch.float32, device=None):
             torch.as_tensor(np.ascontiguousarray(
                 A.data[order], _np_dtype(dtype)), device=device),
             A.shape)
-    if fmt not in ("auto", "dia", "ell", "dense"):
+    if fmt not in ("auto", "dia", "well", "ell", "dense"):
         raise ValueError("unknown device format %r" % (fmt,))
     auto = fmt == "auto"
     if fmt == "dense" or (auto and max(A.shape) <= DENSE_CUTOFF
@@ -190,12 +202,25 @@ def to_device(A, fmt: str = "auto", dtype=torch.float32, device=None):
                                            device=device).to(dtype))
     if fmt == "dia":
         return csr_to_dia(A, dtype, device)
+    if fmt == "well":
+        W = csr_to_windowed_ell(A, dtype, device=device)
+        if W is None:
+            raise ValueError(
+                "windowed-ELL format needs banded column locality; apply "
+                "a Cuthill-McKee reorder first (utils/adapters.py)")
+        return W
     if auto:
         nd, fill = dia_efficiency(A)
         itemsize = torch.empty((), dtype=dtype).element_size()
         if nd <= MAX_DIAGS and fill <= MAX_FILL \
                 and nd * A.nrows * itemsize < DIA_MAX_BYTES:
             return csr_to_dia(A, dtype, device)
+        if not dtype.is_complex:
+            W = csr_to_windowed_ell(A, dtype,
+                                    max_win_bytes=WELL_MAX_WIN_BYTES,
+                                    device=device)
+            if W is not None:
+                return W
     return csr_to_ell(A, dtype, device)
 
 
@@ -207,18 +232,26 @@ def spmv(A, x):
 
 
 def residual(f, A, x):
-    """r = f − A x; one kernel pass for DIA operators."""
+    """r = f − A x; one kernel pass for DIA and windowed-ELL operators."""
     if isinstance(A, DiaMatrix):
         return dk.dia_residual(A.offsets_t, A.data, f, x)
+    if isinstance(A, WindowedEllMatrix):
+        return wk.windowed_ell_residual(A.window_starts, A.cols_local,
+                                        A.vals, f, x, A.shape[0])
     return f - A.mv(x)
 
 
 def scaled_correction(A, w, f, x):
-    """x + w ∘ (f − A x) in one kernel pass for square DIA operators with a
-    per-unknown scale, else None (the smoother composes)."""
-    if isinstance(A, DiaMatrix) and w.dim() == 1 \
-            and A.shape[0] == A.shape[1]:
+    """x + w ∘ (f − A x) in one kernel pass for square DIA and windowed-ELL
+    operators with a per-unknown scale, else None (the smoother
+    composes)."""
+    if w.dim() != 1 or A.shape[0] != A.shape[1]:
+        return None
+    if isinstance(A, DiaMatrix):
         return dk.dia_scaled_correction(A.offsets_t, A.data, w, f, x)
+    if isinstance(A, WindowedEllMatrix):
+        return wk.windowed_ell_scaled_correction(
+            A.window_starts, A.cols_local, A.vals, w, f, x, A.shape[0])
     return None
 
 
@@ -234,9 +267,13 @@ def inner_product(x, y):
 
 def spmv_dots(A, x, w=None):
     """(y, ⟨y,y⟩, ⟨y,x⟩, ⟨y,w⟩) with y = A x; one kernel pass for square
-    DIA operators (⟨y,w⟩ is None without w)."""
-    if isinstance(A, DiaMatrix) and A.shape[0] == A.shape[1]:
-        return dk.dia_spmv_dots(A.offsets_t, A.data, x, w)
+    DIA and windowed-ELL operators (⟨y,w⟩ is None without w)."""
+    if A.shape[0] == A.shape[1]:
+        if isinstance(A, DiaMatrix):
+            return dk.dia_spmv_dots(A.offsets_t, A.data, x, w)
+        if isinstance(A, WindowedEllMatrix):
+            return wk.windowed_ell_spmv_dots(
+                A.window_starts, A.cols_local, A.vals, x, w, A.shape[0])
     y = A.mv(x)
     return (y, inner_product(y, y), inner_product(y, x),
             None if w is None else inner_product(y, w))

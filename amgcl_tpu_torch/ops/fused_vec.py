@@ -1,11 +1,17 @@
 """Fused vector updates of the Krylov outer loop.
 
-Counterpart of ``amgcl_tpu/ops/fused_vec.py`` as far as CG needs it:
+Counterpart of ``amgcl_tpu/ops/fused_vec.py`` as far as CG and BiCGStab
+need it:
 
 * :func:`xr_update` — the CG tail ``x += α·p``, ``r −= α·q`` and
   ``⟨r, r⟩`` from one read of {p, q, x, r}; on CUDA tensors the
-  ``amgcl_tpu_torch/csrc/vec.cu`` kernel (replacing the TPU kernel
-  ``_fused_pass`` in mode ``xr``), on CPU tensors :func:`xr_update_plain`.
+  ``amgcl_tpu_torch/csrc/vec.cu`` kernel in mode XR (replacing the TPU
+  kernel ``_fused_pass`` in mode ``xr``), on CPU tensors
+  :func:`xr_update_plain`.
+* :func:`bicgstab_tail` — the BiCGStab tail ``x + α·p̂ + ω·ŝ``,
+  ``s − ω·t`` with ``⟨r, r⟩`` and ``⟨r̂, r⟩`` from one read; the same
+  kernel in mode BICG_TAIL (replacing ``_fused_pass`` in mode
+  ``bicg_tail``), :func:`bicgstab_tail_plain` on CPU tensors.
 * :func:`residual_dot` — ``r = f − A x`` and ``⟨r, r⟩`` in one operator
   pass (the DIA kernel for DIA operators, composed otherwise).
 """
@@ -36,51 +42,99 @@ def xr_update_plain(alpha, p, q, x, r):
 xr_update_plain.calls = 0
 
 
-def xr_update(alpha, p, q, x, r):
-    """The CG iteration tail in one pass: ``(x + α·p, r − α·q, ⟨r', r'⟩)``
-    with the dot a 0-d tensor on the device. ``alpha`` is a 0-d tensor of
-    the vectors' dtype on their device (or a Python number)."""
-    if x.device.type == "cpu":
-        return xr_update_plain(alpha, p, q, x, r)
+def bicgstab_tail_plain(alpha, phat, omega, shat, s, t, x, rhat):
+    """(x + α·p̂ + ω·ŝ, s − ω·t, ⟨r_new, r_new⟩, ⟨r̂, r_new⟩)."""
+    bicgstab_tail_plain.calls += 1
+    xn = x + alpha * phat + omega * shat
+    rn = s - omega * t
+    acc = _acc_dtype(rn.dtype)
+    ra = rn.to(acc)
+    return (xn, rn, torch.dot(ra, ra).to(rn.dtype),
+            torch.dot(rhat.to(acc), ra).to(rn.dtype))
+
+
+bicgstab_tail_plain.calls = 0
+
+
+def _scalar(name, v, x):
+    """One value of x's dtype on x's device, as a contiguous tensor."""
+    if not torch.is_tensor(v):
+        v = torch.tensor(v, dtype=x.dtype, device=x.device)
+    if v.device != x.device or v.dtype != x.dtype or v.numel() != 1:
+        raise ValueError("%s must be one %s value on %s"
+                         % (name, x.dtype, x.device))
+    return v.contiguous()
+
+
+def _launch_tail(what, entry, scalars, vecs, ndots):
+    """Validate a tail's operands and launch its vec.cu mode through the
+    C entry point named ``entry``; returns (x_out, r_out, dots) with dots
+    an (ndots,) tensor."""
+    x = vecs["x"]
     if x.dtype not in _DTYPE_CODE:
-        raise ValueError("xr_update takes float32 or float64, got %s"
-                         % x.dtype)
+        raise ValueError("%s takes float32 or float64, got %s"
+                         % (what, x.dtype))
     n = x.shape[0]
-    for name, v in (("p", p), ("q", q), ("x", x), ("r", r)):
+    for name, v in vecs.items():
         if v.device != x.device or v.dtype != x.dtype or v.shape != (n,) \
                 or not v.is_contiguous():
             raise ValueError(
                 "%s must be a contiguous (%d,) %s tensor on %s, got %s %s "
                 "on %s" % (name, n, x.dtype, x.device, tuple(v.shape),
                            v.dtype, v.device))
-    if not torch.is_tensor(alpha):
-        alpha = torch.tensor(alpha, dtype=x.dtype, device=x.device)
-    if alpha.device != x.device or alpha.dtype != x.dtype \
-            or alpha.numel() != 1:
-        raise ValueError("alpha must be one %s value on %s"
-                         % (x.dtype, x.device))
-    alpha = alpha.contiguous()
+    scalars = [_scalar(name, v, x) for name, v in scalars]
     xn = torch.empty_like(x)
-    rn = torch.empty_like(r)
+    rn = torch.empty_like(x)
     if n == 0:
-        return xn, rn, torch.zeros((), dtype=x.dtype, device=x.device)
-    # the reduction kernel writes the dot
-    dot = torch.empty(1, dtype=x.dtype, device=x.device)
+        return xn, rn, torch.zeros(ndots, dtype=x.dtype, device=x.device)
+    # the reduction kernel writes every dot
+    dots = torch.empty(ndots, dtype=x.dtype, device=x.device)
     nblocks = min(-(-n // _BLOCK), _MAX_BLOCKS)
-    partials = torch.empty(nblocks, dtype=x.dtype, device=x.device)
+    partials = torch.empty(nblocks * ndots, dtype=x.dtype, device=x.device)
+    ptrs = [v.data_ptr() for v in scalars + list(vecs.values())]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = cuda_lib.lib().amgcl_xr(
-            _DTYPE_CODE[x.dtype], n, alpha.data_ptr(), p.data_ptr(),
-            q.data_ptr(), x.data_ptr(), r.data_ptr(), xn.data_ptr(),
-            rn.data_ptr(), partials.data_ptr(), dot.data_ptr(), nblocks,
-            stream)
-    cuda_lib.check(rc, "xr_update")
+        rc = getattr(cuda_lib.lib(), entry)(
+            _DTYPE_CODE[x.dtype], n, *ptrs, xn.data_ptr(), rn.data_ptr(),
+            partials.data_ptr(), dots.data_ptr(), nblocks, stream)
+    cuda_lib.check(rc, what)
+    return xn, rn, dots
+
+
+def xr_update(alpha, p, q, x, r):
+    """The CG iteration tail in one pass: ``(x + α·p, r − α·q, ⟨r', r'⟩)``
+    with the dot a 0-d tensor on the device. ``alpha`` is a 0-d tensor of
+    the vectors' dtype on their device (or a Python number)."""
+    if x.device.type == "cpu":
+        return xr_update_plain(alpha, p, q, x, r)
+    xn, rn, dots = _launch_tail("xr_update", "amgcl_xr",
+                                [("alpha", alpha)],
+                                {"p": p, "q": q, "x": x, "r": r}, 1)
     xr_update.launches += 1
-    return xn, rn, dot[0]
+    return xn, rn, dots[0]
 
 
 xr_update.launches = 0
+
+
+def bicgstab_tail(alpha, phat, omega, shat, s, t, x, rhat):
+    """The BiCGStab iteration tail in one pass: ``(x + α·p̂ + ω·ŝ,
+    s − ω·t, ⟨r', r'⟩, ⟨r̂, r'⟩)`` with r' = s − ω·t; the second dot is the
+    next iteration's ρ. ``alpha`` and ``omega`` are 0-d tensors of the
+    vectors' dtype on their device (or Python numbers); the dots are 0-d
+    tensors on the device."""
+    if x.device.type == "cpu":
+        return bicgstab_tail_plain(alpha, phat, omega, shat, s, t, x, rhat)
+    xn, rn, dots = _launch_tail(
+        "bicgstab_tail", "amgcl_bicg_tail",
+        [("alpha", alpha), ("omega", omega)],
+        {"phat": phat, "shat": shat, "s": s, "t": t, "x": x, "rhat": rhat},
+        2)
+    bicgstab_tail.launches += 1
+    return xn, rn, dots[0], dots[1]
+
+
+bicgstab_tail.launches = 0
 
 
 def residual_dot(f, A, x):

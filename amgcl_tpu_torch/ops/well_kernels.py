@@ -1,0 +1,211 @@
+"""Windowed-ELL kernels: a wrapper and a plain PyTorch version for each of
+``windowed_ell_spmv``, ``windowed_ell_residual``,
+``windowed_ell_scaled_correction`` and ``windowed_ell_spmv_dots``.
+
+Counterpart of the scalar Pallas TPU kernels of
+``amgcl_tpu/ops/unstructured.py`` (``windowed_ell_spmv``,
+``windowed_ell_fused``, ``windowed_ell_spmv_dots``), with their
+signatures less the window size ``win``: the kernels read x where it
+lies. The CUDA source is ``amgcl_tpu_torch/csrc/well.cu``. Storage is
+that of :class:`amgcl_tpu_torch.ops.unstructured.WindowedEllMatrix`: row
+``i`` of tile ``t = i // tile`` holds ``vals[t, i % tile, k]`` at column
+``window_starts[t] + cols_local[t, i % tile, k]``. An entry whose
+absolute column lies at or past the end of x contributes nothing (a tile
+without entries points its padding there), as the TPU kernel's
+zero-padded x gives.
+
+Each wrapper takes its plain version only for tensors on the CPU. For
+CUDA tensors it checks device, dtype, shape and contiguity and launches
+the kernel, or raises. ``<wrapper>.launches`` counts kernel launches and
+``<plain>.calls`` counts plain-version calls.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from amgcl_tpu_torch.ops import cuda_lib
+from amgcl_tpu_torch.ops.dia_kernels import (_BLOCK, _DTYPE_CODE,
+                                             _acc_dtype, _check_vec)
+
+_SPMV, _RESIDUAL, _CORRECTION, _SPMV_DOTS = range(4)
+
+
+# -- plain versions -----------------------------------------------------------
+
+def _product(window_starts, cols_local, vals, x, n_out):
+    """(A x)[:n_out] in the reference's ``_mv_xla`` arithmetic: a gather
+    of x at the absolute columns and a row sum over the K slots, in the
+    values' dtype."""
+    m = x.shape[0]
+    cols = cols_local.to(torch.int64) \
+        + window_starts.to(torch.int64)[:, None, None]
+    inside = cols < m
+    xg = torch.where(inside, x[cols.clamp(max=max(m - 1, 0))],
+                     torch.zeros((), dtype=x.dtype, device=x.device))
+    y = (vals * xg.to(vals.dtype)).sum(dim=2)
+    return y.reshape(-1)[:n_out].to(torch.promote_types(vals.dtype,
+                                                        x.dtype))
+
+
+def windowed_ell_spmv_plain(window_starts, cols_local, vals, x, n_out):
+    """y = A x."""
+    windowed_ell_spmv_plain.calls += 1
+    return _product(window_starts, cols_local, vals, x, n_out)
+
+
+def windowed_ell_residual_plain(window_starts, cols_local, vals, f, x, n_out):
+    """r = f − A x."""
+    windowed_ell_residual_plain.calls += 1
+    out = torch.promote_types(torch.promote_types(vals.dtype, x.dtype),
+                              f.dtype)
+    return f.to(out) - _product(window_starts, cols_local, vals, x,
+                                n_out).to(out)
+
+
+def windowed_ell_scaled_correction_plain(window_starts, cols_local, vals, w,
+                                         f, x, n_out):
+    """x + w ∘ (f − A x): one damped-Jacobi/SPAI-0 sweep."""
+    windowed_ell_scaled_correction_plain.calls += 1
+    out = torch.promote_types(torch.promote_types(vals.dtype, x.dtype),
+                              f.dtype)
+    r = f.to(out) - _product(window_starts, cols_local, vals, x,
+                             n_out).to(out)
+    return x[:n_out].to(out) + w.to(out) * r
+
+
+def windowed_ell_spmv_dots_plain(window_starts, cols_local, vals, x, w,
+                                 n_out):
+    """(y, ⟨y,y⟩, ⟨y,x⟩, ⟨y,w⟩) with y = A x (⟨y,w⟩ is None without w)."""
+    windowed_ell_spmv_dots_plain.calls += 1
+    y = _product(window_starts, cols_local, vals, x, n_out)
+    acc = _acc_dtype(y.dtype)
+    ya = y.to(acc)
+    yy = torch.dot(ya, ya).to(y.dtype)
+    yx = torch.dot(ya, x.to(acc)).to(y.dtype)
+    yw = None if w is None else torch.dot(ya, w.to(acc)).to(y.dtype)
+    return y, yy, yx, yw
+
+
+for _fn in (windowed_ell_spmv_plain, windowed_ell_residual_plain,
+            windowed_ell_scaled_correction_plain,
+            windowed_ell_spmv_dots_plain):
+    _fn.calls = 0
+
+
+# -- kernel launch ------------------------------------------------------------
+
+def _launch(mode, window_starts, cols_local, vals, x, n_out, f=None, w=None):
+    """Validate the operands and launch one well.cu kernel; returns
+    (y, dots) with dots a (3,) tensor or None."""
+    if vals.device.type != "cuda":
+        raise ValueError("windowed-ELL kernels run on CUDA tensors, got "
+                         "vals on %s" % vals.device)
+    if vals.dtype not in _DTYPE_CODE:
+        raise ValueError("windowed-ELL kernels take float32 or float64, "
+                         "got %s" % vals.dtype)
+    if vals.dim() != 3 or not vals.is_contiguous():
+        raise ValueError("vals must be a contiguous (n_tiles, tile, K) "
+                         "tensor")
+    n_tiles, tile, K = vals.shape
+    if cols_local.device != vals.device or cols_local.dtype != torch.int32 \
+            or cols_local.shape != vals.shape \
+            or not cols_local.is_contiguous():
+        raise ValueError("cols_local must be a contiguous %s int32 tensor "
+                         "on %s" % (tuple(vals.shape), vals.device))
+    if window_starts.device != vals.device \
+            or window_starts.dtype != torch.int32 \
+            or window_starts.shape != (n_tiles,) \
+            or not window_starts.is_contiguous():
+        raise ValueError("window_starts must be a contiguous (%d,) int32 "
+                         "tensor on %s" % (n_tiles, vals.device))
+    n_out = int(n_out)
+    if not (n_tiles - 1) * tile < n_out <= n_tiles * tile \
+            and not (n_tiles == 0 and n_out == 0):
+        raise ValueError("n_out=%d does not fit %d tiles of %d rows"
+                         % (n_out, n_tiles, tile))
+    if x.dim() != 1:
+        raise ValueError("x must be a vector, got shape %s"
+                         % (tuple(x.shape),))
+    m = x.shape[0]
+    _check_vec("x", x, m, vals)
+    if f is not None:
+        _check_vec("f", f, n_out, vals)
+    if w is not None:
+        _check_vec("w", w, n_out, vals)
+    if mode in (_CORRECTION, _SPMV_DOTS) and m != n_out:
+        raise ValueError("this windowed-ELL kernel needs a square operator, "
+                         "got %d x %d" % (n_out, m))
+    y = torch.empty(n_out, dtype=vals.dtype, device=vals.device)
+    ndots = 3 if mode == _SPMV_DOTS else 0
+    if n_out == 0:
+        return y, (torch.zeros(ndots, dtype=vals.dtype, device=vals.device)
+                   if ndots else None)
+    nblocks = -(-n_out // _BLOCK)
+    # the reduction kernel writes every dot
+    dots = torch.empty(ndots, dtype=vals.dtype, device=vals.device) \
+        if ndots else None
+    partials = torch.empty(nblocks * ndots, dtype=vals.dtype,
+                           device=vals.device) if ndots else None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = cuda_lib.lib().amgcl_well(
+            _DTYPE_CODE[vals.dtype], mode, n_out, m, tile, K,
+            window_starts.data_ptr(), cols_local.data_ptr(),
+            vals.data_ptr(), x.data_ptr(), ptr(f), ptr(w), y.data_ptr(),
+            ptr(partials), ptr(dots), nblocks, stream)
+    cuda_lib.check(rc, "windowed-ELL mode %d" % mode)
+    return y, dots
+
+
+# -- wrappers -----------------------------------------------------------------
+
+def windowed_ell_spmv(window_starts, cols_local, vals, x, n_out):
+    """y = A x (square or rectangular), the first ``n_out`` rows."""
+    if x.device.type == "cpu":
+        return windowed_ell_spmv_plain(window_starts, cols_local, vals, x,
+                                       n_out)
+    y, _ = _launch(_SPMV, window_starts, cols_local, vals, x, n_out)
+    windowed_ell_spmv.launches += 1
+    return y
+
+
+def windowed_ell_residual(window_starts, cols_local, vals, f, x, n_out):
+    """r = f − A x in one pass (square or rectangular)."""
+    if x.device.type == "cpu":
+        return windowed_ell_residual_plain(window_starts, cols_local, vals,
+                                           f, x, n_out)
+    r, _ = _launch(_RESIDUAL, window_starts, cols_local, vals, x, n_out,
+                   f=f)
+    windowed_ell_residual.launches += 1
+    return r
+
+
+def windowed_ell_scaled_correction(window_starts, cols_local, vals, w, f,
+                                   x, n_out):
+    """x + w ∘ (f − A x) in one pass (square operators)."""
+    if x.device.type == "cpu":
+        return windowed_ell_scaled_correction_plain(
+            window_starts, cols_local, vals, w, f, x, n_out)
+    y, _ = _launch(_CORRECTION, window_starts, cols_local, vals, x, n_out,
+                   f=f, w=w)
+    windowed_ell_scaled_correction.launches += 1
+    return y
+
+
+def windowed_ell_spmv_dots(window_starts, cols_local, vals, x, w, n_out):
+    """(y, ⟨y,y⟩, ⟨y,x⟩, ⟨y,w⟩) in one pass, y = A x; the dots are 0-d
+    tensors on the device (⟨y,w⟩ is None without w). Square operators."""
+    if x.device.type == "cpu":
+        return windowed_ell_spmv_dots_plain(window_starts, cols_local, vals,
+                                            x, w, n_out)
+    y, dots = _launch(_SPMV_DOTS, window_starts, cols_local, vals, x, n_out,
+                      w=w)
+    windowed_ell_spmv_dots.launches += 1
+    return y, dots[0], dots[1], (None if w is None else dots[2])
+
+
+for _fn in (windowed_ell_spmv, windowed_ell_residual,
+            windowed_ell_scaled_correction, windowed_ell_spmv_dots):
+    _fn.launches = 0

@@ -27,12 +27,26 @@ Run from the root of a checkout, with no arguments:
    function, that call (CUDA events, median of 20 after warm-up, L2 flushed
    before each launch), beside the least time the card could take. A fused
    leg is also timed beside the chain of earlier kernels it replaces.
+4. The unstructured phase: ``fe_like_problem()`` (poisson3Db's profile,
+   85,623 rows) → ``make_solver(A, AMGParams(dtype=float32),
+   BiCGStab(maxiter=100, tol=1e-6), refine=3)``, solved cold and warm, on
+   two paths, each with the counts set to 0 just before and read just
+   after: U1 in the identity order, right-preconditioned; U2
+   RCM-permuted, left-preconditioned. Each fails outside its levels
+   (85,623 / 23,695 / 1,561 and 85,623 / 25,145 / 1,998 rows, windowed
+   ELL / windowed ELL / dense), a true residual above 1e-6, iterations
+   outside ±10% of the JAX package's count on the CPU (51 and 50), or any
+   plain-version call; the windowed-ELL kernels and the BiCGStab tail must
+   each launch on one of the two. Then each of those kernels is held
+   against its plain version and timed at the L0 and L1 operators and
+   transfers of both orders, as in 3.
 
 Prints one JSON line of kernel records, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
 no CUDA device is present or any phase fails.
 """
 
+import gc
 import json
 import statistics
 import subprocess
@@ -51,9 +65,17 @@ PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
 LEVEL_ROWS = [2097152, 262144, 32768, 1331]
 ITERS_EXPECTED = 12
 
+#: the unstructured paths: level rows, level formats, and the JAX
+#: package's BiCGStab iterations (summed over refinement restarts) for the
+#: same configuration on the CPU — correctness constants, not speeds
+U_LEVELS = {"U1": [85623, 23695, 1561], "U2": [85623, 25145, 1998]}
+U_FORMATS = ["WindowedEllMatrix", "WindowedEllMatrix", "DenseMatrix"]
+U_ITERS = {"U1": 51, "U2": 50}
+
 SOURCES = {"dia": "amgcl_tpu_torch/csrc/dia.cu",
            "vec": "amgcl_tpu_torch/csrc/vec.cu",
-           "vcycle": "amgcl_tpu_torch/csrc/vcycle.cu"}
+           "vcycle": "amgcl_tpu_torch/csrc/vcycle.cu",
+           "well": "amgcl_tpu_torch/csrc/well.cu"}
 REPLACES = {
     "dia_spmv": "amgcl_tpu/ops/pallas_spmv.py:318",
     "dia_residual": "amgcl_tpu/ops/pallas_spmv.py:389",
@@ -63,8 +85,20 @@ REPLACES = {
     "xr_update": "amgcl_tpu/ops/fused_vec.py:251",
     "fused_down_sweep": "amgcl_tpu/ops/pallas_vcycle.py:274",
     "fused_up_sweep": "amgcl_tpu/ops/pallas_vcycle.py:491",
+    "windowed_ell_spmv": "amgcl_tpu/ops/unstructured.py:339",
+    "windowed_ell_residual": "amgcl_tpu/ops/unstructured.py:397",
+    "windowed_ell_scaled_correction": "amgcl_tpu/ops/unstructured.py:397",
+    "windowed_ell_spmv_dots": "amgcl_tpu/ops/unstructured.py:477",
+    "bicgstab_tail": "amgcl_tpu/ops/fused_vec.py:251",
 }
 FUSED = ("fused_down_sweep", "fused_up_sweep")
+#: the measured fields of a kernel's record in the kernels line
+RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+#: kernels of the unstructured paths, each launched on U1 or U2
+UNSTRUCTURED = ("windowed_ell_spmv", "windowed_ell_residual",
+                "windowed_ell_scaled_correction", "windowed_ell_spmv_dots",
+                "bicgstab_tail")
 #: kernels the earlier (host-setup, composed) path must launch
 EARLIER = ("dia_residual", "dia_scaled_correction", "dia_spmv_dots",
            "dia_residual_dot", "xr_update")
@@ -74,8 +108,10 @@ ON_PATH = EARLIER + FUSED
 
 
 def source_of(name):
-    if name == "xr_update":
+    if name in ("xr_update", "bicgstab_tail"):
         return SOURCES["vec"]
+    if name.startswith("windowed_ell"):
+        return SOURCES["well"]
     return SOURCES["vcycle" if name in FUSED else "dia"]
 
 
@@ -91,6 +127,7 @@ def wrappers():
     from amgcl_tpu_torch.ops import dia_kernels as dk
     from amgcl_tpu_torch.ops import fused_vec as fv
     from amgcl_tpu_torch.ops import vcycle_kernels as vk
+    from amgcl_tpu_torch.ops import well_kernels as wk
     return {"fused_down_sweep": (vk.fused_down_sweep,
                                  vk.fused_down_sweep_plain),
             "fused_up_sweep": (vk.fused_up_sweep, vk.fused_up_sweep_plain),
@@ -101,7 +138,17 @@ def wrappers():
             "dia_spmv_dots": (dk.dia_spmv_dots, dk.dia_spmv_dots_plain),
             "dia_residual_dot": (dk.dia_residual_dot,
                                  dk.dia_residual_dot_plain),
-            "xr_update": (fv.xr_update, fv.xr_update_plain)}
+            "xr_update": (fv.xr_update, fv.xr_update_plain),
+            "windowed_ell_spmv": (wk.windowed_ell_spmv,
+                                  wk.windowed_ell_spmv_plain),
+            "windowed_ell_residual": (wk.windowed_ell_residual,
+                                      wk.windowed_ell_residual_plain),
+            "windowed_ell_scaled_correction": (
+                wk.windowed_ell_scaled_correction,
+                wk.windowed_ell_scaled_correction_plain),
+            "windowed_ell_spmv_dots": (wk.windowed_ell_spmv_dots,
+                                       wk.windowed_ell_spmv_dots_plain),
+            "bicgstab_tail": (fv.bicgstab_tail, fv.bicgstab_tail_plain)}
 
 
 def reset_counts():
@@ -293,12 +340,15 @@ def profile_solve(solve, rhs, warm_ms):
 # -- phase 3: kernel against plain version, timings -------------------------
 
 _FLUSH = None
+#: device spin before each timed call, about 1 ms at the H100's clocks
+_SPIN_CYCLES = 2_000_000
 
 
 def time_ms(fn, reps=20, warmup=3):
     """Median device time of one call: CUDA events around each call, with
-    a 512 MiB write before it that evicts the 50 MB L2 and keeps the
-    device busy while the host enqueues the call."""
+    a 512 MiB write before it that evicts the 50 MB L2, and a device spin
+    before that, so that the host has enqueued the call before the device
+    reaches it (a slow host then adds no idle gap to a short kernel)."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(128 << 20, dtype=torch.float32, device="cuda")
@@ -306,6 +356,7 @@ def time_ms(fn, reps=20, warmup=3):
         fn()
     pairs = []
     for _ in range(reps):
+        torch.cuda._sleep(_SPIN_CYCLES)
         _FLUSH.zero_()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
@@ -330,26 +381,66 @@ def bound(nbytes, ops, dtype):
 
 
 def library_csr(M):
-    """The DIA operator as a CUDA sparse CSR tensor (the library
-    yardstick; the port never calls it)."""
+    """A DIA or windowed-ELL operator as a CUDA sparse CSR tensor of its
+    stored nonzeros (the library yardstick; the port never calls it)."""
     n, m = M.shape
-    data = M.data.double().cpu().numpy()
-    rows, cols, vals = [], [], []
-    for k, d in enumerate(M.offsets):
-        i = np.arange(max(0, -d), min(n, m - d))
-        v = data[k, i]
-        keep = v != 0
-        rows.append(i[keep])
-        cols.append(i[keep] + d)
-        vals.append(v[keep])
-    C = sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
-                                              np.concatenate(cols))),
-                      shape=(n, m))
+    if hasattr(M, "window_starts"):
+        K = M.K
+        cols = (M.cols_local.long() + M.window_starts.long()[:, None, None]
+                ).reshape(-1, K)[:n].cpu().numpy()
+        vals = M.vals.reshape(-1, K)[:n].double().cpu().numpy()
+        rows = np.repeat(np.arange(n), K).reshape(n, K)
+        keep = (vals != 0) & (cols < m)
+    else:
+        data = M.data.double().cpu().numpy()
+        parts = []
+        for k, d in enumerate(M.offsets):
+            i = np.arange(max(0, -d), min(n, m - d))
+            parts.append((i, i + d, data[k, i]))
+        rows, cols, vals = (np.concatenate(a) for a in zip(*parts))
+        keep = vals != 0
+    C = sp.csr_matrix((vals[keep], (rows[keep], cols[keep])), shape=(n, m))
     C.sort_indices()
     return torch.sparse_csr_tensor(
         torch.as_tensor(C.indptr, dtype=torch.int64),
         torch.as_tensor(C.indices, dtype=torch.int64),
-        torch.as_tensor(C.data).to(M.data.dtype), size=(n, m)).to("cuda")
+        torch.as_tensor(C.data).to(M.dtype), size=(n, m)).to("cuda")
+
+
+def compare_and_time(name, kern, plain, args, rtol, scale, dot_terms, lib,
+                     nbytes, ops, dtype):
+    """Run a kernel and its plain version on the same operands, then time
+    both and, where there is one, the library call. They agree when every
+    vector entry is within rtol · scale and every dot j within
+    rtol · Σ|a b| for each (j, a, b) that ``dot_terms(want)`` lists (the
+    sums run in another order). Returns the record fields and ``ok``."""
+    got, want = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(float((g - p_).abs().max())
+              for g, p_ in zip(got, want)
+              if g is not None and g.dim() == 1)
+    ok = err <= rtol * scale
+    dot_err = 0.0
+    for j, a, b in dot_terms(want):
+        g, p_ = float(got[j]), float(want[j])
+        mag = float((a.double() * b.double()).abs().sum())
+        dot_err = max(dot_err, abs(g - p_) / mag)
+        ok = ok and abs(g - p_) <= rtol * mag
+    ms = time_ms(lambda: kern(*args))
+    plain_ms = time_ms(lambda: plain(*args))
+    lib_ms = None
+    if lib is not None:
+        try:
+            lib_ms = time_ms(lib)
+        except RuntimeError as e:      # a yardstick, not the port
+            print("library call for %s unavailable: %s"
+                  % (name, str(e).splitlines()[0]))
+    b_ms, b_by = bound(nbytes, ops, dtype)
+    return {"max_abs_err": err, "dot_rel_err": dot_err, "ok": ok, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def check_kernels(solve, failures):
@@ -397,7 +488,7 @@ def check_kernels(solve, failures):
         # |Δ| ≤ rtol · (the largest sum of |terms| of one output entry)
         scale = float((ax + f.abs()).max())
         rtol = 1e-5 if dt == torch.float32 else 1e-12
-        dots = []
+        dots = lambda want: []
         lib = None
         if name == "dia_spmv":
             args = (off, M.data, x)
@@ -419,11 +510,11 @@ def check_kernels(solve, failures):
             args = (off, M.data, x)
             nbytes, ops = (M.data.numel() + m + n) * s, 2 * live + 4 * n
             scale = float(ax.max())
-            dots = [1, 2]
+            dots = lambda want: [(1, want[0], want[0]), (2, want[0], x)]
         elif name == "dia_residual_dot":
             args = (off, M.data, f, x)
             nbytes, ops = (M.data.numel() + m + 2 * n) * s, 2 * live + 2 * n
-            dots = [1]
+            dots = lambda want: [(1, want[0], want[0])]
         else:                                       # xr_update
             p, q = vec(n, dt), vec(n, dt)
             alpha = torch.tensor(0.37, dtype=dt, device="cuda")
@@ -431,55 +522,26 @@ def check_kernels(solve, failures):
             nbytes, ops = 6 * n * s, 6 * n
             scale = float(x.abs().max() + f.abs().max()
                           + 0.37 * (p.abs().max() + q.abs().max()))
-            dots = [2]
-        got, want = kern(*args), plain(*args)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max(float((g - p_).abs().max())
-                  for g, p_ in zip(got, want)
-                  if g is not None and g.dim() == 1)
-        ok = err <= rtol * scale
-        dot_err = 0.0
-        for j in dots:
-            # summation order differs: |Δ| ≤ rtol · Σ|terms|
-            g, p_ = float(got[j]), float(want[j])
-            terms = {("dia_spmv_dots", 1): (want[0], want[0]),
-                     ("dia_spmv_dots", 2): (want[0], x),
-                     ("dia_residual_dot", 1): (want[0], want[0]),
-                     ("xr_update", 2): (want[1], want[1])}[(name, j)]
-            mag = float((terms[0].double() * terms[1].double()).abs().sum())
-            dot_err = max(dot_err, abs(g - p_) / mag)
-            ok = ok and abs(g - p_) <= rtol * mag
-        ms = time_ms(lambda: kern(*args))
-        plain_ms = time_ms(lambda: plain(*args))
-        lib_ms = None
-        if lib is not None:
-            try:
-                lib_ms = time_ms(lib)
-            except RuntimeError as e:      # a yardstick, not the port
-                print("library call for %s unavailable: %s"
-                      % (name, str(e).splitlines()[0]))
-        b_ms, b_by = bound(nbytes, ops, dt)
+            dots = lambda want: [(2, want[1], want[1])]
+        r = compare_and_time(name, kern, plain, args, rtol, scale, dots, lib,
+                             nbytes, ops, dt)
         print("%-22s %-9s n=%-8d ndiag=%-4d %s  err %.3e (tol %.3e)  "
               "dot rel err %.2e  ms %.4f  plain %.4f  library %s  "
               "bound %.4f (%s)  %s"
               % (name, label, n, len(M.offsets), str(dt).split(".")[-1],
-                 err, rtol * scale, dot_err, ms, plain_ms,
-                 "%.4f" % lib_ms if lib_ms is not None else "none",
-                 b_ms, b_by, "ok" if ok else "FAIL"))
-        if not ok:
+                 r["max_abs_err"], rtol * scale, r["dot_rel_err"], r["ms"],
+                 r["plain_ms"], "%.4f" % r["library_ms"]
+                 if r["library_ms"] is not None else "none",
+                 r["bound_ms"], r["bound_by"], "ok" if r["ok"] else "FAIL"))
+        if not r["ok"]:
             failures.append("%s %s disagrees with its plain version"
                             % (name, label))
         if name not in records:      # the first case is the L0 shape
-            records[name] = {"max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": b_ms,
-                             "bound_by": b_by, "library_ms": lib_ms,
-                             "shape": ("n=%d, %s" % (n, dt)
-                                       if name == "xr_update" else
-                                       "%s %dx%d, %d diagonals, %s"
-                                       % (label, n, m, len(M.offsets),
-                                          dt))}
+            records[name] = {k: r[k] for k in RECORD_KEYS}
+            records[name]["shape"] = (
+                "n=%d, %s" % (n, dt) if name == "xr_update" else
+                "%s %dx%d, %d diagonals, %s"
+                % (label, n, m, len(M.offsets), dt))
     return records
 
 
@@ -576,6 +638,244 @@ def check_fused(solve, failures):
     return records
 
 
+# -- phase 4: the unstructured paths -----------------------------------------
+
+def describe_levels(label, solve):
+    """Per level: rows, format, K, window and distinct window starts, and
+    the K of the transfers' M and Mᵀ. Returns the rows and formats."""
+    rows, fmts = [], []
+    for i, lv in enumerate(solve.precond.hierarchy.levels):
+        A = lv.A
+        rows.append(A.shape[0])
+        fmts.append(type(A).__name__)
+        extra = ""
+        if hasattr(A, "window_starts"):
+            extra = ", K %d, window %d, %d distinct window starts" % (
+                A.K, A.win, len(set(A.window_starts.tolist())))
+        if lv.P is not None:
+            extra += "; M %s K %s, Mt %s K %s" % (
+                type(lv.P.M).__name__, getattr(lv.P.M, "K", "-"),
+                type(lv.R.Mt).__name__, getattr(lv.R.Mt, "K", "-"))
+        print("[%s] level %d: %d rows, %s%s" % (label, i, A.shape[0],
+                                                 fmts[-1], extra))
+    return rows, fmts
+
+
+def drive_unstructured(A, rhs, failures, label, side):
+    """make_solver with BiCGStab, then a cold and a warm solve, with the
+    counts set to 0 just before the setup and read just after the warm
+    solve. Returns (solve, counts, summary)."""
+    from amgcl_tpu_torch import AMGParams, BiCGStab, make_solver
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    solve = make_solver(A, AMGParams(dtype=torch.float32),
+                        BiCGStab(maxiter=100, tol=1e-6, precond_side=side),
+                        refine=3)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    print("[%s] setup: %.3f s wall (make_solver), %.3f s in AMG._build; "
+          "peak device memory %.1f MB above the %.1f MB held before it"
+          % (label, t_setup, solve.precond.setup_seconds,
+             (torch.cuda.max_memory_allocated() - base) / 2**20,
+             base / 2**20))
+    print(solve.precond)
+    rows, fmts = describe_levels(label, solve)
+    x, info = solve(rhs)
+    print("[%s] solve 1 (cold): %d iterations, reported resid %.3e, %.4f s"
+          % (label, info.iters, info.resid, info.wall_time_s))
+    first, _ = read_counts()
+    x, info = solve(rhs)
+    counts, plain_calls = read_counts()
+    print("[%s] solve 2 (warm): %d iterations, reported resid %.3e, %.4f s"
+          % (label, info.iters, info.resid, info.wall_time_s))
+    x64 = x.double().cpu().numpy()
+    true_res = float(np.linalg.norm(rhs - A.spmv(x64))
+                     / np.linalg.norm(rhs))
+    print("[%s] true relative residual (host float64): %.3e"
+          % (label, true_res))
+    warm = {k: counts[k] - first[k] for k in counts if counts[k]}
+    print("[%s] launches (setup + 2 solves): %s"
+          % (label, json.dumps({k: v for k, v in counts.items() if v})))
+    print("[%s] launches in the warm solve: %s; per BiCGStab iteration: %s"
+          % (label, json.dumps(warm), json.dumps(
+              {k: round(v / max(info.iters, 1), 3) for k, v in warm.items()})))
+    print("[%s] plain-version calls: %s"
+          % (label, sum(plain_calls.values())))
+    if rows != U_LEVELS[label] or fmts != U_FORMATS:
+        failures.append("%s: levels %s %s, expected %s %s"
+                        % (label, rows, fmts, U_LEVELS[label], U_FORMATS))
+    want = U_ITERS[label]
+    if abs(info.iters - want) > 0.1 * want:
+        failures.append("%s: %d iterations, expected %d ± 10%%"
+                        % (label, info.iters, want))
+    if not (np.all(np.isfinite(x64)) and true_res <= 1e-6):
+        failures.append("%s: true residual %.3e > 1e-6" % (label, true_res))
+    if any(plain_calls.values()):
+        failures.append("%s: plain versions ran: %s" % (label, plain_calls))
+    return solve, counts, {
+        "setup_s": t_setup, "warm_solve_s": info.wall_time_s,
+        "iters": info.iters, "resid": info.resid, "true_resid": true_res,
+        "levels": rows, "warm_launches": warm}
+
+
+def unstructured_paths(failures):
+    """Paths U1 (identity order, right side) and U2 (RCM order, left
+    side) of the tutorial deployment. Returns ({label: solve},
+    {label: counts}, summary)."""
+    from amgcl_tpu_torch import fe_like_problem
+    from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
+    t0 = time.perf_counter()
+    A, rhs = fe_like_problem()
+    print("problem: fe_like_problem(), %d rows, %d nnz, built in %.3f s"
+          % (A.nrows, A.nnz, time.perf_counter() - t0))
+    solves, counts, summary = {}, {}, {}
+    solves["U1"], counts["U1"], summary["U1"] = drive_unstructured(
+        A, rhs, failures, "U1", "right")
+    profile_solve(solves["U1"], rhs, summary["U1"]["warm_solve_s"] * 1e3)
+    t0 = time.perf_counter()
+    perm = cuthill_mckee(A)
+    Ap, rhs_p = permute(A, perm), rhs[perm]
+    print("[U2] RCM permutation: %.3f s" % (time.perf_counter() - t0))
+    solves["U2"], counts["U2"], summary["U2"] = drive_unstructured(
+        Ap, rhs_p, failures, "U2", "left")
+    for k in UNSTRUCTURED:
+        if counts["U1"][k] + counts["U2"][k] == 0:
+            failures.append("kernel %s launched on neither U1 nor U2" % k)
+    if counts["U2"]["windowed_ell_spmv"] == 0:
+        failures.append("U2: windowed_ell_spmv never launched")
+    return solves, counts, summary
+
+
+def check_unstructured_kernels(solves, failures):
+    """Each windowed-ELL kernel and the BiCGStab tail against its plain
+    version at the L0 and L1 operators and transfers of both orders,
+    timed as in check_kernels. |Δ| ≤ rtol · Σ|terms| per entry (rtol 1e-5
+    in float32, 1e-12 in float64: the sums run in another order); each
+    dot within rtol of the sum of its absolute products. The first case
+    of a kernel is its record: the L0 shape of the path it runs on."""
+    from amgcl_tpu_torch.ops import well_kernels as wk
+    W = wrappers()
+    rng = np.random.RandomState(20261018)
+    L1, L2 = solves["U1"].precond.hierarchy.levels, \
+        solves["U2"].precond.hierarchy.levels
+    cases = [
+        # (kernel, label, operator, smoother scale)
+        ("windowed_ell_spmv", "U2 L0 A", L2[0].A, None),
+        ("windowed_ell_spmv", "U1 L0 A", L1[0].A, None),
+        ("windowed_ell_spmv", "U2 L1 A", L2[1].A, None),
+        ("windowed_ell_residual", "U1 L0 A", L1[0].A, None),
+        ("windowed_ell_residual", "U1 L1 A", L1[1].A, None),
+        ("windowed_ell_residual", "U1 L0 M", L1[0].P.M, None),
+        ("windowed_ell_residual", "U1 L0 Mt", L1[0].R.Mt, None),
+        ("windowed_ell_residual", "U1 L1 M", L1[1].P.M, None),
+        ("windowed_ell_residual", "U1 L1 Mt", L1[1].R.Mt, None),
+        ("windowed_ell_residual", "U2 L0 A", L2[0].A, None),
+        ("windowed_ell_residual", "U2 L1 A", L2[1].A, None),
+        ("windowed_ell_residual", "U2 L0 M", L2[0].P.M, None),
+        ("windowed_ell_residual", "U2 L0 Mt", L2[0].R.Mt, None),
+        ("windowed_ell_residual", "U2 L1 Mt", L2[1].R.Mt, None),
+        ("windowed_ell_residual", "U1 L0 A f64", solves["U1"].A_dev64, None),
+        ("windowed_ell_residual", "U2 L0 A f64", solves["U2"].A_dev64, None),
+        ("windowed_ell_scaled_correction", "U1 L0 A", L1[0].A,
+         L1[0].relax.scale),
+        ("windowed_ell_scaled_correction", "U1 L1 A", L1[1].A,
+         L1[1].relax.scale),
+        ("windowed_ell_scaled_correction", "U2 L0 A", L2[0].A,
+         L2[0].relax.scale),
+        ("windowed_ell_scaled_correction", "U2 L1 A", L2[1].A,
+         L2[1].relax.scale),
+        ("windowed_ell_spmv_dots", "U1 L0 A w", L1[0].A, None),
+        ("windowed_ell_spmv_dots", "U1 L0 A", L1[0].A, None),
+        ("windowed_ell_spmv_dots", "U2 L0 A w", L2[0].A, None),
+        ("windowed_ell_spmv_dots", "U1 L0 A f64 w", solves["U1"].A_dev64,
+         None),
+        ("bicgstab_tail", "U1 L0 n", L1[0].A, None),
+    ]
+    records = {}
+    for name, label, M, scale_w in cases:
+        kern, plain = W[name]
+        dt = M.dtype
+        n, m = M.shape
+        s = M.vals.element_size()
+
+        def vec(k):
+            return torch.as_tensor(rng.standard_normal(k)).to(
+                device="cuda", dtype=dt)
+        x, f = vec(m), vec(n)
+        geo = (M.window_starts, M.cols_local, M.vals)
+        # the rows the kernel reads: n of the n_tiles·1,024 stored (the
+        # last tile's padding rows are never read)
+        fmt_bytes = n * M.K * (s + 4) + M.window_starts.numel() * 4
+        nnz = int((M.vals != 0).sum())
+        terms = wk.windowed_ell_spmv_plain(M.window_starts, M.cols_local,
+                                           M.vals.abs(), x.abs(), n)
+        rtol = 1e-5 if dt == torch.float32 else 1e-12
+        scale = float((terms + f.abs()).max())
+        # each y entry's own error is bounded by its terms, and so are
+        # the dots'
+        dots = lambda want: []
+        lib = None
+        if name == "windowed_ell_spmv":
+            args = geo + (x, n)
+            nbytes, ops = fmt_bytes + (m + n) * s, 2 * nnz
+            scale = float(terms.max())
+            C = library_csr(M)
+            lib = lambda: torch.mv(C, x)
+        elif name == "windowed_ell_residual":
+            args = geo + (f, x, n)
+            nbytes, ops = fmt_bytes + (m + 2 * n) * s, 2 * nnz + n
+            C = library_csr(M)
+            lib = lambda: torch.addmv(f, C, x, alpha=-1.0)
+        elif name == "windowed_ell_scaled_correction":
+            w = scale_w
+            args = geo + (w, f, x, n)
+            nbytes, ops = fmt_bytes + (m + 3 * n) * s, 2 * nnz + 3 * n
+            scale = float((w.abs() * (terms + f.abs()) + x.abs()).max())
+        elif name == "windowed_ell_spmv_dots":
+            w = vec(n) if label.endswith(" w") else None
+            args = geo + (x, w, n)
+            nbytes = fmt_bytes + (m + n + (n if w is not None else 0)) * s
+            ops = 2 * nnz + (6 if w is not None else 4) * n
+            scale = float(terms.max())
+            dots = lambda want: [(1, terms, 2 * terms), (2, terms, x)] + (
+                [] if w is None else [(3, terms, w)])
+        else:                                       # bicgstab_tail
+            ph, sh, t, rh = vec(n), vec(n), vec(n), vec(n)
+            alpha = torch.tensor(0.37, dtype=dt, device="cuda")
+            omega = torch.tensor(-1.3, dtype=dt, device="cuda")
+            args = (alpha, ph, omega, sh, f, t, x, rh)
+            nbytes, ops = 8 * n * s, 10 * n
+            scale = float(x.abs().max() + f.abs().max() + 1.3 * (
+                ph.abs().max() + sh.abs().max() + t.abs().max()))
+            # r' = s − ω t may cancel: the dots scale with |s| + |ω t|
+            rn_terms = f.abs() + 1.3 * t.abs()
+            dots = lambda want: [(2, rn_terms, 2 * rn_terms),
+                                 (3, rh, rn_terms)]
+        r = compare_and_time(name, kern, plain, args, rtol, scale, dots, lib,
+                             nbytes, ops, dt)
+        print("%-30s %-13s n=%-6d K=%-3d win=%-6d %s  err %.3e (tol %.3e)  "
+              "dot rel err %.2e  ms %.4f  plain %.4f  library %s  "
+              "bound %.4f (%s, %.2f MB)  %s"
+              % (name, label, n, M.K, M.win, str(dt).split(".")[-1],
+                 r["max_abs_err"], rtol * scale, r["dot_rel_err"], r["ms"],
+                 r["plain_ms"], "%.4f" % r["library_ms"]
+                 if r["library_ms"] is not None else "none",
+                 r["bound_ms"], r["bound_by"], nbytes / 1e6,
+                 "ok" if r["ok"] else "FAIL"))
+        if not r["ok"]:
+            failures.append("%s %s disagrees with its plain version"
+                            % (name, label))
+        if name not in records:
+            records[name] = {k: r[k] for k in RECORD_KEYS}
+            records[name]["shape"] = (
+                "n=%d, %s" % (n, dt) if name == "bicgstab_tail" else
+                "%s %dx%d, K %d, window %d, %s"
+                % (label, n, m, M.K, M.win, dt))
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -593,14 +893,29 @@ def main():
     records = check_kernels(solve, failures)
     records.update(check_fused(solve, failures))
     print("main path: %s" % json.dumps(summary))
+    # release the poisson3d hierarchies, so that the unstructured paths'
+    # peak device memory is their own
+    del solve
+    gc.collect()
+    torch.cuda.empty_cache()
+    u_solves, u_counts, u_summary = unstructured_paths(failures)
+    records.update(check_unstructured_kernels(u_solves, failures))
+    print("unstructured paths: %s" % json.dumps(u_summary))
     kernels = []
     for name in REPLACES:
         rec = records[name]
+        if name in UNSTRUCTURED:
+            # launches over the unstructured paths: U1 + U2
+            launches = u_counts["U1"][name] + u_counts["U2"][name]
+            by_path = {"U1": u_counts["U1"][name],
+                       "U2": u_counts["U2"][name]}
+        else:
+            launches, by_path = counts[name], {"main": counts[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": source_of(name),
-            "replaces": REPLACES[name], "launches": counts[name],
-            **rec})
+            "replaces": REPLACES[name], "launches": launches,
+            "launches_by_path": by_path, **rec})
     if failures:
         for f in failures:
             print("FAIL: %s" % f, file=sys.stderr)

@@ -4,9 +4,12 @@ row counts that are no multiple of the block, columns out of range on
 both sides, rectangular operators, the 512-diagonal limit, an empty
 operator, a grid-stride pass longer than its fixed grid; for the fused
 V-cycle legs odd and small grids, f0 that does not divide 128, a halo of
-two coarse planes and asymmetric offsets. Also the wrappers' refusals,
-bit-identical results from run to run, and small solves on the card
-against the same solves on the CPU.
+two coarse planes and asymmetric offsets; for the windowed-ELL kernels K
+from 4 to 52, window starts that differ from tile to tile, a tile without
+entries (its padding addresses one past x), a ragged last tile and
+rectangular operators; the BiCGStab tail at grid-stride lengths. Also the
+wrappers' refusals, bit-identical results from run to run, and small
+solves on the card against the same solves on the CPU.
 
 Every test needs an NVIDIA card and skips without one. On the card, from
 the repo root (the suite's conftest imports JAX, which the port's machine
@@ -23,6 +26,7 @@ import torch
 from amgcl_tpu_torch.ops import dia_kernels as dk
 from amgcl_tpu_torch.ops import fused_vec as fv
 from amgcl_tpu_torch.ops import vcycle_kernels as vk
+from amgcl_tpu_torch.ops import well_kernels as wk
 
 pytestmark = pytest.mark.cuda
 
@@ -386,3 +390,211 @@ def test_device_setup_solve_on_card_matches_cpu(cuda):
     assert abs(runs[True][0] - runs[False][0]) <= 1
     x = runs[True][1]
     assert np.linalg.norm(rhs - A.spmv(x)) / np.linalg.norm(rhs) <= 1e-6
+
+
+# -- the windowed-ELL kernels (csrc/well.cu) and the BiCGStab tail ------------
+
+def _well(n_out, ncols, K, dtype, device, seed=0, empty=None):
+    """Random windowed-ELL arrays: n_out rows in tiles of 1,024, windows of
+    2,048 columns whose starts differ from tile to tile, about a quarter
+    of the slots padding (column 0, value 0). Tile ``empty`` holds no entry
+    and starts at ncols, as tile_windows packs such a tile."""
+    rng = np.random.RandomState(seed)
+    tile, win = 1024, 2048
+    n_tiles = -(-n_out // tile)
+    starts = rng.randint(0, max(ncols - win, 0) // 1024 + 1, n_tiles) * 1024
+    span = np.minimum(win, ncols - starts)
+    cols = (rng.rand(n_tiles, tile, K) * span[:, None, None]).astype(
+        np.int32)
+    vals = rng.standard_normal((n_tiles, tile, K))
+    pad = rng.rand(n_tiles, tile, K) < 0.25
+    cols[pad], vals[pad] = 0, 0.0
+    if empty is not None:
+        starts[empty] = ncols
+        cols[empty], vals[empty] = 0, 0.0
+    x, f, w = rng.standard_normal(ncols), rng.standard_normal(n_out), \
+        rng.rand(n_out)
+    i32 = lambda a: torch.as_tensor(a.astype(np.int32), device=device)
+    fl = lambda a: torch.as_tensor(a).to(device=device, dtype=dtype)
+    return i32(starts), i32(cols), fl(vals), fl(x), fl(f), fl(w)
+
+
+_WELL_CASES = [
+    # (n_out, ncols, K, empty tile)
+    (5000, 5000, 4, None),            # ragged last tile
+    (6144, 6144, 8, 2),               # empty tile; ncols a multiple of 1024
+    (10000, 10000, 20, None),
+    (30000, 30000, 48, 7),
+    (3000, 3000, 52, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m,K,empty", _WELL_CASES)
+def test_well_square_modes_match_plain(cuda, n, m, K, empty, dtype):
+    st, cl, v, x, f, w = _well(n, m, K, dtype, cuda, seed=K, empty=empty)
+    terms = wk.windowed_ell_spmv_plain(st, cl, v.abs(), x.abs(), n)
+    got = wk.windowed_ell_spmv(st, cl, v, x, n)
+    want = wk.windowed_ell_spmv_plain(st, cl, v, x, n)
+    _close(got, want, float(terms.max()), dtype)
+    got = wk.windowed_ell_residual(st, cl, v, f, x, n)
+    want = wk.windowed_ell_residual_plain(st, cl, v, f, x, n)
+    scale = float((terms + f.abs()).max())
+    _close(got, want, scale, dtype)
+    got = wk.windowed_ell_scaled_correction(st, cl, v, w, f, x, n)
+    want = wk.windowed_ell_scaled_correction_plain(st, cl, v, w, f, x, n)
+    _close(got, want, float((x.abs() + w * (terms + f.abs())).max()),
+           dtype)
+    for wv in (None, w):
+        got = wk.windowed_ell_spmv_dots(st, cl, v, x, wv, n)
+        want = wk.windowed_ell_spmv_dots_plain(st, cl, v, x, wv, n)
+        _close(got[0], want[0], float(terms.max()), dtype)
+        _dot_close(got[1], want[1], terms, 2 * terms, dtype)
+        _dot_close(got[2], want[2], terms, x, dtype)
+        if wv is None:
+            assert got[3] is None
+        else:
+            _dot_close(got[3], want[3], terms, wv, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m", [(5000, 12000), (12000, 5000)])
+def test_well_rectangular_spmv_and_residual_match_plain(cuda, n, m, dtype):
+    st, cl, v, x, f, _ = _well(n, m, 12, dtype, cuda, seed=n)
+    terms = wk.windowed_ell_spmv_plain(st, cl, v.abs(), x.abs(), n)
+    _close(wk.windowed_ell_spmv(st, cl, v, x, n),
+           wk.windowed_ell_spmv_plain(st, cl, v, x, n),
+           float(terms.max()), dtype)
+    _close(wk.windowed_ell_residual(st, cl, v, f, x, n),
+           wk.windowed_ell_residual_plain(st, cl, v, f, x, n),
+           float((terms + f.abs()).max()), dtype)
+
+
+def test_well_starts_are_read(cuda):
+    """The same columns under shifted window starts give another product:
+    a kernel that ignored the starts would return the same one."""
+    st, cl, v, x, _, _ = _well(6000, 20000, 16, torch.float32, cuda, seed=3)
+    assert len(set(st.tolist())) > 2
+    y = wk.windowed_ell_spmv(st, cl, v, x, 6000)
+    y0 = wk.windowed_ell_spmv(torch.zeros_like(st), cl, v, x, 6000)
+    assert float((y - y0).abs().max()) > 1.0
+    _close(y0, wk.windowed_ell_spmv_plain(torch.zeros_like(st), cl, v, x,
+                                          6000),
+           float(wk.windowed_ell_spmv_plain(
+               torch.zeros_like(st), cl, v.abs(), x.abs(), 6000).max()),
+           torch.float32)
+
+
+def test_well_dots_are_bit_identical_and_counted(cuda):
+    st, cl, v, x, _, w = _well(30000, 30000, 48, torch.float32, cuda)
+    launches = wk.windowed_ell_spmv_dots.launches
+    a = wk.windowed_ell_spmv_dots(st, cl, v, x, w, 30000)
+    b = wk.windowed_ell_spmv_dots(st, cl, v, x, w, 30000)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    assert wk.windowed_ell_spmv_dots.launches == launches + 2
+
+
+@pytest.mark.parametrize("bad", ["cpu_x", "dtype", "cols_dtype",
+                                 "starts_shape", "n_out", "rect_dots",
+                                 "f_shape", "bf16"])
+def test_well_wrappers_refuse_malformed_operands(cuda, bad):
+    n = 3000
+    st, cl, v, x, f, w = _well(n, n, 8, torch.float32, cuda)
+    if bad == "cpu_x":
+        st = st.cpu()
+    elif bad == "dtype":
+        f = f.double()
+    elif bad == "cols_dtype":
+        cl = cl.long()
+    elif bad == "starts_shape":
+        st = st[:-1]
+    elif bad == "n_out":
+        n = 1000
+    elif bad == "rect_dots":
+        x = torch.cat([x, x[:5]])
+    elif bad == "f_shape":
+        f = f[:-1]
+    elif bad == "bf16":
+        v = v.bfloat16()
+    counters = (wk.windowed_ell_residual, wk.windowed_ell_spmv_dots)
+    launches = [c.launches for c in counters]
+    with pytest.raises(ValueError):
+        if bad == "rect_dots":
+            wk.windowed_ell_spmv_dots(st, cl, v, x, None, n)
+        else:
+            wk.windowed_ell_residual(st, cl, v, f, x, n)
+    assert [c.launches for c in counters] == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 1000, 1056 * 256 * 3 + 7])
+def test_bicgstab_tail_matches_plain(cuda, n, dtype):
+    rng = np.random.RandomState(n + 1)
+    ph, sh, s, t, x, rh = (torch.as_tensor(rng.standard_normal(n)).to(
+        device=cuda, dtype=dtype) for _ in range(6))
+    launches = fv.bicgstab_tail.launches
+    for a, om in ((torch.tensor(0.37, dtype=dtype, device=cuda),
+                   torch.tensor(-1.3, dtype=dtype, device=cuda)),
+                  (-1.25, 0.5)):
+        got = fv.bicgstab_tail(a, ph, om, sh, s, t, x, rh)
+        want = fv.bicgstab_tail_plain(a, ph, om, sh, s, t, x, rh)
+        scale = float(x.abs().max() + s.abs().max()
+                      + 1.3 * (ph.abs().max() + sh.abs().max()
+                               + t.abs().max()))
+        _close(got[0], want[0], scale, dtype)
+        _close(got[1], want[1], scale, dtype)
+        # r' = s − ω t may cancel: its error scales with |s| + |ω t|
+        # (the kernel may fuse the product), and so do the dots'
+        rn_terms = s.abs() + abs(float(om)) * t.abs()
+        _dot_close(got[2], want[2], rn_terms, 2 * rn_terms, dtype)
+        _dot_close(got[3], want[3], rh, rn_terms, dtype)
+    assert fv.bicgstab_tail.launches == launches + 2
+    with pytest.raises(ValueError):
+        fv.bicgstab_tail(0.1, ph, torch.tensor(0.2, dtype=dtype), sh, s, t,
+                         x, rh)
+
+
+@pytest.mark.parametrize("order,side", [("identity", "right"),
+                                        ("rcm", "left")])
+def test_unstructured_solve_on_card_matches_cpu(cuda, order, side):
+    """A small fe_like_problem with BiCGStab in float64: the card and the
+    CPU build the same hierarchy, take the same iterations and agree on
+    x to 1e-8 (BiCGStab amplifies the other summation order); every
+    windowed-ELL kernel of the side launches and no plain version runs
+    on the card. The true residual meets tol on the right side; on the
+    left side tol bounds the preconditioned residual, and the true one
+    stays below 1e-6."""
+    from amgcl_tpu_torch import AMGParams, BiCGStab, fe_like_problem, \
+        make_solver
+    from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
+    A, rhs = fe_like_problem(n=6000, nnz_target=6000 * 18, seed=1)
+    if order == "rcm":
+        perm = cuthill_mckee(A)
+        A, rhs = permute(A, perm), rhs[perm]
+    runs = {}
+    for device in ("cpu", cuda):
+        solve = make_solver(A, AMGParams(dtype=torch.float64,
+                                         coarse_enough=500),
+                            BiCGStab(maxiter=100, tol=1e-8,
+                                     precond_side=side), device=device)
+        kernels = (wk.windowed_ell_spmv, wk.windowed_ell_residual,
+                   wk.windowed_ell_scaled_correction,
+                   wk.windowed_ell_spmv_dots, fv.bicgstab_tail)
+        before = [k.launches for k in kernels]
+        plain = wk.windowed_ell_residual_plain.calls
+        x, info = solve(rhs)
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        if device != "cpu":
+            assert wk.windowed_ell_residual_plain.calls == plain
+            assert all(launched[1:3]) and launched[4] > 0
+            assert (launched[3] > 0) == (side == "right")
+            assert (launched[0] > 0) == (side == "left")
+        runs[torch.device(device).type] = (
+            info.iters, x.double().cpu().numpy(),
+            [lv["rows"] for lv in info.hierarchy["levels"]])
+    assert runs["cpu"][2] == runs["cuda"][2]
+    assert runs["cpu"][0] == runs["cuda"][0]
+    x, x_cpu = runs["cuda"][1], runs["cpu"][1]
+    assert np.linalg.norm(x - x_cpu) <= 1e-8 * np.linalg.norm(x_cpu)
+    true_res = np.linalg.norm(rhs - A.spmv(x)) / np.linalg.norm(rhs)
+    assert true_res <= (1e-8 if side == "right" else 1e-6)

@@ -134,12 +134,13 @@ def test_plain_versions_count_calls_and_kernels_reject_cpu_launch():
         dk._launch(dk._SPMV, off_t, _t(data), x)
 
 
-def _random_sparse(n, per_row, seed):
+def _random_sparse(n, per_row, seed, m=None):
+    m = n if m is None else m
     rng = np.random.RandomState(seed)
     rows = np.repeat(np.arange(n), per_row)
-    cols = rng.randint(0, n, n * per_row)
+    cols = rng.randint(0, m, n * per_row)
     M = sp.csr_matrix((rng.standard_normal(n * per_row), (rows, cols)),
-                      shape=(n, n)) + sp.identity(n)
+                      shape=(n, m)) + sp.eye(n, m)
     return CSR.from_scipy(M)
 
 
@@ -147,12 +148,16 @@ def _random_sparse(n, per_row, seed):
     ("small_dense", "DenseMatrix"),
     ("poisson16", "DiaMatrix"),
     ("banded_wide", "DiaMatrix"),
+    ("unstructured_square", "WindowedEllMatrix"),
     ("unstructured", "EllMatrix"),
 ])
 def test_to_device_auto_format(fixture, fmt):
     """'auto' with the accelerator thresholds on every device: dense for
-    small dense-ish operators, DIA up to 512 diagonals and fill 16, ELL
-    otherwise. The product agrees with scipy's either way."""
+    small dense-ish operators, DIA up to 512 diagonals and fill 16,
+    windowed ELL while its widest window fits 4 MiB of float32 (any
+    5,000-column matrix), ELL otherwise (here 1.2M columns, each row tile
+    spanning nearly all of them). The product agrees with scipy's either
+    way."""
     from amgcl_tpu_torch.utils.sample_problem import poisson3d
     if fixture == "small_dense":
         A = CSR.from_scipy(sp.random(100, 100, density=0.5,
@@ -169,8 +174,10 @@ def test_to_device_auto_format(fixture, fmt):
             * (rng.rand(len(offs), n) < 0.7)
         A = CSR.from_scipy(sp.dia_matrix((data, offs), shape=(n, n))
                            .tocsr() + sp.identity(n))
-    else:
+    elif fixture == "unstructured_square":
         A = _random_sparse(5000, 5, 3)
+    else:
+        A = _random_sparse(5000, 5, 3, m=1_200_000)
     M = tdev.to_device(A, "auto", torch.float64, device="cpu")
     assert type(M).__name__ == fmt
     x = np.random.RandomState(4).standard_normal(A.ncols)
