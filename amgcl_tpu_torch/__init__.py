@@ -18,6 +18,18 @@ profile with BiCGStab::
     A, rhs = fe_like_problem()
     solve = make_solver(A, AMGParams(), BiCGStab(maxiter=100, tol=1e-6),
                         refine=3)
+
+Block-valued systems (several unknowns per node, e.g. elasticity or
+coupled multiphysics) come as a BCSR: a ``CSR`` whose values are
+``(nnz, b, b)`` blocks, or a scalar matrix with b×b block structure
+through ``CSR.to_block(b)``. They coarsen by pointwise aggregation,
+smooth with block SPAI-0, and run on block windowed-ELL operators
+(square blocks of 2, 3 or 4 on the card)::
+
+    from amgcl_tpu_torch import poisson3d_block
+    A, rhs = poisson3d_block(48, 3)          # 110,592 3x3 block rows
+    solve = make_solver(A, AMGParams(), BiCGStab(maxiter=200, tol=1e-6))
+    x, info = solve(rhs)                     # rhs, x: 331,776 unknowns
 """
 
 from amgcl_tpu_torch.ops.csr import CSR
@@ -26,7 +38,7 @@ from amgcl_tpu_torch.models.make_solver import make_solver
 from amgcl_tpu_torch.ops.unstructured import fe_like_problem
 from amgcl_tpu_torch.solver.bicgstab import BiCGStab
 from amgcl_tpu_torch.solver.cg import CG
-from amgcl_tpu_torch.utils.sample_problem import poisson3d
+from amgcl_tpu_torch.utils.sample_problem import poisson3d, poisson3d_block
 
 __all__ = ["CSR", "AMG", "AMGParams", "make_solver", "BiCGStab", "CG",
-           "fe_like_problem", "poisson3d"]
+           "fe_like_problem", "poisson3d", "poisson3d_block"]

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-from amgcl_tpu_torch.ops.csr import CSR
+from amgcl_tpu_torch.ops.csr import CSR, pointwise_matrix
 
 _UNSET = -3
 
@@ -76,3 +76,12 @@ def plain_aggregates(A: CSR, eps_strong: float = 0.08):
     """Aggregates over the scalar strength graph of A (reference default
     eps_strong = 0.08)."""
     return greedy_aggregates(strength_graph(A, eps_strong))
+
+
+def pointwise_aggregates(A: CSR, eps_strong: float = 0.08):
+    """Aggregates of a block system (BCSR) over its pointwise matrix, one
+    value per block (amgcl/coarsening/pointwise_aggregates.hpp:54-197;
+    counterpart of ``amgcl_tpu/coarsening/aggregates.py::
+    pointwise_aggregates``). ``agg`` indexes block rows."""
+    return plain_aggregates(pointwise_matrix(A, A.block_size[0]),
+                            eps_strong)

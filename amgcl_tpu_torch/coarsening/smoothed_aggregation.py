@@ -8,10 +8,13 @@ diagonal) and ω = relax · 4/3 / ρ(D_f⁻¹ A_f) with ρ the Gershgorin bound
 ``eps_strong`` is halved per level as in the reference.
 
 Stencil levels (at most 13 diagonals on a detected grid) build their
-transfers on diagonals (ops/stencil.py); other levels take the CSR route:
-strength filter → grid-aligned (or MIS) aggregates → tentative P and its
-smoothing → explicit Galerkin product. Either way the device applies the
-transfers matrix-free through an implicit spec (ops/structured.py).
+transfers on diagonals (ops/stencil.py); other scalar levels take the CSR
+route: strength filter → grid-aligned (or MIS) aggregates → tentative P
+and its smoothing → explicit Galerkin product. Either way the device
+applies the transfers matrix-free through an implicit spec
+(ops/structured.py). A block matrix (BCSR) filters and smooths in
+scalars, aggregates its pointwise matrix, and returns P and R as BCSR
+with no implicit spec: the device stores them as block operators.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from amgcl_tpu_torch.ops.csr import CSR, spectral_radius
-from amgcl_tpu_torch.coarsening.aggregates import plain_aggregates
+from amgcl_tpu_torch.coarsening.aggregates import (plain_aggregates,
+                                                   pointwise_aggregates)
 from amgcl_tpu_torch.coarsening.tentative import tentative_prolongation
 from amgcl_tpu_torch.coarsening.galerkin import galerkin
 from amgcl_tpu_torch.coarsening.stall import CoarseningStall
@@ -39,6 +43,8 @@ class SmoothedAggregation:
         policy object itself is never mutated."""
         eps_strong = ctx.get("eps_strong", self.eps_strong)
         ctx["eps_strong"] = eps_strong * 0.5
+        if A.is_block:
+            return self._block_transfer_operators(A, eps_strong, ctx)
         from amgcl_tpu_torch.ops.structured import detect_grid_csr
         grid = detect_grid_csr(A)
         if grid is not None:
@@ -83,6 +89,27 @@ class SmoothedAggregation:
         P._implicit_spec = spec
         R._implicit_spec = spec
         return P, R
+
+    def _block_transfer_operators(self, A: CSR, eps_strong: float,
+                                  ctx: dict):
+        """The block route (amgcl_tpu/coarsening/smoothed_aggregation.py:
+        63-70, 104-108, 137-144): filter the unblocked matrix, aggregate
+        the pointwise one, smooth P in scalars, block P and R again."""
+        bs = A.block_size[0]
+        scalar = A.unblock()
+        Af, Df_inv = _filtered(scalar, eps_strong)
+        agg, n_agg = pointwise_aggregates(A, eps_strong)
+        if n_agg == 0:
+            raise CoarseningStall("empty coarse level (all rows isolated)")
+        rho = spectral_radius(Af)
+        omega = self.relax * (4.0 / 3.0) / max(rho, 1e-30)
+        # identity blocks over the aggregates: unknown i·bs + c of node i
+        # goes to unknown agg[i]·bs + c of its coarse node
+        sagg = np.where(agg[:, None] >= 0,
+                        agg[:, None] * bs + np.arange(bs), -1).ravel()
+        Pt = tentative_prolongation(A.nrows * bs, sagg, n_agg * bs)
+        P = _p_smooth(Pt, Af.scale_rows(Df_inv), omega)
+        return P.to_block(bs), P.transpose().to_block(bs)
 
     def coarse_operator(self, A: CSR, P, R, ctx: dict) -> CSR:
         from amgcl_tpu_torch.ops.stencil import (StencilTransfer,

@@ -1,7 +1,9 @@
 """Tentative prolongation from aggregates (counterpart of
 ``amgcl_tpu/coarsening/tentative.py`` without a near-nullspace):
 piecewise constant over aggregates (reference:
-amgcl/coarsening/tentative_prolongation.hpp:61-233)."""
+amgcl/coarsening/tentative_prolongation.hpp:61-233). A block system's
+identity blocks are this P over its scalar unknowns, with unknown
+``i·b + c`` aggregated into ``agg[i]·b + c``."""
 
 from __future__ import annotations
 

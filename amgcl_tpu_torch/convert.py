@@ -45,7 +45,8 @@ def _operator(spec, dtype, device):
         return WindowedEllMatrix(
             idx("window_starts"), idx("cols_local"),
             torch.tensor(np.asarray(spec["vals"]), dtype=dtype,
-                         device=device), spec["shape"], spec["win"])
+                         device=device), spec["shape"], spec["win"],
+            spec.get("block", (1, 1)))
     return DenseMatrix(torch.tensor(np.asarray(spec), dtype=dtype,
                                     device=device))
 
@@ -55,6 +56,13 @@ def level_from_arrays(lv, dtype, device) -> Level:
     :func:`hierarchy_from_arrays`, all but the coarsest level's), with the
     port's own fused V-cycle handles attached where the level is
     eligible (``ops/vcycle.py``)."""
+    A = _operator(lv["A"], dtype, device)
+    relax = ScaledResidualSmoother(torch.tensor(np.asarray(lv["scale"]),
+                                                dtype=dtype, device=device))
+    if "P" in lv:
+        # stored transfers (block systems): no fused legs
+        return Level(A, relax, _operator(lv["P"], dtype, device),
+                     _operator(lv["R"], dtype, device))
     if "agg" in lv:
         T = AggTentative.build(np.asarray(lv["agg"]), int(lv["n_agg"]),
                                device)
@@ -63,11 +71,8 @@ def level_from_arrays(lv, dtype, device) -> Level:
         block = tuple(int(b) for b in lv["block"])
         coarse = tuple(-(-d // b) for d, b in zip(fine, block))
         T = GridTentative(fine, block, coarse)
-    A = _operator(lv["A"], dtype, device)
     P = ImplicitSmoothedP(T, _operator(lv["M"], dtype, device))
     R = ImplicitSmoothedR(T, _operator(lv["Mt"], dtype, device))
-    relax = ScaledResidualSmoother(torch.tensor(np.asarray(lv["scale"]),
-                                                dtype=dtype, device=device))
     return Level(A, relax, P, R, build_fused_down(A, R, relax),
                  build_fused_up(A, P, relax))
 
@@ -77,14 +82,17 @@ def hierarchy_from_arrays(levels, coarse_inv, params: AMGParams = None,
     """``levels``: one dict per level, finest first. Every level has
     ``"A"``: the operator as a DIA pair ``(offsets, data)`` with
     ``data[k, i] = A[i, i + offsets[k]]``, as a windowed-ELL dict (keys
-    ``window_starts``, ``cols_local``, ``vals``, ``shape``, ``win``: the
-    arrays of :class:`~amgcl_tpu_torch.ops.unstructured.WindowedEllMatrix`)
-    or as a dense 2-D array. Every level but the last also has ``"M"``
-    and ``"Mt"`` (the smoothed transfer's M = ω D⁻¹ A_f and its transpose,
-    in the same forms), the tentative prolongation as either ``"fine"``
-    and ``"block"`` (grid dims and aggregation blocks) or ``"agg"`` and
-    ``"n_agg"`` (the aggregate id of each fine point, -1 for none, and
-    the aggregate count), and ``"scale"`` (the SPAI-0 diagonal).
+    ``window_starts``, ``cols_local``, ``vals``, ``shape``, ``win`` and,
+    for block values, ``block``: the arrays of
+    :class:`~amgcl_tpu_torch.ops.unstructured.WindowedEllMatrix`) or as a
+    dense 2-D array. Every level but the last also has ``"scale"`` (the
+    SPAI-0 diagonal, or its (n, b, b) blocks) and its transfers: either
+    stored, as ``"P"`` and ``"R"`` in the same forms (block systems), or
+    matrix-free, as ``"M"`` and ``"Mt"`` (the smoothed transfer's
+    M = ω D⁻¹ A_f and its transpose) with the tentative prolongation as
+    either ``"fine"`` and ``"block"`` (grid dims and aggregation blocks)
+    or ``"agg"`` and ``"n_agg"`` (the aggregate id of each fine point, -1
+    for none, and the aggregate count).
     ``coarse_inv`` is the dense inverse of the last level's operator.
     ``params`` supplies the dtype and the cycle shape (npre, npost,
     ncycle, pre_cycles)."""

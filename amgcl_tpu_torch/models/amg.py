@@ -150,8 +150,9 @@ def _human_bytes(n: float) -> str:
 
 
 def check_coarse_size(n, prm):
-    """Refuse to densify a coarsest level far above the direct-solve
-    regime (coarsening stalled): an error beats running out of memory."""
+    """Refuse to densify a coarsest level of ``n`` scalar unknowns far
+    above the direct-solve regime (coarsening stalled): an error beats
+    running out of memory."""
     if prm.direct_coarse and n > max(4 * prm.coarse_enough, 20000):
         raise RuntimeError(
             "coarsening stalled at %d unknowns (> coarse_enough=%d); "
@@ -196,7 +197,9 @@ class AMG:
         # in this dict, not on the policy object
         ctx = {}
         t_dev = 0.0            # seconds of the device build that was kept
-        if self.device_setup:
+        # the device build takes scalar stencils; block systems build on
+        # the host
+        if self.device_setup and not A.is_block:
             from amgcl_tpu_torch.ops import stencil_device as sdev
             got = sdev.device_build(A, prm, self.device)
             if got is not None:
@@ -226,7 +229,8 @@ class AMG:
             ctx["setup_dtype"] = np.float32
         host = []
         Acur = A
-        while (Acur.nrows > prm.coarse_enough
+        # coarse_enough counts scalar unknowns (amgcl_tpu/models/amg.py:314)
+        while (Acur.nrows * Acur.block_size[0] > prm.coarse_enough
                and len(meta_prefix) + len(host) + 1 < prm.max_levels):
             try:
                 P, R = coarsening.transfer_operators(Acur, ctx)
@@ -255,16 +259,22 @@ class AMG:
         dtype, device = prm.dtype, self.device
         levels = list(self._dev_prefix)    # device-built levels come first
         for Ai, P, R in host[len(levels):-1]:
-            # matrix-free smoothed transfers (ops/structured.py)
-            P_dev, R_dev = build_implicit_transfers(
-                P._implicit_spec, dtype, device)
+            spec = getattr(P, "_implicit_spec", None)
+            if spec is not None:
+                # matrix-free smoothed transfers (ops/structured.py)
+                P_dev, R_dev = build_implicit_transfers(spec, dtype, device)
+            else:
+                # stored transfers (block systems): banded block
+                # operators take windowed ELL, as the level operators do
+                P_dev = dev.to_device(P, "auto", dtype, device)
+                R_dev = dev.to_device(R, "auto", dtype, device)
             A_dev = dev.to_device(Ai, prm.matrix_format, dtype, device)
             relax = prm.relax.build(Ai, dtype, device)
             levels.append(Level(A_dev, relax, P_dev, R_dev,
                                 build_fused_down(A_dev, R_dev, relax),
                                 build_fused_up(A_dev, P_dev, relax)))
         Alast = host[-1][0]
-        check_coarse_size(Alast.nrows, prm)
+        check_coarse_size(Alast.nrows * Alast.block_size[0], prm)
         A_last = dev.to_device(Alast, prm.matrix_format, dtype, device)
         if prm.direct_coarse:
             coarse = DenseDirectSolver.build(Alast, dtype, device)
@@ -281,17 +291,21 @@ class AMG:
         return self.prm.dtype
 
     def hierarchy_stats(self):
-        """Per-level rows/nnz/device format (windowed ELL with its K and
-        window) plus grid and operator complexity — the source
-        ``__repr__`` renders from."""
+        """Per-level rows/unknowns/nnz/device format (windowed ELL with
+        its K and window) plus grid and operator complexity — the source
+        ``__repr__`` renders from. ``rows`` and ``nnz`` count blocks for a
+        block system, ``unknowns`` scalar unknowns; the complexities count
+        blocks, as the reference does."""
         host = self.host_levels
         nnz0 = max(host[0][0].nnz, 1)
         rows0 = max(host[0][0].nrows, 1)
         levels = []
         for i, ((Ai, _, _), lv) in enumerate(zip(host,
                                                  self.hierarchy.levels)):
-            row = {"level": i, "rows": int(Ai.nrows), "nnz": int(Ai.nnz),
-                   "format": type(lv.A).__name__}
+            b = getattr(Ai, "block_size", (1, 1))
+            row = {"level": i, "rows": int(Ai.nrows),
+                   "unknowns": int(Ai.nrows) * b[0], "nnz": int(Ai.nnz),
+                   "block": list(b), "format": type(lv.A).__name__}
             if isinstance(lv.A, WindowedEllMatrix):
                 row.update(K=lv.A.K, win=lv.A.win)
             levels.append(row)
@@ -308,11 +322,17 @@ class AMG:
 
     def __repr__(self):
         st = self.hierarchy_stats()
+        b = st["levels"][0]["block"]
         lines = [
             "Number of levels:    %d" % st["n_levels"],
             "Operator complexity: %.2f" % st["operator_complexity"],
             "Grid complexity:     %.2f" % st["grid_complexity"],
             "Memory footprint:    %s" % _human_bytes(st["bytes"]),
+        ]
+        if b != [1, 1]:
+            lines.append("Block size:          %dx%d (nonzeros count "
+                         "blocks)" % tuple(b))
+        lines += [
             "",
             "level     unknowns       nonzeros  format",
             "-----------------------------------------",
@@ -321,6 +341,6 @@ class AMG:
             fmt = lv["format"]
             if "K" in lv:
                 fmt += " (K %d, window %d)" % (lv["K"], lv["win"])
-            lines.append("%5d %12d %14d  %s" % (lv["level"], lv["rows"],
+            lines.append("%5d %12d %14d  %s" % (lv["level"], lv["unknowns"],
                                                  lv["nnz"], fmt))
         return "\n".join(lines)

@@ -50,7 +50,7 @@ class make_solver:
             if self.refine > 0 else None
 
     def _vector(self, v, what):
-        n = self.A_host.nrows
+        n = self.A_host.nrows * self.A_host.block_size[0]
         t = torch.as_tensor(v).to(device=self.device, dtype=self.dtype)
         if tuple(t.shape) != (n,):
             raise ValueError("%s has shape %s but the system has %d "

@@ -1,10 +1,16 @@
 """Host-side CSR build format and setup-phase matrix algebra.
 
 Counterpart of ``amgcl_tpu/ops/csr.py`` (the reference's *builtin*
-backend matrix, amgcl/backend/builtin.hpp:55-909), scalar values only.
-Everything here runs on the host in numpy, with scipy.sparse for the
-products; the device never sees this class — hierarchies are converted to
-device formats by :mod:`amgcl_tpu_torch.ops.device`.
+backend matrix, amgcl/backend/builtin.hpp:55-909). Everything here runs
+on the host in numpy, with scipy.sparse for the products; the device
+never sees this class — hierarchies are converted to device formats by
+:mod:`amgcl_tpu_torch.ops.device`.
+
+Block (BCSR) values are a trailing ``(br, bc)`` on ``val``, the
+reference's ``static_matrix`` value type
+(amgcl/value_type/static_matrix.hpp:43-342) without a class of its own.
+Block products and sums go through the scalar matrix (``unblock`` →
+scipy → ``to_block``).
 """
 
 from __future__ import annotations
@@ -14,22 +20,22 @@ import scipy.sparse as sp
 
 
 class CSR:
-    """Compressed sparse row matrix with scalar values.
+    """Compressed sparse row matrix with scalar or block values.
 
     Attributes:
       ptr: (n+1,) int64 row pointers.
-      col: (nnz,) int32 column indices.
-      val: (nnz,) values.
-      ncols: number of columns.
+      col: (nnz,) int32 column indices (block columns for block values).
+      val: (nnz,) scalar values, or (nnz, br, bc) block values.
+      ncols: number of (block) columns.
     """
 
     def __init__(self, ptr, col, val, ncols=None):
         self.ptr = np.asarray(ptr, dtype=np.int64)
         self.col = np.asarray(col, dtype=np.int32)
         self.val = np.asarray(val)
-        if self.val.ndim != 1:
-            raise ValueError("CSR holds scalar values only, got val of "
-                             "shape %r" % (self.val.shape,))
+        if self.val.ndim not in (1, 3):
+            raise ValueError("CSR values are (nnz,) scalars or (nnz, br, "
+                             "bc) blocks, got shape %r" % (self.val.shape,))
         self.ncols = int(ncols) if ncols is not None else (
             int(self.col.max()) + 1 if len(self.col) else 0)
 
@@ -44,6 +50,17 @@ class CSR:
     @property
     def nnz(self) -> int:
         return len(self.col)
+
+    @property
+    def block_size(self):
+        """(br, bc) for block values, (1, 1) for scalar."""
+        if self.val.ndim == 3:
+            return (self.val.shape[1], self.val.shape[2])
+        return (1, 1)
+
+    @property
+    def is_block(self) -> bool:
+        return self.val.ndim == 3
 
     @property
     def dtype(self):
@@ -66,8 +83,10 @@ class CSR:
                    self.ncols)
 
     def __repr__(self):
+        b = self.block_size
+        blk = f", block={b[0]}x{b[1]}" if self.is_block else ""
         return (f"CSR({self.nrows}x{self.ncols}, nnz={self.nnz}, "
-                f"dtype={self.dtype})")
+                f"dtype={self.dtype}{blk})")
 
     # -- conversions --------------------------------------------------------
 
@@ -78,31 +97,77 @@ class CSR:
         return cls(m.indptr, m.indices, m.data, m.shape[1])
 
     def to_scipy(self):
+        """Scalar scipy CSR (block values are expanded)."""
+        if self.is_block:
+            return self.unblock().to_scipy()
         return sp.csr_matrix(
             (self.val, self.col, self.ptr), shape=(self.nrows, self.ncols))
 
     def to_dense(self) -> np.ndarray:
         return self.to_scipy().toarray()
 
+    # -- block <-> scalar views (amgcl/adapter/block_matrix.hpp:44,
+    #    amgcl/coarsening/as_scalar.hpp:46) ---------------------------------
+
+    def to_block(self, b: int) -> "CSR":
+        """A scalar CSR with b×b block structure as a BCSR."""
+        if self.is_block or self.nrows % b or self.ncols % b:
+            raise ValueError("to_block(%d) needs a scalar matrix whose "
+                             "shape divides by %d, got %r" % (b, b, self))
+        m = sp.bsr_matrix(self.to_scipy(), blocksize=(b, b))
+        m.sort_indices()
+        return CSR(m.indptr, m.indices, m.data, self.ncols // b)
+
+    def unblock(self) -> "CSR":
+        """A BCSR expanded to a scalar CSR."""
+        if not self.is_block:
+            raise ValueError("unblock() needs block values, got %r" % self)
+        br, bc = self.block_size
+        m = sp.bsr_matrix((self.val, self.col, self.ptr),
+                          shape=(self.nrows * br, self.ncols * bc)).tocsr()
+        m.sort_indices()
+        return CSR(m.indptr, m.indices, m.data, m.shape[1])
+
     # -- setup-phase algebra (builtin.hpp:333-909) --------------------------
 
     def transpose(self) -> "CSR":
+        """Sparse transpose (builtin.hpp:346-376); block values are
+        transposed one by one."""
+        if self.is_block:
+            rows = self.expanded_rows()
+            order = np.lexsort((rows, self.col))
+            counts = np.bincount(self.col, minlength=self.ncols)
+            ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+            return CSR(ptr, rows[order],
+                       np.swapaxes(self.val[order], 1, 2).copy(), self.nrows)
         m = self.to_scipy().T.tocsr()
         m.sort_indices()
         return CSR(m.indptr, m.indices, m.data, self.nrows)
 
     def __matmul__(self, other: "CSR") -> "CSR":
-        """SpGEMM through scipy (builtin.hpp:378-397)."""
-        return CSR.from_scipy(self.to_scipy() @ other.to_scipy())
+        """SpGEMM through scipy (builtin.hpp:378-397); block operands are
+        unblocked, and the product is blocked again by self's block rows
+        unless both block sizes it would take are 1."""
+        c = CSR.from_scipy(self.to_scipy() @ other.to_scipy())
+        if (self.block_size[0], other.block_size[1]) != (1, 1):
+            return c.to_block(self.block_size[0])
+        return c
 
     def __add__(self, other: "CSR") -> "CSR":
-        return CSR.from_scipy(self.to_scipy() + other.to_scipy())
+        c = CSR.from_scipy(self.to_scipy() + other.to_scipy())
+        return c.to_block(self.block_size[0]) if self.is_block else c
 
     def diagonal(self, invert: bool = False) -> np.ndarray:
-        """(Optionally inverted) diagonal (builtin.hpp:751-773)."""
-        d = np.zeros(self.nrows, dtype=self.dtype)
+        """(Optionally inverted) diagonal (builtin.hpp:751-773): (n,) for
+        scalar values, (n, br, bc) blocks for block values, each inverted
+        as a dense block with ``invert``."""
         rows = self.expanded_rows()
         mask = rows == self.col
+        if self.is_block:
+            d = np.zeros((self.nrows,) + self.block_size, dtype=self.dtype)
+            d[rows[mask]] = self.val[mask]
+            return np.linalg.inv(d) if invert else d
+        d = np.zeros(self.nrows, dtype=self.dtype)
         d[rows[mask]] = self.val[mask]
         if invert:
             with np.errstate(divide="ignore"):
@@ -110,7 +175,8 @@ class CSR:
         return d
 
     def spmv(self, x: np.ndarray) -> np.ndarray:
-        """Host reference SpMV (setup and tests only)."""
+        """Host reference SpMV over scalar unknowns (setup and tests
+        only)."""
         return self.to_scipy() @ x
 
     def scale_rows(self, d: np.ndarray) -> "CSR":
@@ -126,6 +192,17 @@ class CSR:
         counts = np.bincount(new_rows, minlength=self.nrows)
         ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
         return CSR(ptr, self.col[keep], self.val[keep], self.ncols)
+
+
+def pointwise_matrix(A: CSR, block_size: int) -> CSR:
+    """One value per b×b block (builtin.hpp:560-661): the block's
+    Frobenius norm, negated off the diagonal so that the strength test
+    sees an M-matrix's sign pattern. ``A`` is a BCSR or a scalar matrix
+    with b×b block structure."""
+    B = A if A.is_block else A.to_block(block_size)
+    norms = np.sqrt((B.val.astype(np.float64) ** 2).sum(axis=(1, 2)))
+    sign = np.where(B.expanded_rows() == B.col, 1.0, -1.0)
+    return CSR(B.ptr, B.col, norms * sign, B.ncols)
 
 
 def spectral_radius(A: CSR) -> float:

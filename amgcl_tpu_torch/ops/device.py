@@ -8,9 +8,12 @@ written against. Formats:
 * :class:`DiaMatrix` — diagonal storage; its products go through the
   DIA kernels of :mod:`amgcl_tpu_torch.ops.dia_kernels`.
 * :class:`~amgcl_tpu_torch.ops.unstructured.WindowedEllMatrix` — padded
-  rows binned into tiles with per-tile x windows; its products go through
-  the windowed-ELL kernels of :mod:`amgcl_tpu_torch.ops.well_kernels`.
-* :class:`EllMatrix` — padded-row storage; a gather plus a row sum.
+  rows binned into tiles with per-tile x windows, scalar or block values;
+  its products go through the windowed-ELL kernels of
+  :mod:`amgcl_tpu_torch.ops.well_kernels` and
+  :mod:`amgcl_tpu_torch.ops.well_block_kernels`.
+* :class:`EllMatrix` — padded-row storage, scalar or block values; a
+  gather plus a row sum (the JAX package has no kernel for it either).
 * :class:`DenseMatrix` — small dense operator; a matrix product.
 """
 
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from amgcl_tpu_torch.ops import dia_kernels as dk
+from amgcl_tpu_torch.ops import well_block_kernels as wbk
 from amgcl_tpu_torch.ops import well_kernels as wk
 from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.ops.unstructured import (WindowedEllMatrix,
@@ -66,20 +70,25 @@ class DiaMatrix:
 
 
 class EllMatrix:
-    """ELLPACK matrix: cols (n, K) int64, vals (n, K). Padding entries
-    have col == 0 and val == 0."""
+    """ELLPACK matrix: cols (n, K) int64, vals (n, K), or (n, K, br, bc)
+    for block values (``block`` = (br, bc); shape and cols in block
+    units, x and y flat). Padding entries have col == 0 and val == 0."""
 
-    def __init__(self, cols, vals, shape):
+    def __init__(self, cols, vals, shape, block=(1, 1)):
         self.cols = cols
         self.vals = vals
         self.shape = (int(shape[0]), int(shape[1]))
+        self.block = (int(block[0]), int(block[1]))
 
     @property
     def dtype(self):
         return self.vals.dtype
 
     def mv(self, x):
-        return (self.vals * x[self.cols]).sum(dim=1)
+        if self.block == (1, 1):
+            return (self.vals * x[self.cols]).sum(dim=1)
+        xg = x.reshape(self.shape[1], self.block[1])[self.cols]
+        return torch.einsum("nkij,nkj->ni", self.vals, xg).reshape(-1)
 
     def bytes(self):
         return (self.cols.numel() * self.cols.element_size()
@@ -128,7 +137,7 @@ def dia_offsets(A: CSR) -> np.ndarray:
 
 
 def csr_to_ell(A: CSR, dtype=torch.float32, device="cpu") -> EllMatrix:
-    """Pack a host CSR into ELL format on ``device``."""
+    """Pack a host CSR or BCSR into ELL format on ``device``."""
     nnz_row = A.row_nnz()
     K = int(nnz_row.max()) if A.nrows and A.nnz else 1
     K = max(_ELL_PAD, -(-K // _ELL_PAD) * _ELL_PAD)
@@ -137,12 +146,13 @@ def csr_to_ell(A: CSR, dtype=torch.float32, device="cpu") -> EllMatrix:
     flat_idx = rows * K + (np.arange(A.nnz) - A.ptr[rows])
     cols = np.zeros(n * K, dtype=np.int64)
     cols[flat_idx] = A.col
-    vals = np.zeros(n * K, dtype=A.val.dtype)
+    blk = A.val.shape[1:]
+    vals = np.zeros((n * K,) + blk, dtype=A.val.dtype)
     vals[flat_idx] = A.val
     return EllMatrix(
         torch.as_tensor(cols.reshape(n, K), device=device),
-        torch.as_tensor(vals.reshape(n, K), device=device).to(dtype),
-        A.shape)
+        torch.as_tensor(vals.reshape((n, K) + blk), device=device).to(dtype),
+        A.shape, A.block_size)
 
 
 def csr_to_dia(A: CSR, dtype=torch.float32, device="cpu") -> DiaMatrix:
@@ -181,7 +191,8 @@ def to_device(A, fmt: str = "auto", dtype=torch.float32, device=None):
     DIA_MAX_BYTES), windowed ELL when its widest window fits
     WELL_MAX_WIN_BYTES, ELL otherwise. That is the JAX package's order off
     a TPU; its dense-window format, which it tries only on a TPU, is
-    never picked here."""
+    never picked here. A block matrix (BCSR) is never made dense or DIA by
+    auto (amgcl_tpu/ops/device.py:472, 510): windowed ELL, else ELL."""
     from amgcl_tpu_torch.ops.stencil import HostDia
     device = resolve_device(device)
     if isinstance(A, HostDia):
@@ -196,11 +207,14 @@ def to_device(A, fmt: str = "auto", dtype=torch.float32, device=None):
     if fmt not in ("auto", "dia", "well", "ell", "dense"):
         raise ValueError("unknown device format %r" % (fmt,))
     auto = fmt == "auto"
-    if fmt == "dense" or (auto and max(A.shape) <= DENSE_CUTOFF
+    if fmt == "dense" or (auto and not A.is_block
+                          and max(A.shape) <= DENSE_CUTOFF
                           and A.nnz > 0.02 * A.shape[0] * A.shape[1]):
         return DenseMatrix(torch.as_tensor(A.to_dense(),
                                            device=device).to(dtype))
     if fmt == "dia":
+        if A.is_block:
+            raise ValueError("DIA format takes scalar matrices, got %r" % A)
         return csr_to_dia(A, dtype, device)
     if fmt == "well":
         W = csr_to_windowed_ell(A, dtype, device=device)
@@ -210,11 +224,12 @@ def to_device(A, fmt: str = "auto", dtype=torch.float32, device=None):
                 "a Cuthill-McKee reorder first (utils/adapters.py)")
         return W
     if auto:
-        nd, fill = dia_efficiency(A)
-        itemsize = torch.empty((), dtype=dtype).element_size()
-        if nd <= MAX_DIAGS and fill <= MAX_FILL \
-                and nd * A.nrows * itemsize < DIA_MAX_BYTES:
-            return csr_to_dia(A, dtype, device)
+        if not A.is_block:
+            nd, fill = dia_efficiency(A)
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            if nd <= MAX_DIAGS and fill <= MAX_FILL \
+                    and nd * A.nrows * itemsize < DIA_MAX_BYTES:
+                return csr_to_dia(A, dtype, device)
         if not dtype.is_complex:
             W = csr_to_windowed_ell(A, dtype,
                                     max_win_bytes=WELL_MAX_WIN_BYTES,
@@ -232,26 +247,32 @@ def spmv(A, x):
 
 
 def residual(f, A, x):
-    """r = f − A x; one kernel pass for DIA and windowed-ELL operators."""
+    """r = f − A x; one kernel pass for DIA and windowed-ELL operators
+    (scalar or block)."""
     if isinstance(A, DiaMatrix):
         return dk.dia_residual(A.offsets_t, A.data, f, x)
     if isinstance(A, WindowedEllMatrix):
-        return wk.windowed_ell_residual(A.window_starts, A.cols_local,
-                                        A.vals, f, x, A.shape[0])
+        fn = wk.windowed_ell_residual if A.block == (1, 1) \
+            else wbk.windowed_ell_block_residual
+        return fn(A.window_starts, A.cols_local, A.vals, f, x, A.shape[0])
     return f - A.mv(x)
 
 
 def scaled_correction(A, w, f, x):
     """x + w ∘ (f − A x) in one kernel pass for square DIA and windowed-ELL
-    operators with a per-unknown scale, else None (the smoother
+    operators with a per-unknown scale, and for square block windowed-ELL
+    operators with a per-node (b, b) scale; else None (the smoother
     composes)."""
-    if w.dim() != 1 or A.shape[0] != A.shape[1]:
+    if A.shape[0] != A.shape[1]:
         return None
-    if isinstance(A, DiaMatrix):
+    if isinstance(A, DiaMatrix) and w.dim() == 1:
         return dk.dia_scaled_correction(A.offsets_t, A.data, w, f, x)
     if isinstance(A, WindowedEllMatrix):
-        return wk.windowed_ell_scaled_correction(
-            A.window_starts, A.cols_local, A.vals, w, f, x, A.shape[0])
+        args = (A.window_starts, A.cols_local, A.vals, w, f, x, A.shape[0])
+        if A.block == (1, 1) and w.dim() == 1:
+            return wk.windowed_ell_scaled_correction(*args)
+        if w.dim() == 3 and A.block[0] == A.block[1] == w.shape[-1]:
+            return wbk.windowed_ell_block_scaled_correction(*args)
     return None
 
 
@@ -267,13 +288,16 @@ def inner_product(x, y):
 
 def spmv_dots(A, x, w=None):
     """(y, ⟨y,y⟩, ⟨y,x⟩, ⟨y,w⟩) with y = A x; one kernel pass for square
-    DIA and windowed-ELL operators (⟨y,w⟩ is None without w)."""
+    DIA and windowed-ELL operators, block ones with square blocks (⟨y,w⟩
+    is None without w)."""
     if A.shape[0] == A.shape[1]:
         if isinstance(A, DiaMatrix):
             return dk.dia_spmv_dots(A.offsets_t, A.data, x, w)
-        if isinstance(A, WindowedEllMatrix):
-            return wk.windowed_ell_spmv_dots(
-                A.window_starts, A.cols_local, A.vals, x, w, A.shape[0])
+        if isinstance(A, WindowedEllMatrix) and A.block[0] == A.block[1]:
+            fn = wk.windowed_ell_spmv_dots if A.block == (1, 1) \
+                else wbk.windowed_ell_block_spmv_dots
+            return fn(A.window_starts, A.cols_local, A.vals, x, w,
+                      A.shape[0])
     y = A.mv(x)
     return (y, inner_product(y, y), inner_product(y, x),
             None if w is None else inner_product(y, w))

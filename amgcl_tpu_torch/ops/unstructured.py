@@ -5,18 +5,20 @@ Rows are binned into tiles of ``_TILE`` rows; each tile reads x through
 one window ``x[start : start + win]``, and its column indices are stored
 relative to the window start. The device arrays are::
 
-    window_starts (n_tiles,)        int32
-    cols_local    (n_tiles, tile, K) int32
-    vals          (n_tiles, tile, K) float32 or float64
+    window_starts (n_tiles,)                  int32
+    cols_local    (n_tiles, tile, K)           int32
+    vals          (n_tiles, tile, K[, br, bc]) float32 or float64
 
-with padding entries at local column 0 and value 0. The port builds the
-same arrays as the JAX package (same tile, window alignment, K padding
-and decline rules), so the two can be compared entry for entry. The TPU
-DMAs each window into VMEM; the Hopper kernels
-(``amgcl_tpu_torch/csrc/well.cu``, wrappers in
-:mod:`amgcl_tpu_torch.ops.well_kernels`) gather from device memory and
-L2 directly. The port's CSR holds scalar values only, so the block
-variant of the reference has no counterpart here yet.
+with padding entries at local column 0 and value 0. Block matrices
+(BCSR) index block columns and carry ``(br, bc)`` blocks; their shape is
+in block units and x holds ``bc`` entries per block column. The port
+builds the same arrays as the JAX package (same tile, window alignment,
+K padding and decline rules), so the two can be compared entry for
+entry. The TPU DMAs each window into VMEM; the Hopper kernels
+(``amgcl_tpu_torch/csrc/well_block.cu``, scalar values as 1×1 blocks;
+wrappers in :mod:`amgcl_tpu_torch.ops.well_kernels` and
+:mod:`amgcl_tpu_torch.ops.well_block_kernels`) gather from device memory
+and L2 directly.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from amgcl_tpu_torch.ops import well_block_kernels as wbk
 from amgcl_tpu_torch.ops import well_kernels as wk
 from amgcl_tpu_torch.ops.csr import CSR
 
@@ -35,14 +38,18 @@ class WindowedEllMatrix:
     """ELL storage binned into row tiles with per-tile x windows:
     ``cols_local[t, r, k]`` is the column of entry k of row ``t*tile + r``
     relative to ``window_starts[t]``. ``win`` is the widest window, rounded
-    up to ``_WIN_ALIGN``."""
+    up to ``_WIN_ALIGN``. ``block`` is ``(br, bc)`` for block values
+    (``vals`` then has trailing ``(br, bc)`` dims and ``shape`` counts
+    block rows and columns), ``(1, 1)`` for scalar values."""
 
-    def __init__(self, window_starts, cols_local, vals, shape, win):
+    def __init__(self, window_starts, cols_local, vals, shape, win,
+                 block=(1, 1)):
         self.window_starts = window_starts    # (n_tiles,) int32
         self.cols_local = cols_local          # (n_tiles, tile, K) int32
-        self.vals = vals                      # (n_tiles, tile, K)
+        self.vals = vals                      # (n_tiles, tile, K[, br, bc])
         self.shape = (int(shape[0]), int(shape[1]))
         self.win = int(win)
+        self.block = (int(block[0]), int(block[1]))
 
     @property
     def dtype(self):
@@ -57,8 +64,10 @@ class WindowedEllMatrix:
         return self.cols_local.shape[2]
 
     def mv(self, x):
-        return wk.windowed_ell_spmv(self.window_starts, self.cols_local,
-                                    self.vals, x, self.shape[0])
+        fn = wk.windowed_ell_spmv if self.block == (1, 1) \
+            else wbk.windowed_ell_block_spmv
+        return fn(self.window_starts, self.cols_local, self.vals, x,
+                  self.shape[0])
 
     def bytes(self):
         return (self.cols_local.numel() * self.cols_local.element_size()
@@ -94,34 +103,38 @@ def tile_windows(A: CSR):
 def csr_to_windowed_ell(A: CSR, dtype=torch.float32,
                         max_win_bytes: int = 8 << 20, why=None,
                         device="cpu"):
-    """Pack a host CSR into windowed ELL on ``device``. Windows come from
-    the matrix as given (apply a bandwidth-reducing permutation such as
-    :func:`amgcl_tpu_torch.utils.adapters.cuthill_mckee` first where it
-    pays). Returns None when the widest window at 4 bytes a column exceeds
-    ``max_win_bytes`` (the reference's VMEM budget, kept so that the two
-    packages choose the same format); ``why`` (a dict) then receives the
-    reason."""
+    """Pack a host CSR (scalar or BCSR) into windowed ELL on ``device``.
+    Windows come from the matrix as given (apply a bandwidth-reducing
+    permutation such as :func:`amgcl_tpu_torch.utils.adapters.
+    cuthill_mckee` first where it pays). Returns None when the widest
+    window, at 4 bytes a scalar column (``bc`` of them per block column),
+    exceeds ``max_win_bytes`` (the reference's VMEM budget, kept so that
+    the two packages choose the same format); ``why`` (a dict) then
+    receives the reason."""
+    br, bc = A.block_size
     n, m = A.shape
     nnz_row = A.row_nnz()
     K = max(4, int(nnz_row.max()) if n else 1)
     K = -(-K // 4) * 4
     n_tiles, rows, tiles, starts, win = tile_windows(A)
-    if win * np.dtype(np.float32).itemsize > max_win_bytes:
+    if win * bc * np.dtype(np.float32).itemsize > max_win_bytes:
         if why is not None:
             why["why"] = "window %d col x 4 B > %d B VMEM budget" \
-                % (win, max_win_bytes)
+                % (win * bc, max_win_bytes)
         return None
     flat = rows * K + (np.arange(A.nnz) - A.ptr[rows])
     cols = np.zeros(n_tiles * _TILE * K, dtype=np.int32)
     cols[flat] = A.col - starts[tiles]
-    vals = np.zeros(n_tiles * _TILE * K,
+    blk = A.val.shape[1:]
+    vals = np.zeros((n_tiles * _TILE * K,) + blk,
                     dtype=torch.empty((), dtype=dtype).numpy().dtype)
     vals[flat] = A.val
     return WindowedEllMatrix(
         torch.as_tensor(starts.astype(np.int32), device=device),
         torch.as_tensor(cols.reshape(n_tiles, _TILE, K), device=device),
-        torch.as_tensor(vals.reshape(n_tiles, _TILE, K), device=device),
-        A.shape, win)
+        torch.as_tensor(vals.reshape((n_tiles, _TILE, K) + blk),
+                        device=device),
+        A.shape, win, (br, bc))
 
 
 def fe_like_problem(n: int = 85623, nnz_target: int = 2_370_000,

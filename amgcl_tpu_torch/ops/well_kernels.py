@@ -6,9 +6,12 @@ Counterpart of the scalar Pallas TPU kernels of
 ``amgcl_tpu/ops/unstructured.py`` (``windowed_ell_spmv``,
 ``windowed_ell_fused``, ``windowed_ell_spmv_dots``), with their
 signatures less the window size ``win``: the kernels read x where it
-lies. The CUDA source is ``amgcl_tpu_torch/csrc/well.cu``. Storage is
-that of :class:`amgcl_tpu_torch.ops.unstructured.WindowedEllMatrix`: row
-``i`` of tile ``t = i // tile`` holds ``vals[t, i % tile, k]`` at column
+lies. The CUDA source is ``amgcl_tpu_torch/csrc/well_block.cu``, whose
+kernels these wrappers launch with a block size of 1 (the block wrappers
+of :mod:`amgcl_tpu_torch.ops.well_block_kernels` share :func:`_launch`).
+Storage is that of
+:class:`amgcl_tpu_torch.ops.unstructured.WindowedEllMatrix`: row ``i``
+of tile ``t = i // tile`` holds ``vals[t, i % tile, k]`` at column
 ``window_starts[t] + cols_local[t, i % tile, k]``. An entry whose
 absolute column lies at or past the end of x contributes nothing (a tile
 without entries points its padding there), as the TPU kernel's
@@ -29,6 +32,10 @@ from amgcl_tpu_torch.ops.dia_kernels import (_BLOCK, _DTYPE_CODE,
                                              _acc_dtype, _check_vec)
 
 _SPMV, _RESIDUAL, _CORRECTION, _SPMV_DOTS = range(4)
+
+#: the square block sizes the block kernels are instantiated for (the
+#: scalar wrappers launch the same kernels with a block size of 1)
+BLOCK_SIZES = (2, 3, 4)
 
 
 # -- plain versions -----------------------------------------------------------
@@ -95,24 +102,28 @@ for _fn in (windowed_ell_spmv_plain, windowed_ell_residual_plain,
 
 # -- kernel launch ------------------------------------------------------------
 
-def _launch(mode, window_starts, cols_local, vals, x, n_out, f=None, w=None):
-    """Validate the operands and launch one well.cu kernel; returns
-    (y, dots) with dots a (3,) tensor or None."""
+def check_geometry(window_starts, cols_local, vals, n_out, block):
+    """Validate the windowed-ELL storage a kernel is handed: CUDA float32
+    or float64 ``vals`` of shape (n_tiles, tile, K), with trailing
+    (b, b) dims when ``block``, and the int32 ``cols_local`` and
+    ``window_starts`` beside it on the same device; ``n_out`` rows (or
+    nodes) in the last tile. Returns (n_tiles, tile, K, n_out)."""
+    what = "block windowed-ELL" if block else "windowed-ELL"
     if vals.device.type != "cuda":
-        raise ValueError("windowed-ELL kernels run on CUDA tensors, got "
-                         "vals on %s" % vals.device)
+        raise ValueError("%s kernels run on CUDA tensors, got vals on %s"
+                         % (what, vals.device))
     if vals.dtype not in _DTYPE_CODE:
-        raise ValueError("windowed-ELL kernels take float32 or float64, "
-                         "got %s" % vals.dtype)
-    if vals.dim() != 3 or not vals.is_contiguous():
-        raise ValueError("vals must be a contiguous (n_tiles, tile, K) "
-                         "tensor")
-    n_tiles, tile, K = vals.shape
+        raise ValueError("%s kernels take float32 or float64, got %s"
+                         % (what, vals.dtype))
+    if vals.dim() != (5 if block else 3) or not vals.is_contiguous():
+        raise ValueError("vals must be a contiguous (n_tiles, tile, K%s) "
+                         "tensor" % (", br, bc" if block else ""))
+    n_tiles, tile, K = vals.shape[:3]
     if cols_local.device != vals.device or cols_local.dtype != torch.int32 \
-            or cols_local.shape != vals.shape \
+            or cols_local.shape != vals.shape[:3] \
             or not cols_local.is_contiguous():
         raise ValueError("cols_local must be a contiguous %s int32 tensor "
-                         "on %s" % (tuple(vals.shape), vals.device))
+                         "on %s" % (tuple(vals.shape[:3]), vals.device))
     if window_starts.device != vals.device \
             or window_starts.dtype != torch.int32 \
             or window_starts.shape != (n_tiles,) \
@@ -124,19 +135,46 @@ def _launch(mode, window_starts, cols_local, vals, x, n_out, f=None, w=None):
             and not (n_tiles == 0 and n_out == 0):
         raise ValueError("n_out=%d does not fit %d tiles of %d rows"
                          % (n_out, n_tiles, tile))
-    if x.dim() != 1:
-        raise ValueError("x must be a vector, got shape %s"
-                         % (tuple(x.shape),))
-    m = x.shape[0]
-    _check_vec("x", x, m, vals)
+    return n_tiles, tile, K, n_out
+
+
+def _launch(mode, window_starts, cols_local, vals, x, n_out, f=None, w=None,
+            block=False):
+    """Validate the operands and launch one well_block.cu kernel, with a
+    block size of 1 for scalar values; returns (y, dots) with dots a (3,)
+    tensor or None. For block values ``w`` is the (n_out, b, b) scale of
+    the correction, and otherwise a vector."""
+    _, tile, K, n_out = check_geometry(window_starts, cols_local, vals,
+                                       n_out, block)
+    b = 1
+    if block:
+        br, bc = vals.shape[3:]
+        if br != bc or br not in BLOCK_SIZES:
+            raise ValueError("block windowed-ELL kernels take square blocks "
+                             "of size %s, got %dx%d"
+                             % (" or ".join(map(str, BLOCK_SIZES)), br, bc))
+        b = br
+    if x.dim() != 1 or x.shape[0] % b:
+        raise ValueError("x must be a vector of %d entries per column, got "
+                         "shape %s" % (b, tuple(x.shape)))
+    ncols = x.shape[0] // b
+    _check_vec("x", x, ncols * b, vals)
     if f is not None:
-        _check_vec("f", f, n_out, vals)
-    if w is not None:
-        _check_vec("w", w, n_out, vals)
-    if mode in (_CORRECTION, _SPMV_DOTS) and m != n_out:
-        raise ValueError("this windowed-ELL kernel needs a square operator, "
-                         "got %d x %d" % (n_out, m))
-    y = torch.empty(n_out, dtype=vals.dtype, device=vals.device)
+        _check_vec("f", f, n_out * b, vals)
+    if mode == _CORRECTION and block:
+        if w.device != vals.device or w.dtype != vals.dtype \
+                or w.shape != (n_out, b, b) or not w.is_contiguous():
+            raise ValueError(
+                "S must be a contiguous (%d, %d, %d) %s tensor on %s, got "
+                "%s %s on %s" % (n_out, b, b, vals.dtype, vals.device,
+                                 tuple(w.shape), w.dtype, w.device))
+    elif w is not None:
+        _check_vec("w", w, n_out * b, vals)
+    if mode in (_CORRECTION, _SPMV_DOTS) and ncols != n_out:
+        raise ValueError("this %swindowed-ELL kernel needs a square "
+                         "operator, got %d x %d"
+                         % ("block " if block else "", n_out, ncols))
+    y = torch.empty(n_out * b, dtype=vals.dtype, device=vals.device)
     ndots = 3 if mode == _SPMV_DOTS else 0
     if n_out == 0:
         return y, (torch.zeros(ndots, dtype=vals.dtype, device=vals.device)
@@ -150,12 +188,13 @@ def _launch(mode, window_starts, cols_local, vals, x, n_out, f=None, w=None):
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = cuda_lib.lib().amgcl_well(
-            _DTYPE_CODE[vals.dtype], mode, n_out, m, tile, K,
+        rc = cuda_lib.lib().amgcl_well_block(
+            _DTYPE_CODE[vals.dtype], mode, b, n_out, ncols, tile, K,
             window_starts.data_ptr(), cols_local.data_ptr(),
             vals.data_ptr(), x.data_ptr(), ptr(f), ptr(w), y.data_ptr(),
             ptr(partials), ptr(dots), nblocks, stream)
-    cuda_lib.check(rc, "windowed-ELL mode %d" % mode)
+    cuda_lib.check(rc, "%swindowed-ELL mode %d"
+                   % ("block " if block else "", mode))
     return y, dots
 
 

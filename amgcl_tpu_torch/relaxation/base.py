@@ -3,26 +3,36 @@
 
 from __future__ import annotations
 
+import torch
+
 from amgcl_tpu_torch.ops import device as dev
 
 
 class ScaledResidualSmoother:
-    """State for smoothers of the form x += scale ∘ (f − A x) with a
-    per-unknown scale (damped Jacobi, SPAI-0)."""
+    """State for smoothers of the form x += scale ∘ (f − A x), with a
+    per-unknown scale (damped Jacobi, SPAI-0) or a per-node b×b block
+    (block SPAI-0)."""
 
     def __init__(self, scale):
-        self.scale = scale            # (n,) tensor
+        self.scale = scale            # (n,) or (n_pt, b, b) tensor
+
+    def _mul(self, r):
+        if self.scale.dim() == 1:
+            return self.scale * r
+        b = self.scale.shape[-1]
+        return torch.einsum("nij,nj->ni", self.scale,
+                            r.reshape(-1, b)).reshape(r.shape)
 
     def apply_pre(self, A, f, x):
         # one fused kernel pass where the format has one
         got = dev.scaled_correction(A, self.scale, f, x)
         if got is not None:
             return got
-        return x + self.scale * dev.residual(f, A, x)
+        return x + self._mul(dev.residual(f, A, x))
 
     apply_post = apply_pre
 
     def apply(self, A, f):
         """One application from a zero initial guess
         (reference: relaxation/spai0.hpp:96-103)."""
-        return self.scale * f
+        return self._mul(f)

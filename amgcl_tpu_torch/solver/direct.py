@@ -28,6 +28,7 @@ class DenseDirectSolver:
 
     @classmethod
     def build(cls, A: CSR, dtype, device) -> "DenseDirectSolver":
+        # a block level is inverted over its scalar unknowns
         dense = A.to_dense().astype(np.float64)
         try:
             inv = scipy.linalg.inv(dense)

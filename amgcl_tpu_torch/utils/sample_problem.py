@@ -1,4 +1,5 @@
-"""Deterministic test fixture: the 3-D Poisson problem.
+"""Deterministic test fixtures: the 3-D Poisson problem, scalar and
+block-valued.
 
 Counterpart of ``amgcl_tpu/utils/sample_problem.py::poisson3d``, itself
 modelled on the reference's tests/sample_problem.hpp:11-84.
@@ -27,3 +28,17 @@ def poisson3d(n: int, anisotropy: float = 1.0, dtype=np.float64):
     A = sp.csr_matrix(A.astype(dtype))
     A.sort_indices()
     return CSR.from_scipy(A), np.ones(n ** 3, dtype=dtype)
+
+
+def poisson3d_block(n: int, b: int, dtype=np.float64):
+    """Block-valued variant (``amgcl_tpu/utils/sample_problem.py::
+    poisson3d_block``): the scalar Poisson matrix kron the b×b identity,
+    its components coupled by 0.01 off the block diagonal, as a b×b BCSR
+    over n³ block rows. Returns ``(A: CSR, rhs)`` with ``rhs`` all ones
+    over the n³·b unknowns."""
+    A, _ = poisson3d(n, dtype=dtype)
+    S = sp.kron(A.to_scipy(), sp.identity(b), format="csr")
+    C = sp.kron(sp.identity(n ** 3), 0.01 * (np.ones((b, b)) - np.eye(b)),
+                format="csr")
+    return CSR.from_scipy(sp.csr_matrix(S + C)).to_block(b), \
+        np.ones(n ** 3 * b, dtype=dtype)

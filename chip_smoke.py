@@ -40,6 +40,26 @@ Run from the root of a checkout, with no arguments:
    each launch on one of the two. Then each of those kernels is held
    against its plain version and timed at the L0 and L1 operators and
    transfers of both orders, as in 3.
+5. The block path B1 (U1's and U2's hierarchies freed first):
+   ``poisson3d_block(48, 3)`` (110,592 3×3 block rows, 331,776 unknowns)
+   → ``make_solver(A, AMGParams(dtype=float32), BiCGStab(maxiter=200,
+   tol=1e-6))``, solved cold and warm with the counts set to 0 just
+   before and read just after. It fails unless the hierarchy has 4
+   levels of 110,592 / 13,310 / 1,049 / 68 block rows with every A, P
+   and R a block windowed ELL of 3×3 blocks, BiCGStab takes 7 ± 1
+   iterations (the JAX package's count on the CPU), the reported
+   residual is ≤ 1e-6, the true one (host float64) ≤ 1e-6 plus
+   2u·‖|A||x|‖/‖b‖ (u = 2⁻²⁴: at this size the float64 solution rounded
+   to float32 already misses 1e-6, as tests/test_torch_block.py shows),
+   every block kernel mode and the BiCGStab tail launched and no plain
+   version ran. The same system with ``refine=3`` must reach a true
+   residual ≤ 1e-6 in 13 ± 2 iterations (the JAX package's: 13), through
+   the block residual kernel in float64. Then each block kernel mode is
+   held against its plain version and timed at L0 A, P, R and L1 A (the
+   square modes at L0 A and L1 A), in float32 and at L0 A in float64,
+   beside torch's BSR product as the library yardstick; every mode also
+   on L0 A's structure with random, non-symmetric blocks, the correction
+   with a random, non-symmetric scale.
 
 Prints one JSON line of kernel records, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
@@ -72,10 +92,17 @@ U_LEVELS = {"U1": [85623, 23695, 1561], "U2": [85623, 25145, 1998]}
 U_FORMATS = ["WindowedEllMatrix", "WindowedEllMatrix", "DenseMatrix"]
 U_ITERS = {"U1": 51, "U2": 50}
 
+#: the block path: level block rows and the JAX package's BiCGStab
+#: iterations on the CPU without and with refinement (correctness
+#: constants, not speeds)
+B_LEVELS = [110592, 13310, 1049, 68]
+B_ITERS = 7
+B_ITERS_REFINED = 13
+
 SOURCES = {"dia": "amgcl_tpu_torch/csrc/dia.cu",
            "vec": "amgcl_tpu_torch/csrc/vec.cu",
            "vcycle": "amgcl_tpu_torch/csrc/vcycle.cu",
-           "well": "amgcl_tpu_torch/csrc/well.cu"}
+           "well": "amgcl_tpu_torch/csrc/well_block.cu"}
 REPLACES = {
     "dia_spmv": "amgcl_tpu/ops/pallas_spmv.py:318",
     "dia_residual": "amgcl_tpu/ops/pallas_spmv.py:389",
@@ -90,6 +117,11 @@ REPLACES = {
     "windowed_ell_scaled_correction": "amgcl_tpu/ops/unstructured.py:397",
     "windowed_ell_spmv_dots": "amgcl_tpu/ops/unstructured.py:477",
     "bicgstab_tail": "amgcl_tpu/ops/fused_vec.py:251",
+    "windowed_ell_block_spmv": "amgcl_tpu/ops/unstructured.py:567",
+    "windowed_ell_block_residual": "amgcl_tpu/ops/unstructured.py:623",
+    "windowed_ell_block_scaled_correction":
+        "amgcl_tpu/ops/unstructured.py:623",
+    "windowed_ell_block_spmv_dots": "amgcl_tpu/ops/unstructured.py:687",
 }
 FUSED = ("fused_down_sweep", "fused_up_sweep")
 #: the measured fields of a kernel's record in the kernels line
@@ -99,6 +131,10 @@ RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 UNSTRUCTURED = ("windowed_ell_spmv", "windowed_ell_residual",
                 "windowed_ell_scaled_correction", "windowed_ell_spmv_dots",
                 "bicgstab_tail")
+#: kernels the block path must launch
+BLOCK = ("windowed_ell_block_spmv", "windowed_ell_block_residual",
+         "windowed_ell_block_scaled_correction",
+         "windowed_ell_block_spmv_dots", "bicgstab_tail")
 #: kernels the earlier (host-setup, composed) path must launch
 EARLIER = ("dia_residual", "dia_scaled_correction", "dia_spmv_dots",
            "dia_residual_dot", "xr_update")
@@ -127,6 +163,7 @@ def wrappers():
     from amgcl_tpu_torch.ops import dia_kernels as dk
     from amgcl_tpu_torch.ops import fused_vec as fv
     from amgcl_tpu_torch.ops import vcycle_kernels as vk
+    from amgcl_tpu_torch.ops import well_block_kernels as wbk
     from amgcl_tpu_torch.ops import well_kernels as wk
     return {"fused_down_sweep": (vk.fused_down_sweep,
                                  vk.fused_down_sweep_plain),
@@ -148,7 +185,18 @@ def wrappers():
                 wk.windowed_ell_scaled_correction_plain),
             "windowed_ell_spmv_dots": (wk.windowed_ell_spmv_dots,
                                        wk.windowed_ell_spmv_dots_plain),
-            "bicgstab_tail": (fv.bicgstab_tail, fv.bicgstab_tail_plain)}
+            "bicgstab_tail": (fv.bicgstab_tail, fv.bicgstab_tail_plain),
+            "windowed_ell_block_spmv": (wbk.windowed_ell_block_spmv,
+                                        wbk.windowed_ell_block_spmv_plain),
+            "windowed_ell_block_residual": (
+                wbk.windowed_ell_block_residual,
+                wbk.windowed_ell_block_residual_plain),
+            "windowed_ell_block_scaled_correction": (
+                wbk.windowed_ell_block_scaled_correction,
+                wbk.windowed_ell_block_scaled_correction_plain),
+            "windowed_ell_block_spmv_dots": (
+                wbk.windowed_ell_block_spmv_dots,
+                wbk.windowed_ell_block_spmv_dots_plain)}
 
 
 def reset_counts():
@@ -661,18 +709,18 @@ def describe_levels(label, solve):
     return rows, fmts
 
 
-def drive_unstructured(A, rhs, failures, label, side):
-    """make_solver with BiCGStab, then a cold and a warm solve, with the
-    counts set to 0 just before the setup and read just after the warm
-    solve. Returns (solve, counts, summary)."""
-    from amgcl_tpu_torch import AMGParams, BiCGStab, make_solver
+def solve_cold_warm(A, rhs, label, solver, refine):
+    """make_solver with a float32 hierarchy and ``solver``, then a cold
+    and a warm solve, the counts set to 0 just before the setup and read
+    just after the warm solve. Returns (solve, x, info, counts,
+    plain_calls, warm_launches, setup_s)."""
+    from amgcl_tpu_torch import AMGParams, make_solver
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    solve = make_solver(A, AMGParams(dtype=torch.float32),
-                        BiCGStab(maxiter=100, tol=1e-6, precond_side=side),
-                        refine=3)
+    solve = make_solver(A, AMGParams(dtype=torch.float32), solver,
+                        refine=refine)
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     print("[%s] setup: %.3f s wall (make_solver), %.3f s in AMG._build; "
@@ -680,8 +728,6 @@ def drive_unstructured(A, rhs, failures, label, side):
           % (label, t_setup, solve.precond.setup_seconds,
              (torch.cuda.max_memory_allocated() - base) / 2**20,
              base / 2**20))
-    print(solve.precond)
-    rows, fmts = describe_levels(label, solve)
     x, info = solve(rhs)
     print("[%s] solve 1 (cold): %d iterations, reported resid %.3e, %.4f s"
           % (label, info.iters, info.resid, info.wall_time_s))
@@ -690,11 +736,6 @@ def drive_unstructured(A, rhs, failures, label, side):
     counts, plain_calls = read_counts()
     print("[%s] solve 2 (warm): %d iterations, reported resid %.3e, %.4f s"
           % (label, info.iters, info.resid, info.wall_time_s))
-    x64 = x.double().cpu().numpy()
-    true_res = float(np.linalg.norm(rhs - A.spmv(x64))
-                     / np.linalg.norm(rhs))
-    print("[%s] true relative residual (host float64): %.3e"
-          % (label, true_res))
     warm = {k: counts[k] - first[k] for k in counts if counts[k]}
     print("[%s] launches (setup + 2 solves): %s"
           % (label, json.dumps({k: v for k, v in counts.items() if v})))
@@ -703,6 +744,23 @@ def drive_unstructured(A, rhs, failures, label, side):
               {k: round(v / max(info.iters, 1), 3) for k, v in warm.items()})))
     print("[%s] plain-version calls: %s"
           % (label, sum(plain_calls.values())))
+    return solve, x, info, counts, plain_calls, warm, t_setup
+
+
+def drive_unstructured(A, rhs, failures, label, side):
+    """make_solver with BiCGStab, solved cold and warm (solve_cold_warm).
+    Returns (solve, counts, summary)."""
+    from amgcl_tpu_torch import BiCGStab
+    solve, x, info, counts, plain_calls, warm, t_setup = solve_cold_warm(
+        A, rhs, label, BiCGStab(maxiter=100, tol=1e-6, precond_side=side),
+        3)
+    print(solve.precond)
+    rows, fmts = describe_levels(label, solve)
+    x64 = x.double().cpu().numpy()
+    true_res = float(np.linalg.norm(rhs - A.spmv(x64))
+                     / np.linalg.norm(rhs))
+    print("[%s] true relative residual (host float64): %.3e"
+          % (label, true_res))
     if rows != U_LEVELS[label] or fmts != U_FORMATS:
         failures.append("%s: levels %s %s, expected %s %s"
                         % (label, rows, fmts, U_LEVELS[label], U_FORMATS))
@@ -876,6 +934,254 @@ def check_unstructured_kernels(solves, failures):
     return records
 
 
+# -- phase 5: the block path ---------------------------------------------------
+
+def describe_block_levels(solve):
+    """Per level: block rows, and for A, P and R the format, block, K and
+    window. Returns False unless every one is a 3×3 block windowed ELL."""
+    ok = True
+    for i, lv in enumerate(solve.precond.hierarchy.levels):
+        parts = []
+        for tag, M in (("A", lv.A), ("P", lv.P), ("R", lv.R)):
+            if M is None:
+                continue
+            block = getattr(M, "block", None)
+            ok = ok and type(M).__name__ == "WindowedEllMatrix" \
+                and block == (3, 3)
+            parts.append("%s %s %dx%d block %s K %s window %s" % (
+                tag, type(M).__name__, M.shape[0], M.shape[1], block,
+                getattr(M, "K", "-"), getattr(M, "win", "-")))
+        print("[B1] level %d: %s" % (i, "; ".join(parts)))
+    return ok
+
+
+def block_path(failures):
+    """Path B1: the block configuration of the benchmark, cold and warm,
+    then the same system with refine=3. Returns (solve, refined solve,
+    counts, summary)."""
+    from amgcl_tpu_torch import BiCGStab, poisson3d_block
+    t0 = time.perf_counter()
+    A, rhs = poisson3d_block(48, 3)
+    print("problem: poisson3d_block(48, 3), %d block rows, %d unknowns, "
+          "%d stored 3x3 blocks, built in %.3f s"
+          % (A.nrows, A.nrows * 3, A.nnz, time.perf_counter() - t0))
+    S = A.to_scipy()
+    solve, x, info, counts, plain_calls, warm, t_setup = solve_cold_warm(
+        A, rhs, "B1", BiCGStab(maxiter=200, tol=1e-6), 0)
+    print(solve.precond)
+    all_well = describe_block_levels(solve)
+    x64 = x.double().cpu().numpy()
+    nb = np.linalg.norm(rhs)
+    true_res = float(np.linalg.norm(rhs - S @ x64) / nb)
+    floor = 2.0 ** -24 * float(np.linalg.norm(abs(S) @ np.abs(x64)) / nb)
+    print("[B1] true relative residual (host float64): %.3e; limit 1e-6 + "
+          "2u·‖|A||x|‖/‖b‖ = %.3e" % (true_res, 1e-6 + 2 * floor))
+    rows = [lv.A.shape[0] for lv in solve.precond.hierarchy.levels]
+    if rows != B_LEVELS or not all_well:
+        failures.append("B1: levels %s (all 3x3 block windowed ELL: %s), "
+                        "expected %s" % (rows, all_well, B_LEVELS))
+    if abs(info.iters - B_ITERS) > 1:
+        failures.append("B1: %d iterations, expected %d ± 1"
+                        % (info.iters, B_ITERS))
+    if not (np.all(np.isfinite(x64)) and info.resid <= 1e-6
+            and true_res <= 1e-6 + 2 * floor):
+        failures.append("B1: reported residual %.3e, true %.3e (limits "
+                        "1e-6, %.3e)" % (info.resid, true_res,
+                                         1e-6 + 2 * floor))
+    if any(plain_calls.values()):
+        failures.append("B1: plain versions ran: %s" % plain_calls)
+    for k in BLOCK:
+        if counts[k] == 0:
+            failures.append("B1: kernel %s never launched" % k)
+    profile_solve(solve, rhs, info.wall_time_s * 1e3)
+    summary = {"setup_s": t_setup, "warm_solve_s": info.wall_time_s,
+               "iters": info.iters, "resid": info.resid,
+               "true_resid": true_res, "levels": rows,
+               "warm_launches": warm}
+    # the float64 refinement: the outer residual on a float64 block
+    # windowed ELL, the true residual to 1e-6
+    refined, xr, info_r, counts_r, plain_r, _, _ = solve_cold_warm(
+        A, rhs, "B1 refine=3", BiCGStab(maxiter=200, tol=1e-6), 3)
+    tr = float(np.linalg.norm(rhs - S @ xr.double().cpu().numpy()) / nb)
+    print("[B1 refine=3] true relative residual (host float64): %.3e" % tr)
+    a64 = refined.A_dev64
+    if not (getattr(a64, "block", None) == (3, 3)
+            and a64.dtype == torch.float64 and tr <= 1e-6
+            and abs(info_r.iters - B_ITERS_REFINED) <= 2
+            and counts_r["windowed_ell_block_residual"] > 0
+            and not any(plain_r.values())):
+        failures.append("B1 refine=3: %d iterations (expected %d ± 2), true "
+                        "residual %.3e, A_dev64 %s, plain calls %s"
+                        % (info_r.iters, B_ITERS_REFINED, tr,
+                           type(a64).__name__, sum(plain_r.values())))
+    summary["refined"] = {"iters": info_r.iters, "true_resid": tr,
+                          "warm_solve_s": info_r.wall_time_s}
+    return solve, refined, counts, summary
+
+
+def library_block(M):
+    """A block windowed-ELL operator as a CUDA sparse tensor of its stored
+    blocks: torch's BSR (cuSPARSE bsrmv), built directly from the blocks,
+    where torch's product takes it, else CSR of the unblocked matrix.
+    Returns (tensor, kind); the port never calls it."""
+    n, m = M.shape
+    b, K = M.block[0], M.K
+    cols = (M.cols_local.long() + M.window_starts.long()[:, None, None]
+            ).reshape(-1, K)[:n].cpu().numpy()
+    vals = M.vals.reshape(-1, K, b, b)[:n].cpu().numpy()
+    keep = (cols < m) & np.any(vals != 0, axis=(2, 3))
+    rows = np.repeat(np.arange(n), K).reshape(n, K)[keep]
+    order = np.lexsort((cols[keep], rows))
+    cols, vals = cols[keep][order], vals[keep][order]
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
+    idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device="cuda")
+    bsr = torch.sparse_bsr_tensor(
+        idx(ptr), idx(cols), torch.as_tensor(vals, device="cuda"),
+        size=(n * b, m * b))
+    try:
+        x = torch.ones(m * b, dtype=M.dtype, device="cuda")
+        torch.mv(bsr, x)
+        torch.addmv(torch.ones(n * b, dtype=M.dtype, device="cuda"), bsr, x,
+                    alpha=-1.0)
+        torch.cuda.synchronize()
+        return bsr, "BSR"
+    except RuntimeError as e:      # a yardstick, not the port
+        print("torch BSR product unavailable for %dx%d nodes of %dx%d: %s; "
+              "using CSR" % (n, m, b, b, str(e).splitlines()[0]))
+    C = sp.bsr_matrix((vals, cols, ptr), shape=(n * b, m * b)).tocsr()
+    C.sort_indices()
+    return torch.sparse_csr_tensor(
+        idx(C.indptr), idx(C.indices), torch.as_tensor(C.data, device="cuda"),
+        size=C.shape), "CSR"
+
+
+def check_block_kernels(solve, refined, failures):
+    """Each block kernel mode against its plain version at L0 A, P, R
+    and L1 A (the square modes at L0 A and L1 A), in float32, and at L0 A
+    in float64, and each mode on L0 A's structure with random blocks,
+    timed as in check_kernels. |Δ| ≤ rtol · Σ|terms| per
+    entry (rtol 1e-5 in float32, 1e-12 in float64); each dot within rtol
+    of the sum of its absolute products. The first case of a kernel is
+    its record: the L0 operator it runs on in a V-cycle."""
+    from amgcl_tpu_torch.ops import well_block_kernels as wbk
+    W = wrappers()
+    rng = np.random.RandomState(20261019)
+    L = solve.precond.hierarchy.levels
+    a64 = refined.A_dev64
+    # B1's blocks and SPAI-0 scales are symmetric, so a kernel that read
+    # a block or a scale transposed would agree on them: L0 A's structure
+    # with random blocks, and a random scale
+    A0 = L[0].A
+    rand_vals = torch.as_tensor(rng.standard_normal(tuple(A0.vals.shape))
+                                ).to(A0.vals) * (A0.vals != 0)
+    A0_rand = type(A0)(A0.window_starts, A0.cols_local, rand_vals, A0.shape,
+                       A0.win, A0.block)
+    S_rand = torch.as_tensor(rng.standard_normal((A0.shape[0], 3, 3))
+                             ).to(A0.vals)
+    cases = [
+        # (kernel, label, operator, smoother scale)
+        ("windowed_ell_block_spmv", "B1 L0 P", L[0].P, None),
+        ("windowed_ell_block_spmv", "L0 A random", A0_rand, None),
+        ("windowed_ell_block_spmv", "B1 L0 R", L[0].R, None),
+        ("windowed_ell_block_spmv", "B1 L0 A", L[0].A, None),
+        ("windowed_ell_block_spmv", "B1 L1 A", L[1].A, None),
+        ("windowed_ell_block_spmv", "B1 L0 A f64", a64, None),
+        ("windowed_ell_block_residual", "B1 L0 A", L[0].A, None),
+        ("windowed_ell_block_residual", "L0 A random", A0_rand, None),
+        ("windowed_ell_block_residual", "B1 L0 P", L[0].P, None),
+        ("windowed_ell_block_residual", "B1 L0 R", L[0].R, None),
+        ("windowed_ell_block_residual", "B1 L1 A", L[1].A, None),
+        ("windowed_ell_block_residual", "B1 L0 A f64", a64, None),
+        ("windowed_ell_block_scaled_correction", "B1 L0 A", L[0].A,
+         L[0].relax.scale),
+        ("windowed_ell_block_scaled_correction", "L0 A random", A0_rand,
+         S_rand),
+        ("windowed_ell_block_scaled_correction", "B1 L1 A", L[1].A,
+         L[1].relax.scale),
+        ("windowed_ell_block_scaled_correction", "B1 L0 A f64", a64,
+         L[0].relax.scale.double()),
+        ("windowed_ell_block_spmv_dots", "B1 L0 A w", L[0].A, None),
+        ("windowed_ell_block_spmv_dots", "L0 A random w", A0_rand, None),
+        ("windowed_ell_block_spmv_dots", "B1 L0 A", L[0].A, None),
+        ("windowed_ell_block_spmv_dots", "B1 L1 A w", L[1].A, None),
+        ("windowed_ell_block_spmv_dots", "B1 L0 A f64 w", a64, None),
+    ]
+    records = {}
+    for name, label, M, S in cases:
+        kern, plain = W[name]
+        dt = M.dtype
+        n, m = M.shape
+        b = M.block[0]
+        s = M.vals.element_size()
+
+        def vec(k):
+            return torch.as_tensor(rng.standard_normal(k)).to(
+                device="cuda", dtype=dt)
+        x, f = vec(m * b), vec(n * b)
+        geo = (M.window_starts, M.cols_local, M.vals)
+        # the nodes the kernel reads: n of the n_tiles·1,024 stored
+        fmt_bytes = n * M.K * (4 + b * b * s) + M.window_starts.numel() * 4
+        nnz = int(((M.vals != 0).flatten(3).any(-1)
+                   & (M.cols_local.long() + M.window_starts.long()[
+                       :, None, None] < m)).sum())
+        terms = wbk.windowed_ell_block_spmv_plain(
+            M.window_starts, M.cols_local, M.vals.abs(), x.abs(), n)
+        rtol = 1e-5 if dt == torch.float32 else 1e-12
+        scale = float((terms + f.abs()).max())
+        dots = lambda want: []
+        lib, kind = None, None
+        vec_in, vec_out = m * b * s, n * b * s
+        if name == "windowed_ell_block_spmv":
+            args = geo + (x, n)
+            nbytes, ops = fmt_bytes + vec_in + vec_out, 2 * nnz * b * b
+            scale = float(terms.max())
+            C, kind = library_block(M)
+            lib = lambda: torch.mv(C, x)
+        elif name == "windowed_ell_block_residual":
+            args = geo + (f, x, n)
+            nbytes = fmt_bytes + vec_in + 2 * vec_out
+            ops = 2 * nnz * b * b + n * b
+            C, kind = library_block(M)
+            lib = lambda: torch.addmv(f, C, x, alpha=-1.0)
+        elif name == "windowed_ell_block_scaled_correction":
+            args = geo + (S, f, x, n)
+            nbytes = fmt_bytes + vec_in + 2 * vec_out + n * b * b * s
+            ops = 2 * nnz * b * b + n * b + 2 * n * b * b + n * b
+            corr = torch.einsum("nij,nj->ni", S.abs(),
+                                (terms + f.abs()).reshape(-1, b))
+            scale = float((corr.reshape(-1) + x.abs()).max())
+        else:
+            w = vec(n * b) if label.endswith(" w") else None
+            args = geo + (x, w, n)
+            nbytes = fmt_bytes + vec_in + vec_out \
+                + (vec_out if w is not None else 0)
+            ops = 2 * nnz * b * b + (6 if w is not None else 4) * n * b
+            scale = float(terms.max())
+            dots = lambda want: [(1, terms, 2 * terms), (2, terms, x)] + (
+                [] if w is None else [(3, terms, w)])
+        r = compare_and_time(name, kern, plain, args, rtol, scale, dots, lib,
+                             nbytes, ops, dt)
+        print("%-36s %-13s n=%-6d m=%-6d K=%-3d win=%-6d %s  err %.3e (tol "
+              "%.3e)  dot rel err %.2e  ms %.4f  plain %.4f  library %s  "
+              "bound %.4f (%s, %.2f MB)  %s"
+              % (name, label, n, m, M.K, M.win, str(dt).split(".")[-1],
+                 r["max_abs_err"], rtol * scale, r["dot_rel_err"], r["ms"],
+                 r["plain_ms"], "%.4f (%s)" % (r["library_ms"], kind)
+                 if r["library_ms"] is not None else "none",
+                 r["bound_ms"], r["bound_by"], nbytes / 1e6,
+                 "ok" if r["ok"] else "FAIL"))
+        if not r["ok"]:
+            failures.append("%s %s disagrees with its plain version"
+                            % (name, label))
+        if name not in records:
+            records[name] = {k: r[k] for k in RECORD_KEYS}
+            records[name]["shape"] = (
+                "%s %dx%d nodes of 3x3, K %d, window %d, %s%s"
+                % (label, n, m, M.K, M.win, dt,
+                   "; library: torch %s" % kind if kind else ""))
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -901,16 +1207,27 @@ def main():
     u_solves, u_counts, u_summary = unstructured_paths(failures)
     records.update(check_unstructured_kernels(u_solves, failures))
     print("unstructured paths: %s" % json.dumps(u_summary))
+    # release U1's and U2's hierarchies, so that the block path's peak
+    # device memory is its own
+    del u_solves
+    gc.collect()
+    torch.cuda.empty_cache()
+    b_solve, b_refined, b_counts, b_summary = block_path(failures)
+    records.update(check_block_kernels(b_solve, b_refined, failures))
+    print("block path: %s" % json.dumps(b_summary))
     kernels = []
     for name in REPLACES:
         rec = records[name]
         if name in UNSTRUCTURED:
-            # launches over the unstructured paths: U1 + U2
-            launches = u_counts["U1"][name] + u_counts["U2"][name]
             by_path = {"U1": u_counts["U1"][name],
-                       "U2": u_counts["U2"][name]}
+                       "U2": u_counts["U2"][name], "B1": b_counts[name]}
+        elif name in BLOCK:
+            by_path = {"B1": b_counts[name]}
         else:
-            launches, by_path = counts[name], {"main": counts[name]}
+            by_path = {"main": counts[name], "B1": b_counts[name]}
+        # launches on the main path, or over the paths a kernel serves
+        launches = by_path["main"] if "main" in by_path \
+            else sum(by_path.values())
         kernels.append({
             "name": name, "route": "cuda",
             "source": source_of(name),

@@ -7,9 +7,10 @@ V-cycle legs odd and small grids, f0 that does not divide 128, a halo of
 two coarse planes and asymmetric offsets; for the windowed-ELL kernels K
 from 4 to 52, window starts that differ from tile to tile, a tile without
 entries (its padding addresses one past x), a ragged last tile and
-rectangular operators; the BiCGStab tail at grid-stride lengths. Also the
-wrappers' refusals, bit-identical results from run to run, and small
-solves on the card against the same solves on the CPU.
+rectangular operators; the block windowed-ELL kernels at block sizes 2,
+3 and 4 with the same edges; the BiCGStab tail at grid-stride lengths.
+Also the wrappers' refusals, bit-identical results from run to run, and
+small solves on the card against the same solves on the CPU.
 
 Every test needs an NVIDIA card and skips without one. On the card, from
 the repo root (the suite's conftest imports JAX, which the port's machine
@@ -26,6 +27,7 @@ import torch
 from amgcl_tpu_torch.ops import dia_kernels as dk
 from amgcl_tpu_torch.ops import fused_vec as fv
 from amgcl_tpu_torch.ops import vcycle_kernels as vk
+from amgcl_tpu_torch.ops import well_block_kernels as wbk
 from amgcl_tpu_torch.ops import well_kernels as wk
 
 pytestmark = pytest.mark.cuda
@@ -392,7 +394,7 @@ def test_device_setup_solve_on_card_matches_cpu(cuda):
     assert np.linalg.norm(rhs - A.spmv(x)) / np.linalg.norm(rhs) <= 1e-6
 
 
-# -- the windowed-ELL kernels (csrc/well.cu) and the BiCGStab tail ------------
+# -- the windowed-ELL kernels (csrc/well_block.cu, b = 1) and the BiCGStab tail
 
 def _well(n_out, ncols, K, dtype, device, seed=0, empty=None):
     """Random windowed-ELL arrays: n_out rows in tiles of 1,024, windows of
@@ -598,3 +600,180 @@ def test_unstructured_solve_on_card_matches_cpu(cuda, order, side):
     assert np.linalg.norm(x - x_cpu) <= 1e-8 * np.linalg.norm(x_cpu)
     true_res = np.linalg.norm(rhs - A.spmv(x)) / np.linalg.norm(rhs)
     assert true_res <= (1e-8 if side == "right" else 1e-6)
+
+
+# -- block windowed ELL ------------------------------------------------------
+
+def _well_block(n_out, ncols, K, b, dtype, device, seed=0, empty=None):
+    """Random block windowed-ELL operands over b×b blocks, laid out as
+    _well's: window starts that differ from tile to tile, a quarter of
+    the slots padding, tile ``empty`` without entries starting at
+    ncols. Returns (starts, cols, vals, x, f, S, w) with S the
+    (n_out, b, b) scale and w a vector."""
+    st, cl, _, _, _, _ = _well(n_out, ncols, K, dtype, device, seed, empty)
+    rng = np.random.RandomState(seed + 1)
+    vals = rng.standard_normal(tuple(cl.shape) + (b, b))
+    pad = rng.rand(*cl.shape) < 0.25
+    vals[pad] = 0.0
+    if empty is not None:
+        vals[empty] = 0.0
+    fl = lambda a: torch.as_tensor(a).to(device=device, dtype=dtype)
+    return (st, cl, fl(vals), fl(rng.standard_normal(ncols * b)),
+            fl(rng.standard_normal(n_out * b)),
+            fl(rng.standard_normal((n_out, b, b)) * 0.1),
+            fl(rng.rand(n_out * b)))
+
+
+_WELL_BLOCK_CASES = [
+    # (n_out, ncols, K, b, empty tile)
+    (5000, 5000, 8, 3, None),         # ragged last tile
+    (6144, 6144, 12, 2, 2),           # empty tile; ncols a multiple of 1024
+    (3000, 3000, 100, 3, None),       # the L2 operator's K
+    (4100, 4100, 20, 4, 1),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m,K,b,empty", _WELL_BLOCK_CASES)
+def test_well_block_square_modes_match_plain(cuda, n, m, K, b, empty,
+                                             dtype):
+    st, cl, v, x, f, S, w = _well_block(n, m, K, b, dtype, cuda, seed=K,
+                                        empty=empty)
+    terms = wbk.windowed_ell_block_spmv_plain(st, cl, v.abs(), x.abs(), n)
+    _close(wbk.windowed_ell_block_spmv(st, cl, v, x, n),
+           wbk.windowed_ell_block_spmv_plain(st, cl, v, x, n),
+           float(terms.max()), dtype)
+    res_terms = terms + f.abs()
+    _close(wbk.windowed_ell_block_residual(st, cl, v, f, x, n),
+           wbk.windowed_ell_block_residual_plain(st, cl, v, f, x, n),
+           float(res_terms.max()), dtype)
+    corr_terms = x.abs() + torch.einsum(
+        "nij,nj->ni", S.abs(), res_terms.reshape(-1, b)).reshape(-1)
+    _close(wbk.windowed_ell_block_scaled_correction(st, cl, v, S, f, x, n),
+           wbk.windowed_ell_block_scaled_correction_plain(st, cl, v, S, f,
+                                                          x, n),
+           float(corr_terms.max()), dtype)
+    for wv in (None, w):
+        got = wbk.windowed_ell_block_spmv_dots(st, cl, v, x, wv, n)
+        want = wbk.windowed_ell_block_spmv_dots_plain(st, cl, v, x, wv, n)
+        _close(got[0], want[0], float(terms.max()), dtype)
+        _dot_close(got[1], want[1], terms, 2 * terms, dtype)
+        _dot_close(got[2], want[2], terms, x, dtype)
+        if wv is None:
+            assert got[3] is None
+        else:
+            _dot_close(got[3], want[3], terms, wv, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m,K", [(13310, 110592, 48), (110592, 13310, 8),
+                                   (1049, 13310, 112)])
+def test_well_block_rectangular_spmv_and_residual_match_plain(cuda, n, m, K,
+                                                              dtype):
+    """The shapes of the block path's restrictions and prolongation."""
+    st, cl, v, x, f, _, _ = _well_block(n, m, K, 3, dtype, cuda, seed=n)
+    terms = wbk.windowed_ell_block_spmv_plain(st, cl, v.abs(), x.abs(), n)
+    _close(wbk.windowed_ell_block_spmv(st, cl, v, x, n),
+           wbk.windowed_ell_block_spmv_plain(st, cl, v, x, n),
+           float(terms.max()), dtype)
+    _close(wbk.windowed_ell_block_residual(st, cl, v, f, x, n),
+           wbk.windowed_ell_block_residual_plain(st, cl, v, f, x, n),
+           float((terms + f.abs()).max()), dtype)
+
+
+def test_well_block_starts_are_read(cuda):
+    st, cl, v, x, _, _, _ = _well_block(6000, 20000, 16, 3, torch.float32,
+                                        cuda, seed=3)
+    assert len(set(st.tolist())) > 2
+    y = wbk.windowed_ell_block_spmv(st, cl, v, x, 6000)
+    y0 = wbk.windowed_ell_block_spmv(torch.zeros_like(st), cl, v, x, 6000)
+    assert float((y - y0).abs().max()) > 1.0
+
+
+def test_well_block_dots_are_bit_identical_and_counted(cuda):
+    st, cl, v, x, _, _, w = _well_block(30000, 30000, 8, 3, torch.float32,
+                                        cuda)
+    launches = wbk.windowed_ell_block_spmv_dots.launches
+    a = wbk.windowed_ell_block_spmv_dots(st, cl, v, x, w, 30000)
+    b = wbk.windowed_ell_block_spmv_dots(st, cl, v, x, w, 30000)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    assert wbk.windowed_ell_block_spmv_dots.launches == launches + 2
+
+
+@pytest.mark.parametrize("bad", ["block5", "rect_block", "cpu_x", "dtype",
+                                 "cols_shape", "n_out", "x_len", "S_shape",
+                                 "rect_correction"])
+def test_well_block_wrappers_refuse_malformed_operands(cuda, bad):
+    n = 3000
+    st, cl, v, x, f, S, w = _well_block(n, n, 8, 3, torch.float32, cuda)
+    mode = "correction"
+    if bad == "block5":
+        v = torch.zeros(tuple(cl.shape) + (5, 5), device=cuda)
+        x, f = torch.zeros(5 * n, device=cuda), torch.zeros(5 * n,
+                                                            device=cuda)
+        S = torch.zeros(n, 5, 5, device=cuda)
+    elif bad == "rect_block":
+        v = v[..., :2].contiguous()
+        mode = "spmv"
+    elif bad == "cpu_x":
+        st = st.cpu()
+    elif bad == "dtype":
+        f = f.double()
+    elif bad == "cols_shape":
+        cl = cl[:, :, :-1].contiguous()
+    elif bad == "n_out":
+        n = 1000
+    elif bad == "x_len":
+        x = x[:-1]
+        mode = "spmv"
+    elif bad == "S_shape":
+        S = S[:, :2, :2].contiguous()
+    elif bad == "rect_correction":
+        x = torch.cat([x, x[:30]])
+    counters = (wbk.windowed_ell_block_spmv,
+                wbk.windowed_ell_block_scaled_correction)
+    launches = [c.launches for c in counters]
+    with pytest.raises(ValueError) as err:
+        if mode == "spmv":
+            wbk.windowed_ell_block_spmv(st, cl, v, x, n)
+        else:
+            wbk.windowed_ell_block_scaled_correction(st, cl, v, S, f, x, n)
+    if bad in ("block5", "rect_block"):
+        assert "2 or 3 or 4" in str(err.value)
+    assert [c.launches for c in counters] == launches
+
+
+def test_block_solve_on_card_matches_cpu(cuda):
+    """poisson3d_block(16, 3) with BiCGStab in float64: the card and the
+    CPU build the same hierarchy, take the same iterations and agree on
+    x to 1e-8; every block kernel and the tail launch, and no plain
+    version runs on the card."""
+    from amgcl_tpu_torch import (AMGParams, BiCGStab, make_solver,
+                                 poisson3d_block)
+    A, rhs = poisson3d_block(16, 3)
+    runs = {}
+    kernels = (wbk.windowed_ell_block_spmv, wbk.windowed_ell_block_residual,
+               wbk.windowed_ell_block_scaled_correction,
+               wbk.windowed_ell_block_spmv_dots, fv.bicgstab_tail)
+    plains = (wbk.windowed_ell_block_spmv_plain,
+              wbk.windowed_ell_block_residual_plain,
+              wbk.windowed_ell_block_scaled_correction_plain,
+              wbk.windowed_ell_block_spmv_dots_plain)
+    for device in ("cpu", cuda):
+        solve = make_solver(A, AMGParams(dtype=torch.float64,
+                                         coarse_enough=500),
+                            BiCGStab(maxiter=100, tol=1e-8), device=device)
+        before = [k.launches for k in kernels]
+        calls = [p.calls for p in plains]
+        x, info = solve(rhs)
+        if device != "cpu":
+            assert all(k.launches > b for k, b in zip(kernels, before))
+            assert [p.calls for p in plains] == calls
+        runs[torch.device(device).type] = (
+            info.iters, x.double().cpu().numpy(),
+            [lv["rows"] for lv in info.hierarchy["levels"]])
+    assert runs["cpu"][2] == runs["cuda"][2] and len(runs["cpu"][2]) == 3
+    assert runs["cpu"][0] == runs["cuda"][0]
+    x, x_cpu = runs["cuda"][1], runs["cpu"][1]
+    assert np.linalg.norm(x - x_cpu) <= 1e-8 * np.linalg.norm(x_cpu)
+    assert np.linalg.norm(rhs - A.spmv(x)) / np.linalg.norm(rhs) <= 1e-8
