@@ -30,6 +30,23 @@ smooth with block SPAI-0, and run on block windowed-ELL operators
     A, rhs = poisson3d_block(48, 3)          # 110,592 3x3 block rows
     solve = make_solver(A, AMGParams(), BiCGStab(maxiter=200, tol=1e-6))
     x, info = solve(rhs)                     # rhs, x: 331,776 unknowns
+
+BiCGStab(L) (amgcl's ``solver.type=bicgstabl``) takes the place of
+BiCGStab in any of these calls, e.g. ``BiCGStabL(L=2, maxiter=100,
+tol=1e-6)``. The dense-window format, which the JAX package offers for
+the TPU's slow gathers, is available by name for banded (e.g.
+Cuthill-McKee ordered) systems: ``AMGParams(matrix_format="dwin")`` or
+``to_device(A, "dwin")``. It stores each 64-row tile's column window
+densely (gigabytes at 85,623 rows), so ``auto`` never picks it::
+
+    from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
+    A, rhs = fe_like_problem()
+    perm = cuthill_mckee(A)
+    solve = make_solver(permute(A, perm),
+                        AMGParams(matrix_format="dwin"),
+                        BiCGStab(maxiter=100, tol=1e-6,
+                                 precond_side="left"), refine=3)
+    x, info = solve(rhs[perm])
 """
 
 from amgcl_tpu_torch.ops.csr import CSR
@@ -37,8 +54,10 @@ from amgcl_tpu_torch.models.amg import AMG, AMGParams
 from amgcl_tpu_torch.models.make_solver import make_solver
 from amgcl_tpu_torch.ops.unstructured import fe_like_problem
 from amgcl_tpu_torch.solver.bicgstab import BiCGStab
+from amgcl_tpu_torch.solver.bicgstabl import BiCGStabL
 from amgcl_tpu_torch.solver.cg import CG
 from amgcl_tpu_torch.utils.sample_problem import poisson3d, poisson3d_block
 
-__all__ = ["CSR", "AMG", "AMGParams", "make_solver", "BiCGStab", "CG",
-           "fe_like_problem", "poisson3d", "poisson3d_block"]
+__all__ = ["CSR", "AMG", "AMGParams", "make_solver", "BiCGStab",
+           "BiCGStabL", "CG", "fe_like_problem", "poisson3d",
+           "poisson3d_block"]

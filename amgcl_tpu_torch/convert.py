@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from amgcl_tpu_torch.models.amg import AMGParams, Hierarchy, Level
+from amgcl_tpu_torch.ops.densewin import DenseWindowMatrix
 from amgcl_tpu_torch.ops.device import DenseMatrix, DiaMatrix
 from amgcl_tpu_torch.ops.structured import (AggTentative, GridTentative,
                                             ImplicitSmoothedP,
@@ -35,13 +36,18 @@ def _dia(pair, dtype, device):
 
 
 def _operator(spec, dtype, device):
-    """A device matrix from plain arrays: a DIA pair, a windowed-ELL dict
-    or a dense 2-D array."""
+    """A device matrix from plain arrays: a DIA pair, a windowed-ELL dict,
+    a dense-window dict or a dense 2-D array."""
     if isinstance(spec, tuple):
         return _dia(spec, dtype, device)
     if isinstance(spec, dict):
         idx = lambda k: torch.tensor(np.asarray(spec[k]), dtype=torch.int32,
                                      device=device)
+        if "blocks" in spec:
+            return DenseWindowMatrix(
+                idx("window_starts"),
+                torch.tensor(np.asarray(spec["blocks"]), dtype=dtype,
+                             device=device), spec["shape"], spec["win"])
         return WindowedEllMatrix(
             idx("window_starts"), idx("cols_local"),
             torch.tensor(np.asarray(spec["vals"]), dtype=dtype,
@@ -84,7 +90,10 @@ def hierarchy_from_arrays(levels, coarse_inv, params: AMGParams = None,
     ``data[k, i] = A[i, i + offsets[k]]``, as a windowed-ELL dict (keys
     ``window_starts``, ``cols_local``, ``vals``, ``shape``, ``win`` and,
     for block values, ``block``: the arrays of
-    :class:`~amgcl_tpu_torch.ops.unstructured.WindowedEllMatrix`) or as a
+    :class:`~amgcl_tpu_torch.ops.unstructured.WindowedEllMatrix`), as a
+    dense-window dict (keys ``window_starts``, ``blocks``, ``shape``,
+    ``win``: the arrays of
+    :class:`~amgcl_tpu_torch.ops.densewin.DenseWindowMatrix`) or as a
     dense 2-D array. Every level but the last also has ``"scale"`` (the
     SPAI-0 diagonal, or its (n, b, b) blocks) and its transfers: either
     stored, as ``"P"`` and ``"R"`` in the same forms (block systems), or

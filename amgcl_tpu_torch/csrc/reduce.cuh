@@ -12,7 +12,7 @@
 #include <cuda_runtime.h>
 
 namespace amgcl_port {
-// internal linkage: dia.cu and vec.cu each carry their own copy
+// internal linkage: each source that includes it carries its own copy
 namespace {
 
 constexpr int kBlock = 256;          // threads per block of every kernel
@@ -38,6 +38,15 @@ __device__ __forceinline__ void block_reduce_store(const A (&v)[ND],
     for (int j = 0; j < ND; ++j)
       partials[static_cast<size_t>(blockIdx.x) * ND + j] = s[j][0];
   }
+}
+
+// Sum of one value per lane over a full warp by a fixed xor-shuffle tree:
+// every lane ends with the same bit pattern on every run.
+template <typename A>
+__device__ __forceinline__ A warp_sum(A v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
 }
 
 template <typename A>

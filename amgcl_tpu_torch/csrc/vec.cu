@@ -1,22 +1,26 @@
-// The Krylov iteration tails for Hopper (sm_90a), one kernel, two modes:
+// The Krylov iteration tails for Hopper (sm_90a), one kernel, three modes:
 //   XR (CG):          x' = x + αp, r' = r − αq, and ⟨r', r'⟩;
 //   BICG_TAIL:        x' = x + α·p̂ + ω·ŝ, r' = s − ω·t, and ⟨r', r'⟩,
-//                     ⟨r̂, r'⟩ (the next iteration's ρ).
+//                     ⟨r̂, r'⟩ (the next iteration's ρ);
+//   AXPBY_DOT:        z = a·x + b·y and ⟨z, z⟩ (BiCGStab(L)'s residual
+//                     update with its norm).
 //
-// Replaces amgcl_tpu/ops/fused_vec.py:_fused_pass in modes "xr" and
-// "bicg_tail".
+// Replaces amgcl_tpu/ops/fused_vec.py:_fused_pass in modes "xr",
+// "bicg_tail" and "axpby_dot".
 //
 // What bounds it on the H100: memory traffic — XR reads four vectors and
 // writes two per element against 5 operations (least time
 // 6·n·sizeof(T) / 3.35 TB/s); BICG_TAIL reads six and writes two against
-// 10 operations (8·n·sizeof(T) / 3.35 TB/s).
+// 10 operations (8·n·sizeof(T) / 3.35 TB/s); AXPBY_DOT reads two and
+// writes one against 5 operations (3·n·sizeof(T) / 3.35 TB/s: 0.0003 ms
+// at n = 85,623 in float32, so a launch, not the bytes, is its cost).
 //
 // Design: one grid-stride elementwise pass with a fixed block count, so
 // the per-thread sums and the per-block partials fall in the same order
 // on every run; the partials go through the deterministic two-stage
 // reduction of reduce.cuh (no float atomics), accumulated in T. α and ω
-// arrive as pointers to 0-d device tensors, so the host never waits for
-// the device to learn them.
+// (a and b) arrive as pointers to 0-d device tensors, so the host never
+// waits for the device to learn them.
 #include <cuda_runtime.h>
 
 #include "reduce.cuh"
@@ -24,10 +28,11 @@
 namespace amgcl_port {
 namespace {
 
-enum TailMode { XR = 0, BICG_TAIL = 1 };
+enum TailMode { XR = 0, BICG_TAIL = 1, AXPBY_DOT = 2 };
 
 // XR:        v0..v3 = p, q, x, r
 // BICG_TAIL: v0..v5 = p̂, ŝ, s, t, x, r̂
+// AXPBY_DOT: v0, v1 = x, y; alpha, omega = a, b; x_out = z
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kBlock)
 tail_kernel(long long n, const T* __restrict__ alpha,
@@ -37,7 +42,7 @@ tail_kernel(long long n, const T* __restrict__ alpha,
             const T* __restrict__ v5, T* __restrict__ x_out,
             T* __restrict__ r_out, T* __restrict__ partials) {
   const T a = *alpha;
-  const T w = MODE == BICG_TAIL ? *omega : T(0);
+  const T w = MODE == XR ? T(0) : *omega;
   T acc0 = T(0), acc1 = T(0);
   const long long stride = static_cast<long long>(gridDim.x) * kBlock;
   for (long long i = static_cast<long long>(blockIdx.x) * kBlock +
@@ -48,6 +53,10 @@ tail_kernel(long long n, const T* __restrict__ alpha,
       x_out[i] = v2[i] + a * v0[i];
       r_out[i] = rn;
       acc0 += rn * rn;
+    } else if constexpr (MODE == AXPBY_DOT) {
+      const T z = a * v0[i] + w * v1[i];
+      x_out[i] = z;
+      acc0 += z * z;
     } else {
       const T rn = v2[i] - w * v3[i];
       x_out[i] = v4[i] + a * v0[i] + w * v1[i];
@@ -56,7 +65,7 @@ tail_kernel(long long n, const T* __restrict__ alpha,
       acc1 += v5[i] * rn;
     }
   }
-  if constexpr (MODE == XR) {
+  if constexpr (MODE != BICG_TAIL) {
     const T v[1] = {acc0};
     block_reduce_store<T, 1>(v, partials);
   } else {
@@ -79,6 +88,11 @@ cudaError_t run(int mode, long long n, const T* alpha, const T* omega,
         n, alpha, omega, v[0], v[1], v[2], v[3], v[4], v[5], x_out, r_out,
         partials);
     launch_reduce<T>(partials, nblocks, 2, dots, s);
+  } else if (mode == AXPBY_DOT) {
+    tail_kernel<T, AXPBY_DOT><<<nblocks, kBlock, 0, s>>>(
+        n, alpha, omega, v[0], v[1], nullptr, nullptr, nullptr, nullptr,
+        x_out, nullptr, partials);
+    launch_reduce<T>(partials, nblocks, 1, dots, s);
   } else {
     return cudaErrorInvalidValue;
   }
@@ -138,5 +152,23 @@ extern "C" int amgcl_bicg_tail(int dtype, long long n, const void* alpha,
   if (dtype == 1)
     return dispatch<double>(BICG_TAIL, n, alpha, omega, vecs, x_out, r_out,
                             partials, dots, nblocks, s);
+  return cudaErrorInvalidValue;
+}
+
+// dtype as above; `a` and `b` point to one device value each; `partials`
+// holds nblocks values and `dot` one: ⟨z, z⟩.
+extern "C" int amgcl_axpby_dot(int dtype, long long n, const void* a,
+                               const void* b, const void* x, const void* y,
+                               void* z, void* partials, void* dot,
+                               int nblocks, void* stream) {
+  using namespace amgcl_port;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* vecs[6] = {x, y, nullptr, nullptr, nullptr, nullptr};
+  if (dtype == 0)
+    return dispatch<float>(AXPBY_DOT, n, a, b, vecs, z, nullptr, partials,
+                           dot, nblocks, s);
+  if (dtype == 1)
+    return dispatch<double>(AXPBY_DOT, n, a, b, vecs, z, nullptr, partials,
+                            dot, nblocks, s);
   return cudaErrorInvalidValue;
 }

@@ -26,11 +26,13 @@ from amgcl_tpu_torch.coarsening.smoothed_aggregation import \
 from amgcl_tpu_torch.coarsening.stall import CoarseningStall
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops.csr import CSR
+from amgcl_tpu_torch.ops.densewin import DenseWindowMatrix
 from amgcl_tpu_torch.ops.structured import build_implicit_transfers
 from amgcl_tpu_torch.ops.unstructured import WindowedEllMatrix
 from amgcl_tpu_torch.ops.vcycle import build_fused_down, build_fused_up
 from amgcl_tpu_torch.relaxation.spai0 import Spai0
 from amgcl_tpu_torch.solver.direct import DenseDirectSolver
+from amgcl_tpu_torch.telemetry.ledger import dense_window_budget
 from amgcl_tpu_torch.utils.devices import resolve_device
 
 
@@ -257,25 +259,31 @@ class AMG:
         prm = self.prm
         host = self.host_levels
         dtype, device = prm.dtype, self.device
+        # one dense-window budget for the whole hierarchy: every level
+        # conversion draws on it (amgcl_tpu/models/amg.py:465)
+        budget = self._dwin_budget = dense_window_budget()
         levels = list(self._dev_prefix)    # device-built levels come first
         for Ai, P, R in host[len(levels):-1]:
             spec = getattr(P, "_implicit_spec", None)
             if spec is not None:
                 # matrix-free smoothed transfers (ops/structured.py)
-                P_dev, R_dev = build_implicit_transfers(spec, dtype, device)
+                P_dev, R_dev = build_implicit_transfers(
+                    spec, dtype, device, prm.matrix_format)
             else:
                 # stored transfers (block systems): banded block
                 # operators take windowed ELL, as the level operators do
                 P_dev = dev.to_device(P, "auto", dtype, device)
                 R_dev = dev.to_device(R, "auto", dtype, device)
-            A_dev = dev.to_device(Ai, prm.matrix_format, dtype, device)
+            A_dev = dev.to_device(Ai, prm.matrix_format, dtype, device,
+                                  budget)
             relax = prm.relax.build(Ai, dtype, device)
             levels.append(Level(A_dev, relax, P_dev, R_dev,
                                 build_fused_down(A_dev, R_dev, relax),
                                 build_fused_up(A_dev, P_dev, relax)))
         Alast = host[-1][0]
         check_coarse_size(Alast.nrows * Alast.block_size[0], prm)
-        A_last = dev.to_device(Alast, prm.matrix_format, dtype, device)
+        A_last = dev.to_device(Alast, prm.matrix_format, dtype, device,
+                               budget)
         if prm.direct_coarse:
             coarse = DenseDirectSolver.build(Alast, dtype, device)
             levels.append(Level(A_last, None))
@@ -292,7 +300,8 @@ class AMG:
 
     def hierarchy_stats(self):
         """Per-level rows/unknowns/nnz/device format (windowed ELL with
-        its K and window) plus grid and operator complexity — the source
+        its K and window, dense window with its window and bytes) plus
+        grid and operator complexity — the source
         ``__repr__`` renders from. ``rows`` and ``nnz`` count blocks for a
         block system, ``unknowns`` scalar unknowns; the complexities count
         blocks, as the reference does."""
@@ -308,6 +317,8 @@ class AMG:
                    "block": list(b), "format": type(lv.A).__name__}
             if isinstance(lv.A, WindowedEllMatrix):
                 row.update(K=lv.A.K, win=lv.A.win)
+            elif isinstance(lv.A, DenseWindowMatrix):
+                row.update(win=lv.A.win, format_bytes=lv.A.bytes())
             levels.append(row)
         return {
             "n_levels": len(host),
@@ -341,6 +352,9 @@ class AMG:
             fmt = lv["format"]
             if "K" in lv:
                 fmt += " (K %d, window %d)" % (lv["K"], lv["win"])
+            elif "win" in lv:
+                fmt += " (window %d, %s)" % (
+                    lv["win"], _human_bytes(lv["format_bytes"]))
             lines.append("%5d %12d %14d  %s" % (lv["level"], lv["unknowns"],
                                                  lv["nnz"], fmt))
         return "\n".join(lines)

@@ -24,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("dia.cu", "vec.cu", "vcycle.cu", "well_block.cu")
+SOURCES = ("dia.cu", "vec.cu", "vcycle.cu", "well_block.cu", "densewin.cu")
 HEADERS = ("reduce.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -91,9 +91,14 @@ def _bind(lib) -> None:
     lib.amgcl_xr.restype = i32
     lib.amgcl_bicg_tail.argtypes = [i32, i64] + [vp] * 12 + [i32, vp]
     lib.amgcl_bicg_tail.restype = i32
+    lib.amgcl_axpby_dot.argtypes = [i32, i64] + [vp] * 7 + [i32, vp]
+    lib.amgcl_axpby_dot.restype = i32
     lib.amgcl_well_block.argtypes = [i32, i32, i32, i64, i64, i32, i32] \
         + [vp] * 9 + [i32, vp]
     lib.amgcl_well_block.restype = i32
+    lib.amgcl_densewin.argtypes = [i32, i32, i64, i64, i32, i32, i32] \
+        + [vp] * 6 + [vp]
+    lib.amgcl_densewin.restype = i32
     lib.amgcl_fused_down.argtypes = [i32] * 6 + [vp] * 8 + [vp]
     lib.amgcl_fused_down.restype = i32
     lib.amgcl_fused_up.argtypes = [i32] * 5 + [vp] * 9 + [vp]

@@ -1,0 +1,171 @@
+"""Dense-window kernels: a wrapper and a plain PyTorch version for each of
+``dense_window_spmv``, ``dense_window_residual`` and
+``dense_window_scaled_correction``.
+
+Counterpart of the Pallas TPU kernels of ``amgcl_tpu/ops/densewin.py``
+(``dense_window_spmv``, ``dense_window_fused`` in its residual and
+correction modes), with their signatures less the window size ``win``,
+which is the blocks' last dimension. The CUDA source is
+``amgcl_tpu_torch/csrc/densewin.cu``. Storage is that of
+:class:`amgcl_tpu_torch.ops.densewin.DenseWindowMatrix`: row ``i`` of
+tile ``t = i // tile`` holds ``blocks[t, i % tile, j] = A[i,
+window_starts[t] + j]``. A window may reach past the end of x; the
+entries there are zero, and the TPU kernel reads them against x padded
+with ``win`` zeros.
+
+Each wrapper takes its plain version only for tensors on the CPU. For
+CUDA tensors it checks device, dtype, shape and contiguity and launches
+the kernel, or raises. ``<wrapper>.launches`` counts kernel launches and
+``<plain>.calls`` counts plain-version calls.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from amgcl_tpu_torch.ops import cuda_lib
+from amgcl_tpu_torch.ops.dia_kernels import _DTYPE_CODE, _check_vec
+
+_SPMV, _RESIDUAL, _CORRECTION = range(3)
+
+
+# -- plain versions -----------------------------------------------------------
+
+def _promoted(*tensors):
+    out = tensors[0].dtype
+    for t in tensors[1:]:
+        out = torch.promote_types(out, t.dtype)
+    return out
+
+
+def _product(window_starts, blocks, x, n_out, out):
+    """(A x)[:n_out] in the reference's ``_mv_xla`` arithmetic: each tile's
+    window of x (x padded with ``win`` zeros) times its block, summed over
+    the window, at the dtype ``out``."""
+    n_tiles, tile, win = blocks.shape
+    xp = torch.cat([x, x.new_zeros(win)])
+    cols = window_starts.to(torch.int64)[:, None] \
+        + torch.arange(win, device=x.device)
+    y = (blocks.to(out) * xp[cols].to(out)[:, None, :]).sum(dim=2)
+    return y.reshape(-1)[:n_out]
+
+
+def dense_window_spmv_plain(window_starts, blocks, x, n_out):
+    """y = A x."""
+    dense_window_spmv_plain.calls += 1
+    return _product(window_starts, blocks, x, n_out, _promoted(blocks, x))
+
+
+def dense_window_residual_plain(window_starts, blocks, f, x, n_out):
+    """r = f − A x."""
+    dense_window_residual_plain.calls += 1
+    out = _promoted(blocks, x, f)
+    return f.to(out) - _product(window_starts, blocks, x, n_out, out)
+
+
+def dense_window_scaled_correction_plain(window_starts, blocks, w, f, x,
+                                         n_out):
+    """x + w ∘ (f − A x): one damped-Jacobi/SPAI-0 sweep."""
+    dense_window_scaled_correction_plain.calls += 1
+    out = _promoted(blocks, x, f, w)
+    r = f.to(out) - _product(window_starts, blocks, x, n_out, out)
+    return x[:n_out].to(out) + w.to(out) * r
+
+
+for _fn in (dense_window_spmv_plain, dense_window_residual_plain,
+            dense_window_scaled_correction_plain):
+    _fn.calls = 0
+
+
+# -- kernel launch ------------------------------------------------------------
+
+def _launch(mode, window_starts, blocks, x, n_out, f=None, w=None):
+    """Validate the operands and launch one densewin.cu kernel; returns
+    the output vector of ``n_out`` rows."""
+    if blocks.device.type != "cuda":
+        raise ValueError("dense-window kernels run on CUDA tensors, got "
+                         "blocks on %s" % blocks.device)
+    if blocks.dtype not in _DTYPE_CODE:
+        raise ValueError("dense-window kernels take float32 or float64, "
+                         "got %s" % blocks.dtype)
+    if blocks.dim() != 3 or not blocks.is_contiguous():
+        raise ValueError("blocks must be a contiguous (n_tiles, tile, win) "
+                         "tensor")
+    n_tiles, tile, win = blocks.shape
+    # the kernel reads each block row in 16-byte vectors
+    vec = 16 // blocks.element_size()
+    if win % vec or blocks.data_ptr() % 16:
+        raise ValueError("blocks must start on a 16-byte boundary with a "
+                         "window of a multiple of %d entries, got win=%d"
+                         % (vec, win))
+    if window_starts.device != blocks.device \
+            or window_starts.dtype != torch.int32 \
+            or window_starts.shape != (n_tiles,) \
+            or not window_starts.is_contiguous():
+        raise ValueError("window_starts must be a contiguous (%d,) int32 "
+                         "tensor on %s" % (n_tiles, blocks.device))
+    n_out = int(n_out)
+    if not (n_tiles - 1) * tile < n_out <= n_tiles * tile \
+            and not (n_tiles == 0 and n_out == 0):
+        raise ValueError("n_out=%d does not fit %d tiles of %d rows"
+                         % (n_out, n_tiles, tile))
+    if x.dim() != 1:
+        raise ValueError("x must be a vector, got shape %s"
+                         % (tuple(x.shape),))
+    ncols = x.shape[0]
+    _check_vec("x", x, ncols, blocks)
+    if f is not None:
+        _check_vec("f", f, n_out, blocks)
+    if w is not None:
+        _check_vec("w", w, n_out, blocks)
+    if mode == _CORRECTION and ncols != n_out:
+        raise ValueError("the dense-window correction needs a square "
+                         "operator, got %d x %d" % (n_out, ncols))
+    y = torch.empty(n_out, dtype=blocks.dtype, device=blocks.device)
+    if n_out == 0:
+        return y
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(blocks.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = cuda_lib.lib().amgcl_densewin(
+            _DTYPE_CODE[blocks.dtype], mode, n_out, ncols, n_tiles, tile,
+            win, window_starts.data_ptr(), blocks.data_ptr(), x.data_ptr(),
+            ptr(f), ptr(w), y.data_ptr(), stream)
+    cuda_lib.check(rc, "dense-window mode %d" % mode)
+    return y
+
+
+# -- wrappers -----------------------------------------------------------------
+
+def dense_window_spmv(window_starts, blocks, x, n_out):
+    """y = A x (square or rectangular), the first ``n_out`` rows."""
+    if x.device.type == "cpu":
+        return dense_window_spmv_plain(window_starts, blocks, x, n_out)
+    y = _launch(_SPMV, window_starts, blocks, x, n_out)
+    dense_window_spmv.launches += 1
+    return y
+
+
+def dense_window_residual(window_starts, blocks, f, x, n_out):
+    """r = f − A x in one pass (square or rectangular)."""
+    if x.device.type == "cpu":
+        return dense_window_residual_plain(window_starts, blocks, f, x,
+                                           n_out)
+    r = _launch(_RESIDUAL, window_starts, blocks, x, n_out, f=f)
+    dense_window_residual.launches += 1
+    return r
+
+
+def dense_window_scaled_correction(window_starts, blocks, w, f, x, n_out):
+    """x + w ∘ (f − A x) in one pass (square operators)."""
+    if x.device.type == "cpu":
+        return dense_window_scaled_correction_plain(window_starts, blocks,
+                                                    w, f, x, n_out)
+    y = _launch(_CORRECTION, window_starts, blocks, x, n_out, f=f, w=w)
+    dense_window_scaled_correction.launches += 1
+    return y
+
+
+for _fn in (dense_window_spmv, dense_window_residual,
+            dense_window_scaled_correction):
+    _fn.launches = 0

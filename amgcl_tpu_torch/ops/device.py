@@ -12,6 +12,10 @@ written against. Formats:
   its products go through the windowed-ELL kernels of
   :mod:`amgcl_tpu_torch.ops.well_kernels` and
   :mod:`amgcl_tpu_torch.ops.well_block_kernels`.
+* :class:`~amgcl_tpu_torch.ops.densewin.DenseWindowMatrix` — dense
+  (64, win) row-tile window blocks, named explicitly (``fmt="dwin"``) and
+  never picked by ``auto``; its products go through the dense-window
+  kernels of :mod:`amgcl_tpu_torch.ops.densewin_kernels`.
 * :class:`EllMatrix` — padded-row storage, scalar or block values; a
   gather plus a row sum (the JAX package has no kernel for it either).
 * :class:`DenseMatrix` — small dense operator; a matrix product.
@@ -22,12 +26,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from amgcl_tpu_torch.ops import densewin_kernels as dwk
 from amgcl_tpu_torch.ops import dia_kernels as dk
 from amgcl_tpu_torch.ops import well_block_kernels as wbk
 from amgcl_tpu_torch.ops import well_kernels as wk
 from amgcl_tpu_torch.ops.csr import CSR
+from amgcl_tpu_torch.ops.densewin import (DenseWindowMatrix,
+                                          csr_to_dense_window)
 from amgcl_tpu_torch.ops.unstructured import (WindowedEllMatrix,
                                               csr_to_windowed_ell)
+from amgcl_tpu_torch.telemetry.ledger import DWIN_MAX_BYTES
 from amgcl_tpu_torch.utils.devices import resolve_device
 
 #: ELL row widths are padded up to a multiple of this
@@ -183,9 +191,15 @@ def dia_efficiency(A: CSR):
     return nd, nd * A.nrows / max(A.nnz, 1)
 
 
-def to_device(A, fmt: str = "auto", dtype=torch.float32, device=None):
+def to_device(A, fmt: str = "auto", dtype=torch.float32, device=None,
+              budget=None):
     """Move a host matrix to ``device`` (None means CUDA) in a device
-    format: ``fmt`` is 'auto' | 'dia' | 'well' | 'ell' | 'dense'. Auto
+    format: ``fmt`` is 'auto' | 'dia' | 'well' | 'dwin' | 'ell' | 'dense'.
+    'dwin' (dense window) raises ValueError where the JAX package's
+    does: when :func:`~amgcl_tpu_torch.ops.densewin.csr_to_dense_window`
+    declines, drawing on ``budget`` (a hierarchy's shared
+    :class:`~amgcl_tpu_torch.telemetry.ledger.DeviceMemoryBudget`) when
+    one is given. Auto
     picks dense for small dense-ish matrices, DIA when the matrix is banded
     enough (at most MAX_DIAGS diagonals, fill at most MAX_FILL, data under
     DIA_MAX_BYTES), windowed ELL when its widest window fits
@@ -204,7 +218,7 @@ def to_device(A, fmt: str = "auto", dtype=torch.float32, device=None):
             torch.as_tensor(np.ascontiguousarray(
                 A.data[order], _np_dtype(dtype)), device=device),
             A.shape)
-    if fmt not in ("auto", "dia", "well", "ell", "dense"):
+    if fmt not in ("auto", "dia", "well", "dwin", "ell", "dense"):
         raise ValueError("unknown device format %r" % (fmt,))
     auto = fmt == "auto"
     if fmt == "dense" or (auto and not A.is_block
@@ -223,6 +237,15 @@ def to_device(A, fmt: str = "auto", dtype=torch.float32, device=None):
                 "windowed-ELL format needs banded column locality; apply "
                 "a Cuthill-McKee reorder first (utils/adapters.py)")
         return W
+    if fmt == "dwin":
+        D = csr_to_dense_window(A, dtype, budget=budget, device=device)
+        if D is None:
+            raise ValueError(
+                "dense-window format needs banded column locality within "
+                "the storage budget (%d bytes); apply a Cuthill-McKee "
+                "reorder first (utils/adapters.py)" % (
+                    budget.total if budget is not None else DWIN_MAX_BYTES))
+        return D
     if auto:
         if not A.is_block:
             nd, fill = dia_efficiency(A)
@@ -247,22 +270,25 @@ def spmv(A, x):
 
 
 def residual(f, A, x):
-    """r = f − A x; one kernel pass for DIA and windowed-ELL operators
-    (scalar or block)."""
+    """r = f − A x; one kernel pass for DIA, windowed-ELL (scalar or block)
+    and dense-window operators."""
     if isinstance(A, DiaMatrix):
         return dk.dia_residual(A.offsets_t, A.data, f, x)
     if isinstance(A, WindowedEllMatrix):
         fn = wk.windowed_ell_residual if A.block == (1, 1) \
             else wbk.windowed_ell_block_residual
         return fn(A.window_starts, A.cols_local, A.vals, f, x, A.shape[0])
+    if isinstance(A, DenseWindowMatrix):
+        return dwk.dense_window_residual(A.window_starts, A.blocks, f, x,
+                                         A.shape[0])
     return f - A.mv(x)
 
 
 def scaled_correction(A, w, f, x):
-    """x + w ∘ (f − A x) in one kernel pass for square DIA and windowed-ELL
-    operators with a per-unknown scale, and for square block windowed-ELL
-    operators with a per-node (b, b) scale; else None (the smoother
-    composes)."""
+    """x + w ∘ (f − A x) in one kernel pass for square DIA, windowed-ELL
+    and dense-window operators with a per-unknown scale, and for square
+    block windowed-ELL operators with a per-node (b, b) scale; else None
+    (the smoother composes)."""
     if A.shape[0] != A.shape[1]:
         return None
     if isinstance(A, DiaMatrix) and w.dim() == 1:
@@ -273,6 +299,9 @@ def scaled_correction(A, w, f, x):
             return wk.windowed_ell_scaled_correction(*args)
         if w.dim() == 3 and A.block[0] == A.block[1] == w.shape[-1]:
             return wbk.windowed_ell_block_scaled_correction(*args)
+    if isinstance(A, DenseWindowMatrix) and w.dim() == 1:
+        return dwk.dense_window_scaled_correction(
+            A.window_starts, A.blocks, w, f, x, A.shape[0])
     return None
 
 
@@ -289,7 +318,8 @@ def inner_product(x, y):
 def spmv_dots(A, x, w=None):
     """(y, ⟨y,y⟩, ⟨y,x⟩, ⟨y,w⟩) with y = A x; one kernel pass for square
     DIA and windowed-ELL operators, block ones with square blocks (⟨y,w⟩
-    is None without w)."""
+    is None without w). Other formats, dense window among them, compose
+    ``mv`` and the dots, as the JAX package does."""
     if A.shape[0] == A.shape[1]:
         if isinstance(A, DiaMatrix):
             return dk.dia_spmv_dots(A.offsets_t, A.data, x, w)

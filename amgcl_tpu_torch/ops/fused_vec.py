@@ -1,7 +1,7 @@
 """Fused vector updates of the Krylov outer loop.
 
-Counterpart of ``amgcl_tpu/ops/fused_vec.py`` as far as CG and BiCGStab
-need it:
+Counterpart of ``amgcl_tpu/ops/fused_vec.py`` as far as CG, BiCGStab and
+BiCGStab(L) need it:
 
 * :func:`xr_update` — the CG tail ``x += α·p``, ``r −= α·q`` and
   ``⟨r, r⟩`` from one read of {p, q, x, r}; on CUDA tensors the
@@ -12,6 +12,12 @@ need it:
   ``s − ω·t`` with ``⟨r, r⟩`` and ``⟨r̂, r⟩`` from one read; the same
   kernel in mode BICG_TAIL (replacing ``_fused_pass`` in mode
   ``bicg_tail``), :func:`bicgstab_tail_plain` on CPU tensors.
+* :func:`axpby_dot` — ``z = a·x + b·y`` and ``⟨z, z⟩`` from one read of
+  {x, y}; the same kernel in mode AXPBY_DOT (replacing ``_fused_pass`` in
+  mode ``axpby_dot``), :func:`axpby_dot_plain` on CPU tensors.
+* :func:`block_dots` — the Gram matrix of BiCGStab(L)'s minimal-residual
+  step as one matrix product (the JAX package computes it outside any
+  Pallas kernel too).
 * :func:`residual_dot` — ``r = f − A x`` and ``⟨r, r⟩`` in one operator
   pass (the DIA kernel for DIA operators, composed otherwise).
 """
@@ -56,6 +62,17 @@ def bicgstab_tail_plain(alpha, phat, omega, shat, s, t, x, rhat):
 bicgstab_tail_plain.calls = 0
 
 
+def axpby_dot_plain(a, x, b, y):
+    """(a·x + b·y, ⟨z, z⟩)."""
+    axpby_dot_plain.calls += 1
+    z = a * x + b * y
+    za = z.to(_acc_dtype(z.dtype))
+    return z, torch.dot(za, za).to(z.dtype)
+
+
+axpby_dot_plain.calls = 0
+
+
 def _scalar(name, v, x):
     """One value of x's dtype on x's device, as a contiguous tensor."""
     if not torch.is_tensor(v):
@@ -66,10 +83,10 @@ def _scalar(name, v, x):
     return v.contiguous()
 
 
-def _launch_tail(what, entry, scalars, vecs, ndots):
+def _launch_tail(what, entry, scalars, vecs, nout, ndots):
     """Validate a tail's operands and launch its vec.cu mode through the
-    C entry point named ``entry``; returns (x_out, r_out, dots) with dots
-    an (ndots,) tensor."""
+    C entry point named ``entry``; returns (outs, dots) with ``outs`` the
+    ``nout`` output vectors and dots an (ndots,) tensor."""
     x = vecs["x"]
     if x.dtype not in _DTYPE_CODE:
         raise ValueError("%s takes float32 or float64, got %s"
@@ -83,10 +100,9 @@ def _launch_tail(what, entry, scalars, vecs, ndots):
                 "on %s" % (name, n, x.dtype, x.device, tuple(v.shape),
                            v.dtype, v.device))
     scalars = [_scalar(name, v, x) for name, v in scalars]
-    xn = torch.empty_like(x)
-    rn = torch.empty_like(x)
+    outs = [torch.empty_like(x) for _ in range(nout)]
     if n == 0:
-        return xn, rn, torch.zeros(ndots, dtype=x.dtype, device=x.device)
+        return outs, torch.zeros(ndots, dtype=x.dtype, device=x.device)
     # the reduction kernel writes every dot
     dots = torch.empty(ndots, dtype=x.dtype, device=x.device)
     nblocks = min(-(-n // _BLOCK), _MAX_BLOCKS)
@@ -95,10 +111,10 @@ def _launch_tail(what, entry, scalars, vecs, ndots):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(cuda_lib.lib(), entry)(
-            _DTYPE_CODE[x.dtype], n, *ptrs, xn.data_ptr(), rn.data_ptr(),
+            _DTYPE_CODE[x.dtype], n, *ptrs, *(o.data_ptr() for o in outs),
             partials.data_ptr(), dots.data_ptr(), nblocks, stream)
     cuda_lib.check(rc, what)
-    return xn, rn, dots
+    return outs, dots
 
 
 def xr_update(alpha, p, q, x, r):
@@ -107,9 +123,9 @@ def xr_update(alpha, p, q, x, r):
     the vectors' dtype on their device (or a Python number)."""
     if x.device.type == "cpu":
         return xr_update_plain(alpha, p, q, x, r)
-    xn, rn, dots = _launch_tail("xr_update", "amgcl_xr",
-                                [("alpha", alpha)],
-                                {"p": p, "q": q, "x": x, "r": r}, 1)
+    (xn, rn), dots = _launch_tail("xr_update", "amgcl_xr",
+                                  [("alpha", alpha)],
+                                  {"p": p, "q": q, "x": x, "r": r}, 2, 1)
     xr_update.launches += 1
     return xn, rn, dots[0]
 
@@ -125,16 +141,38 @@ def bicgstab_tail(alpha, phat, omega, shat, s, t, x, rhat):
     tensors on the device."""
     if x.device.type == "cpu":
         return bicgstab_tail_plain(alpha, phat, omega, shat, s, t, x, rhat)
-    xn, rn, dots = _launch_tail(
+    (xn, rn), dots = _launch_tail(
         "bicgstab_tail", "amgcl_bicg_tail",
         [("alpha", alpha), ("omega", omega)],
         {"phat": phat, "shat": shat, "s": s, "t": t, "x": x, "rhat": rhat},
-        2)
+        2, 2)
     bicgstab_tail.launches += 1
     return xn, rn, dots[0], dots[1]
 
 
 bicgstab_tail.launches = 0
+
+
+def axpby_dot(a, x, b, y):
+    """``(z, ⟨z, z⟩)`` with ``z = a·x + b·y`` in one pass; the dot is a 0-d
+    tensor on the device. ``a`` and ``b`` are 0-d tensors of the vectors'
+    dtype on their device (or Python numbers, which a CUDA launch copies
+    to the device)."""
+    if x.device.type == "cpu":
+        return axpby_dot_plain(a, x, b, y)
+    (z,), dots = _launch_tail("axpby_dot", "amgcl_axpby_dot",
+                              [("a", a), ("b", b)], {"x": x, "y": y}, 1, 1)
+    axpby_dot.launches += 1
+    return z, dots[0]
+
+
+axpby_dot.launches = 0
+
+
+def block_dots(X, Y):
+    """``(len(X), len(Y))`` matrix of ``⟨X_i, Y_j⟩`` — the Gram products of
+    BiCGStab(L)'s minimal-residual step — as one matrix product."""
+    return torch.matmul(X, Y.T)
 
 
 def residual_dot(f, A, x):

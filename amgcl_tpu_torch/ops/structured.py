@@ -280,16 +280,18 @@ class ImplicitSmoothedR:
         return self.T.bytes() + self.Mt.bytes()
 
 
-def build_implicit_transfers(spec, dtype, device):
+def build_implicit_transfers(spec, dtype, device, matrix_format="auto"):
     """Realise a coarsening's implicit-transfer spec on the device.
 
     spec keys: 'M' (host CSR or HostDia, = ω D⁻¹ A_f); either
     'fine'/'block'/'coarse' grid dims (grid-aligned aggregates) or
-    'agg'/'n_agg' (MIS aggregates). Returns (P_dev, R_dev)."""
+    'agg'/'n_agg' (MIS aggregates). M and Mᵀ take the hierarchy's
+    ``matrix_format``, as in the JAX package (each on its own, with no
+    shared budget). Returns (P_dev, R_dev)."""
     if "fine" in spec:
         T = GridTentative(spec["fine"], spec["block"], spec["coarse"])
     else:
         T = AggTentative.build(spec["agg"], spec["n_agg"], device)
-    M = dev.to_device(spec["M"], "auto", dtype, device)
-    Mt = dev.to_device(spec["M"].transpose(), "auto", dtype, device)
+    M = dev.to_device(spec["M"], matrix_format, dtype, device)
+    Mt = dev.to_device(spec["M"].transpose(), matrix_format, dtype, device)
     return ImplicitSmoothedP(T, M), ImplicitSmoothedR(T, Mt)

@@ -75,16 +75,18 @@ class WindowedEllMatrix:
                 + self.window_starts.numel() * 4)
 
 
-def tile_windows(A: CSR):
-    """Per-row-tile aligned column windows over tiles of _TILE rows:
-    returns (n_tiles, rows, tiles, starts, win) with ``starts`` floored to
-    _WIN_ALIGN and ``win`` the _WIN_ALIGN-rounded widest span. A tile without entries starts at the
-    column count, floored like the others (its padding reads land at or
-    past the end of x, which the kernels treat as zero)."""
+def tile_windows(A: CSR, tile: int = _TILE):
+    """Per-row-tile aligned column windows over tiles of ``tile`` rows
+    (windowed ELL keeps _TILE, the dense window passes its 64): returns
+    (n_tiles, rows, tiles, starts, win) with ``starts`` floored to
+    _WIN_ALIGN and ``win`` the _WIN_ALIGN-rounded widest span. A tile
+    without entries starts at the column count, floored like the others
+    (its padding reads land at or past the end of x, which the kernels
+    treat as zero)."""
     n, m = A.shape
-    n_tiles = -(-n // _TILE)
+    n_tiles = -(-n // tile)
     rows = A.expanded_rows()
-    tiles = rows // _TILE
+    tiles = rows // tile
     starts = np.full(n_tiles, m, dtype=np.int64)
     ends = np.zeros(n_tiles, dtype=np.int64)
     if A.nnz:

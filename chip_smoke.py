@@ -60,6 +60,26 @@ Run from the root of a checkout, with no arguments:
    beside torch's BSR product as the library yardstick; every mode also
    on L0 A's structure with random, non-symmetric blocks, the correction
    with a random, non-symmetric scale.
+6. Path D2 (B1's hierarchies freed first): U2's system and call with
+   ``AMGParams(dtype=float32, matrix_format="dwin")``, cold and warm,
+   counts set to 0 just before and read just after. It fails unless the
+   levels have 85,623 / 25,145 / 1,998 rows, every level operator is a
+   dense window of 11,264 / 10,240 / 2,048 columns holding 3,858,235,392 /
+   1,030,225,920 / 16,777,216 bytes of blocks, the smoothed transfers'
+   M and Mᵀ are dense windows too (the JAX package converts them in the
+   hierarchy's format), BiCGStab takes 50 ± 10% iterations (the JAX
+   package's U2 count on the CPU), the true residual is ≤ 1e-6, every
+   dense-window kernel launched and no plain version ran. Then each
+   dense-window kernel is held against its plain version and timed at
+   L0 and L1 in float32 and at L1 in float64, the SpMV beside torch.bmm.
+7. Path K1: U1's system and call under ``BiCGStabL(L=2, maxiter=100,
+   tol=1e-6)``, cold and warm. It fails unless U1's levels are built,
+   BiCGStab(L) takes 51 ± 10% iterations (the JAX package's on the CPU),
+   the true residual is ≤ 1e-6, axpby_dot launched at least once per
+   iteration, no plain version ran, and a further warm solve makes at
+   most 8 host syncs beside one per BiCG step. Then axpby_dot is held
+   against its plain version and timed at n = 85,623 in float32 and
+   float64.
 
 Prints one JSON line of kernel records, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
@@ -99,10 +119,24 @@ B_LEVELS = [110592, 13310, 1049, 68]
 B_ITERS = 7
 B_ITERS_REFINED = 13
 
+#: path D2 (U2's hierarchy on dense-window operators): level rows, each
+#: level operator's window and block bytes (float32), and the JAX
+#: package's BiCGStab iterations for U2 on the CPU (correctness
+#: constants, not speeds)
+D2_LEVELS = [85623, 25145, 1998]
+D2_WINDOWS = [11264, 10240, 2048]
+D2_BYTES = [3858235392, 1030225920, 16777216]
+D2_ITERS = 50
+#: path K1 (U1 under BiCGStab(2)): U1's levels and the JAX package's
+#: iterations on the CPU
+K1_LEVELS = [85623, 23695, 1561]
+K1_ITERS = 51
+
 SOURCES = {"dia": "amgcl_tpu_torch/csrc/dia.cu",
            "vec": "amgcl_tpu_torch/csrc/vec.cu",
            "vcycle": "amgcl_tpu_torch/csrc/vcycle.cu",
-           "well": "amgcl_tpu_torch/csrc/well_block.cu"}
+           "well": "amgcl_tpu_torch/csrc/well_block.cu",
+           "densewin": "amgcl_tpu_torch/csrc/densewin.cu"}
 REPLACES = {
     "dia_spmv": "amgcl_tpu/ops/pallas_spmv.py:318",
     "dia_residual": "amgcl_tpu/ops/pallas_spmv.py:389",
@@ -122,6 +156,10 @@ REPLACES = {
     "windowed_ell_block_scaled_correction":
         "amgcl_tpu/ops/unstructured.py:623",
     "windowed_ell_block_spmv_dots": "amgcl_tpu/ops/unstructured.py:687",
+    "dense_window_spmv": "amgcl_tpu/ops/densewin.py:235",
+    "dense_window_residual": "amgcl_tpu/ops/densewin.py:279",
+    "dense_window_scaled_correction": "amgcl_tpu/ops/densewin.py:279",
+    "axpby_dot": "amgcl_tpu/ops/fused_vec.py:251",
 }
 FUSED = ("fused_down_sweep", "fused_up_sweep")
 #: the measured fields of a kernel's record in the kernels line
@@ -135,6 +173,9 @@ UNSTRUCTURED = ("windowed_ell_spmv", "windowed_ell_residual",
 BLOCK = ("windowed_ell_block_spmv", "windowed_ell_block_residual",
          "windowed_ell_block_scaled_correction",
          "windowed_ell_block_spmv_dots", "bicgstab_tail")
+#: kernels path D2 must launch
+DENSEWIN = ("dense_window_spmv", "dense_window_residual",
+            "dense_window_scaled_correction")
 #: kernels the earlier (host-setup, composed) path must launch
 EARLIER = ("dia_residual", "dia_scaled_correction", "dia_spmv_dots",
            "dia_residual_dot", "xr_update")
@@ -144,10 +185,12 @@ ON_PATH = EARLIER + FUSED
 
 
 def source_of(name):
-    if name in ("xr_update", "bicgstab_tail"):
+    if name in ("xr_update", "bicgstab_tail", "axpby_dot"):
         return SOURCES["vec"]
     if name.startswith("windowed_ell"):
         return SOURCES["well"]
+    if name.startswith("dense_window"):
+        return SOURCES["densewin"]
     return SOURCES["vcycle" if name in FUSED else "dia"]
 
 
@@ -160,6 +203,7 @@ def card_line():
 
 
 def wrappers():
+    from amgcl_tpu_torch.ops import densewin_kernels as dwk
     from amgcl_tpu_torch.ops import dia_kernels as dk
     from amgcl_tpu_torch.ops import fused_vec as fv
     from amgcl_tpu_torch.ops import vcycle_kernels as vk
@@ -196,7 +240,15 @@ def wrappers():
                 wbk.windowed_ell_block_scaled_correction_plain),
             "windowed_ell_block_spmv_dots": (
                 wbk.windowed_ell_block_spmv_dots,
-                wbk.windowed_ell_block_spmv_dots_plain)}
+                wbk.windowed_ell_block_spmv_dots_plain),
+            "dense_window_spmv": (dwk.dense_window_spmv,
+                                  dwk.dense_window_spmv_plain),
+            "dense_window_residual": (dwk.dense_window_residual,
+                                      dwk.dense_window_residual_plain),
+            "dense_window_scaled_correction": (
+                dwk.dense_window_scaled_correction,
+                dwk.dense_window_scaled_correction_plain),
+            "axpby_dot": (fv.axpby_dot, fv.axpby_dot_plain)}
 
 
 def reset_counts():
@@ -709,17 +761,18 @@ def describe_levels(label, solve):
     return rows, fmts
 
 
-def solve_cold_warm(A, rhs, label, solver, refine):
-    """make_solver with a float32 hierarchy and ``solver``, then a cold
-    and a warm solve, the counts set to 0 just before the setup and read
-    just after the warm solve. Returns (solve, x, info, counts,
-    plain_calls, warm_launches, setup_s)."""
+def solve_cold_warm(A, rhs, label, solver, refine, **params):
+    """make_solver with a float32 hierarchy (AMGParams ``params`` beside
+    the dtype) and ``solver``, then a cold and a warm solve, the counts set
+    to 0 just before the setup and read just after the warm solve.
+    Returns (solve, x, info, counts, plain_calls, warm_launches,
+    setup_s)."""
     from amgcl_tpu_torch import AMGParams, make_solver
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    solve = make_solver(A, AMGParams(dtype=torch.float32), solver,
+    solve = make_solver(A, AMGParams(dtype=torch.float32, **params), solver,
                         refine=refine)
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
@@ -734,8 +787,12 @@ def solve_cold_warm(A, rhs, label, solver, refine):
     first, _ = read_counts()
     x, info = solve(rhs)
     counts, plain_calls = read_counts()
-    print("[%s] solve 2 (warm): %d iterations, reported resid %.3e, %.4f s"
-          % (label, info.iters, info.resid, info.wall_time_s))
+    print("[%s] solve 2 (warm): %d iterations, reported resid %.3e, %.4f s; "
+          "peak device memory over setup and both solves %.1f MB above the "
+          "%.1f MB held before" % (
+              label, info.iters, info.resid, info.wall_time_s,
+              (torch.cuda.max_memory_allocated() - base) / 2**20,
+              base / 2**20))
     warm = {k: counts[k] - first[k] for k in counts if counts[k]}
     print("[%s] launches (setup + 2 solves): %s"
           % (label, json.dumps({k: v for k, v in counts.items() if v})))
@@ -781,7 +838,8 @@ def drive_unstructured(A, rhs, failures, label, side):
 def unstructured_paths(failures):
     """Paths U1 (identity order, right side) and U2 (RCM order, left
     side) of the tutorial deployment. Returns ({label: solve},
-    {label: counts}, summary)."""
+    {label: counts}, summary, (A, rhs, perm)): the problem and U2's RCM
+    permutation, which D2 and K1 reuse."""
     from amgcl_tpu_torch import fe_like_problem
     from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
     t0 = time.perf_counter()
@@ -803,7 +861,7 @@ def unstructured_paths(failures):
             failures.append("kernel %s launched on neither U1 nor U2" % k)
     if counts["U2"]["windowed_ell_spmv"] == 0:
         failures.append("U2: windowed_ell_spmv never launched")
-    return solves, counts, summary
+    return solves, counts, summary, (A, rhs, perm)
 
 
 def check_unstructured_kernels(solves, failures):
@@ -1182,6 +1240,265 @@ def check_block_kernels(solve, refined, failures):
     return records
 
 
+# -- phase 6: path D2, U2's system on dense-window operators -----------------
+
+def dense_window_path(A, rhs, perm, failures):
+    """Path D2: U2's system (RCM order, left side) with
+    ``AMGParams(matrix_format="dwin")``, cold and warm. Every level
+    operator is a dense window, and so are the smoothed transfers' M and
+    Mᵀ, which both packages convert in the hierarchy's format; the
+    float64 refinement operator goes through auto (windowed ELL). Returns
+    (solve, counts, summary)."""
+    from amgcl_tpu_torch import BiCGStab
+    from amgcl_tpu_torch.ops.densewin import DenseWindowMatrix
+    from amgcl_tpu_torch.utils.adapters import permute
+    Ap, rhs_p = permute(A, perm), rhs[perm]
+    solve, x, info, counts, plain_calls, warm, t_setup = solve_cold_warm(
+        Ap, rhs_p, "D2", BiCGStab(maxiter=100, tol=1e-6,
+                                  precond_side="left"), 3,
+        matrix_format="dwin")
+    print(solve.precond)
+    rows, wins, blk_bytes, all_dwin = [], [], [], True
+    for i, lv in enumerate(solve.precond.hierarchy.levels):
+        parts = []
+        for tag, M in (("A", lv.A), ("M", getattr(lv.P, "M", None)),
+                       ("Mt", getattr(lv.R, "Mt", None))):
+            if M is None:
+                continue
+            dwin = isinstance(M, DenseWindowMatrix)
+            all_dwin = all_dwin and dwin
+            parts.append("%s %s %dx%d window %s, %s bytes" % (
+                tag, type(M).__name__, M.shape[0], M.shape[1],
+                getattr(M, "win", "-"),
+                M.blocks.numel() * M.blocks.element_size() if dwin
+                else M.bytes()))
+        print("[D2] level %d: %s" % (i, "; ".join(parts)))
+        rows.append(lv.A.shape[0])
+        wins.append(getattr(lv.A, "win", None))
+        blk_bytes.append(lv.A.blocks.numel() * lv.A.blocks.element_size()
+                         if isinstance(lv.A, DenseWindowMatrix) else None)
+    a64 = solve.A_dev64
+    print("[D2] Krylov operator: the hierarchy's L0 (%s); refinement "
+          "operator: %s %s" % (solve.A_dev is solve.precond.hierarchy
+                               .levels[0].A, type(a64).__name__, a64.dtype))
+    x64 = x.double().cpu().numpy()
+    true_res = float(np.linalg.norm(rhs_p - Ap.spmv(x64))
+                     / np.linalg.norm(rhs_p))
+    print("[D2] true relative residual (host float64): %.3e" % true_res)
+    if rows != D2_LEVELS or wins != D2_WINDOWS or blk_bytes != D2_BYTES \
+            or not all_dwin:
+        failures.append("D2: levels %s, windows %s, block bytes %s (every "
+                        "A, M, Mt a dense window: %s), expected %s %s %s"
+                        % (rows, wins, blk_bytes, all_dwin, D2_LEVELS,
+                           D2_WINDOWS, D2_BYTES))
+    if abs(info.iters - D2_ITERS) > 0.1 * D2_ITERS:
+        failures.append("D2: %d iterations, expected %d ± 10%%"
+                        % (info.iters, D2_ITERS))
+    if not (np.all(np.isfinite(x64)) and true_res <= 1e-6):
+        failures.append("D2: true residual %.3e > 1e-6" % true_res)
+    if any(plain_calls.values()):
+        failures.append("D2: plain versions ran: %s" % plain_calls)
+    for k in DENSEWIN:
+        if counts[k] == 0:
+            failures.append("D2: kernel %s never launched" % k)
+    profile_solve(solve, rhs_p, info.wall_time_s * 1e3)
+    return solve, counts, {
+        "setup_s": t_setup, "warm_solve_s": info.wall_time_s,
+        "iters": info.iters, "resid": info.resid, "true_resid": true_res,
+        "levels": rows, "windows": wins, "block_bytes": blk_bytes,
+        "warm_launches": warm}
+
+
+def check_densewin_kernels(solve, failures):
+    """Each dense-window kernel against its plain version at D2's L0 and
+    L1 operators in float32 and at L1 in float64 (the same blocks,
+    widened), timed as in check_kernels, the SpMV beside torch.bmm and
+    the residual beside torch.baddbmm(f, B, x_windows, alpha=-1) over the
+    tiles' x windows (gathered, and f padded to whole tiles, before the
+    timed call); no one call computes the correction. |Δ| ≤ rtol ·
+    Σ|terms| per entry (rtol 1e-5 in float32, 1e-12 in float64). The
+    bound counts the blocks, the starts, x once and each other vector
+    once; the operations are the multiply-adds over every stored entry,
+    zeros included, which the kernel does."""
+    from amgcl_tpu_torch.ops import densewin_kernels as dwk
+    from amgcl_tpu_torch.ops.densewin import DenseWindowMatrix
+    W = wrappers()
+    LIB_NAME = {"dense_window_spmv": "torch.bmm",
+                "dense_window_residual": "torch.baddbmm(alpha=-1)"}
+    rng = np.random.RandomState(20261020)
+    L = solve.precond.hierarchy.levels
+    A1 = L[1].A
+    A1_64 = DenseWindowMatrix(A1.window_starts, A1.blocks.double(),
+                              A1.shape, A1.win)
+    ops_cases = [("L0 A", L[0].A, L[0].relax.scale),
+                 ("L1 A", A1, L[1].relax.scale),
+                 ("L1 A f64", A1_64, L[1].relax.scale.double())]
+    records = {}
+    for name in DENSEWIN:
+        kern, plain = W[name]
+        for label, M, scale_w in ops_cases:
+            dt = M.dtype
+            n, m = M.shape
+            s = M.blocks.element_size()
+            nt, tile, win = M.blocks.shape
+
+            def vec(k):
+                return torch.as_tensor(rng.standard_normal(k)).to(
+                    device="cuda", dtype=dt)
+            x, f = vec(m), vec(n)
+            geo = (M.window_starts, M.blocks)
+            fmt_bytes = M.blocks.numel() * s + 4 * nt
+            ops = 2 * M.blocks.numel()
+            terms = dwk.dense_window_spmv_plain(M.window_starts,
+                                                M.blocks.abs(), x.abs(), n)
+            rtol = 1e-5 if dt == torch.float32 else 1e-12
+            lib = None
+            if name != "dense_window_scaled_correction":
+                xp = torch.cat([x, x.new_zeros(win)])
+                xw = xp[M.window_starts.long()[:, None]
+                        + torch.arange(win, device="cuda")].unsqueeze(-1)
+            if name == "dense_window_spmv":
+                args = geo + (x, n)
+                nbytes = fmt_bytes + (m + n) * s
+                scale = float(terms.max())
+                lib = lambda: torch.bmm(M.blocks, xw)
+            elif name == "dense_window_residual":
+                args = geo + (f, x, n)
+                nbytes, ops = fmt_bytes + (m + 2 * n) * s, ops + n
+                scale = float((terms + f.abs()).max())
+                ft = torch.cat([f, f.new_zeros(nt * tile - n)]).reshape(
+                    nt, tile, 1)
+                lib = lambda: torch.baddbmm(ft, M.blocks, xw, alpha=-1)
+            else:
+                w = scale_w
+                args = geo + (w, f, x, n)
+                nbytes, ops = fmt_bytes + (m + 3 * n) * s, ops + 3 * n
+                scale = float((w.abs() * (terms + f.abs()) + x.abs()).max())
+            del terms
+            r = compare_and_time(name, kern, plain, args, rtol, scale,
+                                 lambda want: [], lib, nbytes, ops, dt)
+            print("%-30s %-9s n=%-6d m=%-6d tiles=%-5d win=%-6d %s  err %.3e "
+                  "(tol %.3e)  ms %.4f  plain %.4f  library %s  bound %.4f "
+                  "(%s, %.1f MB)  %s"
+                  % (name, label, n, m, nt, win, str(dt).split(".")[-1],
+                     r["max_abs_err"], rtol * scale, r["ms"], r["plain_ms"],
+                     "%.4f (%s, windows gathered before)"
+                     % (r["library_ms"], LIB_NAME.get(name))
+                     if r["library_ms"] is not None else "none",
+                     r["bound_ms"], r["bound_by"], nbytes / 1e6,
+                     "ok" if r["ok"] else "FAIL"))
+            if not r["ok"]:
+                failures.append("%s %s disagrees with its plain version"
+                                % (name, label))
+            if name not in records:
+                records[name] = {k: r[k] for k in RECORD_KEYS}
+                records[name]["shape"] = (
+                    "D2 %s %dx%d, %d tiles of %d x %d, %s%s"
+                    % (label, n, m, nt, tile, win, dt,
+                       "; library: %s over x windows gathered before the "
+                       "timed call" % LIB_NAME[name] if lib else ""))
+            lib = xw = ft = None
+    return records
+
+
+# -- phase 7: path K1, U1's system under BiCGStab(L) -------------------------
+
+def count_syncs(fn):
+    """Run ``fn`` with torch's sync debug mode on and return the number of
+    synchronizing CUDA operations it reported."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+def bicgstabl_path(A, rhs, failures):
+    """Path K1: U1's system (identity order) under BiCGStab(2), right
+    side, refine=3, cold and warm; then one more warm solve under torch's
+    sync debug mode, counting host syncs against BiCG steps. Returns
+    (solve, counts, summary)."""
+    from amgcl_tpu_torch import BiCGStabL
+    from amgcl_tpu_torch.ops import fused_vec as fv
+    solve, x, info, counts, plain_calls, warm, t_setup = solve_cold_warm(
+        A, rhs, "K1", BiCGStabL(L=2, maxiter=100, tol=1e-6), 3)
+    print(solve.precond)
+    rows, fmts = describe_levels("K1", solve)
+    x64 = x.double().cpu().numpy()
+    true_res = float(np.linalg.norm(rhs - A.spmv(x64)) / np.linalg.norm(rhs))
+    print("[K1] true relative residual (host float64): %.3e" % true_res)
+    if rows != K1_LEVELS or fmts != U_FORMATS:
+        failures.append("K1: levels %s %s, expected %s %s"
+                        % (rows, fmts, K1_LEVELS, U_FORMATS))
+    if abs(info.iters - K1_ITERS) > 0.1 * K1_ITERS:
+        failures.append("K1: %d iterations, expected %d ± 10%%"
+                        % (info.iters, K1_ITERS))
+    if not (np.all(np.isfinite(x64)) and true_res <= 1e-6):
+        failures.append("K1: true residual %.3e > 1e-6" % true_res)
+    if any(plain_calls.values()):
+        failures.append("K1: plain versions ran: %s" % plain_calls)
+    # one axpby_dot launch per BiCG step, committed or not
+    if warm.get("axpby_dot", 0) < info.iters:
+        failures.append("K1: axpby_dot launched %d times in a warm solve of "
+                        "%d iterations" % (warm.get("axpby_dot", 0),
+                                           info.iters))
+    steps = fv.axpby_dot.launches
+    syncs = count_syncs(lambda: solve(rhs))
+    steps = fv.axpby_dot.launches - steps
+    # beside one sync per BiCG step: each of at most four solver starts
+    # and each refinement norm, at most four (one each)
+    print("[K1] host syncs in a warm solve: %d for %d BiCG steps (limit: "
+          "steps + 8)" % (syncs, steps))
+    if syncs > steps + 8:
+        failures.append("K1: %d host syncs for %d BiCG steps" % (syncs,
+                                                                 steps))
+    profile_solve(solve, rhs, info.wall_time_s * 1e3)
+    return solve, counts, {
+        "setup_s": t_setup, "warm_solve_s": info.wall_time_s,
+        "iters": info.iters, "resid": info.resid, "true_resid": true_res,
+        "levels": rows, "warm_launches": warm, "syncs": syncs,
+        "bicg_steps": steps}
+
+
+def check_axpby_dot(failures):
+    """axpby_dot against its plain version at K1's n = 85,623 in float32
+    and float64, timed as in check_kernels; z within rtol of Σ|terms| per
+    entry and ⟨z, z⟩ within rtol of Σ terms²."""
+    kern, plain = wrappers()["axpby_dot"]
+    rng = np.random.RandomState(20261021)
+    n = K1_LEVELS[0]
+    records = {}
+    for dt in (torch.float32, torch.float64):
+        x, y = (torch.as_tensor(rng.standard_normal(n)).to(
+            device="cuda", dtype=dt) for _ in range(2))
+        a = torch.tensor(-0.37, dtype=dt, device="cuda")
+        b = torch.tensor(1.0, dtype=dt, device="cuda")
+        terms = 0.37 * x.abs() + y.abs()
+        rtol = 1e-5 if dt == torch.float32 else 1e-12
+        s = x.element_size()
+        r = compare_and_time("axpby_dot", kern, plain, (a, x, b, y), rtol,
+                             float(terms.max()),
+                             lambda want: [(1, terms, terms)], None,
+                             3 * n * s, 5 * n, dt)
+        print("%-30s n=%-6d %s  err %.3e (tol %.3e)  dot rel err %.2e  ms "
+              "%.4f  plain %.4f  bound %.4f (%s)  %s"
+              % ("axpby_dot", n, str(dt).split(".")[-1], r["max_abs_err"],
+                 rtol * float(terms.max()), r["dot_rel_err"], r["ms"],
+                 r["plain_ms"], r["bound_ms"], r["bound_by"],
+                 "ok" if r["ok"] else "FAIL"))
+        if not r["ok"]:
+            failures.append("axpby_dot %s disagrees with its plain version"
+                            % dt)
+        if "axpby_dot" not in records:
+            records["axpby_dot"] = {k: r[k] for k in RECORD_KEYS}
+            records["axpby_dot"]["shape"] = "K1 n=%d, %s" % (n, dt)
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1204,7 +1521,8 @@ def main():
     del solve
     gc.collect()
     torch.cuda.empty_cache()
-    u_solves, u_counts, u_summary = unstructured_paths(failures)
+    u_solves, u_counts, u_summary, (A_u, rhs_u, perm) = unstructured_paths(
+        failures)
     records.update(check_unstructured_kernels(u_solves, failures))
     print("unstructured paths: %s" % json.dumps(u_summary))
     # release U1's and U2's hierarchies, so that the block path's peak
@@ -1215,16 +1533,33 @@ def main():
     b_solve, b_refined, b_counts, b_summary = block_path(failures)
     records.update(check_block_kernels(b_solve, b_refined, failures))
     print("block path: %s" % json.dumps(b_summary))
+    # release B1's hierarchies, so that D2's peak device memory is its own
+    del b_solve, b_refined
+    gc.collect()
+    torch.cuda.empty_cache()
+    d_solve, d_counts, d_summary = dense_window_path(A_u, rhs_u, perm,
+                                                     failures)
+    records.update(check_densewin_kernels(d_solve, failures))
+    print("dense-window path: %s" % json.dumps(d_summary))
+    del d_solve
+    gc.collect()
+    torch.cuda.empty_cache()
+    k_solve, k_counts, k_summary = bicgstabl_path(A_u, rhs_u, failures)
+    records.update(check_axpby_dot(failures))
+    print("BiCGStab(L) path: %s" % json.dumps(k_summary))
+    del k_solve
     kernels = []
     for name in REPLACES:
         rec = records[name]
+        later = {"D2": d_counts[name], "K1": k_counts[name]}
         if name in UNSTRUCTURED:
             by_path = {"U1": u_counts["U1"][name],
-                       "U2": u_counts["U2"][name], "B1": b_counts[name]}
-        elif name in BLOCK:
-            by_path = {"B1": b_counts[name]}
+                       "U2": u_counts["U2"][name], "B1": b_counts[name],
+                       **later}
+        elif name in BLOCK or name in DENSEWIN or name == "axpby_dot":
+            by_path = {"B1": b_counts[name], **later}
         else:
-            by_path = {"main": counts[name], "B1": b_counts[name]}
+            by_path = {"main": counts[name], "B1": b_counts[name], **later}
         # launches on the main path, or over the paths a kernel serves
         launches = by_path["main"] if "main" in by_path \
             else sum(by_path.values())

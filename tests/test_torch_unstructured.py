@@ -322,7 +322,11 @@ def test_explicit_well_format_and_its_refusal():
     np.testing.assert_allclose(W.mv(torch.as_tensor(x)).numpy(), A.spmv(x),
                                rtol=1e-12, atol=1e-12 * np.abs(A.val).max())
     with pytest.raises(ValueError, match="unknown device format"):
-        dev.to_device(A, "dwin", torch.float32, "cpu")
+        dev.to_device(A, "bogus", torch.float32, "cpu")
+    # the dense window is a format by name
+    # (tests/test_torch_densewin.py)
+    assert type(dev.to_device(A, "dwin", torch.float32, "cpu")).__name__ \
+        == "DenseWindowMatrix"
 
 
 # -- dispatch on the CPU ----------------------------------------------------
