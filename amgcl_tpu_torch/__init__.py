@@ -33,7 +33,19 @@ smooth with block SPAI-0, and run on block windowed-ELL operators
 
 BiCGStab(L) (amgcl's ``solver.type=bicgstabl``) takes the place of
 BiCGStab in any of these calls, e.g. ``BiCGStabL(L=2, maxiter=100,
-tol=1e-6)``. The dense-window format, which the JAX package offers for
+tol=1e-6)``, and so do ``GMRES``, ``FGMRES``, ``LGMRES``, ``IDRs``,
+``Richardson`` and ``PreOnly``. A low-degree unstructured system (five
+nearest neighbours, K = 16 slots a row) under GMRES runs its products
+through the gather kernel (``csrc/gather.cu``)::
+
+    from amgcl_tpu_torch import GMRES
+    A, rhs = fe_like_problem(85623, nnz_target=6 * 85623)
+    solve = make_solver(A, AMGParams(), GMRES(maxiter=100, tol=1e-6),
+                        refine=3)
+    x, info = solve(rhs)
+
+Any solver takes ``record_history=True``; ``info.history`` then lists
+the relative residual of each iteration of the initial solve. The dense-window format, which the JAX package offers for
 the TPU's slow gathers, is available by name for banded (e.g.
 Cuthill-McKee ordered) systems: ``AMGParams(matrix_format="dwin")`` or
 ``to_device(A, "dwin")``. It stores each 64-row tile's column window
@@ -53,11 +65,11 @@ from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.models.amg import AMG, AMGParams
 from amgcl_tpu_torch.models.make_solver import make_solver
 from amgcl_tpu_torch.ops.unstructured import fe_like_problem
-from amgcl_tpu_torch.solver.bicgstab import BiCGStab
-from amgcl_tpu_torch.solver.bicgstabl import BiCGStabL
-from amgcl_tpu_torch.solver.cg import CG
+from amgcl_tpu_torch.solver import (CG, FGMRES, GMRES, IDRs, LGMRES,
+                                    BiCGStab, BiCGStabL, PreOnly, Richardson)
 from amgcl_tpu_torch.utils.sample_problem import poisson3d, poisson3d_block
 
 __all__ = ["CSR", "AMG", "AMGParams", "make_solver", "BiCGStab",
-           "BiCGStabL", "CG", "fe_like_problem", "poisson3d",
+           "BiCGStabL", "CG", "FGMRES", "GMRES", "IDRs", "LGMRES",
+           "PreOnly", "Richardson", "fe_like_problem", "poisson3d",
            "poisson3d_block"]

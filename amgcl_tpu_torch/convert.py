@@ -8,9 +8,13 @@ Krylov solve be held against that package on an identical hierarchy, so
 solve differences are separated from setup differences; each level gets
 the port's own fused V-cycle handles where it is eligible, so the fused
 legs can be held against the reference's on the same operators.
+:func:`idrs_with_shadow` does the same for the one piece of solver state
+the packages draw differently: IDR(s)'s shadow space.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -24,6 +28,7 @@ from amgcl_tpu_torch.ops.structured import (AggTentative, GridTentative,
 from amgcl_tpu_torch.ops.unstructured import WindowedEllMatrix
 from amgcl_tpu_torch.ops.vcycle import build_fused_down, build_fused_up
 from amgcl_tpu_torch.relaxation.base import ScaledResidualSmoother
+from amgcl_tpu_torch.solver.idrs import IDRs
 from amgcl_tpu_torch.solver.direct import DenseDirectSolver
 from amgcl_tpu_torch.utils.devices import resolve_device
 
@@ -113,3 +118,13 @@ def hierarchy_from_arrays(levels, coarse_inv, params: AMGParams = None,
     inv = torch.tensor(np.asarray(coarse_inv), dtype=dtype, device=device)
     return Hierarchy(out, DenseDirectSolver(inv), prm.npre, prm.npost,
                      prm.ncycle, prm.pre_cycles)
+
+
+def idrs_with_shadow(solver: IDRs, P) -> IDRs:
+    """A copy of ``solver`` that runs on the shadow space ``P``, an
+    (s, n) array (the JAX package's orthonormalized block, read out of
+    ``amgcl_tpu.solver.idrs._shadow_block`` with ``np.asarray``), instead
+    of drawing its own. The block is kept in float64 and cast to the
+    working dtype at each solve, which checks its shape."""
+    return dataclasses.replace(
+        solver, shadow=torch.tensor(np.asarray(P, dtype=np.float64)))

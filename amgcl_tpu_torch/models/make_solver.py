@@ -66,8 +66,10 @@ class make_solver:
         def apply_precond(r):
             return hier.apply(r.to(self.dtype)).to(rhs.dtype)
 
-        x, iters, resid, hs = self.solver.solve(self.A_dev, apply_precond,
-                                                rhs, x0)
+        got = self.solver.solve(self.A_dev, apply_precond, rhs, x0)
+        x, iters, resid, hs = got[:4]
+        # the history covers the initial solve only, as in the reference
+        hist = got[4][:iters] if len(got) > 4 else None
         if self.refine > 0:
             x, iters, resid = self._refine_loop(apply_precond, rhs, x,
                                                 iters, hs)
@@ -76,7 +78,7 @@ class make_solver:
         report = SolveReport(
             int(iters), float(resid), wall_time_s=time.perf_counter() - t0,
             hierarchy=self.precond.hierarchy_stats(),
-            health=None if hs is None else hs.names())
+            health=None if hs is None else hs.names(), history=hist)
         return x, report
 
     def _refine_loop(self, apply_precond, rhs, x, iters, hs):
@@ -100,7 +102,7 @@ class make_solver:
         while rt > tol and k < self.refine:
             dx, it2, _, ch = self.solver.solve(
                 self.A_dev, apply_precond, r.to(rhs.dtype),
-                torch.zeros_like(rhs), **kw)
+                torch.zeros_like(rhs), **kw)[:4]
             if hs is not None and ch is not None:
                 hs.flags |= ch.flags
                 hs.first_it = [a if a >= 0 else b

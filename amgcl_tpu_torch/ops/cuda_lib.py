@@ -24,7 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("dia.cu", "vec.cu", "vcycle.cu", "well_block.cu", "densewin.cu")
+SOURCES = ("dia.cu", "vec.cu", "vcycle.cu", "well_block.cu", "densewin.cu",
+           "gather.cu")
 HEADERS = ("reduce.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -99,6 +100,9 @@ def _bind(lib) -> None:
     lib.amgcl_densewin.argtypes = [i32, i32, i64, i64, i32, i32, i32] \
         + [vp] * 6 + [vp]
     lib.amgcl_densewin.restype = i32
+    lib.amgcl_gather_spmv.argtypes = [i32, i32, i64, i64, i32] + [vp] * 5 \
+        + [vp]
+    lib.amgcl_gather_spmv.restype = i32
     lib.amgcl_fused_down.argtypes = [i32] * 6 + [vp] * 8 + [vp]
     lib.amgcl_fused_down.restype = i32
     lib.amgcl_fused_up.argtypes = [i32] * 5 + [vp] * 9 + [vp]

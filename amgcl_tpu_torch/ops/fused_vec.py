@@ -1,7 +1,7 @@
 """Fused vector updates of the Krylov outer loop.
 
-Counterpart of ``amgcl_tpu/ops/fused_vec.py`` as far as CG, BiCGStab and
-BiCGStab(L) need it:
+Counterpart of ``amgcl_tpu/ops/fused_vec.py`` as far as the Krylov solvers
+need it:
 
 * :func:`xr_update` — the CG tail ``x += α·p``, ``r −= α·q`` and
   ``⟨r, r⟩`` from one read of {p, q, x, r}; on CUDA tensors the
@@ -15,9 +15,10 @@ BiCGStab(L) need it:
 * :func:`axpby_dot` — ``z = a·x + b·y`` and ``⟨z, z⟩`` from one read of
   {x, y}; the same kernel in mode AXPBY_DOT (replacing ``_fused_pass`` in
   mode ``axpby_dot``), :func:`axpby_dot_plain` on CPU tensors.
-* :func:`block_dots` — the Gram matrix of BiCGStab(L)'s minimal-residual
-  step as one matrix product (the JAX package computes it outside any
-  Pallas kernel too).
+* :func:`stack_dots` and :func:`block_dots` — the stacked products of
+  GMRES's and IDR(s)'s bases and the Gram matrix of BiCGStab(L)'s
+  minimal-residual step, each one matrix product (the JAX package
+  computes them outside any Pallas kernel too).
 * :func:`residual_dot` — ``r = f − A x`` and ``⟨r, r⟩`` in one operator
   pass (the DIA kernel for DIA operators, composed otherwise).
 """
@@ -167,6 +168,14 @@ def axpby_dot(a, x, b, y):
 
 
 axpby_dot.launches = 0
+
+
+def stack_dots(V, w):
+    """``(len(V),)`` vector of ``⟨V_i, w⟩`` — the Arnoldi and shadow-space
+    products of GMRES and IDR(s) — as one matrix-vector product (one read
+    of V; the JAX package computes it outside any Pallas kernel too,
+    amgcl_tpu/ops/fused_vec.py:387-402)."""
+    return torch.mv(V, w)
 
 
 def block_dots(X, Y):

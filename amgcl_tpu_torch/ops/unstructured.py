@@ -17,8 +17,10 @@ K padding and decline rules), so the two can be compared entry for
 entry. The TPU DMAs each window into VMEM; the Hopper kernels
 (``amgcl_tpu_torch/csrc/well_block.cu``, scalar values as 1×1 blocks;
 wrappers in :mod:`amgcl_tpu_torch.ops.well_kernels` and
-:mod:`amgcl_tpu_torch.ops.well_block_kernels`) gather from device memory
-and L2 directly.
+:mod:`amgcl_tpu_torch.ops.well_block_kernels`; the products of scalar
+operators with K ≤ 16, ``csrc/gather.cu`` through
+:mod:`amgcl_tpu_torch.ops.gather_kernels`) gather from device memory and
+L2 directly.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from amgcl_tpu_torch.ops import gather_kernels as gk
 from amgcl_tpu_torch.ops import well_block_kernels as wbk
 from amgcl_tpu_torch.ops import well_kernels as wk
 from amgcl_tpu_torch.ops.csr import CSR
@@ -64,8 +67,15 @@ class WindowedEllMatrix:
         return self.cols_local.shape[2]
 
     def mv(self, x):
-        fn = wk.windowed_ell_spmv if self.block == (1, 1) \
-            else wbk.windowed_ell_block_spmv
+        """y = A x: a scalar operator with K up to ``AUTO_MAX_K`` goes to
+        the gather kernel (the reference's ``maybe_gather_spmv`` first
+        branch, amgcl_tpu/ops/unstructured.py:115-126), any other to the
+        windowed-ELL kernel of its values."""
+        if self.block == (1, 1):
+            fn = gk.gather_spmv if self.K <= gk.AUTO_MAX_K \
+                else wk.windowed_ell_spmv
+        else:
+            fn = wbk.windowed_ell_block_spmv
         return fn(self.window_starts, self.cols_local, self.vals, x,
                   self.shape[0])
 

@@ -34,10 +34,12 @@ class BiCGStab(HistoryMixin):
     tol: float = 1e-8
     abstol: float = 0.0
     precond_side: str = "right"
+    record_history: bool = False  # per-iteration relative residuals
     guard: bool = True      # in-loop health guards (telemetry/health.py)
 
     def solve(self, A, precond, rhs, x0=None):
-        """Returns ``(x, iters, relative_residual, health_state)``.
+        """Returns ``(x, iters, relative_residual, health_state)``, with
+        the residual history appended when ``record_history``.
         ``precond`` maps a vector r to an approximate solution of
         A z = r."""
         if self.precond_side not in ("left", "right"):
@@ -58,6 +60,7 @@ class BiCGStab(HistoryMixin):
         eps = max(self.tol * scale, self.abstol)
         tiny = torch.finfo(rhs.dtype).tiny
         hs = self._guard_init(res / scale)
+        hist = self._hist_init()
         one = torch.ones((), dtype=rhs.dtype, device=rhs.device)
         p = torch.zeros_like(r)
         v = torch.zeros_like(r)
@@ -103,7 +106,8 @@ class BiCGStab(HistoryMixin):
                 ok, (x_n, r_n, p_n, v_n, rho_n, rho_next, alpha_n, omega_n,
                      res_n),
                 (x, r, p, v, rho, rho_c, alpha, omega, res))
+            self._hist_put(hist, it, res_n / scale, keep=ok)
             it += int(ok)
         if norm_rhs == 0:
             x = torch.zeros_like(x)
-        return x, it, res / scale, (hs if self.guard else None)
+        return self._hist_result(x, it, res / scale, hs, hist)

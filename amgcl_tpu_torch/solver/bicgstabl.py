@@ -55,16 +55,14 @@ class BiCGStabL(HistoryMixin):
     guard: bool = True    # in-loop health guards (telemetry/health.py)
 
     def solve(self, A, precond, rhs, x0=None):
-        """Returns ``(x, iters, relative_residual, health_state)``.
+        """Returns ``(x, iters, relative_residual, health_state)``, with
+        the residual history appended when ``record_history``.
         ``precond`` maps a vector r to an approximate solution of
         A z = r. Each committed BiCG step counts one iteration."""
         if rhs.dim() != 1:
             raise NotImplementedError(
                 "a stacked (n, B) rhs (the JAX package's serving entry) is "
                 "not ported; solve one right-hand side at a time")
-        if self.record_history:
-            raise NotImplementedError(
-                "per-iteration residual history is not ported yet")
         if self.pside not in ("left", "right"):
             raise ValueError("pside must be 'left' or 'right', got %r"
                              % (self.pside,))
@@ -120,6 +118,7 @@ class BiCGStabL(HistoryMixin):
         xbase, B, rnc, rnt = x_init, r0, zeta0, zeta0
         it, res = 0, zeta0
         hs = self._guard_init(zeta0 / scale)
+        hist = self._hist_init()
         while it < self.maxiter and res > eps and self._guard_go(hs):
             # the reference leaves the whole solve the moment a BiCG step's
             # residual drops to eps (bicgstabl.hpp:296-299, `goto done`):
@@ -160,6 +159,7 @@ class BiCGStabL(HistoryMixin):
                 # when guarding, a non-finite step residual is never
                 # committed (the health flags below stop the loop)
                 step_ok = not guard or math.isfinite(zeta)
+                self._hist_put(hist, it + took, zeta / scale, keep=step_ok)
                 if step_ok:
                     took += 1
                     x, R, U, rho, alpha, res = xc, Rc, Uc, rho1, alpha_c, zeta
@@ -175,6 +175,9 @@ class BiCGStabL(HistoryMixin):
                 if not guard or math.isfinite(res_c):
                     x, R, U, omega = mr[:4]
                     res = res_c
+            # the cycle's last counted step ends at the committed (post-MR)
+            # residual, so that history[-1] is the returned residual
+            self._hist_put(hist, it + took - 1, res / scale, keep=took > 0)
             # one guard update per cycle, on the committed residual, with
             # the per-step trips (the loop state stays committed)
             self._guard_step(hs, it + max(took - 1, 0), res / scale,
@@ -204,7 +207,7 @@ class BiCGStabL(HistoryMixin):
             x = xbase + (precond(x) if right else x)
         elif right:
             x = x_init + precond(x)
-        return x, it, res / scale, (hs if self.guard else None)
+        return self._hist_result(x, it, res / scale, hs, hist)
 
     @staticmethod
     def _minimal_residual(x, R, U, tiny_eye):

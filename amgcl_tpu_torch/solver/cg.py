@@ -24,10 +24,12 @@ class CG(HistoryMixin):
     maxiter: int = 100
     tol: float = 1e-8
     abstol: float = 0.0
+    record_history: bool = False  # per-iteration relative residuals
     guard: bool = True      # in-loop health guards (telemetry/health.py)
 
     def solve(self, A, precond, rhs, x0=None, abstol=None):
-        """Returns ``(x, iters, relative_residual, health_state)``.
+        """Returns ``(x, iters, relative_residual, health_state)``, with
+        the residual history appended when ``record_history``.
         ``precond`` maps a residual r to an approximate solution of
         A z = r. ``abstol`` overrides the field (iterative refinement stops
         correction solves exactly at the global target)."""
@@ -42,6 +44,7 @@ class CG(HistoryMixin):
                   self.abstol if abstol is None else abstol)
         tiny = torch.finfo(rhs.dtype).tiny
         hs = self._guard_init(res / norm_scale)
+        hist = self._hist_init()
         p = torch.zeros_like(r)
         rho_prev = torch.zeros((), dtype=rhs.dtype, device=rhs.device)
         zero = torch.zeros_like(rho_prev)
@@ -70,7 +73,8 @@ class CG(HistoryMixin):
                  (H.INDEFINITE, qp_h < 0, False)))
             x, r, p, rho_prev, res = self._guard_commit(
                 ok, (x_n, r_n, p_n, rho, res_n), (x, r, p, rho_prev, res))
+            self._hist_put(hist, it, res_n / norm_scale, keep=ok)
             it += int(ok)
         if norm_rhs == 0:
             x = torch.zeros_like(x)
-        return x, it, res / norm_scale, (hs if self.guard else None)
+        return self._hist_result(x, it, res / norm_scale, hs, hist)

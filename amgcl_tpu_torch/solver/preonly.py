@@ -1,0 +1,44 @@
+"""Apply the preconditioner exactly once, for nesting a preconditioner
+inside another solver (counterpart of ``amgcl_tpu/solver/preonly.py``;
+reference: amgcl/solver/preonly.hpp).
+
+The solve reports one iteration and the true relative residual of the
+result, fetched in one host sync; the guard trips only on a non-finite
+residual.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from amgcl_tpu_torch.ops import device as dev
+from amgcl_tpu_torch.telemetry import health as H
+from amgcl_tpu_torch.telemetry.history import HistoryMixin
+
+
+@dataclass
+class PreOnly(HistoryMixin):
+    tol: float = 0.0   # iterative refinement's target (make_solver)
+    record_history: bool = False
+    guard: bool = True      # NaN detection only (no loop to guard)
+
+    def solve(self, A, precond, rhs, x0=None):
+        """Returns ``(x, 1, relative_residual, health_state)``, with the
+        one-entry history appended when ``record_history``; ``x0`` is
+        ignored."""
+        if rhs.dim() != 1:
+            raise NotImplementedError(
+                "a stacked (n, B) rhs (the JAX package's serving entry) is "
+                "not ported; solve one right-hand side at a time")
+        x = precond(rhs)
+        r = dev.residual(rhs, A, x)
+        nr, nb = torch.stack([dev.norm(r), dev.norm(rhs)]).tolist()
+        rel = nr / (nb if nb > 0 else 1.0)
+        hist = self._hist_init()
+        self._hist_put(hist, 0, rel)
+        hs = self._guard_init(rel)
+        hs.trip(0, H.NAN, not math.isfinite(rel))
+        return self._hist_result(x, 1, rel, hs, hist)

@@ -10,7 +10,11 @@ from typing import Any, Dict, List, Optional
 @dataclass
 class SolveReport:
     """``resid`` is the final relative residual. Unpacks like the
-    reference's pair: ``iters, error = info``."""
+    reference's pair: ``iters, error = info``. ``history`` (a solver with
+    ``record_history=True``) lists the relative residual of each
+    iteration: ``len(history) == iters`` for a plain solve, and under
+    iterative refinement it covers the initial solve only while
+    ``iters`` also counts the correction solves."""
 
     iters: int
     resid: float
@@ -19,6 +23,8 @@ class SolveReport:
     #: names of the guard flags that tripped (telemetry/health.py);
     #: empty for a clean guarded solve, None with guards off
     health: Optional[List[str]] = None
+    #: per-iteration relative residuals, or None
+    history: Optional[List[float]] = None
 
     def __iter__(self):
         yield self.iters

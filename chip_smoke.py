@@ -80,6 +80,29 @@ Run from the root of a checkout, with no arguments:
    most 8 host syncs beside one per BiCG step. Then axpby_dot is held
    against its plain version and timed at n = 85,623 in float32 and
    float64.
+8. The GMRES family (K1's hierarchy freed first). Path G1:
+   ``fe_like_problem(85623, nnz_target=6*85623)`` (five nearest
+   neighbours) → ``make_solver(A, AMGParams(dtype=float32),
+   GMRES(maxiter=100, tol=1e-6), refine=3)``, cold and warm, the counts
+   set to 0 just before and read just after. It fails unless the levels
+   are 85,623 / 14,002 / 1,232 rows, windowed ELL with K 16 at L0 /
+   windowed ELL / dense, GMRES takes 40 ± 10% iterations (the JAX
+   package's on the CPU), the true residual is ≤ 1e-6, the gather kernel
+   launched at least once an Arnoldi step (every L0 product of left
+   GMRES), no plain version ran, and a further warm solve makes at most
+   8 host syncs beside one per Arnoldi step. Path G1r: the same system in
+   RCM order under FGMRES, held likewise to 85,623 / 15,367 / 1,672 rows,
+   an L0 window of 7,168 columns with 81 distinct starts (the path on
+   which the starts matter) and 46 ± 10% iterations. Then the gather
+   kernel is held against its plain version and timed at G1's and G1r's
+   L0, G1's float64 refinement operator and random operators with
+   differing starts at K = 4, 8 and 12 in float32 and float64, beside
+   B.8 and torch's CSR product. LGMRES, IDR(s), Richardson(maxiter=100)
+   and PreOnly each solve G1's system once with the same call: 42, 60
+   and 200 ± 10% iterations and a true residual ≤ 1e-6; PreOnly exactly
+   4 (one application, three refinements), its residual reported. Path
+   G2: poisson3d(128) under GMRES with the main path's call otherwise:
+   14 ± 1 iterations, a true residual ≤ 1e-6, dia_spmv launched.
 
 Prints one JSON line of kernel records, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
@@ -131,12 +154,27 @@ D2_ITERS = 50
 #: iterations on the CPU
 K1_LEVELS = [85623, 23695, 1561]
 K1_ITERS = 51
+#: phase 8, the GMRES family: G1 (fe_like_problem(85623, nnz_target=
+#: 6*85623), identity order, GMRES) and G1r (RCM order, FGMRES) levels,
+#: formats, G1r's L0 window and distinct starts, and the JAX package's
+#: iterations on the CPU (summed over refinement; correctness constants,
+#: not speeds); G2 (poisson3d(128) under GMRES) likewise
+G1_LEVELS = [85623, 14002, 1232]
+G1R_LEVELS = [85623, 15367, 1672]
+G_FORMATS = ["WindowedEllMatrix", "WindowedEllMatrix", "DenseMatrix"]
+G1_ITERS = 40
+G1R_ITERS = 46
+G1R_WINDOW = 7168
+G1R_STARTS = 81
+G2_ITERS = 14
+G_OTHER_ITERS = {"LGMRES": 42, "IDRs": 60, "Richardson": 200, "PreOnly": 4}
 
 SOURCES = {"dia": "amgcl_tpu_torch/csrc/dia.cu",
            "vec": "amgcl_tpu_torch/csrc/vec.cu",
            "vcycle": "amgcl_tpu_torch/csrc/vcycle.cu",
            "well": "amgcl_tpu_torch/csrc/well_block.cu",
-           "densewin": "amgcl_tpu_torch/csrc/densewin.cu"}
+           "densewin": "amgcl_tpu_torch/csrc/densewin.cu",
+           "gather": "amgcl_tpu_torch/csrc/gather.cu"}
 REPLACES = {
     "dia_spmv": "amgcl_tpu/ops/pallas_spmv.py:318",
     "dia_residual": "amgcl_tpu/ops/pallas_spmv.py:389",
@@ -160,6 +198,7 @@ REPLACES = {
     "dense_window_residual": "amgcl_tpu/ops/densewin.py:279",
     "dense_window_scaled_correction": "amgcl_tpu/ops/densewin.py:279",
     "axpby_dot": "amgcl_tpu/ops/fused_vec.py:251",
+    "gather_spmv": "amgcl_tpu/ops/pallas_gather.py:78",
 }
 FUSED = ("fused_down_sweep", "fused_up_sweep")
 #: the measured fields of a kernel's record in the kernels line
@@ -191,6 +230,8 @@ def source_of(name):
         return SOURCES["well"]
     if name.startswith("dense_window"):
         return SOURCES["densewin"]
+    if name == "gather_spmv":
+        return SOURCES["gather"]
     return SOURCES["vcycle" if name in FUSED else "dia"]
 
 
@@ -206,6 +247,7 @@ def wrappers():
     from amgcl_tpu_torch.ops import densewin_kernels as dwk
     from amgcl_tpu_torch.ops import dia_kernels as dk
     from amgcl_tpu_torch.ops import fused_vec as fv
+    from amgcl_tpu_torch.ops import gather_kernels as gk
     from amgcl_tpu_torch.ops import vcycle_kernels as vk
     from amgcl_tpu_torch.ops import well_block_kernels as wbk
     from amgcl_tpu_torch.ops import well_kernels as wk
@@ -248,7 +290,8 @@ def wrappers():
             "dense_window_scaled_correction": (
                 dwk.dense_window_scaled_correction,
                 dwk.dense_window_scaled_correction_plain),
-            "axpby_dot": (fv.axpby_dot, fv.axpby_dot_plain)}
+            "axpby_dot": (fv.axpby_dot, fv.axpby_dot_plain),
+            "gather_spmv": (gk.gather_spmv, gk.gather_spmv_plain)}
 
 
 def reset_counts():
@@ -796,7 +839,7 @@ def solve_cold_warm(A, rhs, label, solver, refine, **params):
     warm = {k: counts[k] - first[k] for k in counts if counts[k]}
     print("[%s] launches (setup + 2 solves): %s"
           % (label, json.dumps({k: v for k, v in counts.items() if v})))
-    print("[%s] launches in the warm solve: %s; per BiCGStab iteration: %s"
+    print("[%s] launches in the warm solve: %s; per iteration: %s"
           % (label, json.dumps(warm), json.dumps(
               {k: round(v / max(info.iters, 1), 3) for k, v in warm.items()})))
     print("[%s] plain-version calls: %s"
@@ -1499,6 +1542,274 @@ def check_axpby_dot(failures):
     return records
 
 
+# -- phase 8: the GMRES family, paths G1, G1r and G2 --------------------------
+
+def g1_problem():
+    from amgcl_tpu_torch import fe_like_problem
+    t0 = time.perf_counter()
+    A, rhs = fe_like_problem(G1_LEVELS[0], nnz_target=6 * G1_LEVELS[0])
+    print("problem: fe_like_problem(85623, nnz_target=6*85623), %d rows, "
+          "%d nnz, built in %.3f s" % (A.nrows, A.nnz,
+                                       time.perf_counter() - t0))
+    return A, rhs
+
+
+def true_residual(A, rhs, x):
+    x64 = x.double().cpu().numpy()
+    if not np.all(np.isfinite(x64)):
+        return float("inf")
+    return float(np.linalg.norm(rhs - A.spmv(x64)) / np.linalg.norm(rhs))
+
+
+def gmres_path(A, rhs, failures, label, solver, levels, iters):
+    """One path of phase 8 through make_solver (float32 hierarchy,
+    refine=3), cold and warm, the counts set to 0 just before the setup
+    and read just after the warm solve: the levels (rows, formats and L0's
+    K), the iterations within 10% of ``iters``, a true residual ≤ 1e-6,
+    no plain version, and the gather kernel launched at least once an
+    Arnoldi step. Then one more warm solve under torch's sync debug mode:
+    at most 8 host syncs beside one per Arnoldi step (each Arnoldi step
+    runs one gather launch). Returns (solve, counts, summary)."""
+    from amgcl_tpu_torch.ops import gather_kernels as gk
+    solve, x, info, counts, plain_calls, warm, t_setup = solve_cold_warm(
+        A, rhs, label, solver, 3)
+    print(solve.precond)
+    rows, fmts = describe_levels(label, solve)
+    L0 = solve.precond.hierarchy.levels[0].A
+    true_res = true_residual(A, rhs, x)
+    print("[%s] true relative residual (host float64): %.3e"
+          % (label, true_res))
+    if rows != levels or fmts != G_FORMATS or L0.K != 16:
+        failures.append("%s: levels %s %s, L0 K %d, expected %s %s, K 16"
+                        % (label, rows, fmts, L0.K, levels, G_FORMATS))
+    if abs(info.iters - iters) > 0.1 * iters:
+        failures.append("%s: %d iterations, expected %d ± 10%%"
+                        % (label, info.iters, iters))
+    if true_res > 1e-6:
+        failures.append("%s: true residual %.3e > 1e-6" % (label, true_res))
+    if any(plain_calls.values()):
+        failures.append("%s: plain versions ran: %s" % (label, plain_calls))
+    if warm.get("gather_spmv", 0) < info.iters:
+        failures.append("%s: gather_spmv launched %d times in a warm solve "
+                        "of %d iterations" % (label, warm.get(
+                            "gather_spmv", 0), info.iters))
+    steps = gk.gather_spmv.launches
+    syncs = count_syncs(lambda: solve(rhs))
+    steps = gk.gather_spmv.launches - steps
+    print("[%s] host syncs in a warm solve: %d for %d Arnoldi steps (limit: "
+          "steps + 8)" % (label, syncs, steps))
+    if syncs > steps + 8:
+        failures.append("%s: %d host syncs for %d Arnoldi steps"
+                        % (label, syncs, steps))
+    profile_solve(solve, rhs, info.wall_time_s * 1e3)
+    return solve, counts, {
+        "setup_s": t_setup, "warm_solve_s": info.wall_time_s,
+        "iters": info.iters, "resid": info.resid, "true_resid": true_res,
+        "levels": rows, "warm_launches": warm, "syncs": syncs,
+        "arnoldi_steps": steps}
+
+
+def other_solvers(A, rhs, failures):
+    """LGMRES, IDR(s), Richardson and PreOnly once each on G1's system and
+    call (refine=3), the counts set to 0 just before the setup and read
+    just after the solve. Each must reach its iterations within 10% (the
+    JAX package's on the CPU; IDR(s) on the port's own shadow space) and a
+    true residual ≤ 1e-6, PreOnly exactly 4 iterations (one application
+    and three refinements) with its residual only reported, and none may
+    run a plain version. Returns ({solver: counts}, summary)."""
+    import amgcl_tpu_torch as T
+    from amgcl_tpu_torch import AMGParams, make_solver
+    counts, summary = {}, {}
+    for name, kw in (("LGMRES", {}), ("IDRs", {}), ("Richardson", {}),
+                     ("PreOnly", None)):
+        solver = getattr(T, name)(**({} if kw is None else dict(
+            maxiter=100, tol=1e-6)))
+        label = "G1 " + name
+        reset_counts()
+        t0 = time.perf_counter()
+        solve = make_solver(A, AMGParams(dtype=torch.float32), solver,
+                            refine=3)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        x, info = solve(rhs)
+        counts[name], plain_calls = read_counts()
+        true_res = true_residual(A, rhs, x)
+        print("[%s] setup %.3f s; %d iterations, reported resid %.3e, true "
+              "%.3e, %.4f s; launches: %s" % (
+                  label, t_setup, info.iters, info.resid, true_res,
+                  info.wall_time_s, json.dumps(
+                      {k: v for k, v in counts[name].items() if v})))
+        want = G_OTHER_ITERS[name]
+        if name == "PreOnly":
+            if info.iters != want or not np.isfinite(info.resid):
+                failures.append("%s: %d iterations, reported resid %.3e, "
+                                "expected %d" % (label, info.iters,
+                                                 info.resid, want))
+        else:
+            if abs(info.iters - want) > 0.1 * want:
+                failures.append("%s: %d iterations, expected %d ± 10%%"
+                                % (label, info.iters, want))
+            if true_res > 1e-6:
+                failures.append("%s: true residual %.3e > 1e-6"
+                                % (label, true_res))
+        if any(plain_calls.values()):
+            failures.append("%s: plain versions ran: %s"
+                            % (label, plain_calls))
+        # LGMRES's and IDR(s)'s operator products run the gather kernel;
+        # Richardson and PreOnly take only residuals (B.9)
+        if counts[name]["gather_spmv"] == 0 and name in ("LGMRES", "IDRs"):
+            failures.append("%s: gather_spmv never launched" % label)
+        summary[name] = {"setup_s": t_setup, "solve_s": info.wall_time_s,
+                         "iters": info.iters, "resid": info.resid,
+                         "true_resid": true_res}
+        del solve
+    return counts, summary
+
+
+def g2_path(failures):
+    """Path G2: poisson3d(128) under GMRES(maxiter=100, tol=1e-6) with the
+    main path's call otherwise (float32, device-built stencil levels,
+    refine=3): 14 ± 1 iterations (the JAX package's on the CPU), a true
+    residual ≤ 1e-6, dia_spmv launched (left GMRES's operator product on
+    the DIA level: B.1's first path) and no plain version. Returns
+    (counts, summary)."""
+    from amgcl_tpu_torch import GMRES, poisson3d
+    A, rhs = poisson3d(128)
+    solve, x, info, counts, plain_calls, warm, t_setup = solve_cold_warm(
+        A, rhs, "G2", GMRES(maxiter=100, tol=1e-6), 3)
+    true_res = true_residual(A, rhs, x)
+    print("[G2] true relative residual (host float64): %.3e" % true_res)
+    if abs(info.iters - G2_ITERS) > 1:
+        failures.append("G2: %d iterations, expected %d ± 1"
+                        % (info.iters, G2_ITERS))
+    if true_res > 1e-6:
+        failures.append("G2: true residual %.3e > 1e-6" % true_res)
+    if any(plain_calls.values()):
+        failures.append("G2: plain versions ran: %s" % plain_calls)
+    if counts["dia_spmv"] == 0:
+        failures.append("G2: dia_spmv never launched")
+    profile_solve(solve, rhs, info.wall_time_s * 1e3)
+    return counts, {"setup_s": t_setup, "warm_solve_s": info.wall_time_s,
+                    "iters": info.iters, "resid": info.resid,
+                    "true_resid": true_res, "warm_launches": warm}
+
+
+def random_gather_operator(K, dtype, rng):
+    """A random scalar windowed ELL of 30,000 rows and columns in tiles of
+    1,024, windows of 2,048 columns at starts that differ from tile to
+    tile, about a quarter of the slots padding, tile 7 without entries."""
+    from amgcl_tpu_torch.ops.unstructured import WindowedEllMatrix
+    n, tile, win = 30000, 1024, 2048
+    n_tiles = -(-n // tile)
+    starts = rng.randint(0, (n - win) // 1024 + 1, n_tiles) * 1024
+    cols = (rng.rand(n_tiles, tile, K) * win).astype(np.int32)
+    vals = rng.standard_normal((n_tiles, tile, K))
+    pad = rng.rand(n_tiles, tile, K) < 0.25
+    cols[pad], vals[pad] = 0, 0.0
+    starts[7] = n
+    cols[7], vals[7] = 0, 0.0
+    dev = lambda a, dt: torch.as_tensor(a).to(device="cuda", dtype=dt)
+    return WindowedEllMatrix(dev(starts, torch.int32),
+                             dev(cols, torch.int32), dev(vals, dtype),
+                             (n, n), win)
+
+
+def check_gather(g1, g1r, failures):
+    """The gather kernel against its plain version on G1's L0, G1r's L0
+    (81 distinct window starts), G1's float64 refinement operator and
+    random operators with differing starts and an empty tile at K = 4, 8
+    and 12 in float32 and float64, timed as in check_kernels, beside B.8
+    (windowed_ell_spmv) on the same operator and torch's CSR product;
+    |Δ| ≤ rtol · Σ|terms| per row (rtol 1e-5 in float32, 1e-12 in
+    float64). The bound counts the n rows' cols and vals, x and y once.
+    The first case is the record."""
+    from amgcl_tpu_torch.ops import well_kernels as wk
+    kern, plain = wrappers()["gather_spmv"]
+    rng = np.random.RandomState(20261017)
+    cases = [("G1 L0 A", g1.precond.hierarchy.levels[0].A),
+             ("G1r L0 A", g1r.precond.hierarchy.levels[0].A),
+             ("G1 L0 A f64", g1.A_dev64)]
+    for K in (4, 8, 12):
+        for dt in (torch.float32, torch.float64):
+            cases.append(("random K%d %s" % (K, str(dt).split(".")[-1]),
+                          random_gather_operator(K, dt, rng)))
+    records = {}
+    for label, M in cases:
+        dt = M.dtype
+        n, m = M.shape
+        s = M.vals.element_size()
+        x = torch.as_tensor(rng.standard_normal(m)).to(device="cuda",
+                                                       dtype=dt)
+        geo = (M.window_starts, M.cols_local, M.vals)
+        terms = plain(M.window_starts, M.cols_local, M.vals.abs(), x.abs(),
+                      n)
+        rtol = 1e-5 if dt == torch.float32 else 1e-12
+        nnz = int((M.vals.reshape(-1, M.K)[:n] != 0).sum())
+        nbytes = n * M.K * (s + 4) + M.window_starts.numel() * 4 \
+            + (m + n) * s
+        C = library_csr(M)
+        r = compare_and_time("gather_spmv", kern, plain, geo + (x, n), rtol,
+                             float(terms.max()), lambda want: [],
+                             lambda: torch.mv(C, x), nbytes, 2 * nnz, dt)
+        well_ms = time_ms(lambda: wk.windowed_ell_spmv(*geo, x, n))
+        print("%-12s %-20s n=%-6d K=%-3d win=%-6d starts=%-3d %s  err %.3e "
+              "(tol %.3e)  ms %.4f  B.8 %.4f  plain %.4f  library %.4f  "
+              "bound %.4f (%s, %.2f MB)  %s"
+              % ("gather_spmv", label, n, M.K, M.win,
+                 len(set(M.window_starts.tolist())),
+                 str(dt).split(".")[-1], r["max_abs_err"],
+                 rtol * float(terms.max()), r["ms"], well_ms,
+                 r["plain_ms"], r["library_ms"] or float("nan"),
+                 r["bound_ms"], r["bound_by"], nbytes / 1e6,
+                 "ok" if r["ok"] else "FAIL"))
+        if not r["ok"]:
+            failures.append("gather_spmv %s disagrees with its plain version"
+                            % label)
+        if "gather_spmv" not in records:
+            records["gather_spmv"] = {k: r[k] for k in RECORD_KEYS}
+            records["gather_spmv"]["b8_ms"] = well_ms
+            records["gather_spmv"]["shape"] = (
+                "%s %dx%d, K %d, window %d, %s" % (label, n, m, M.K, M.win,
+                                                   dt))
+    return records
+
+
+def gmres_family(failures):
+    """Phase 8: G1 (GMRES, identity order), G1r (FGMRES, RCM order), the
+    other solvers on G1's system, then G2 (GMRES on poisson3d(128)), and
+    the gather kernel's check. Returns ({path: counts}, summary,
+    records)."""
+    from amgcl_tpu_torch import FGMRES, GMRES
+    from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
+    A, rhs = g1_problem()
+    counts, summary = {}, {}
+    g1, counts["G1"], summary["G1"] = gmres_path(
+        A, rhs, failures, "G1", GMRES(maxiter=100, tol=1e-6), G1_LEVELS,
+        G1_ITERS)
+    perm = cuthill_mckee(A)
+    Ap, rhs_p = permute(A, perm), rhs[perm]
+    g1r, counts["G1r"], summary["G1r"] = gmres_path(
+        Ap, rhs_p, failures, "G1r", FGMRES(maxiter=100, tol=1e-6),
+        G1R_LEVELS, G1R_ITERS)
+    L0 = g1r.precond.hierarchy.levels[0].A
+    starts = len(set(L0.window_starts.tolist()))
+    if L0.win != G1R_WINDOW or starts != G1R_STARTS:
+        failures.append("G1r: L0 window %d with %d distinct starts, "
+                        "expected %d and %d" % (L0.win, starts, G1R_WINDOW,
+                                                G1R_STARTS))
+    records = check_gather(g1, g1r, failures)
+    del g1, g1r
+    gc.collect()
+    torch.cuda.empty_cache()
+    other, summary["others"] = other_solvers(A, rhs, failures)
+    counts["others"] = {k: sum(c[k] for c in other.values())
+                        for k in counts["G1"]}
+    counts["G2"], summary["G2"] = g2_path(failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, summary, records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1548,21 +1859,27 @@ def main():
     records.update(check_axpby_dot(failures))
     print("BiCGStab(L) path: %s" % json.dumps(k_summary))
     del k_solve
+    gc.collect()
+    torch.cuda.empty_cache()
+    g_counts, g_summary, g_records = gmres_family(failures)
+    records.update(g_records)
+    print("GMRES family paths: %s" % json.dumps(g_summary))
     kernels = []
     for name in REPLACES:
         rec = records[name]
-        later = {"D2": d_counts[name], "K1": k_counts[name]}
+        later = {"D2": d_counts[name], "K1": k_counts[name],
+                 **{p: c[name] for p, c in g_counts.items()}}
         if name in UNSTRUCTURED:
             by_path = {"U1": u_counts["U1"][name],
                        "U2": u_counts["U2"][name], "B1": b_counts[name],
                        **later}
-        elif name in BLOCK or name in DENSEWIN or name == "axpby_dot":
+        elif name in BLOCK or name in DENSEWIN or name in ("axpby_dot",
+                                                           "gather_spmv"):
             by_path = {"B1": b_counts[name], **later}
         else:
             by_path = {"main": counts[name], "B1": b_counts[name], **later}
         # launches on the main path, or over the paths a kernel serves
-        launches = by_path["main"] if "main" in by_path \
-            else sum(by_path.values())
+        launches = by_path.get("main") or sum(by_path.values())
         kernels.append({
             "name": name, "route": "cuda",
             "source": source_of(name),

@@ -26,6 +26,24 @@ from amgcl_tpu_torch.ops import fused_vec as fv
 from amgcl_tpu_torch.telemetry import health as H
 from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One BLAS, OpenMP and torch thread while this module runs: its
+    small problems gain nothing from threads, and the test suite's
+    parallel workers would oversubscribe the cores (a dense coarse
+    inverse or product in several workers at once then runs many times
+    slower)."""
+    from threadpoolctl import threadpool_limits
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(limits=1):
+            yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 DTYPES = (np.float32, np.float64)
 _RTOL = {np.float32: 1e-5, np.float64: 1e-12}
 
@@ -222,9 +240,11 @@ def test_refusals():
     with pytest.raises(NotImplementedError, match="stacked"):
         BiCGStabL().solve(hier.system_matrix, hier.apply,
                           torch.stack([b, b], dim=1))
-    with pytest.raises(NotImplementedError, match="history"):
-        BiCGStabL(record_history=True).solve(hier.system_matrix, hier.apply,
-                                             b)
+    # the residual history is ported: one entry an iteration, the last
+    # the returned residual
+    _, iters, resid, _, hist = BiCGStabL(record_history=True).solve(
+        hier.system_matrix, hier.apply, b)
+    assert len(hist) == iters and hist[-1] == resid
     with pytest.raises(ValueError, match="pside"):
         BiCGStabL(pside="both").solve(hier.system_matrix, hier.apply, b)
 

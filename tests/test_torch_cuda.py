@@ -14,7 +14,11 @@ differ from tile to tile, windows past the last column, empty tiles, row
 counts that are no multiple of 64, rectangular operators and blocks
 packed on the card.
 Also the wrappers' refusals, bit-identical results from run to run, and
-small solves on the card against the same solves on the CPU.
+small solves on the card against the same solves on the CPU. The gather
+kernel (csrc/gather.cu) at K = 4, 8, 12 and 16 with window starts that
+differ from tile to tile, an empty tile, a ragged last tile and
+rectangular operators; GMRES through it, and a cycle with npre = 2 and
+npost = 0 on a hierarchy built on the card.
 
 Every test needs an NVIDIA card and skips without one. On the card, from
 the repo root (the suite's conftest imports JAX, which the port's machine
@@ -31,6 +35,7 @@ import torch
 from amgcl_tpu_torch.ops import densewin_kernels as dwk
 from amgcl_tpu_torch.ops import dia_kernels as dk
 from amgcl_tpu_torch.ops import fused_vec as fv
+from amgcl_tpu_torch.ops import gather_kernels as gk
 from amgcl_tpu_torch.ops import vcycle_kernels as vk
 from amgcl_tpu_torch.ops import well_block_kernels as wbk
 from amgcl_tpu_torch.ops import well_kernels as wk
@@ -1054,3 +1059,168 @@ def test_bicgstabl_solve_on_card_matches_cpu(cuda):
     x, x_cpu = runs["cuda"][1], runs["cpu"][1]
     assert np.linalg.norm(x - x_cpu) <= 1e-8 * np.linalg.norm(x_cpu)
     assert np.linalg.norm(rhs - A.spmv(x)) / np.linalg.norm(rhs) <= 1e-8
+
+
+# -- the gather kernel (csrc/gather.cu) ---------------------------------------
+
+_GATHER_CASES = [
+    # (n_out, ncols, K, empty tile): ragged last tiles, an empty tile,
+    # rectangular operators both ways
+    (5000, 5000, 4, None),
+    (6144, 6144, 8, 2),
+    (10000, 10000, 12, None),
+    (30000, 30000, 16, 7),
+    (3000, 9000, 16, None),
+    (9000, 3000, 8, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m,K,empty", _GATHER_CASES)
+def test_gather_matches_plain(cuda, n, m, K, empty, dtype):
+    st, cl, v, x, _, _ = _well(n, m, K, dtype, cuda, seed=100 + K,
+                               empty=empty)
+    terms = gk.gather_spmv_plain(st, cl, v.abs(), x.abs(), n)
+    launches = gk.gather_spmv.launches
+    got = gk.gather_spmv(st, cl, v, x, n)
+    assert gk.gather_spmv.launches == launches + 1
+    _close(got, gk.gather_spmv_plain(st, cl, v, x, n), float(terms.max()),
+           dtype)
+    if empty is not None:
+        rows = slice(empty * 1024, min((empty + 1) * 1024, n))
+        assert not torch.any(got[rows])
+
+
+def test_gather_starts_are_read(cuda):
+    """The same columns under shifted window starts give another product:
+    a kernel that ignored the starts would return the same one."""
+    for K in gk.KS:
+        st, cl, v, x, _, _ = _well(6000, 20000, K, torch.float32, cuda,
+                                   seed=K)
+        assert len(set(st.tolist())) > 2
+        zero = torch.zeros_like(st)
+        y = gk.gather_spmv(st, cl, v, x, 6000)
+        y0 = gk.gather_spmv(zero, cl, v, x, 6000)
+        assert float((y - y0).abs().max()) > 1.0
+        _close(y, gk.gather_spmv_plain(st, cl, v, x, 6000), float(
+            gk.gather_spmv_plain(st, cl, v.abs(), x.abs(), 6000).max()),
+            torch.float32)
+
+
+def test_gather_is_bit_identical_and_not_plain(cuda):
+    st, cl, v, x, _, _ = _well(30000, 30000, 16, torch.float32, cuda)
+    calls = gk.gather_spmv_plain.calls
+    a = gk.gather_spmv(st, cl, v, x, 30000)
+    b = gk.gather_spmv(st, cl, v, x, 30000)
+    assert torch.equal(a, b) and gk.gather_spmv_plain.calls == calls
+
+
+@pytest.mark.parametrize("bad", ["cpu_starts", "dtype", "cols_dtype",
+                                 "starts_shape", "n_out", "K20", "block",
+                                 "noncontiguous", "bf16", "x_matrix"])
+def test_gather_refuses_malformed_operands(cuda, bad):
+    n = 3000
+    K = 20 if bad == "K20" else 8
+    st, cl, v, x, _, _ = _well(n, n, K, torch.float32, cuda)
+    if bad == "cpu_starts":
+        st = st.cpu()
+    elif bad == "dtype":
+        x = x.double()
+    elif bad == "cols_dtype":
+        cl = cl.long()
+    elif bad == "starts_shape":
+        st = st[:-1]
+    elif bad == "n_out":
+        n = 1000
+    elif bad == "block":
+        v = v[..., None, None].expand(-1, -1, -1, 2, 2).contiguous()
+    elif bad == "noncontiguous":
+        v = v.transpose(0, 1).contiguous().transpose(0, 1)
+    elif bad == "bf16":
+        v = v.bfloat16()
+    elif bad == "x_matrix":
+        x = x[:, None]
+    launches = gk.gather_spmv.launches
+    with pytest.raises(ValueError):
+        gk.gather_spmv(st, cl, v, x, n)
+    assert gk.gather_spmv.launches == launches
+
+
+def test_mv_runs_gather_on_card(cuda):
+    """WindowedEllMatrix.mv on a scalar operator with K = 16 launches the
+    gather kernel, not B.8's, and agrees with the plain version."""
+    from amgcl_tpu_torch import fe_like_problem
+    from amgcl_tpu_torch.ops.unstructured import csr_to_windowed_ell
+    from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
+    A, _ = fe_like_problem(n=20000, nnz_target=6 * 20000, seed=4)
+    A = permute(A, cuthill_mckee(A))
+    W = csr_to_windowed_ell(A, torch.float32, device=cuda)
+    assert W.K == 16 and len(set(W.window_starts.tolist())) > 2
+    x = torch.as_tensor(np.random.RandomState(5).standard_normal(
+        A.ncols)).to(device=cuda, dtype=torch.float32)
+    before = (gk.gather_spmv.launches, wk.windowed_ell_spmv.launches)
+    y = W.mv(x)
+    assert (gk.gather_spmv.launches, wk.windowed_ell_spmv.launches) == (
+        before[0] + 1, before[1])
+    terms = gk.gather_spmv_plain(W.window_starts, W.cols_local,
+                                 W.vals.abs(), x.abs(), A.nrows)
+    _close(y, gk.gather_spmv_plain(W.window_starts, W.cols_local, W.vals,
+                                   x, A.nrows), float(terms.max()),
+           torch.float32)
+
+
+@pytest.mark.parametrize("solver", ["GMRES", "FGMRES"])
+def test_gmres_solve_on_card_matches_cpu(cuda, solver):
+    """A small G1-like fe_like_problem with GMRES (left) or FGMRES in
+    float64: the same iterations on the card and the CPU, x within 1e-8,
+    the gather kernel at least once an Arnoldi step and no plain version
+    on the card. Both report a residual within tol; FGMRES's is the true
+    one, left GMRES's the preconditioned one."""
+    import amgcl_tpu_torch as T
+    A, rhs = T.fe_like_problem(n=6000, nnz_target=6 * 6000, seed=1)
+    runs = {}
+    for device in ("cpu", cuda):
+        solve = T.make_solver(A, T.AMGParams(dtype=torch.float64,
+                                             coarse_enough=300),
+                              getattr(T, solver)(maxiter=100, tol=1e-8),
+                              device=device)
+        launches = gk.gather_spmv.launches
+        calls = gk.gather_spmv_plain.calls
+        x, info = solve(rhs)
+        if device != "cpu":
+            assert gk.gather_spmv.launches - launches >= info.iters > 0
+            assert gk.gather_spmv_plain.calls == calls
+        assert info.resid <= 1e-8
+        runs[torch.device(device).type] = (info.iters,
+                                           x.double().cpu().numpy())
+    assert runs["cpu"][0] == runs["cuda"][0]
+    x, x_cpu = runs["cuda"][1], runs["cpu"][1]
+    assert np.linalg.norm(x - x_cpu) <= 1e-8 * np.linalg.norm(x_cpu)
+    if solver == "FGMRES":
+        assert np.linalg.norm(rhs - A.spmv(x)) / np.linalg.norm(rhs) <= 1e-7
+
+
+def test_npre2_npost0_cycle_on_card_matches_cpu(cuda):
+    """poisson3d(24) with npre = 2, npost = 0 under BiCGStab, the stencil
+    levels built on the card: the separate pre-sweeps, the down leg's
+    base mode and the prolongation through the smoothed transfer run
+    there (the fused up leg does not), within one iteration of the host
+    build on the CPU, the true residual within tolerance."""
+    from amgcl_tpu_torch import AMGParams, BiCGStab, make_solver, poisson3d
+    A, rhs = poisson3d(24)
+    runs = {}
+    for device, setup in (("cpu", False), (cuda, True)):
+        solve = make_solver(A, AMGParams(dtype=torch.float32, npre=2,
+                                         npost=0),
+                            BiCGStab(maxiter=100, tol=1e-6), refine=3,
+                            device=device, device_setup=setup)
+        assert solve.precond.device_built == setup
+        down, up = vk.fused_down_sweep.launches, vk.fused_up_sweep.launches
+        x, info = solve(rhs)
+        if setup:
+            assert vk.fused_down_sweep.launches > down
+            assert vk.fused_up_sweep.launches == up
+        runs[setup] = (info.iters, x.double().cpu().numpy())
+    assert abs(runs[True][0] - runs[False][0]) <= 1
+    x = runs[True][1]
+    assert np.linalg.norm(rhs - A.spmv(x)) / np.linalg.norm(rhs) <= 1e-6

@@ -14,6 +14,24 @@ from amgcl_tpu_torch.ops import dia_kernels as dk
 from amgcl_tpu_torch.ops import device as tdev
 from amgcl_tpu_torch.ops.csr import CSR
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One BLAS, OpenMP and torch thread while this module runs: its
+    small problems gain nothing from threads, and the test suite's
+    parallel workers would oversubscribe the cores (a dense coarse
+    inverse or product in several workers at once then runs many times
+    slower)."""
+    from threadpoolctl import threadpool_limits
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(limits=1):
+            yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 _L0_OFFSETS = (-256, -16, -1, 0, 1, 16, 256)       # 7-point, 16^3 grid
 
 

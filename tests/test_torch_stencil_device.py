@@ -21,6 +21,24 @@ from amgcl_tpu.utils.sample_problem import poisson3d as ref_poisson3d
 
 import amgcl_tpu_torch as T
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One BLAS, OpenMP and torch thread while this module runs: its
+    small problems gain nothing from threads, and the test suite's
+    parallel workers would oversubscribe the cores (a dense coarse
+    inverse or product in several workers at once then runs many times
+    slower)."""
+    from threadpoolctl import threadpool_limits
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(limits=1):
+            yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 _RTOL = 2e-5
 
 

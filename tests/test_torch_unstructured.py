@@ -31,6 +31,24 @@ from amgcl_tpu_torch.ops import unstructured as U
 from amgcl_tpu_torch.ops import well_kernels as wk
 from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One BLAS, OpenMP and torch thread while this module runs: its
+    small problems gain nothing from threads, and the test suite's
+    parallel workers would oversubscribe the cores (a dense coarse
+    inverse or product in several workers at once then runs many times
+    slower)."""
+    from threadpoolctl import threadpool_limits
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with threadpool_limits(limits=1):
+            yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 DTYPES = (np.float32, np.float64)
 _RTOL = {np.float32: 1e-5, np.float64: 1e-12}
 _TORCH = {np.float32: torch.float32, np.float64: torch.float64}
