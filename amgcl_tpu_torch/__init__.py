@@ -59,17 +59,29 @@ densely (gigabytes at 85,623 rows), so ``auto`` never picks it::
                         BiCGStab(maxiter=100, tol=1e-6,
                                  precond_side="left"), refine=3)
     x, info = solve(rhs[perm])
+
+A stencil system also solves over a mesh of shards, its hierarchy built
+shard by shard over z-slabs, with the fused V-cycle legs in their framed
+mode. One process drives every shard, and shards may share a card::
+
+    from amgcl_tpu_torch import DistStencilSolver, make_mesh
+    A, rhs = poisson3d(128)
+    s = DistStencilSolver(A, make_mesh(4), AMGParams(),
+                          CG(maxiter=100, tol=1e-6))
+    x, info = s(rhs)                 # four z-slab shards on one card
 """
 
 from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.models.amg import AMG, AMGParams
 from amgcl_tpu_torch.models.make_solver import make_solver
 from amgcl_tpu_torch.ops.unstructured import fe_like_problem
+from amgcl_tpu_torch.parallel import (DistStencilSolver, dist_stencil_build,
+                                      make_mesh)
 from amgcl_tpu_torch.solver import (CG, FGMRES, GMRES, IDRs, LGMRES,
                                     BiCGStab, BiCGStabL, PreOnly, Richardson)
 from amgcl_tpu_torch.utils.sample_problem import poisson3d, poisson3d_block
 
 __all__ = ["CSR", "AMG", "AMGParams", "make_solver", "BiCGStab",
-           "BiCGStabL", "CG", "FGMRES", "GMRES", "IDRs", "LGMRES",
-           "PreOnly", "Richardson", "fe_like_problem", "poisson3d",
-           "poisson3d_block"]
+           "BiCGStabL", "CG", "DistStencilSolver", "FGMRES", "GMRES", "IDRs",
+           "LGMRES", "PreOnly", "Richardson", "dist_stencil_build",
+           "fe_like_problem", "make_mesh", "poisson3d", "poisson3d_block"]

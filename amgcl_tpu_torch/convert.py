@@ -9,7 +9,9 @@ solve differences are separated from setup differences; each level gets
 the port's own fused V-cycle handles where it is eligible, so the fused
 legs can be held against the reference's on the same operators.
 :func:`idrs_with_shadow` does the same for the one piece of solver state
-the packages draw differently: IDR(s)'s shadow space.
+the packages draw differently: IDR(s)'s shadow space, and
+:func:`fused_slab_from_arrays` for the framed operands of a sharded
+stencil level (``parallel/dist_stencil.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from amgcl_tpu_torch.ops.structured import (AggTentative, GridTentative,
                                             ImplicitSmoothedR)
 from amgcl_tpu_torch.ops.unstructured import WindowedEllMatrix
 from amgcl_tpu_torch.ops.vcycle import build_fused_down, build_fused_up
+from amgcl_tpu_torch.parallel.dist_stencil import FusedSlab
 from amgcl_tpu_torch.relaxation.base import ScaledResidualSmoother
 from amgcl_tpu_torch.solver.idrs import IDRs
 from amgcl_tpu_torch.solver.direct import DenseDirectSolver
@@ -128,3 +131,30 @@ def idrs_with_shadow(solver: IDRs, P) -> IDRs:
     working dtype at each solve, which checks its shape."""
     return dataclasses.replace(
         solver, shadow=torch.tensor(np.asarray(P, dtype=np.float64)))
+
+
+def fused_slab_from_arrays(slab, device=None) -> FusedSlab:
+    """The framed operands of one sharded stencil level from plain arrays.
+    ``slab`` maps ``"a_fr"``, ``"mt_fr"``, ``"w_fr"`` and ``"m_fr"`` to
+    per-shard frames (a sequence of arrays, one per shard, or an array
+    whose leading axis is the shard; None for a leg that is not built):
+    A's and Mᵀ's diagonals ``(nA, L)`` and ``(nMt, L)`` and the smoother
+    scale ``(L,)`` framed by ``H`` rows, M's diagonals ``(nM, Lm)``
+    framed by ``hp`` coarse planes. It also maps ``"H"``, ``"hp"``,
+    ``"ldims"`` and ``"lcoarse"``: the fields of the JAX package's
+    ``FusedSlab``, whose frames read out shard by shard (one
+    ``addressable_shards`` entry each, with ``np.asarray``) serve as
+    they are. The frames are float32, as the framed kernels take them;
+    the flat offsets stay with the caller, as they stay with the level."""
+    device = resolve_device(device)
+
+    def frames(key):
+        parts = slab.get(key)
+        if parts is None:
+            return None
+        return [torch.tensor(np.asarray(p), dtype=torch.float32,
+                             device=device) for p in parts]
+
+    return FusedSlab(frames("a_fr"), frames("mt_fr"), frames("w_fr"),
+                     frames("m_fr"), slab["H"], slab["hp"], slab["ldims"],
+                     slab["lcoarse"])

@@ -107,6 +107,21 @@ for _fn in (dia_spmv_plain, dia_residual_plain, dia_scaled_correction_plain,
 
 # -- kernel launch ------------------------------------------------------------
 
+def offsets_on(offsets, device):
+    """The int32 tensor of the host ints ``offsets`` on ``device``, made
+    once per (offsets, device): callers that keep offsets on the host
+    pay no copy (and no host sync) per launch."""
+    key = (tuple(int(o) for o in offsets), torch.device(device))
+    t = _OFFSETS.get(key)
+    if t is None:
+        t = _OFFSETS[key] = torch.tensor(key[0], dtype=torch.int32,
+                                         device=key[1])
+    return t
+
+
+_OFFSETS = {}
+
+
 def _check_vec(name, v, n, ref):
     if v.device != ref.device or v.dtype != ref.dtype \
             or v.shape != (n,) or not v.is_contiguous():

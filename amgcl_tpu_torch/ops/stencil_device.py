@@ -96,15 +96,19 @@ def _collapse_plan(s_offs, dims, blocks, coarse):
     return c_offs, tuple(parities), table
 
 
-def _fnma_scan(out, src, dst, pairs):
+def _fnma_scan(out, src, dst, pairs, pad=0):
     """out[ko] −= src[ka] · shift(dst[kb], s) for every pair, in order: one
-    in-place multiply-add over the rows where i + s stays in range."""
+    in-place multiply-add over the rows where i + s stays in range. ``dst``
+    may carry ``pad`` halo columns on each side (a sharded slab framed by
+    its neighbours' rows, ``parallel/dist_stencil.py``); row i then reads
+    its column ``pad + i + s``."""
     n = out.shape[1]
     for ka, kb, s, ko in pairs:
-        lo, hi = max(0, -s), min(n, n - s)
+        lo, hi = max(0, -s - pad), min(n, n + pad - s)
         if hi > lo:
-            out[ko, lo:hi].addcmul_(src[ka, lo:hi], dst[kb, lo + s:hi + s],
-                                    value=-1)
+            out[ko, lo:hi].addcmul_(
+                src[ka, lo:hi], dst[kb, lo + s + pad:hi + s + pad],
+                value=-1)
     return out
 
 

@@ -1,6 +1,7 @@
 """Fused V-cycle leg kernels: a wrapper and a plain PyTorch version for
-each of ``fused_down_sweep`` (base and zero-guess modes) and
-``fused_up_sweep``.
+each of ``fused_down_sweep`` (base and zero-guess modes),
+``fused_up_sweep``, and their framed modes ``fused_down_sweep_framed`` and
+``fused_up_sweep_framed``.
 
 Counterpart of the Pallas TPU kernels in ``amgcl_tpu/ops/pallas_vcycle.py``;
 the CUDA source is ``amgcl_tpu_torch/csrc/vcycle.cu``. At a level with
@@ -12,6 +13,17 @@ smoothing operator of P = (I − M) T (Mᵀ its transpose, all DIA):
   the ``u`` argument is the smoother scale w, the iterate ``u = w ∘ f`` is
   formed first, and the result is ``(u, rc)``.
 * up: ``u' = u + T uc − M (T uc)``, then ``u' + w ∘ (f − A u')``.
+
+The framed modes compute the same legs on one z-slab (``dims`` the
+slab's own, an even number of planes) of a grid sharded over a mesh
+(``parallel/dist_stencil.py``). The operands that a leg reads beyond the
+slab arrive as frames carrying the neighbour slabs' rows: for the down
+leg A, Mᵀ, f and u (or w) as frames of ``L = n + 2H`` rows, tile row i
+at frame row ``H + i``, with H at least the reach of A plus that of Mᵀ;
+for the up leg M and u as frames of ``hp`` coarse planes (2·hp fine
+planes) on each side and uc with ``hp`` coarse planes on each side, with
+2·hp fine planes at least the reach of A plus that of M. Their offsets
+are Python ints (the reach is checked on the host).
 
 Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it checks device, dtype (float32), shapes and contiguity and
@@ -64,11 +76,56 @@ def fused_up_sweep_plain(a_offsets, a_data, m_offsets, m_data, w, f, u, uc,
     return dk.dia_scaled_correction_plain(a_offsets, a_data, w, f, u1)
 
 
-fused_down_sweep_plain.calls = 0
-fused_up_sweep_plain.calls = 0
+def _offsets_cpu(offsets):
+    return torch.tensor([int(o) for o in offsets], dtype=torch.int32)
+
+
+def fused_down_sweep_framed_plain(a_offsets, a_frame, mt_offsets, mt_frame,
+                                  f, u, dims, H, zero_guess=False):
+    """The base down leg's residual and Mᵀ filter over the whole frame as
+    one DIA problem of its L rows, sliced to the tile and restricted.
+    Returns rc, or ``(w ∘ f, rc)`` on the tile with ``zero_guess``."""
+    fused_down_sweep_framed_plain.calls += 1
+    n = int(dims[0]) * int(dims[1]) * int(dims[2])
+    if zero_guess:
+        u = u * f
+    r = dk.dia_residual_plain(_offsets_cpu(a_offsets), a_frame, f, u)
+    t = dk.dia_residual_plain(_offsets_cpu(mt_offsets), mt_frame, r, r)
+    rc = _tentative(dims).rmv(t[H:H + n])
+    return (u[H:H + n], rc) if zero_guess else rc
+
+
+def fused_up_sweep_framed_plain(a_offsets, a_data, m_offsets, m_frame, w, f,
+                                u, uc, dims, halo_planes):
+    """The base up leg over the frame's planes as one DIA problem (A, w
+    and f zero outside the tile), sliced to the tile."""
+    fused_up_sweep_framed_plain.calls += 1
+    lz, d1, d0 = (int(d) for d in dims)
+    n, t0 = lz * d1 * d0, 2 * int(halo_planes) * d1 * d0
+
+    def frame(v):
+        out = v.new_zeros(v.shape[:-1] + (n + 2 * t0,))
+        out[..., t0:t0 + n] = v
+        return out
+
+    tuc = _tentative((lz + 4 * int(halo_planes), d1, d0)).mv(uc)
+    u1 = u + dk.dia_residual_plain(_offsets_cpu(m_offsets), m_frame, tuc,
+                                   tuc)
+    return dk.dia_scaled_correction_plain(
+        _offsets_cpu(a_offsets), frame(a_data), frame(w), frame(f),
+        u1)[t0:t0 + n]
+
+
+for _fn in (fused_down_sweep_plain, fused_up_sweep_plain,
+            fused_down_sweep_framed_plain, fused_up_sweep_framed_plain):
+    _fn.calls = 0
 
 
 # -- kernel launch ------------------------------------------------------------
+
+def _reach(offsets):
+    return max((abs(int(o)) for o in offsets), default=0)
+
 
 def _check_dia(name, offsets, data, n, ref):
     if data.device != ref.device or data.dtype != torch.float32 \
@@ -88,8 +145,9 @@ def _check_dia(name, offsets, data, n, ref):
                          "tensor on %s" % (name, ndiag, ref.device))
 
 
-def _check_leg(dims, ref, operators, vectors):
-    """Validate one leg's operands on the card; returns (n, nc)."""
+def _check_leg(dims, ref, operators, vectors, ncols=None):
+    """Validate one leg's operands on the card (operators of ``ncols``
+    columns, n by default); returns (n, nc)."""
     if ref.device.type != "cuda":
         raise ValueError("the fused V-cycle kernels run on CUDA tensors, "
                          "got %s" % ref.device)
@@ -107,7 +165,7 @@ def _check_leg(dims, ref, operators, vectors):
     c2, c1, c0 = coarse_dims(dims)
     nc = c2 * c1 * c0
     for name, offsets, data in operators:
-        _check_dia(name, offsets, data, n, ref)
+        _check_dia(name, offsets, data, n if ncols is None else ncols, ref)
     for name, v, size in vectors:
         dk._check_vec(name, v, n if size is None else size, ref)
     return n, nc
@@ -133,7 +191,7 @@ def fused_down_sweep(a_offsets, a_data, mt_offsets, mt_data, f, u, dims,
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream().cuda_stream
         rcode = cuda_lib.lib().amgcl_fused_down(
-            int(bool(zero_guess)), f2, f1, f0, a_data.shape[0],
+            int(bool(zero_guess)), f2, f1, f0, 0, n, a_data.shape[0],
             mt_data.shape[0], a_offsets.data_ptr(), a_data.data_ptr(),
             mt_offsets.data_ptr(), mt_data.data_ptr(), f.data_ptr(),
             u.data_ptr(), None if u_out is None else u_out.data_ptr(),
@@ -160,7 +218,7 @@ def fused_up_sweep(a_offsets, a_data, m_offsets, m_data, w, f, u, uc, dims):
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream().cuda_stream
         rcode = cuda_lib.lib().amgcl_fused_up(
-            f2, f1, f0, a_data.shape[0], m_data.shape[0],
+            f2, f1, f0, 0, f2, a_data.shape[0], m_data.shape[0],
             a_offsets.data_ptr(), a_data.data_ptr(), m_offsets.data_ptr(),
             m_data.data_ptr(), w.data_ptr(), f.data_ptr(), u.data_ptr(),
             uc.data_ptr(), out.data_ptr(), stream)
@@ -169,5 +227,100 @@ def fused_up_sweep(a_offsets, a_data, m_offsets, m_data, w, f, u, uc, dims):
     return out
 
 
-fused_down_sweep.launches = 0
-fused_up_sweep.launches = 0
+def _check_frame(dims, reach, halo, what):
+    """The framed modes' geometry: an even number of slab planes, and a
+    halo that covers the reach of both of the leg's operators."""
+    dims = tuple(int(d) for d in dims)
+    if len(dims) != 3 or min(dims) < 1 or dims[0] % 2:
+        raise ValueError("the framed legs take a slab of an even number of "
+                         "planes, got dims %s" % (dims,))
+    if halo < reach:
+        raise ValueError("%s of %d rows is short of the %d rows that the "
+                         "operators reach" % (what, halo, reach))
+    n = dims[0] * dims[1] * dims[2]
+    if n + 2 * halo >= MAX_ROWS:
+        raise ValueError("a frame of %d rows exceeds the kernels' limit of "
+                         "%d" % (n + 2 * halo, MAX_ROWS))
+    return dims, n
+
+
+def fused_down_sweep_framed(a_offsets, a_frame, mt_offsets, mt_frame, f, u,
+                            dims, H, zero_guess=False):
+    """The down leg on a framed slab: ``a_frame`` (nA, L) and ``mt_frame``
+    (nMt, L) hold A's and Mᵀ's diagonals, ``f`` and ``u`` (with
+    ``zero_guess`` the smoother scale w) are frames of L = n + 2H rows,
+    tile row i at frame row H + i, and H covers the reach of A plus that
+    of Mᵀ (``a_offsets``, ``mt_offsets``: Python ints). Returns the slab's
+    coarse rhs rc, or ``(w ∘ f, rc)`` on the slab with ``zero_guess``."""
+    if f.device.type == "cpu":
+        return fused_down_sweep_framed_plain(a_offsets, a_frame, mt_offsets,
+                                             mt_frame, f, u, dims, H,
+                                             zero_guess)
+    H = int(H)
+    dims, n = _check_frame(dims, _reach(a_offsets) + _reach(mt_offsets), H,
+                           "the halo H")
+    L = n + 2 * H
+    oa = dk.offsets_on(a_offsets, f.device)
+    om = dk.offsets_on(mt_offsets, f.device)
+    _, nc = _check_leg(dims, f, [("A", oa, a_frame), ("Mt", om, mt_frame)],
+                       [("f", f, L), ("w" if zero_guess else "u", u, L)],
+                       ncols=L)
+    rc = torch.empty(nc, dtype=f.dtype, device=f.device)
+    u_out = torch.empty(n, dtype=f.dtype, device=f.device) \
+        if zero_guess else None
+    with torch.cuda.device(f.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rcode = cuda_lib.lib().amgcl_fused_down(
+            int(bool(zero_guess)), *dims, H, L, a_frame.shape[0],
+            mt_frame.shape[0], oa.data_ptr(), a_frame.data_ptr(),
+            om.data_ptr(), mt_frame.data_ptr(), f.data_ptr(), u.data_ptr(),
+            None if u_out is None else u_out.data_ptr(), rc.data_ptr(),
+            stream)
+    cuda_lib.check(rcode, "fused_down_sweep_framed")
+    fused_down_sweep_framed.launches += 1
+    return (u_out, rc) if zero_guess else rc
+
+
+def fused_up_sweep_framed(a_offsets, a_data, m_offsets, m_frame, w, f, u, uc,
+                          dims, halo_planes):
+    """The up leg on a framed slab: ``a_data`` (nA, n), ``w`` and ``f`` are
+    the slab's own; ``m_frame`` (nM, Lm) and ``u`` (Lm,) are frames of
+    ``halo_planes`` (hp) coarse planes on each side, Lm = n + 4·hp·s with
+    s a fine plane; ``uc`` is the slab's coarse vector with hp coarse
+    planes of its neighbours on each side; 2·hp·s covers the reach of A
+    plus that of M. Returns ``u' + w ∘ (f − A u')`` on the slab, with
+    ``u' = u + T uc − M (T uc)``."""
+    if f.device.type == "cpu":
+        return fused_up_sweep_framed_plain(a_offsets, a_data, m_offsets,
+                                           m_frame, w, f, u, uc, dims,
+                                           halo_planes)
+    hp = int(halo_planes)
+    s2 = 2 * int(dims[1]) * int(dims[2])
+    dims, n = _check_frame(dims, _reach(a_offsets) + _reach(m_offsets),
+                           hp * s2, "a halo of %d coarse planes" % hp)
+    if hp < 1:
+        raise ValueError("the framed up leg needs at least one halo plane")
+    Lm = n + 2 * hp * s2
+    c2, c1, c0 = coarse_dims(dims)
+    oa = dk.offsets_on(a_offsets, f.device)
+    om = dk.offsets_on(m_offsets, f.device)
+    _check_leg(dims, f, [("A", oa, a_data)],
+               [("f", f, None), ("w", w, None), ("u", u, Lm),
+                ("uc", uc, (c2 + 2 * hp) * c1 * c0)])
+    _check_dia("M", om, m_frame, Lm, f)
+    out = torch.empty(n, dtype=f.dtype, device=f.device)
+    with torch.cuda.device(f.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rcode = cuda_lib.lib().amgcl_fused_up(
+            *dims, 2 * hp, dims[0] + 4 * hp, a_data.shape[0],
+            m_frame.shape[0], oa.data_ptr(), a_data.data_ptr(),
+            om.data_ptr(), m_frame.data_ptr(), w.data_ptr(), f.data_ptr(),
+            u.data_ptr(), uc.data_ptr(), out.data_ptr(), stream)
+    cuda_lib.check(rcode, "fused_up_sweep_framed")
+    fused_up_sweep_framed.launches += 1
+    return out
+
+
+for _fn in (fused_down_sweep, fused_up_sweep, fused_down_sweep_framed,
+            fused_up_sweep_framed):
+    _fn.launches = 0

@@ -25,6 +25,10 @@ class SolveReport:
     health: Optional[List[str]] = None
     #: per-iteration relative residuals, or None
     history: Optional[List[float]] = None
+    #: the solver's name where one entry point serves several, and its
+    #: own details (a sharded solve: the shard and device counts)
+    solver: Optional[str] = None
+    extra: Optional[Dict[str, Any]] = None
 
     def __iter__(self):
         yield self.iters

@@ -103,6 +103,25 @@ Run from the root of a checkout, with no arguments:
    4 (one application, three refinements), its residual reported. Path
    G2: poisson3d(128) under GMRES with the main path's call otherwise:
    14 ± 1 iterations, a true residual ≤ 1e-6, dia_spmv launched.
+9. Path S1, the sharded stencil solver on one card (the GMRES family's
+   hierarchies freed first): ``DistStencilSolver(poisson3d(128)[0],
+   make_mesh(4), AMGParams(dtype=float32), CG(maxiter=100, tol=1e-6))``,
+   four z-slab shards driven by one process, solved cold and warm with
+   the counts set to 0 just before the setup and read just after. It
+   fails unless two levels of 2,097,152 and 262,144 rows are built over
+   the shards, in slabs of (32, 128, 128) and (16, 64, 64), with a
+   replicated tail from 32,768 rows; CG takes 9 ± 1 iterations (the JAX
+   package's on the CPU); the reported residual is ≤ 1e-6 and the true
+   one (host float64) ≤ 1e-3 (float32 without refinement: the JAX
+   package reaches 1.941e-04); each framed leg launched once per
+   V-cycle per shard at each sharded level, dia_spmv (the halo
+   product's interior) launched, no plain version ran; and a further
+   warm solve makes at most 4 host syncs beside one per CG iteration.
+   The same system on a one-shard mesh (zero halos) must take the same
+   iterations within one. Then each framed leg is held against its
+   plain version and timed at S1's L0 and L1 on an interior shard (both
+   halos real) and a boundary shard, beside the base mode on the same
+   slab and the least time for its bytes.
 
 Prints one JSON line of kernel records, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
@@ -168,6 +187,15 @@ G1R_WINDOW = 7168
 G1R_STARTS = 81
 G2_ITERS = 14
 G_OTHER_ITERS = {"LGMRES": 42, "IDRs": 60, "Richardson": 200, "PreOnly": 4}
+#: phase 9, path S1 (poisson3d(128) over four z-slab shards of one card):
+#: the sharded levels' rows and slab dims, the replicated tail's rows and
+#: the JAX package's CG iterations on the CPU (correctness constants, not
+#: speeds)
+S1_SHARDS = 4
+S1_LEVELS = [2097152, 262144]
+S1_SLABS = [(32, 128, 128), (16, 64, 64)]
+S1_TAIL = 32768
+S1_ITERS = 9
 
 SOURCES = {"dia": "amgcl_tpu_torch/csrc/dia.cu",
            "vec": "amgcl_tpu_torch/csrc/vec.cu",
@@ -199,8 +227,12 @@ REPLACES = {
     "dense_window_scaled_correction": "amgcl_tpu/ops/densewin.py:279",
     "axpby_dot": "amgcl_tpu/ops/fused_vec.py:251",
     "gather_spmv": "amgcl_tpu/ops/pallas_gather.py:78",
+    "fused_down_sweep.framed": "amgcl_tpu/ops/pallas_vcycle.py:187",
+    "fused_up_sweep.framed": "amgcl_tpu/ops/pallas_vcycle.py:477",
 }
 FUSED = ("fused_down_sweep", "fused_up_sweep")
+#: the framed modes of the fused legs, run by path S1 only
+FRAMED = ("fused_down_sweep.framed", "fused_up_sweep.framed")
 #: the measured fields of a kernel's record in the kernels line
 RECORD_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -232,7 +264,7 @@ def source_of(name):
         return SOURCES["densewin"]
     if name == "gather_spmv":
         return SOURCES["gather"]
-    return SOURCES["vcycle" if name in FUSED else "dia"]
+    return SOURCES["vcycle" if name in FUSED + FRAMED else "dia"]
 
 
 def card_line():
@@ -254,6 +286,10 @@ def wrappers():
     return {"fused_down_sweep": (vk.fused_down_sweep,
                                  vk.fused_down_sweep_plain),
             "fused_up_sweep": (vk.fused_up_sweep, vk.fused_up_sweep_plain),
+            "fused_down_sweep.framed": (vk.fused_down_sweep_framed,
+                                        vk.fused_down_sweep_framed_plain),
+            "fused_up_sweep.framed": (vk.fused_up_sweep_framed,
+                                      vk.fused_up_sweep_framed_plain),
             "dia_spmv": (dk.dia_spmv, dk.dia_spmv_plain),
             "dia_residual": (dk.dia_residual, dk.dia_residual_plain),
             "dia_scaled_correction": (dk.dia_scaled_correction,
@@ -1810,6 +1846,298 @@ def gmres_family(failures):
     return counts, summary, records
 
 
+# -- phase 9: path S1, the sharded stencil solver on one card -----------------
+
+def sharded_solve(A, rhs, shards, label):
+    """Build DistStencilSolver over ``shards`` shards of the card and solve
+    cold and warm, the counts set to 0 just before the setup and read just
+    after, V-cycles counted. Returns (solver, x, info, counts, plain calls,
+    warm launches, warm V-cycles, setup seconds)."""
+    from amgcl_tpu_torch import AMGParams, CG, DistStencilSolver, make_mesh
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = DistStencilSolver(A, make_mesh(shards), AMGParams(
+        dtype=torch.float32), CG(maxiter=100, tol=1e-6))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    hier = s.hier
+    print("[%s] setup: %.3f s wall over %d shards on %s; peak device memory"
+          " %.1f MB" % (label, t_setup, shards, s.mesh,
+                        torch.cuda.max_memory_allocated() / 2**20))
+    print(s)
+    for i, lv in enumerate(hier.levels):
+        fz = lv.fused
+        print("[%s] sharded level %d: slab %s, %d/%d/%d diagonals (A/M/Mt), "
+              "blocks %s, framed down: %s (H %s), framed up: %s (hp %s)"
+              % (label, i, lv.ldims, len(lv.a_flats), len(lv.m_flats),
+                 len(lv.mt_flats), lv.blocks, fz is not None and fz.down_ok,
+                 fz.H if fz is not None else None,
+                 fz is not None and fz.up_ok,
+                 fz.hp if fz is not None else None))
+    print("[%s] replicated tail from %d rows: %s" % (
+        label, hier.n_rep, [h[0].nrows for h in hier.rep_amg.host_levels]))
+    cycles = [0]
+    apply = hier.shard_apply
+
+    def counted(r):
+        cycles[0] += 1
+        return apply(r)
+
+    hier.shard_apply = counted
+    x, info = s(rhs)
+    print("[%s] solve 1 (cold): %d iterations, reported resid %.3e, %.4f s"
+          % (label, info.iters, info.resid, info.wall_time_s))
+    first, _ = read_counts()
+    c_first = cycles[0]
+    x, info = s(rhs)
+    counts, plain_calls = read_counts()
+    warm = {k: counts[k] - first[k] for k in counts}
+    print("[%s] solve 2 (warm): %d iterations, reported resid %.3e, %.4f s"
+          % (label, info.iters, info.resid, info.wall_time_s))
+    print("[%s] launches in the warm solve (%d V-cycles): %s"
+          % (label, cycles[0] - c_first,
+             json.dumps({k: v for k, v in warm.items() if v})))
+    return s, x, info, counts, plain_calls, warm, cycles[0] - c_first, \
+        t_setup
+
+
+def sharded_path(failures):
+    """Path S1: poisson3d(128) over four z-slab shards of the card, cold
+    and warm; then a further warm solve under torch's sync debug mode and
+    one profiled, and the same system on one shard. Returns (solver,
+    counts, summary)."""
+    from amgcl_tpu_torch import poisson3d
+    A, rhs = poisson3d(128)
+    s, x, info, counts, plain_calls, warm, n_cycles, t_setup = \
+        sharded_solve(A, rhs, S1_SHARDS, "S1")
+    true_res = true_residual(A, rhs, x)
+    print("[S1] true relative residual (host float64): %.3e" % true_res)
+    hier = s.hier
+    slabs = [lv.ldims for lv in hier.levels]
+    if s.meta[:-1] != S1_LEVELS or slabs != S1_SLABS \
+            or hier.n_rep != S1_TAIL:
+        failures.append("S1: sharded levels %s in slabs %s, tail from %d "
+                        "rows; expected %s, %s, %d"
+                        % (s.meta[:-1], slabs, hier.n_rep, S1_LEVELS,
+                           S1_SLABS, S1_TAIL))
+    if abs(info.iters - S1_ITERS) > 1:
+        failures.append("S1: %d iterations, expected %d ± 1"
+                        % (info.iters, S1_ITERS))
+    if not (info.resid <= 1e-6 and true_res <= 1e-3):
+        failures.append("S1: reported residual %.3e (limit 1e-6), true "
+                        "%.3e (limit 1e-3)" % (info.resid, true_res))
+    if any(plain_calls.values()):
+        failures.append("S1: plain versions ran: %s" % plain_calls)
+    for name, ok in (("fused_down_sweep.framed", "down_ok"),
+                     ("fused_up_sweep.framed", "up_ok")):
+        levels = sum(lv.fused is not None and getattr(lv.fused, ok)
+                     for lv in hier.levels)
+        if levels == 0 or warm[name] != S1_SHARDS * levels * n_cycles:
+            failures.append("S1: %s launched %d times in %d V-cycles over "
+                            "%d shards at %d levels" % (
+                                name, warm[name], n_cycles, S1_SHARDS,
+                                levels))
+    # the halo product's interior at L0: once a CG iteration and once for
+    # the first residual, on every shard
+    if warm["dia_spmv"] != S1_SHARDS * (info.iters + 1):
+        failures.append("S1: dia_spmv launched %d times for %d iterations "
+                        "over %d shards" % (warm["dia_spmv"], info.iters,
+                                            S1_SHARDS))
+    iters_before = info.iters
+    syncs = count_syncs(lambda: s(rhs))
+    print("[S1] host syncs in a warm solve: %d for %d CG iterations (limit:"
+          " iterations + 4)" % (syncs, iters_before))
+    if syncs > iters_before + 4:
+        failures.append("S1: %d host syncs for %d CG iterations"
+                        % (syncs, iters_before))
+    profile_solve(s, rhs, info.wall_time_s * 1e3)
+    summary = {"setup_s": t_setup, "warm_solve_s": info.wall_time_s,
+               "iters": info.iters, "resid": info.resid,
+               "true_resid": true_res, "levels": s.meta, "slabs": slabs,
+               "warm_launches": {k: v for k, v in warm.items() if v},
+               "syncs": syncs}
+    return s, counts, summary, (A, rhs)
+
+
+def one_shard_parity(A, rhs, iters, failures):
+    """The S1 system on a one-shard mesh: the halos are zeros, the framed
+    legs run on zero frames and the halo product is the DIA SpMV on the
+    slab. Its iterations must be S1's within one. Its host syncs and busy
+    share are read as S1's are."""
+    s, x, info, _, plain_calls, warm, _, t_setup = sharded_solve(
+        A, rhs, 1, "S1 1 shard")
+    true_res = true_residual(A, rhs, x)
+    print("[S1 1 shard] true relative residual (host float64): %.3e"
+          % true_res)
+    if abs(info.iters - iters) > 1 or true_res > 1e-3:
+        failures.append("S1 on one shard: %d iterations (S1 %d), true "
+                        "residual %.3e" % (info.iters, iters, true_res))
+    if any(plain_calls.values()):
+        failures.append("S1 on one shard: plain versions ran: %s"
+                        % plain_calls)
+    if warm["dia_spmv"] != info.iters + 1:
+        failures.append("S1 on one shard: dia_spmv launched %d times for "
+                        "%d iterations" % (warm["dia_spmv"], info.iters))
+    syncs = count_syncs(lambda: s(rhs))
+    print("[S1 1 shard] host syncs in a warm solve: %d for %d CG iterations"
+          % (syncs, info.iters))
+    profile_solve(s, rhs, info.wall_time_s * 1e3)
+    return {"setup_s": t_setup, "warm_solve_s": info.wall_time_s,
+            "iters": info.iters, "true_resid": true_res, "syncs": syncs}
+
+
+def reach_span(h, n, length, *offsets):
+    """The rows [lo, hi) of a frame of ``length`` rows that a product
+    chain with these offset sets reaches from the tile rows [h, h + n)."""
+    lo = h + sum(min(min(o), 0) for o in offsets)
+    hi = h + n + sum(max(max(o), 0) for o in offsets)
+    return max(lo, 0), min(hi, length)
+
+
+def reach_rows(h, n, length, *offsets):
+    lo, hi = reach_span(h, n, length, *offsets)
+    return hi - lo
+
+
+def check_framed(s, failures):
+    """Each framed leg against its plain version at S1's L0 and L1 on an
+    interior shard (both halos real) and the first shard (a zero halo
+    below), on seeded random f, u and uc framed by their neighbours' rows:
+    |Δ| ≤ 1e-5 · Σ|terms| per entry. Timed as in check_kernels beside the
+    base mode on the same slab (the slab alone, zero beyond it) and the
+    least time for the bytes read and written once. The first case, L0
+    interior in the path's mode, is the record."""
+    from amgcl_tpu_torch.ops import dia_kernels as dk
+    from amgcl_tpu_torch.ops import vcycle_kernels as vk
+    from amgcl_tpu_torch.parallel.dist_stencil import _halo_extend
+    rng = np.random.RandomState(20261018)
+    rtol = 1e-5
+    records = {}
+    nd = S1_SHARDS
+
+    def slabs(n, dev):
+        v = torch.as_tensor(rng.standard_normal(n * nd)).to(
+            device=dev, dtype=torch.float32)
+        return [p.contiguous() for p in torch.tensor_split(v, nd)]
+
+    for i, lv in enumerate(s.hier.levels):
+        fz = lv.fused
+        dev = lv.adata[0].device
+        lz, d1, d0 = fz.ldims
+        nl, s2 = lz * d1 * d0, 2 * d1 * d0
+        cz, c1, c0 = fz.lcoarse
+        nc = cz * c1 * c0
+        f, u, uc = slabs(nl, dev), slabs(nl, dev), slabs(nc, dev)
+        f_fr, u_fr = _halo_extend(f, fz.H), _halo_extend(u, fz.H)
+        u_up = _halo_extend(u, fz.hp * s2)
+        uc_fr = _halo_extend(uc, fz.hp * c1 * c0)
+        offs_a, offs_m, offs_mt = lv.a_flats, lv.m_flats, lv.mt_flats
+        nA, nM, nMt = len(offs_a), len(offs_m), len(offs_mt)
+        H, Hm = fz.H, fz.hp * s2
+        L, Lm = nl + 2 * H, nl + 2 * Hm
+        oa, om = dk.offsets_on(offs_a, dev), dk.offsets_on(offs_m, dev)
+        omt = dk.offsets_on(offs_mt, dev)
+        # the rows each leg reads: down, A at the rows Mᵀ reaches from the
+        # tile, f there too (and where A reaches from them in zero-guess
+        # mode), u or w where A reaches from them; up, M and u at the rows
+        # A reaches from the tile, uc at the coarse planes under the rows
+        # M reaches from those
+        rows_a = reach_rows(H, nl, L, offs_mt)
+        rows_u = reach_rows(H, nl, L, offs_mt, offs_a)
+        rows_m = reach_rows(Hm, nl, Lm, offs_a)
+        lo, hi = reach_span(Hm, nl, Lm, offs_a, offs_m)
+        uc_rows = (((hi - 1) // s2) - (lo // s2) + 1) * c1 * c0
+        for j, where in ((1, "interior"), (0, "boundary")):
+            for mode in ("zero", "base", "up"):
+                if mode == "up":
+                    name = "fused_up_sweep.framed"
+                    args = (offs_a, lv.adata[j], offs_m, fz.m_fr[j],
+                            lv.scale[j], f[j], u_up[j], uc_fr[j], fz.ldims,
+                            fz.hp)
+                    terms = vk.fused_up_sweep_framed_plain(
+                        offs_a, -lv.adata[j].abs(), offs_m,
+                        -fz.m_fr[j].abs(), lv.scale[j].abs(), f[j].abs(),
+                        u_up[j].abs(), uc_fr[j].abs(), fz.ldims, fz.hp)
+                    base = (vk.fused_up_sweep, (
+                        oa, lv.adata[j], om,
+                        fz.m_fr[j][:, Hm:Hm + nl].contiguous(), lv.scale[j],
+                        f[j], u[j], uc[j], fz.ldims))
+                    nbytes = ((nM + 1) * rows_m + uc_rows
+                              + (nA + 3) * nl) * 4
+                    ops = 2 * (nM + 1) * rows_m + (2 * nA + 3) * nl
+                else:
+                    name = "fused_down_sweep.framed"
+                    zero = mode == "zero"
+                    x = fz.w_fr[j] if zero else u_fr[j]
+                    args = (offs_a, fz.a_fr[j], offs_mt, fz.mt_fr[j],
+                            f_fr[j], x, fz.ldims, H, zero)
+                    terms = vk.fused_down_sweep_framed_plain(
+                        offs_a, -fz.a_fr[j].abs(), offs_mt,
+                        -fz.mt_fr[j].abs(), f_fr[j].abs(), x.abs(),
+                        fz.ldims, H, zero)
+                    base = (vk.fused_down_sweep, (
+                        oa, lv.adata[j], omt,
+                        fz.mt_fr[j][:, H:H + nl].contiguous(), f[j],
+                        lv.scale[j] if zero else u[j], fz.ldims, zero))
+                    rows_f = rows_u if zero else rows_a
+                    nbytes = (nA * rows_a + nMt * nl + rows_f + rows_u + nc
+                              + (nl if zero else 0)) * 4
+                    ops = (2 * nA * rows_a + 2 * nMt * nl + 2 * nl
+                           + (rows_u if zero else 0))
+                kern, plain = wrappers()[name]
+                got, want = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                pairs = list(zip(*(v if isinstance(v, tuple) else (v,)
+                                   for v in (got, want, terms))))
+                err = max(float((g - p_).abs().max()) for g, p_, _ in pairs)
+                ratio = max(float(((g - p_).abs() / t.clamp_min(1e-30))
+                                  .max()) for g, p_, t in pairs)
+                ok = all(bool(((g - p_).abs() <= rtol * t).all())
+                         for g, p_, t in pairs)
+                ms = time_ms(lambda: kern(*args))
+                plain_ms = time_ms(lambda: plain(*args))
+                base_ms = time_ms(lambda: base[0](*base[1]))
+                b_ms, b_by = bound(nbytes, ops, torch.float32)
+                label = "L%d %s %s" % (i, where, mode)
+                print("%-24s %-20s slab %s H %d hp %d  err %.3e (max |err|/"
+                      "Σ|terms| %.2e, tol %.0e)  ms %.4f  plain %.4f  base "
+                      "mode %.4f  bound %.4f (%s, %.1f MB)  %s"
+                      % (name, label, "x".join(map(str, fz.ldims)), fz.H,
+                         fz.hp, err, ratio, rtol, ms, plain_ms, base_ms,
+                         b_ms, b_by, nbytes / 1e6, "ok" if ok else "FAIL"))
+                if not ok:
+                    failures.append("%s %s disagrees with its plain version"
+                                    % (name, label))
+                if name not in records:
+                    records[name] = {
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None, "base_ms": base_ms,
+                        "shape": "S1 %s, slab %s, H %d, hp %d, float32"
+                                 % (label, "x".join(map(str, fz.ldims)),
+                                    fz.H, fz.hp)}
+    return records
+
+
+def sharded_stencil(failures):
+    """Phase 9: path S1, its kernels' check, then the one-shard parity.
+    Returns (counts, summary, records)."""
+    t0 = time.perf_counter()
+    s, counts, summary, (A, rhs) = sharded_path(failures)
+    records = check_framed(s, failures)
+    iters = summary["iters"]
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["one_shard"] = one_shard_parity(A, rhs, iters, failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary["phase_s"] = time.perf_counter() - t0
+    print("phase 9: %.1f s" % summary["phase_s"])
+    return counts, summary, records
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1864,12 +2192,18 @@ def main():
     g_counts, g_summary, g_records = gmres_family(failures)
     records.update(g_records)
     print("GMRES family paths: %s" % json.dumps(g_summary))
+    s_counts, s_summary, s_records = sharded_stencil(failures)
+    records.update(s_records)
+    print("sharded stencil path: %s" % json.dumps(s_summary))
     kernels = []
     for name in REPLACES:
         rec = records[name]
         later = {"D2": d_counts[name], "K1": k_counts[name],
-                 **{p: c[name] for p, c in g_counts.items()}}
-        if name in UNSTRUCTURED:
+                 **{p: c[name] for p, c in g_counts.items()},
+                 "S1": s_counts[name]}
+        if name in FRAMED:
+            by_path = {"S1": s_counts[name]}
+        elif name in UNSTRUCTURED:
             by_path = {"U1": u_counts["U1"][name],
                        "U2": u_counts["U2"][name], "B1": b_counts[name],
                        **later}
