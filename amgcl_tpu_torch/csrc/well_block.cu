@@ -1,10 +1,11 @@
 // Windowed-ELL sparse kernels for Hopper (sm_90a): SpMV, residual,
-// SPAI-0/Jacobi correction and SpMV + dots over b×b block values, b = 1
-// for scalar values — one gather loop, four epilogues.
+// SPAI-0/Jacobi correction and SpMV + dots, each over scalar values (its
+// own loop, a sub-warp loading each row) and over b×b block values, b =
+// 2, 3, 4 (a thread per node) — two gather loops, four epilogues each.
 //
 // Replaces the Pallas TPU kernels of amgcl_tpu/ops/unstructured.py:
-//   scalar (b = 1): windowed_ell_spmv (SPMV), windowed_ell_fused
-//   (RESIDUAL, CORRECTION), windowed_ell_spmv_dots (SPMV_DOTS);
+//   scalar: windowed_ell_spmv (SPMV), windowed_ell_fused (RESIDUAL,
+//   CORRECTION), windowed_ell_spmv_dots (SPMV_DOTS);
 //   block: windowed_ell_block_spmv (SPMV), windowed_ell_block_fused
 //   (RESIDUAL, CORRECTION), windowed_ell_block_spmv_dots (SPMV_DOTS).
 //
@@ -12,37 +13,67 @@
 // vals[((i*K + k)*b + r)*b + c] at block column starts[t] + cols[i*K + k];
 // x and every vector hold b entries per node, so the block column j reads
 // x[j*b .. j*b + b). Scalar values are the case b = 1: the reference's
-// (n_tiles, tile, K) layout is its (n_tiles, tile, K, 1, 1) one. Padding
-// slots hold local column 0 and a zero block.
+// (n_tiles, tile, K) layout. Padding slots hold local column 0 and a zero
+// block. An empty tile points at the block-column count, so its padding
+// may address one past x: every absolute block column is checked against
+// ncols and an out-of-range slot contributes nothing (the TPU pads x with
+// zeros). Offsets are 64-bit.
 //
-// What bounds it on the H100: memory traffic. A slot does b² multiply-adds
-// (2b² operations) against 4 + b²·sizeof(T) bytes of index and values
-// (40 B for 3×3 float32, 8 B for a scalar): 0.25–0.45 operations per byte
-// in float32, far below the card's balance point, so the least time is
-// (format + vectors) bytes / 3.35 TB/s.
+// What bounds them on the H100: memory traffic. A slot does b²
+// multiply-adds (2b² operations) against 4 + b²·sizeof(T) bytes of index
+// and values (8 B for a scalar, 40 B for 3×3 float32): 0.25–0.45
+// operations per byte in float32, far below the card's balance point, so
+// the least time is (format + vectors) bytes / 3.35 TB/s. What the card
+// reaches depends on how the format is walked: the rows are K slots long
+// (K = 48 at the 85,623-row FE level), so a thread per row puts
+// neighbouring threads K·4 bytes apart, and each warp load touches 32
+// lines for 128 useful bytes.
 //
-// Design (simple and correct first): one thread per node, holding its b
-// row sums in registers, walks its K slots in order, as the reference's
-// row sum does; each slot reads one int32 column, the slot's b² values and
-// b contiguous x entries. The TPU DMAs each tile's x window (b entries per
-// block column) into VMEM because it cannot gather from HBM; the H100
-// gathers natively and x (1.3 MB in float32 at the 110,592-node 3×3
-// level, 343 KB at the 85,623-row scalar one) stays in the 50 MB L2, so
-// nothing is staged. The reference's layout is kept: a thread reads its
-// K·b² values contiguously, neighbouring threads sit K·b²·sizeof(T) bytes
-// apart, and a slot's b² values are not 16-byte aligned (36 B for 3×3
-// float32), so the loads are scalar — correct, not coalesced; a
-// slot-major layout or a warp per node is later work. An empty tile
-// points at the block-column count, so its padding may address one past
-// x: every absolute block column is checked against ncols and an
-// out-of-range slot contributes nothing (the TPU pads x with zeros). The
-// correction reads x both as the gather source and as x[i]; the output is
-// a separate buffer, so no thread sees another's update. Offsets are
-// 64-bit. The dots sum each node's b components in a fixed order, then go
-// through the deterministic two-stage reduction of reduce.cuh, in T as the
-// TPU kernel accumulates (float32 for float32, float64 for float64).
-// Block sizes 1 (scalar) and 2, 3 and 4 (square) are instantiated; the
-// wrapper refuses any other shape.
+// Scalar design (`well_scalar_kernel`): G lanes load a row, 32/G rows
+// a warp, kBlock/G rows a block. K is a multiple of 4 (the packing rounds
+// it up) and the wrapper checks that cols and vals start on 16-byte
+// boundaries, so every row starts on one too; at each step lane l of a
+// row reads the row's next 4-slot vector as one int4 of columns and one
+// float4 (two double2) of values, and gathers the vector's four x
+// entries. A warp load thus reads G·16 contiguous bytes of each of its
+// 32/G neighbouring rows: whole sectors in place of one word of 32
+// lines. The lanes leave their (value, x) pairs in shared memory and the
+// row's first lane sums the step's slots in slot order, multiply-adds
+// with the thread-per-row kernel's rounding: results are bit-identical to
+// it, so every path's iterations and residuals repeat. (Summing each
+// lane's slots and then the lanes by a shuffle tree is faster but rounds
+// otherwise: it moved G1's IDR(s) from 65 to 70 iterations, outside the
+// 60 ± 10% that chip_smoke.py holds it to.) A slot past ncols leaves a
+// zero pair, which adds nothing, where the first design skipped it. The
+// wrapper (`well_kernels.launch_geometry`) gives a row one lane per
+// 4-slot vector, rounded up to a power of two and at most 4 (K 4: 1, 8:
+// 2, from 12: 4); at K 48, 2, 8 and 16 lanes were slower than 4, and the
+// SpMV beats both a thread per row and torch's CSR product (PERF.md §6;
+// NVIDIA H100 80GB HBM3 at 700 W). x is gathered through the read-only
+// path, one 4-byte load a slot: it stays in the 50 MB L2 (343 KB at the
+// FE level in float32), and the TPU's window DMA into VMEM, which it
+// needs because it cannot gather from HBM, would here copy a 45 KB window
+// for each block of 64 rows. SPMV_DOTS forms its dots in a second pass
+// over y, x and w (`row_dots_kernel`), a thread per row and kBlock rows
+// a block, so that the per-block partials, and the dots, are the
+// thread-per-row kernel's. The grid is ceil(n_out / (kBlock/G)) blocks;
+// the C entry point refuses a grid that does not cover n_out.
+//
+// Block design (`well_block_kernel`, b = 2, 3, 4; simple and correct
+// first): one thread per node, holding its b row sums in registers, walks
+// its K slots in order, as the reference's row sum does; each slot reads
+// one int32 column, the slot's b² values and b contiguous x entries.
+// Neighbouring threads sit K·b²·sizeof(T) bytes apart and a slot's b²
+// values are not 16-byte aligned (36 B for 3×3 float32), so the loads
+// are scalar — correct, not coalesced. It beats torch's BSR product at
+// B1's L0 but not at its L1 or at its restriction (PERF.md §6); a
+// sub-warp per node is later work.
+//
+// Both: the correction reads x both as the gather source and as x[i]; the
+// output is a separate buffer, so no thread sees another's update. The
+// dots sum each node's b components in a fixed order, then go through the
+// deterministic two-stage reduction of reduce.cuh, in T as the TPU kernel
+// accumulates (float32 for float32, float64 for float64).
 #include <cuda_runtime.h>
 
 #include "reduce.cuh"
@@ -120,6 +151,141 @@ well_block_kernel(long long n_out, long long ncols, int tile, int K,
   }
 }
 
+// Four consecutive values of a row (16-byte aligned): one float4, or two
+// double2, through the read-only path.
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
+  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+template <typename T, int G, int MODE>
+__global__ void __launch_bounds__(kBlock)
+well_scalar_kernel(long long n_out, long long ncols, int tile, int K,
+                   const int* __restrict__ starts,
+                   const int* __restrict__ cols, const T* __restrict__ vals,
+                   const T* __restrict__ x, const T* __restrict__ f,
+                   const T* __restrict__ w, T* __restrict__ y) {
+  constexpr int kRows = kBlock / G;          // rows per block
+  // each thread's four (value, x) pairs of the current step
+  __shared__ __align__(16) T sv[kBlock * 4];
+  __shared__ __align__(16) T sx[kBlock * 4];
+  const int sub = threadIdx.x % G;           // the lane's place in its row
+  const long long i = static_cast<long long>(blockIdx.x) * kRows +
+                      threadIdx.x / G;
+  const bool live = i < n_out;
+  const long long s = live ? starts[i / tile] : 0;
+  const int4* c4 = reinterpret_cast<const int4*>(cols + (live ? i * K : 0));
+  const T* v = vals + (live ? i * K : 0);
+  const int nq = K >> 2;
+  T acc = T(0);
+  // the trip count is K's, the same for every lane of the block
+  for (int q0 = 0; q0 < nq; q0 += G) {
+    const int q = q0 + sub;
+    T vv[4] = {T(0), T(0), T(0), T(0)};
+    T xv[4] = {T(0), T(0), T(0), T(0)};
+    if (live && q < nq) {
+      const int4 c = __ldg(c4 + q);
+      load4(v + 4 * q, vv);
+      const long long j[4] = {s + c.x, s + c.y, s + c.z, s + c.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // a slot past ncols leaves a zero pair, whose product adds nothing
+        if (j[e] < ncols) xv[e] = __ldg(x + j[e]);
+        else vv[e] = T(0);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sv[threadIdx.x * 4 + e] = vv[e];
+      sx[threadIdx.x * 4 + e] = xv[e];
+    }
+    __syncwarp();
+    if (live && sub == 0) {
+      // the row's first lane sums the step's slots in slot order
+      const int nl = min(G, nq - q0);
+      for (int l = 0; l < nl; ++l) {
+        const T* pv = sv + (threadIdx.x + l) * 4;
+        const T* px = sx + (threadIdx.x + l) * 4;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc += pv[e] * px[e];
+      }
+    }
+    __syncwarp();
+  }
+  if (live && sub == 0) {
+    if constexpr (MODE == SPMV || MODE == SPMV_DOTS) {
+      y[i] = acc;
+    } else if constexpr (MODE == RESIDUAL) {
+      y[i] = f[i] - acc;
+    } else {
+      // x + w·(f − A x), rounded as the block kernel's b = 1 case was
+      const T res = f[i] - acc;
+      const T c_r = w[i] * res;
+      y[i] = x[i] + c_r;
+    }
+  }
+}
+
+// The dots of SPMV_DOTS from y = A x, a thread per row and kBlock rows a
+// block, as a thread-per-row kernel forms them: the same per-block
+// partials, so the same dots bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(kBlock)
+row_dots_kernel(long long n_out, const T* __restrict__ y,
+                const T* __restrict__ x, const T* __restrict__ w,
+                T* __restrict__ partials) {
+  const long long i = static_cast<long long>(blockIdx.x) * kBlock +
+                      threadIdx.x;
+  T d0 = T(0), d1 = T(0), d2 = T(0);
+  if (i < n_out) {
+    const T a = y[i];
+    d0 += a * a;
+    d1 += a * x[i];
+    if (w != nullptr) d2 += a * w[i];
+  }
+  const T dv[3] = {d0, d1, d2};
+  block_reduce_store<T, 3>(dv, partials);
+}
+
+template <typename T, int G>
+cudaError_t launch_scalar(int mode, long long n_out, long long ncols,
+                          int tile, int K, const int* starts,
+                          const int* cols, const T* vals, const T* x,
+                          const T* f, const T* w, T* y, T* partials, T* dots,
+                          int nblocks, cudaStream_t s) {
+  switch (mode) {
+    case SPMV:
+      well_scalar_kernel<T, G, SPMV><<<nblocks, kBlock, 0, s>>>(
+          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
+      break;
+    case RESIDUAL:
+      well_scalar_kernel<T, G, RESIDUAL><<<nblocks, kBlock, 0, s>>>(
+          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
+      break;
+    case CORRECTION:
+      well_scalar_kernel<T, G, CORRECTION><<<nblocks, kBlock, 0, s>>>(
+          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
+      break;
+    case SPMV_DOTS: {
+      well_scalar_kernel<T, G, SPMV_DOTS><<<nblocks, kBlock, 0, s>>>(
+          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
+      const int dot_blocks = static_cast<int>((n_out + kBlock - 1) / kBlock);
+      row_dots_kernel<T><<<dot_blocks, kBlock, 0, s>>>(n_out, y, x, w,
+                                                       partials);
+      launch_reduce<T>(partials, dot_blocks, 3, dots, s);
+      break;
+    }
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 template <typename T, int B>
 cudaError_t launch(int mode, long long n_out, long long ncols, int tile,
                    int K, const int* starts, const int* cols, const T* vals,
@@ -150,15 +316,34 @@ cudaError_t launch(int mode, long long n_out, long long ncols, int tile,
 }
 
 template <typename T>
-cudaError_t run(int mode, int b, long long n_out, long long ncols, int tile,
-                int K, const int* starts, const int* cols, const T* vals,
-                const T* x, const T* f, const T* w, T* y, T* partials,
-                T* dots, int nblocks, cudaStream_t s) {
-  if (tile <= 0 || K <= 0) return cudaErrorInvalidValue;
+cudaError_t run(int mode, int b, int lanes, long long n_out, long long ncols,
+                int tile, int K, const int* starts, const int* cols,
+                const T* vals, const T* x, const T* f, const T* w, T* y,
+                T* partials, T* dots, int nblocks, cudaStream_t s) {
+  if (tile <= 0 || K <= 0 || lanes <= 0 || kBlock % lanes ||
+      static_cast<long long>(nblocks) * (kBlock / lanes) < n_out)
+    return cudaErrorInvalidValue;
+  if (b == 1) {
+    if (K % 4) return cudaErrorInvalidValue;
+    switch (lanes) {
+      case 1:
+        return launch_scalar<T, 1>(mode, n_out, ncols, tile, K, starts, cols,
+                                   vals, x, f, w, y, partials, dots, nblocks,
+                                   s);
+      case 2:
+        return launch_scalar<T, 2>(mode, n_out, ncols, tile, K, starts, cols,
+                                   vals, x, f, w, y, partials, dots, nblocks,
+                                   s);
+      case 4:
+        return launch_scalar<T, 4>(mode, n_out, ncols, tile, K, starts, cols,
+                                   vals, x, f, w, y, partials, dots, nblocks,
+                                   s);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+  if (lanes != 1) return cudaErrorInvalidValue;
   switch (b) {
-    case 1:
-      return launch<T, 1>(mode, n_out, ncols, tile, K, starts, cols, vals,
-                          x, f, w, y, partials, dots, nblocks, s);
     case 2:
       return launch<T, 2>(mode, n_out, ncols, tile, K, starts, cols, vals,
                           x, f, w, y, partials, dots, nblocks, s);
@@ -176,16 +361,20 @@ cudaError_t run(int mode, int b, long long n_out, long long ncols, int tile,
 }  // namespace
 }  // namespace amgcl_port
 
-// dtype: 0 = float32, 1 = float64; b: the block size (1, 2, 3 or 4). n_out
-// nodes are computed (one thread each, nblocks blocks of kBlock threads);
-// x has ncols·b entries, f, y (and w for SPMV_DOTS) n_out·b. `f` is read
-// by RESIDUAL and CORRECTION; `w` by CORRECTION as the (n_out, b, b) scale
-// and optionally by SPMV_DOTS as the third dot's vector. `partials` holds
-// nblocks * 3 values and `dots` 3 values of the data type (SPMV_DOTS
-// only). Returns the cudaError_t of the launches.
-extern "C" int amgcl_well_block(int dtype, int mode, int b, long long n_out,
-                                long long ncols, int tile, int K,
-                                const void* starts, const void* cols,
+// dtype: 0 = float32, 1 = float64; b: the block size (1, 2, 3 or 4);
+// lanes: threads per row, 1, 2 or 4 for b = 1 (K then a multiple of 4,
+// cols and vals on 16-byte boundaries) and 1 for b > 1. n_out nodes are
+// computed by nblocks blocks of kBlock threads, kBlock / lanes nodes a
+// block; a grid that does not cover n_out is refused. x has ncols·b
+// entries, f, y (and w for SPMV_DOTS) n_out·b. `f` is read by RESIDUAL
+// and CORRECTION; `w` by CORRECTION as the (n_out, b, b) scale and
+// optionally by SPMV_DOTS as the third dot's vector. `partials` holds
+// ceil(n_out / kBlock) * 3 values (the dots' partials, a thread per node)
+// and `dots` 3 values of the data type (SPMV_DOTS only). Returns the
+// cudaError_t of the launches.
+extern "C" int amgcl_well_block(int dtype, int mode, int b, int lanes,
+                                long long n_out, long long ncols, int tile,
+                                int K, const void* starts, const void* cols,
                                 const void* vals, const void* x,
                                 const void* f, const void* w, void* y,
                                 void* partials, void* dots, int nblocks,
@@ -195,7 +384,7 @@ extern "C" int amgcl_well_block(int dtype, int mode, int b, long long n_out,
   const int* st = static_cast<const int*>(starts);
   const int* cl = static_cast<const int*>(cols);
   if (dtype == 0)
-    return run<float>(mode, b, n_out, ncols, tile, K, st, cl,
+    return run<float>(mode, b, lanes, n_out, ncols, tile, K, st, cl,
                       static_cast<const float*>(vals),
                       static_cast<const float*>(x),
                       static_cast<const float*>(f),
@@ -203,7 +392,7 @@ extern "C" int amgcl_well_block(int dtype, int mode, int b, long long n_out,
                       static_cast<float*>(partials),
                       static_cast<float*>(dots), nblocks, s);
   if (dtype == 1)
-    return run<double>(mode, b, n_out, ncols, tile, K, st, cl,
+    return run<double>(mode, b, lanes, n_out, ncols, tile, K, st, cl,
                        static_cast<const double*>(vals),
                        static_cast<const double*>(x),
                        static_cast<const double*>(f),

@@ -94,10 +94,10 @@ def _bind(lib) -> None:
     lib.amgcl_bicg_tail.restype = i32
     lib.amgcl_axpby_dot.argtypes = [i32, i64] + [vp] * 7 + [i32, vp]
     lib.amgcl_axpby_dot.restype = i32
-    lib.amgcl_well_block.argtypes = [i32, i32, i32, i64, i64, i32, i32] \
-        + [vp] * 9 + [i32, vp]
+    lib.amgcl_well_block.argtypes = [i32, i32, i32, i32, i64, i64, i32,
+                                     i32] + [vp] * 9 + [i32, vp]
     lib.amgcl_well_block.restype = i32
-    lib.amgcl_densewin.argtypes = [i32, i32, i64, i64, i32, i32, i32] \
+    lib.amgcl_densewin.argtypes = [i32, i32, i64, i64, i32, i32, i32, i32] \
         + [vp] * 6 + [vp]
     lib.amgcl_densewin.restype = i32
     lib.amgcl_gather_spmv.argtypes = [i32, i32, i64, i64, i32] + [vp] * 5 \

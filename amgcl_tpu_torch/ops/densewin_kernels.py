@@ -21,12 +21,19 @@ the kernel, or raises. ``<wrapper>.launches`` counts kernel launches and
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from amgcl_tpu_torch.ops import cuda_lib
 from amgcl_tpu_torch.ops.dia_kernels import _DTYPE_CODE, _check_vec
 
 _SPMV, _RESIDUAL, _CORRECTION = range(3)
+
+_TILE = 64                 # rows per tile: the kernel's block
+_WARPS = 8                 # warps of a block
+#: bytes of one buffer of the staged x window
+_CHUNK_BYTES = 8192
 
 
 # -- plain versions -----------------------------------------------------------
@@ -79,6 +86,24 @@ for _fn in (dense_window_spmv_plain, dense_window_residual_plain,
 
 # -- kernel launch ------------------------------------------------------------
 
+class Geometry(NamedTuple):
+    """The launch of one densewin.cu kernel."""
+    rows_per_warp: int
+    nblocks: int            # one block a tile
+    chunk: int              # columns of x staged at a time
+    smem: int               # dynamic shared memory: two chunk buffers
+
+
+def launch_geometry(n_tiles, win, itemsize):
+    """A block of 8 warps per 64-row tile, 8 rows a warp, and the x window
+    staged in chunks: ``_CHUNK_BYTES`` of columns (2,048 float32, 1,024
+    float64), or the window rounded up to 128 columns where it is
+    narrower, double-buffered."""
+    chunk = min(-(-int(win) // 128) * 128, _CHUNK_BYTES // itemsize)
+    return Geometry(_TILE // _WARPS, int(n_tiles), chunk,
+                    2 * chunk * itemsize)
+
+
 def _launch(mode, window_starts, blocks, x, n_out, f=None, w=None):
     """Validate the operands and launch one densewin.cu kernel; returns
     the output vector of ``n_out`` rows."""
@@ -92,6 +117,9 @@ def _launch(mode, window_starts, blocks, x, n_out, f=None, w=None):
         raise ValueError("blocks must be a contiguous (n_tiles, tile, win) "
                          "tensor")
     n_tiles, tile, win = blocks.shape
+    if tile != _TILE:
+        raise ValueError("dense-window kernels take tiles of %d rows, got %d"
+                         % (_TILE, tile))
     # the kernel reads each block row in 16-byte vectors
     vec = 16 // blocks.element_size()
     if win % vec or blocks.data_ptr() % 16:
@@ -124,13 +152,15 @@ def _launch(mode, window_starts, blocks, x, n_out, f=None, w=None):
     y = torch.empty(n_out, dtype=blocks.dtype, device=blocks.device)
     if n_out == 0:
         return y
+    geo = launch_geometry(n_tiles, win, blocks.element_size())
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = cuda_lib.lib().amgcl_densewin(
-            _DTYPE_CODE[blocks.dtype], mode, n_out, ncols, n_tiles, tile,
-            win, window_starts.data_ptr(), blocks.data_ptr(), x.data_ptr(),
-            ptr(f), ptr(w), y.data_ptr(), stream)
+            _DTYPE_CODE[blocks.dtype], mode, n_out, ncols, geo.nblocks,
+            tile, win, geo.chunk, window_starts.data_ptr(),
+            blocks.data_ptr(), x.data_ptr(), ptr(f), ptr(w), y.data_ptr(),
+            stream)
     cuda_lib.check(rc, "dense-window mode %d" % mode)
     return y
 

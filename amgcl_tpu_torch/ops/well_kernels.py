@@ -6,9 +6,11 @@ Counterpart of the scalar Pallas TPU kernels of
 ``amgcl_tpu/ops/unstructured.py`` (``windowed_ell_spmv``,
 ``windowed_ell_fused``, ``windowed_ell_spmv_dots``), with their
 signatures less the window size ``win``: the kernels read x where it
-lies. The CUDA source is ``amgcl_tpu_torch/csrc/well_block.cu``, whose
-kernels these wrappers launch with a block size of 1 (the block wrappers
-of :mod:`amgcl_tpu_torch.ops.well_block_kernels` share :func:`_launch`).
+lies. The CUDA source is ``amgcl_tpu_torch/csrc/well_block.cu``: these
+wrappers launch its scalar kernel, a sub-warp of
+:func:`launch_geometry`'s lanes per row (the block wrappers of
+:mod:`amgcl_tpu_torch.ops.well_block_kernels` share :func:`_launch` and
+launch its block kernels, a thread per node).
 Storage is that of
 :class:`amgcl_tpu_torch.ops.unstructured.WindowedEllMatrix`: row ``i``
 of tile ``t = i // tile`` holds ``vals[t, i % tile, k]`` at column
@@ -24,6 +26,8 @@ the kernel, or raises. ``<wrapper>.launches`` counts kernel launches and
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -138,10 +142,34 @@ def check_geometry(window_starts, cols_local, vals, n_out, block):
     return n_tiles, tile, K, n_out
 
 
+class Geometry(NamedTuple):
+    """The launch of one well_block.cu kernel."""
+    lanes: int              # threads per row (scalar) or node (block)
+    rows_per_block: int     # rows (nodes) of a block of _BLOCK threads
+    nblocks: int
+    partials: int           # SPMV_DOTS's partial sums: ndots per 256 rows
+
+
+def launch_geometry(n_out, K, block=False, ndots=0):
+    """The grid that covers ``n_out`` rows (nodes) of K slots. Block
+    values take a thread per node. A scalar row is loaded by one lane per
+    4-slot vector, rounded up to a power of two and at most 4 (K = 4: 1
+    lane, 8: 2, from 12: 4), 256 / lanes rows a block of 256 threads.
+    ``partials`` holds ``ndots`` sums per 256 rows, as the dots are
+    formed a thread per row."""
+    lanes = 1
+    if not block:
+        while lanes < min(4, K // 4):
+            lanes *= 2
+    rows = _BLOCK // lanes
+    nblocks = -(-int(n_out) // rows)
+    return Geometry(lanes, rows, nblocks, -(-int(n_out) // _BLOCK) * ndots)
+
+
 def _launch(mode, window_starts, cols_local, vals, x, n_out, f=None, w=None,
             block=False):
-    """Validate the operands and launch one well_block.cu kernel, with a
-    block size of 1 for scalar values; returns (y, dots) with dots a (3,)
+    """Validate the operands and launch one well_block.cu kernel, the
+    scalar one for scalar values; returns (y, dots) with dots a (3,)
     tensor or None. For block values ``w`` is the (n_out, b, b) scale of
     the correction, and otherwise a vector."""
     _, tile, K, n_out = check_geometry(window_starts, cols_local, vals,
@@ -154,6 +182,11 @@ def _launch(mode, window_starts, cols_local, vals, x, n_out, f=None, w=None,
                              "of size %s, got %dx%d"
                              % (" or ".join(map(str, BLOCK_SIZES)), br, bc))
         b = br
+    elif K % 4 or cols_local.data_ptr() % 16 or vals.data_ptr() % 16:
+        # the scalar kernel reads each row in 4-slot, 16-byte vectors
+        raise ValueError("scalar windowed-ELL kernels take K a multiple of "
+                         "4 and cols_local and vals on 16-byte boundaries, "
+                         "got K=%d" % K)
     if x.dim() != 1 or x.shape[0] % b:
         raise ValueError("x must be a vector of %d entries per column, got "
                          "shape %s" % (b, tuple(x.shape)))
@@ -179,20 +212,20 @@ def _launch(mode, window_starts, cols_local, vals, x, n_out, f=None, w=None,
     if n_out == 0:
         return y, (torch.zeros(ndots, dtype=vals.dtype, device=vals.device)
                    if ndots else None)
-    nblocks = -(-n_out // _BLOCK)
+    geo = launch_geometry(n_out, K, block, ndots)
     # the reduction kernel writes every dot
     dots = torch.empty(ndots, dtype=vals.dtype, device=vals.device) \
         if ndots else None
-    partials = torch.empty(nblocks * ndots, dtype=vals.dtype,
+    partials = torch.empty(geo.partials, dtype=vals.dtype,
                            device=vals.device) if ndots else None
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = cuda_lib.lib().amgcl_well_block(
-            _DTYPE_CODE[vals.dtype], mode, b, n_out, ncols, tile, K,
-            window_starts.data_ptr(), cols_local.data_ptr(),
+            _DTYPE_CODE[vals.dtype], mode, b, geo.lanes, n_out, ncols, tile,
+            K, window_starts.data_ptr(), cols_local.data_ptr(),
             vals.data_ptr(), x.data_ptr(), ptr(f), ptr(w), y.data_ptr(),
-            ptr(partials), ptr(dots), nblocks, stream)
+            ptr(partials), ptr(dots), geo.nblocks, stream)
     cuda_lib.check(rc, "%swindowed-ELL mode %d"
                    % ("block " if block else "", mode))
     return y, dots

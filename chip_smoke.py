@@ -1068,6 +1068,11 @@ def check_unstructured_kernels(solves, failures):
                 "n=%d, %s" % (n, dt) if name == "bicgstab_tail" else
                 "%s %dx%d, K %d, window %d, %s"
                 % (label, n, m, M.K, M.win, dt))
+        elif label == "U1 L0 A" and name == "windowed_ell_spmv":
+            # U1's L0 beside the record's U2 L0: the same K, x gathered
+            # from a window of the whole matrix
+            records[name]["U1 L0"] = {k: r[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms")}
     return records
 
 

@@ -5,14 +5,19 @@ both sides, rectangular operators, the 512-diagonal limit, an empty
 operator, a grid-stride pass longer than its fixed grid; for the fused
 V-cycle legs odd and small grids, f0 that does not divide 128, a halo of
 two coarse planes and asymmetric offsets; for the windowed-ELL kernels K
-from 4 to 52, window starts that differ from tile to tile, a tile without
-entries (its padding addresses one past x), a ragged last tile and
-rectangular operators; the block windowed-ELL kernels at block sizes 2,
+from 4 to 100 (no multiple of 4 x the scalar kernel's lanes among them),
+window starts that differ from tile to tile, a tile without entries (its
+padding addresses one past x), a ragged last tile, slots past the end of
+x, row counts that are no multiple of a block's rows, with every row
+checked as written, rectangular operators, and rows off a 16-byte
+boundary refused; the block windowed-ELL kernels at block sizes 2,
 3 and 4 with the same edges; the BiCGStab tail and axpby_dot at
 grid-stride lengths; the dense-window kernels with window starts that
 differ from tile to tile, windows past the last column, empty tiles, row
-counts that are no multiple of 64, rectangular operators and blocks
-packed on the card.
+counts that are no multiple of 64, rectangular operators, blocks packed
+on the card, and the staged x window in one chunk, in several with a
+ragged last one and as wide as the reference's 10 MiB rule admits in
+both dtypes.
 Also the wrappers' refusals, bit-identical results from run to run, and
 small solves on the card against the same solves on the CPU. The gather
 kernel (csrc/gather.cu) at K = 4, 8, 12 and 16 with window starts that
@@ -542,6 +547,108 @@ def test_well_wrappers_refuse_malformed_operands(cuda, bad):
     assert [c.launches for c in counters] == launches
 
 
+def _poisoned(n, dtype, device):
+    """Leave NaN in the allocator's free block of n entries, which the
+    next output of that size takes: a row the kernel does not write
+    stays NaN."""
+    torch.full((n,), float("nan"), dtype=dtype, device=device)
+
+
+def _written(fn, n, dtype, device):
+    _poisoned(n, dtype, device)
+    out = fn()
+    y = out[0] if isinstance(out, tuple) else out
+    assert bool(torch.isfinite(y).all()), "rows left unwritten"
+    return out
+
+
+def _well_edges(n_out, ncols, K, dtype, device, seed=0):
+    """Windowed-ELL operands at the scalar kernel's edges: tiles of 1,024
+    (the last one ragged), tile 1 without entries and starting at ncols
+    where there are three tiles or more, and the last tile's window
+    starting 512 columns before ncols, so that some of its slots, values
+    nonzero, lie at or past the end of x and must contribute nothing."""
+    empty = 1 if n_out > 2 * 1024 else None
+    st, cl, v, x, f, w = _well(n_out, ncols, K, dtype, "cpu", seed=seed,
+                               empty=empty)
+    rng = np.random.RandomState(seed + 1)
+    st[-1] = max(ncols - 512, 0)
+    cl[-1] = torch.as_tensor(rng.randint(0, 1024, cl[-1].shape),
+                             dtype=torch.int32)
+    v[-1] = torch.as_tensor(rng.standard_normal(v[-1].shape)).to(dtype)
+    return [t.to(device) for t in (st, cl, v, x, f, w)]
+
+
+_WELL_EDGE_CASES = [
+    # (n_out, K): n_out no multiple of the rows a warp or a block covers
+    (3109, 4), (200, 4), (3109, 12), (3109, 48), (2085, 52), (3109, 100),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,K", _WELL_EDGE_CASES)
+def test_well_scalar_geometry_edges(cuda, n, K, dtype):
+    """Every mode of the sub-warp kernel at K from 4 to 100 (K = 12, 52
+    and 100 no multiple of 4 x its lanes), on every row of a ragged grid,
+    an empty tile and slots past the end of x; the dots also bit for bit
+    from run to run."""
+    st, cl, v, x, f, w = _well_edges(n, n, K, dtype, cuda, seed=K)
+    lanes = wk.launch_geometry(n, K).lanes
+    assert lanes == 4 or lanes * 4 >= K
+    assert int(((cl[-1].long() + st[-1]) >= n).sum()) > 0
+    terms = wk.windowed_ell_spmv_plain(st, cl, v.abs(), x.abs(), n)
+    got = _written(lambda: wk.windowed_ell_spmv(st, cl, v, x, n), n, dtype,
+                   cuda)
+    _close(got, wk.windowed_ell_spmv_plain(st, cl, v, x, n),
+           float(terms.max()), dtype)
+    got = _written(lambda: wk.windowed_ell_residual(st, cl, v, f, x, n), n,
+                   dtype, cuda)
+    _close(got, wk.windowed_ell_residual_plain(st, cl, v, f, x, n),
+           float((terms + f.abs()).max()), dtype)
+    got = _written(lambda: wk.windowed_ell_scaled_correction(
+        st, cl, v, w, f, x, n), n, dtype, cuda)
+    _close(got, wk.windowed_ell_scaled_correction_plain(st, cl, v, w, f, x,
+                                                        n),
+           float((x.abs() + w * (terms + f.abs())).max()), dtype)
+    for wv in (None, w):
+        got = _written(lambda: wk.windowed_ell_spmv_dots(st, cl, v, x, wv,
+                                                         n), n, dtype, cuda)
+        want = wk.windowed_ell_spmv_dots_plain(st, cl, v, x, wv, n)
+        _close(got[0], want[0], float(terms.max()), dtype)
+        _dot_close(got[1], want[1], terms, 2 * terms, dtype)
+        _dot_close(got[2], want[2], terms, x, dtype)
+        if wv is not None:
+            _dot_close(got[3], want[3], terms, wv, dtype)
+        again = wk.windowed_ell_spmv_dots(st, cl, v, x, wv, n)
+        assert all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("bad", ["vals", "cols", "K"])
+def test_well_scalar_refuses_misaligned_rows(cuda, bad):
+    """The scalar kernel reads rows in 16-byte vectors: a base off a
+    16-byte boundary, or K no multiple of 4, raises before any launch."""
+    n = 3000
+    st, cl, v, x, f, _ = _well(n, n, 8, torch.float32, cuda)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    if bad == "vals":
+        v = shifted(v)
+    elif bad == "cols":
+        cl = shifted(cl)
+    else:
+        cl, v = cl[:, :, :6].contiguous(), v[:, :, :6].contiguous()
+    assert bad == "K" or (v.data_ptr() | cl.data_ptr()) % 16
+    launches = wk.windowed_ell_residual.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        wk.windowed_ell_residual(st, cl, v, f, x, n)
+    assert wk.windowed_ell_residual.launches == launches
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [1, 1000, 1056 * 256 * 3 + 7])
 def test_bicgstab_tail_matches_plain(cuda, n, dtype):
@@ -955,6 +1062,67 @@ def test_dwin_wrappers_refuse_malformed_operands(cuda, bad):
         else:
             dwk.dense_window_residual(st, B, f, x, n)
     assert [c.launches for c in counters] == launches
+
+
+_DWIN_CHUNK_CASES = [
+    # (n, win, dtype), square: chunks of 2,048 float32 / 1,024 float64
+    # columns
+    (1000, 1024, torch.float32),          # one chunk; n no multiple of 64
+    (5000, 4608, torch.float32),          # 2 chunks + a ragged 512
+    (5000, 4608, torch.float64),          # 4 chunks + a ragged 512
+    (2500, 6000, torch.float32),          # every window partly past ncols
+    (20000, 19456, torch.float32),        # widest the 10 MiB rule admits
+    (12000, 9216, torch.float64),         # the same in float64
+    (700, 4100, torch.float64),           # win no multiple of 128
+]
+
+
+@pytest.mark.parametrize("n,win,dtype", _DWIN_CHUNK_CASES)
+def test_dwin_chunked_staging(cuda, n, win, dtype):
+    """Every mode of the staged kernel over windows of one chunk, of
+    several with a ragged last chunk, partly past ncols and as wide as
+    the reference's rule admits; every row written, and bit for bit from
+    run to run."""
+    st, B, x, f, w = _dwin(n, n, win, dtype, cuda, seed=win)
+    terms = _dwin_terms(st, B, x, n)
+    runs = []
+    for _ in range(2):
+        runs.append([
+            _written(lambda: dwk.dense_window_spmv(st, B, x, n), n, dtype,
+                     cuda),
+            _written(lambda: dwk.dense_window_residual(st, B, f, x, n), n,
+                     dtype, cuda),
+            _written(lambda: dwk.dense_window_scaled_correction(
+                st, B, w, f, x, n), n, dtype, cuda)])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    y, r, c = runs[0]
+    _close(y, dwk.dense_window_spmv_plain(st, B, x, n), float(terms.max()),
+           dtype)
+    _close(r, dwk.dense_window_residual_plain(st, B, f, x, n),
+           float((terms + f.abs()).max()), dtype)
+    _close(c, dwk.dense_window_scaled_correction_plain(st, B, w, f, x, n),
+           float((x.abs() + w * (terms + f.abs())).max()), dtype)
+
+
+@pytest.mark.parametrize("bad", ["misaligned", "tile"])
+def test_dwin_refuses_misaligned_or_other_tiles(cuda, bad):
+    """Blocks off a 16-byte boundary, or tiles of other than 64 rows,
+    raise before any launch."""
+    n = 3000
+    st, B, x, f, _ = _dwin(n, n, 1024, torch.float32, cuda)
+    if bad == "misaligned":
+        buf = torch.empty(B.numel() + 1, device=cuda)
+        B2 = buf[1:].view(B.shape)
+        B2.copy_(B)
+        B = B2
+        assert B.data_ptr() % 16
+    else:
+        st = torch.cat([st, st])
+        B = B.reshape(2 * B.shape[0], 32, B.shape[2])
+    launches = dwk.dense_window_residual.launches
+    with pytest.raises(ValueError):
+        dwk.dense_window_residual(st, B, f, x, n)
+    assert dwk.dense_window_residual.launches == launches
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
