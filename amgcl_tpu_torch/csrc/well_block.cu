@@ -1,7 +1,8 @@
 // Windowed-ELL sparse kernels for Hopper (sm_90a): SpMV, residual,
 // SPAI-0/Jacobi correction and SpMV + dots, each over scalar values (its
 // own loop, a sub-warp loading each row) and over b×b block values, b =
-// 2, 3, 4 (a thread per node) — two gather loops, four epilogues each.
+// 2, 3, 4 (a sub-warp loading each node, a lane summing each of its b
+// rows) — two gather loops, four epilogues each.
 //
 // Replaces the Pallas TPU kernels of amgcl_tpu/ops/unstructured.py:
 //   scalar: windowed_ell_spmv (SPMV), windowed_ell_fused (RESIDUAL,
@@ -59,15 +60,28 @@
 // thread-per-row kernel's. The grid is ceil(n_out / (kBlock/G)) blocks;
 // the C entry point refuses a grid that does not cover n_out.
 //
-// Block design (`well_block_kernel`, b = 2, 3, 4; simple and correct
-// first): one thread per node, holding its b row sums in registers, walks
-// its K slots in order, as the reference's row sum does; each slot reads
-// one int32 column, the slot's b² values and b contiguous x entries.
-// Neighbouring threads sit K·b²·sizeof(T) bytes apart and a slot's b²
-// values are not 16-byte aligned (36 B for 3×3 float32), so the loads
-// are scalar — correct, not coalesced. It beats torch's BSR product at
-// B1's L0 but not at its L1 or at its restriction (PERF.md §6); a
-// sub-warp per node is later work.
+// Block design (`well_block_kernel`, b = 2, 3, 4). The first design,
+// a thread per node walking its K slots with scalar loads, put 13,310
+// nodes (B1's L1 and restriction) on 52 blocks for 132 SMs, each thread
+// K·b² dependent-address loads deep, and lost to torch's BSR product
+// there. Now G = 4 or 8 lanes load a node (`well_kernels.launch_geometry`
+// picks G), 256/G nodes a block. A step stages Q slots (16, or 8 or 4
+// where 16 would pass 48 KB of shared memory a block; `block_chunk`): the
+// lanes read the step's columns as int4 and its Q·b² values, one
+// contiguous run per node, as 16-byte vectors (K a multiple of 4 and
+// 16-byte aligned cols and vals, which the wrapper checks, put every run
+// on a 16-byte boundary), gather the b x entries of each slot, and leave
+// all of it in shared memory. Lane r < b of the node then sums row
+// component r, acc_r += v[k][r][c]·x[j_k·b + c] over the slots in order
+// and c within a slot, skipping a slot past ncols: the thread-per-node
+// kernel's multiply-adds in its order, so results are bit-identical to it
+// and B1's counts repeat. The correction's lane r takes the node's b
+// residuals from its neighbour lanes by shuffles and forms
+// S[r][0]·res[0] + … + S[r][b−1]·res[b−1] in c order; SPMV_DOTS forms its
+// dots in a second pass a thread per node (`row_dots_kernel`), its b
+// components in order, so that the per-block partials are the first
+// design's. The grid is ceil(n_out / (256/G)) blocks; the C entry point
+// refuses a grid that does not cover n_out.
 //
 // Both: the correction reads x both as the gather source and as x[i]; the
 // output is a separate buffer, so no thread sees another's update. The
@@ -83,71 +97,134 @@ namespace {
 
 enum Mode { SPMV = 0, RESIDUAL = 1, CORRECTION = 2, SPMV_DOTS = 3 };
 
-template <typename T, int B, int MODE>
+// Shared memory of a block-kernel block that stages Q slots a step (the
+// layout of well_block_kernel), and the Q it takes: 16, or 8 or 4 where
+// more would pass the 48 KB of static shared memory a block may have.
+template <typename T, int B, int G>
+__host__ __device__ constexpr int block_stage_bytes(int Q) {
+  return (kBlock / G) *
+         ((Q * B * B + 16 / static_cast<int>(sizeof(T)) + Q * B + 1) *
+              static_cast<int>(sizeof(T)) +
+          (Q + 4) * 4);
+}
+template <typename T, int B, int G>
+__host__ __device__ constexpr int block_chunk() {
+  return block_stage_bytes<T, B, G>(16) <= 48 * 1024  ? 16
+         : block_stage_bytes<T, B, G>(8) <= 48 * 1024 ? 8
+                                                      : 4;
+}
+
+// One 16-byte vector of values: a float4 or a double2.
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<double> { using type = double2; };
+
+template <typename T, int B, int G, int MODE>
 __global__ void __launch_bounds__(kBlock)
 well_block_kernel(long long n_out, long long ncols, int tile, int K,
                   const int* __restrict__ starts,
                   const int* __restrict__ cols, const T* __restrict__ vals,
                   const T* __restrict__ x, const T* __restrict__ f,
-                  const T* __restrict__ w, T* __restrict__ y,
-                  T* __restrict__ partials) {
-  const long long i = static_cast<long long>(blockIdx.x) * kBlock +
-                      threadIdx.x;
-  T d0 = T(0), d1 = T(0), d2 = T(0);
-  if (i < n_out) {
-    const long long s = starts[i / tile];
-    const long long base = i * K;
-    T acc[B];
+                  const T* __restrict__ w, T* __restrict__ y) {
+  using V = typename Vec16<T>::type;
+  constexpr int kNodes = kBlock / G;           // nodes per block
+  constexpr int Q = block_chunk<T, B, G>();    // slots per step
+  constexpr int kV = 16 / sizeof(T);           // values per vector
+  constexpr int kNV = Q * B * B / kV;          // value vectors per step
+  constexpr int kPer = (kNV + G - 1) / G;      // ... per lane
+  constexpr int kSlots = (Q + G - 1) / G;      // x gathers per lane
+  // per node: a step's values, with one vector of padding so that the
+  // nodes of a warp fall on different banks; its x entries; its columns
+  constexpr int SV = Q * B * B + kV, SX = Q * B + 1, SC = Q + 4;
+  __shared__ __align__(16) T sv[kNodes * SV];
+  __shared__ T sx[kNodes * SX];
+  __shared__ __align__(16) int sc[kNodes * SC];
+  const int sub = threadIdx.x % G;             // the lane's place in its node
+  const int node = threadIdx.x / G;
+  const long long i = static_cast<long long>(blockIdx.x) * kNodes + node;
+  const bool live = i < n_out;
+  const long long s = live ? starts[i / tile] : 0;
+  const int* ci = cols + (live ? i * K : 0);
+  const T* vi = vals + (live ? i * K * (B * B) : 0);
+  T* mv = sv + node * SV;
+  T* mx = sx + node * SX;
+  int* mc = sc + node * SC;
+  T acc = T(0);
+  // the trip count is K's, the same for every lane of the block
+  for (int k0 = 0; k0 < K; k0 += Q) {
+    const int nq = min(Q, K - k0);             // a multiple of 4
+    const int nv = nq * B * B / kV;
+    if (live && sub < nq / 4)
+      *reinterpret_cast<int4*>(mc + 4 * sub) =
+          __ldg(reinterpret_cast<const int4*>(ci + k0) + sub);
+    V buf[kPer];
+    const V* vq = reinterpret_cast<const V*>(vi + k0 * (B * B));
 #pragma unroll
-    for (int r = 0; r < B; ++r) acc[r] = T(0);
-    for (int k = 0; k < K; ++k) {
-      const long long j = s + __ldg(cols + base + k);
-      if (j >= ncols) continue;
-      const T* v = vals + (base + k) * (B * B);
-      const T* xj = x + j * B;
-      T xv[B];
+    for (int p = 0; p < kPer; ++p) {
+      const int v = sub + p * G;
+      if (live && v < nv) buf[p] = __ldg(vq + v);
+    }
+    __syncwarp();
+    // each lane gathers the b x entries of its slots; a slot past ncols
+    // is skipped below and gathers nothing
+    T xv[kSlots][B];
 #pragma unroll
-      for (int c = 0; c < B; ++c) xv[c] = __ldg(xj + c);
+    for (int p = 0; p < kSlots; ++p) {
+      const int k = sub + p * G;
+      const long long j = s + ((live && k < nq) ? mc[k] : 0);
 #pragma unroll
-      for (int r = 0; r < B; ++r) {
+      for (int c = 0; c < B; ++c)
+        xv[p][c] = (live && k < nq && j < ncols) ? __ldg(x + j * B + c)
+                                                 : T(0);
+    }
 #pragma unroll
-        for (int c = 0; c < B; ++c) acc[r] += __ldg(v + r * B + c) * xv[c];
+    for (int p = 0; p < kPer; ++p) {
+      const int v = sub + p * G;
+      if (live && v < nv) reinterpret_cast<V*>(mv)[v] = buf[p];
+    }
+#pragma unroll
+    for (int p = 0; p < kSlots; ++p) {
+      const int k = sub + p * G;
+      if (k < nq) {
+#pragma unroll
+        for (int c = 0; c < B; ++c) mx[k * B + c] = xv[p][c];
       }
     }
-    const long long o = i * B;
-    if constexpr (MODE == SPMV || MODE == SPMV_DOTS) {
+    __syncwarp();
+    if (live && sub < B) {
+      // lane r sums component r of the node's row: slot by slot, then c,
+      // the thread-per-node kernel's order and rounding
+      for (int k = 0; k < nq; ++k) {
+        if (s + mc[k] >= ncols) continue;
+        const T* v = mv + k * (B * B) + sub * B;
+        const T* xk = mx + k * B;
 #pragma unroll
-      for (int r = 0; r < B; ++r) y[o + r] = acc[r];
-    } else if constexpr (MODE == RESIDUAL) {
-#pragma unroll
-      for (int r = 0; r < B; ++r) y[o + r] = f[o + r] - acc[r];
-    } else {
-      // x + S_i (f − A x) with the node's b×b scale S_i = w[i]; for
-      // b = 1 this is x + w·(f − A x), one fused multiply-add
-      T res[B];
-#pragma unroll
-      for (int r = 0; r < B; ++r) res[r] = f[o + r] - acc[r];
-      const T* S = w + i * (B * B);
-#pragma unroll
-      for (int r = 0; r < B; ++r) {
-        T c_r = S[r * B] * res[0];
-#pragma unroll
-        for (int c = 1; c < B; ++c) c_r += S[r * B + c] * res[c];
-        y[o + r] = x[o + r] + c_r;
+        for (int c = 0; c < B; ++c) acc += v[c] * xk[c];
       }
     }
-    if constexpr (MODE == SPMV_DOTS) {
-#pragma unroll
-      for (int r = 0; r < B; ++r) {
-        d0 += acc[r] * acc[r];
-        d1 += acc[r] * x[o + r];
-        if (w != nullptr) d2 += acc[r] * w[o + r];
-      }
-    }
+    __syncwarp();
   }
-  if constexpr (MODE == SPMV_DOTS) {
-    const T v[3] = {d0, d1, d2};
-    block_reduce_store<T, 3>(v, partials);
+  const long long o = i * B + sub;
+  if constexpr (MODE == SPMV || MODE == SPMV_DOTS) {
+    if (live && sub < B) y[o] = acc;
+  } else if constexpr (MODE == RESIDUAL) {
+    if (live && sub < B) y[o] = f[o] - acc;
+  } else {
+    // x + S_i (f − A x) with the node's b×b scale S_i = w[i]: lane r
+    // takes the node's b residuals from its neighbour lanes
+    const T r_own = (live && sub < B) ? f[o] - acc : T(0);
+    const int first = (threadIdx.x & 31) - sub;  // the node's lane 0
+    T res[B];
+#pragma unroll
+    for (int c = 0; c < B; ++c)
+      res[c] = __shfl_sync(0xffffffffu, r_own, first + c);
+    if (live && sub < B) {
+      const T* S = w + i * (B * B);
+      T c_r = S[sub * B] * res[0];
+#pragma unroll
+      for (int c = 1; c < B; ++c) c_r += S[sub * B + c] * res[c];
+      y[o] = x[o] + c_r;
+    }
   }
 }
 
@@ -231,10 +308,11 @@ well_scalar_kernel(long long n_out, long long ncols, int tile, int K,
   }
 }
 
-// The dots of SPMV_DOTS from y = A x, a thread per row and kBlock rows a
-// block, as a thread-per-row kernel forms them: the same per-block
-// partials, so the same dots bit for bit.
-template <typename T>
+// The dots of SPMV_DOTS from y = A x, a thread per row (node) and
+// kBlock rows a block, as a thread-per-row kernel forms them: a node's b
+// components in order, the same per-block partials, so the same dots bit
+// for bit.
+template <typename T, int B>
 __global__ void __launch_bounds__(kBlock)
 row_dots_kernel(long long n_out, const T* __restrict__ y,
                 const T* __restrict__ x, const T* __restrict__ w,
@@ -243,13 +321,27 @@ row_dots_kernel(long long n_out, const T* __restrict__ y,
                       threadIdx.x;
   T d0 = T(0), d1 = T(0), d2 = T(0);
   if (i < n_out) {
-    const T a = y[i];
-    d0 += a * a;
-    d1 += a * x[i];
-    if (w != nullptr) d2 += a * w[i];
+#pragma unroll
+    for (int r = 0; r < B; ++r) {
+      const long long o = i * B + r;
+      const T a = y[o];
+      d0 += a * a;
+      d1 += a * x[o];
+      if (w != nullptr) d2 += a * w[o];
+    }
   }
   const T dv[3] = {d0, d1, d2};
   block_reduce_store<T, 3>(dv, partials);
+}
+
+// The dots pass and the reduction of SPMV_DOTS, after its product.
+template <typename T, int B>
+void launch_dots(long long n_out, const T* y, const T* x, const T* w,
+                 T* partials, T* dots, cudaStream_t s) {
+  const int dot_blocks = static_cast<int>((n_out + kBlock - 1) / kBlock);
+  row_dots_kernel<T, B><<<dot_blocks, kBlock, 0, s>>>(n_out, y, x, w,
+                                                      partials);
+  launch_reduce<T>(partials, dot_blocks, 3, dots, s);
 }
 
 template <typename T, int G>
@@ -271,15 +363,41 @@ cudaError_t launch_scalar(int mode, long long n_out, long long ncols,
       well_scalar_kernel<T, G, CORRECTION><<<nblocks, kBlock, 0, s>>>(
           n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
       break;
-    case SPMV_DOTS: {
+    case SPMV_DOTS:
       well_scalar_kernel<T, G, SPMV_DOTS><<<nblocks, kBlock, 0, s>>>(
           n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
-      const int dot_blocks = static_cast<int>((n_out + kBlock - 1) / kBlock);
-      row_dots_kernel<T><<<dot_blocks, kBlock, 0, s>>>(n_out, y, x, w,
-                                                       partials);
-      launch_reduce<T>(partials, dot_blocks, 3, dots, s);
+      launch_dots<T, 1>(n_out, y, x, w, partials, dots, s);
       break;
-    }
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int B, int G>
+cudaError_t launch_block(int mode, long long n_out, long long ncols,
+                         int tile, int K, const int* starts, const int* cols,
+                         const T* vals, const T* x, const T* f, const T* w,
+                         T* y, T* partials, T* dots, int nblocks,
+                         cudaStream_t s) {
+  switch (mode) {
+    case SPMV:
+      well_block_kernel<T, B, G, SPMV><<<nblocks, kBlock, 0, s>>>(
+          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
+      break;
+    case RESIDUAL:
+      well_block_kernel<T, B, G, RESIDUAL><<<nblocks, kBlock, 0, s>>>(
+          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
+      break;
+    case CORRECTION:
+      well_block_kernel<T, B, G, CORRECTION><<<nblocks, kBlock, 0, s>>>(
+          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
+      break;
+    case SPMV_DOTS:
+      well_block_kernel<T, B, G, SPMV><<<nblocks, kBlock, 0, s>>>(
+          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
+      launch_dots<T, B>(n_out, y, x, w, partials, dots, s);
+      break;
     default:
       return cudaErrorInvalidValue;
   }
@@ -287,32 +405,22 @@ cudaError_t launch_scalar(int mode, long long n_out, long long ncols,
 }
 
 template <typename T, int B>
-cudaError_t launch(int mode, long long n_out, long long ncols, int tile,
-                   int K, const int* starts, const int* cols, const T* vals,
-                   const T* x, const T* f, const T* w, T* y, T* partials,
-                   T* dots, int nblocks, cudaStream_t s) {
-  switch (mode) {
-    case SPMV:
-      well_block_kernel<T, B, SPMV><<<nblocks, kBlock, 0, s>>>(
-          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y, partials);
-      break;
-    case RESIDUAL:
-      well_block_kernel<T, B, RESIDUAL><<<nblocks, kBlock, 0, s>>>(
-          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y, partials);
-      break;
-    case CORRECTION:
-      well_block_kernel<T, B, CORRECTION><<<nblocks, kBlock, 0, s>>>(
-          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y, partials);
-      break;
-    case SPMV_DOTS:
-      well_block_kernel<T, B, SPMV_DOTS><<<nblocks, kBlock, 0, s>>>(
-          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y, partials);
-      launch_reduce<T>(partials, nblocks, 3, dots, s);
-      break;
+cudaError_t launch(int mode, int lanes, long long n_out, long long ncols,
+                   int tile, int K, const int* starts, const int* cols,
+                   const T* vals, const T* x, const T* f, const T* w, T* y,
+                   T* partials, T* dots, int nblocks, cudaStream_t s) {
+  switch (lanes) {
+    case 4:
+      return launch_block<T, B, 4>(mode, n_out, ncols, tile, K, starts,
+                                   cols, vals, x, f, w, y, partials, dots,
+                                   nblocks, s);
+    case 8:
+      return launch_block<T, B, 8>(mode, n_out, ncols, tile, K, starts,
+                                   cols, vals, x, f, w, y, partials, dots,
+                                   nblocks, s);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -321,10 +429,10 @@ cudaError_t run(int mode, int b, int lanes, long long n_out, long long ncols,
                 const T* vals, const T* x, const T* f, const T* w, T* y,
                 T* partials, T* dots, int nblocks, cudaStream_t s) {
   if (tile <= 0 || K <= 0 || lanes <= 0 || kBlock % lanes ||
-      static_cast<long long>(nblocks) * (kBlock / lanes) < n_out)
+      static_cast<long long>(nblocks) * (kBlock / lanes) < n_out ||
+      K % 4)
     return cudaErrorInvalidValue;
   if (b == 1) {
-    if (K % 4) return cudaErrorInvalidValue;
     switch (lanes) {
       case 1:
         return launch_scalar<T, 1>(mode, n_out, ncols, tile, K, starts, cols,
@@ -342,17 +450,16 @@ cudaError_t run(int mode, int b, int lanes, long long n_out, long long ncols,
         return cudaErrorInvalidValue;
     }
   }
-  if (lanes != 1) return cudaErrorInvalidValue;
   switch (b) {
     case 2:
-      return launch<T, 2>(mode, n_out, ncols, tile, K, starts, cols, vals,
-                          x, f, w, y, partials, dots, nblocks, s);
+      return launch<T, 2>(mode, lanes, n_out, ncols, tile, K, starts, cols,
+                          vals, x, f, w, y, partials, dots, nblocks, s);
     case 3:
-      return launch<T, 3>(mode, n_out, ncols, tile, K, starts, cols, vals,
-                          x, f, w, y, partials, dots, nblocks, s);
+      return launch<T, 3>(mode, lanes, n_out, ncols, tile, K, starts, cols,
+                          vals, x, f, w, y, partials, dots, nblocks, s);
     case 4:
-      return launch<T, 4>(mode, n_out, ncols, tile, K, starts, cols, vals,
-                          x, f, w, y, partials, dots, nblocks, s);
+      return launch<T, 4>(mode, lanes, n_out, ncols, tile, K, starts, cols,
+                          vals, x, f, w, y, partials, dots, nblocks, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -362,8 +469,9 @@ cudaError_t run(int mode, int b, int lanes, long long n_out, long long ncols,
 }  // namespace amgcl_port
 
 // dtype: 0 = float32, 1 = float64; b: the block size (1, 2, 3 or 4);
-// lanes: threads per row, 1, 2 or 4 for b = 1 (K then a multiple of 4,
-// cols and vals on 16-byte boundaries) and 1 for b > 1. n_out nodes are
+// lanes: threads per row, 1, 2 or 4 for b = 1, and per node, 4 or 8 for
+// b > 1; K a multiple of 4 and cols and vals on 16-byte boundaries (the
+// wrapper checks the bases). n_out nodes are
 // computed by nblocks blocks of kBlock threads, kBlock / lanes nodes a
 // block; a grid that does not cover n_out is refused. x has ncols·b
 // entries, f, y (and w for SPMV_DOTS) n_out·b. `f` is read by RESIDUAL

@@ -105,7 +105,9 @@ def _bind(lib) -> None:
     lib.amgcl_gather_spmv.restype = i32
     lib.amgcl_fused_down.argtypes = [i32] * 8 + [vp] * 8 + [vp]
     lib.amgcl_fused_down.restype = i32
-    lib.amgcl_fused_up.argtypes = [i32] * 7 + [vp] * 9 + [vp]
+    ip = ctypes.POINTER(i32)
+    lib.amgcl_fused_up.argtypes = [i32] * 7 + [ip, ip, i32, i32, ip] \
+        + [vp] * 9 + [vp]
     lib.amgcl_fused_up.restype = i32
     lib.amgcl_error_string.argtypes = [i32]
     lib.amgcl_error_string.restype = ctypes.c_char_p

@@ -12,9 +12,11 @@ The gates are the structural ones, those that define the math: a DIA
 level operator, DIA M/Mᵀ, blocks (2, 2, 2), a ≤32-bit dtype (float64
 hierarchies keep the composed legs, as in the reference), non-empty
 offsets; the up leg and the zero-guess mode also need a scalar
-``ScaledResidualSmoother``, and the up leg an even fine z extent. The
-CUDA kernels guard every index, so they need none of the TPU kernel's
-frames, lane packing or VMEM limits.
+``ScaledResidualSmoother``, and the up leg an even fine z extent and a
+tile whose boxes of T uc and u' fit a block's shared memory
+(``vk.up_tile``; one grid row of a 7-point level up to 1,648 points
+wide). The CUDA kernels guard every index, so they need none of the TPU
+kernel's frames or lane packing.
 """
 
 from __future__ import annotations
@@ -90,8 +92,10 @@ class FusedUpSweep:
         self.halo_planes = up_geometry(A.offsets, M.offsets, T.fine)
 
     def __call__(self, f, u, uc):
-        return vk.fused_up_sweep(self.A.offsets_t, self.A.data,
-                                 self.M.offsets_t, self.M.data, self.w, f,
+        # the offsets as host ints: the kernel checks its tile against
+        # them without a copy from the card
+        return vk.fused_up_sweep(self.A.offsets, self.A.data,
+                                 self.M.offsets, self.M.data, self.w, f,
                                  u, uc, self.dims)
 
 
@@ -124,7 +128,8 @@ def build_fused_up(A_dev, P_dev, relax):
             or not _eligible_dtype(A_dev.dtype, P_dev.M.dtype):
         return None
     w = _scalar_scale(relax, A_dev.dtype)
-    if w is None or P_dev.T.fine[0] % 2:
+    if w is None or P_dev.T.fine[0] % 2 or vk.up_tile(
+            A_dev.offsets, P_dev.M.offsets, P_dev.T.fine) is None:
         return None
     return FusedUpSweep(A_dev, P_dev.M, P_dev.T, w)
 

@@ -25,6 +25,12 @@ planes) on each side and uc with ``hp`` coarse planes on each side, with
 2·hp fine planes at least the reach of A plus that of M. Their offsets
 are Python ints (the reach is checked on the host).
 
+The up leg stages u' and T uc for a tile of the grid in shared memory
+(``csrc/vcycle.cu``); :func:`up_tile` plans the tile from the offsets
+and dims once per level, and the kernel checks it against the offsets
+on the host, so the base up leg takes its offsets as Python ints too
+(a tensor's are copied to the host at each call).
+
 Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it checks device, dtype (float32), shapes and contiguity and
 launches the kernel, or raises. ``<wrapper>.launches`` counts kernel
@@ -32,6 +38,10 @@ launches and ``<plain>.calls`` plain-version calls.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -42,6 +52,11 @@ from amgcl_tpu_torch.ops.structured import GridTentative
 BLOCK = (2, 2, 2)
 #: the kernels index rows with 32-bit ints, offsets included
 MAX_ROWS = 1 << 30
+#: the up leg's staged boxes: the dynamic shared memory a block may take
+#: beside its static arrays (232,448 bytes less 4 × 512 offsets)
+MAX_BOX_BYTES = 232448 - 4 * dk.MAX_DIAG * 4
+#: the SMs of the H100 that up_tile plans for
+_SMS = 132
 
 
 def coarse_dims(dims):
@@ -69,15 +84,22 @@ def fused_down_sweep_plain(a_offsets, a_data, mt_offsets, mt_data, f, u,
 
 def fused_up_sweep_plain(a_offsets, a_data, m_offsets, m_data, w, f, u, uc,
                          dims):
-    """``u' + w ∘ (f − A u')`` with ``u' = u + T uc − M (T uc)``."""
+    """``u' + w ∘ (f − A u')`` with ``u' = u + T uc − M (T uc)``;
+    offsets as int32 tensors or Python ints."""
     fused_up_sweep_plain.calls += 1
     tuc = _tentative(dims).mv(uc)
-    u1 = u + dk.dia_residual_plain(m_offsets, m_data, tuc, tuc)
-    return dk.dia_scaled_correction_plain(a_offsets, a_data, w, f, u1)
+    u1 = u + dk.dia_residual_plain(_on(m_offsets, f.device), m_data, tuc,
+                                   tuc)
+    return dk.dia_scaled_correction_plain(_on(a_offsets, f.device), a_data,
+                                          w, f, u1)
 
 
-def _offsets_cpu(offsets):
-    return torch.tensor([int(o) for o in offsets], dtype=torch.int32)
+def _on(offsets, device):
+    """The int32 offsets on ``device``: the tensor given, or the cached
+    copy of Python ints."""
+    if isinstance(offsets, torch.Tensor):
+        return offsets
+    return dk.offsets_on(offsets, device)
 
 
 def fused_down_sweep_framed_plain(a_offsets, a_frame, mt_offsets, mt_frame,
@@ -89,8 +111,8 @@ def fused_down_sweep_framed_plain(a_offsets, a_frame, mt_offsets, mt_frame,
     n = int(dims[0]) * int(dims[1]) * int(dims[2])
     if zero_guess:
         u = u * f
-    r = dk.dia_residual_plain(_offsets_cpu(a_offsets), a_frame, f, u)
-    t = dk.dia_residual_plain(_offsets_cpu(mt_offsets), mt_frame, r, r)
+    r = dk.dia_residual_plain(_on(a_offsets, "cpu"), a_frame, f, u)
+    t = dk.dia_residual_plain(_on(mt_offsets, "cpu"), mt_frame, r, r)
     rc = _tentative(dims).rmv(t[H:H + n])
     return (u[H:H + n], rc) if zero_guess else rc
 
@@ -109,10 +131,10 @@ def fused_up_sweep_framed_plain(a_offsets, a_data, m_offsets, m_frame, w, f,
         return out
 
     tuc = _tentative((lz + 4 * int(halo_planes), d1, d0)).mv(uc)
-    u1 = u + dk.dia_residual_plain(_offsets_cpu(m_offsets), m_frame, tuc,
+    u1 = u + dk.dia_residual_plain(_on(m_offsets, "cpu"), m_frame, tuc,
                                    tuc)
     return dk.dia_scaled_correction_plain(
-        _offsets_cpu(a_offsets), frame(a_data), frame(w), frame(f),
+        _on(a_offsets, "cpu"), frame(a_data), frame(w), frame(f),
         u1)[t0:t0 + n]
 
 
@@ -125,6 +147,100 @@ for _fn in (fused_down_sweep_plain, fused_up_sweep_plain,
 
 def _reach(offsets):
     return max((abs(int(o)) for o in offsets), default=0)
+
+
+def split_nearest(o, s, f0):
+    """Flat offset ``o`` as ``dz·s + dy·f0 + dx`` with each part rounded
+    to the nearest (dx in [−f0/2, f0/2), dy then likewise within a
+    plane): the decomposition by which the up leg's boxes are sized and
+    indexed (``split_nearest`` in csrc/vcycle.cu). A truncating split
+    would write a step of (−1, 0, +1) as (0, 1 − f1, 1 − f0) and ask for
+    a halo of nearly a plane."""
+    dz = (o + s // 2) // s
+    rem = o - dz * s
+    dy = (rem + f0 // 2) // f0
+    return dz, dy, rem - dy * f0
+
+
+def up_halo(offsets, dims):
+    """The halo that a box of the up leg needs around its inner rows for
+    ``offsets`` on fine dims: (planes below, planes above, rows before,
+    rows after). A neighbour lies ``dz`` planes and ``dy`` rows away (the
+    nearest split), one row further where its x step leaves the grid row
+    (dx < 0 at the row's start, dx > 0 at its end); rows are counted past
+    the plane's end, so a neighbour whose row wraps into the next plane is
+    inside too."""
+    _, f1, f0 = (int(d) for d in dims)
+    parts = [split_nearest(int(o), f1 * f0, f0) for o in offsets]
+    return (max([0] + [-dz for dz, _, _ in parts]),
+            max([0] + [dz for dz, _, _ in parts]),
+            max([0] + [(dx < 0) - dy for _, dy, dx in parts]),
+            max([0] + [dy + (dx > 0) for _, dy, dx in parts]))
+
+
+class UpTile(NamedTuple):
+    """The up leg's launch: a block of 1,024 threads on each tile of
+    ``tz`` planes × ``ty`` rows × all f0. Box U (the tile with A's
+    ``halo``) stages u', box T (U with M's ``mhalo``) T uc; ``smem`` bytes
+    for both, ``nblocks`` tiles."""
+    tz: int
+    ty: int
+    halo: tuple
+    mhalo: tuple
+    nblocks: int
+    smem: int
+
+
+def _extents(f):
+    return sorted({c for c in (1, 2, 3, 4, 6, 8, 12, 16, 24, 32) if c <= f}
+                  | ({f} if f <= 32 else set()))
+
+
+def up_boxes(tz, ty, halo, mhalo):
+    """(U rows, T rows): the grid rows (of f0 points) of the two boxes a
+    tile of ``tz`` planes × ``ty`` rows stages."""
+    bz, by = tz + halo[0] + halo[1], ty + halo[2] + halo[3]
+    return bz * by, (bz + mhalo[0] + mhalo[1]) * (by + mhalo[2] + mhalo[3])
+
+
+def up_box(tz, ty, halo, mhalo, f0):
+    """Bytes of shared memory the two boxes of a tile take."""
+    return sum(up_boxes(tz, ty, halo, mhalo)) * f0 * 4
+
+
+@functools.lru_cache(maxsize=256)
+def _up_tile(a_offsets, m_offsets, dims):
+    f2, f1, f0 = dims
+    halo, mhalo = up_halo(a_offsets, dims), up_halo(m_offsets, dims)
+    na, nm = len(a_offsets), len(m_offsets)
+    best = None
+    for tz in _extents(f2):
+        for ty in _extents(f1):
+            smem = up_box(tz, ty, halo, mhalo, f0)
+            if smem > MAX_BOX_BYTES:
+                continue
+            nblocks = -(-f2 // tz) * -(-f1 // ty)
+            # the busiest SM's loads (a 1,024-thread block of 64
+            # registers a thread holds an SM alone): uc at each T row, M
+            # and u at each U row, A, f and w at each tile row
+            rows_u, rows_t = up_boxes(tz, ty, halo, mhalo)
+            work = -(-nblocks // _SMS) * (rows_t + rows_u * (nm + 1)
+                                          + tz * ty * (na + 3))
+            if best is None or (work, smem) < best[0]:
+                best = ((work, smem), UpTile(tz, ty, halo, mhalo, nblocks,
+                                             smem))
+    return None if best is None else best[1]
+
+
+def up_tile(a_offsets, m_offsets, dims):
+    """The up leg's tile for A's and M's offsets (Python ints) on fine
+    dims (f2, f1, f0), or None where not even one plane by one row fits
+    the shared memory: of the tiles of 1–32 planes and rows whose boxes
+    fit, the one with the least loads on the busiest of 132 SMs.
+    Computed once per (offsets, dims)."""
+    return _up_tile(tuple(int(o) for o in a_offsets),
+                    tuple(int(o) for o in m_offsets),
+                    tuple(int(d) for d in dims))
 
 
 def _check_dia(name, offsets, data, n, ref):
@@ -201,28 +317,54 @@ def fused_down_sweep(a_offsets, a_data, mt_offsets, mt_data, f, u, dims,
     return (u_out, rc) if zero_guess else rc
 
 
-def fused_up_sweep(a_offsets, a_data, m_offsets, m_data, w, f, u, uc, dims):
-    """The whole up leg in one pass: prolongation, correction and the
-    first post-smoothing sweep, ``u' + w ∘ (f − A u')`` with ``u' = u +
-    T uc − M (T uc)``."""
-    if f.device.type == "cpu":
-        return fused_up_sweep_plain(a_offsets, a_data, m_offsets, m_data, w,
-                                    f, u, uc, dims)
-    c2, c1, c0 = coarse_dims(dims)
-    n, _ = _check_leg(dims, f, [("A", a_offsets, a_data),
-                                ("M", m_offsets, m_data)],
-                      [("f", f, None), ("u", u, None), ("w", w, None),
-                       ("uc", uc, c2 * c1 * c0)])
-    out = torch.empty(n, dtype=f.dtype, device=f.device)
-    f2, f1, f0 = (int(d) for d in dims)
+def _host_offsets(offsets):
+    """Offsets as a tuple of Python ints: a tensor's are copied to the
+    host (a sync on the card), so a hot path passes ints."""
+    if isinstance(offsets, torch.Tensor):
+        return tuple(offsets.tolist())
+    return tuple(int(o) for o in offsets)
+
+
+def _launch_up(oa_host, om_host, oa, a_data, om, m_data, w, f, u, uc, dims,
+               zoff, fz, tile, what):
+    """Launch up_kernel on the checked operands over ``tile`` (UpTile)."""
+    if tile is None:
+        raise ValueError("%s: no tile of the up leg on fine dims %s holds "
+                         "the operators' reach in %d bytes of shared "
+                         "memory" % (what, tuple(dims), MAX_BOX_BYTES))
+    out = torch.empty(f.shape[0], dtype=f.dtype, device=f.device)
+    ints = lambda v: (ctypes.c_int * len(v))(*v)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream().cuda_stream
         rcode = cuda_lib.lib().amgcl_fused_up(
-            f2, f1, f0, 0, f2, a_data.shape[0], m_data.shape[0],
-            a_offsets.data_ptr(), a_data.data_ptr(), m_offsets.data_ptr(),
+            *dims, zoff, fz, len(oa_host), len(om_host), ints(oa_host),
+            ints(om_host), tile.tz, tile.ty, ints(tile.halo + tile.mhalo),
+            oa.data_ptr(), a_data.data_ptr(), om.data_ptr(),
             m_data.data_ptr(), w.data_ptr(), f.data_ptr(), u.data_ptr(),
             uc.data_ptr(), out.data_ptr(), stream)
-    cuda_lib.check(rcode, "fused_up_sweep")
+    cuda_lib.check(rcode, what)
+    return out
+
+
+def fused_up_sweep(a_offsets, a_data, m_offsets, m_data, w, f, u, uc, dims):
+    """The whole up leg in one pass: prolongation, correction and the
+    first post-smoothing sweep, ``u' + w ∘ (f − A u')`` with ``u' = u +
+    T uc − M (T uc)``. Offsets are int32 tensors or Python ints; the
+    kernel needs them on the host to check its tile (``up_tile``), so a
+    hot path passes them as ints."""
+    if f.device.type == "cpu":
+        return fused_up_sweep_plain(a_offsets, a_data, m_offsets, m_data, w,
+                                    f, u, uc, dims)
+    oa_host, om_host = _host_offsets(a_offsets), _host_offsets(m_offsets)
+    oa, om = _on(a_offsets, f.device), _on(m_offsets, f.device)
+    c2, c1, c0 = coarse_dims(dims)
+    n, _ = _check_leg(dims, f, [("A", oa, a_data), ("M", om, m_data)],
+                      [("f", f, None), ("u", u, None), ("w", w, None),
+                       ("uc", uc, c2 * c1 * c0)])
+    dims = tuple(int(d) for d in dims)
+    out = _launch_up(oa_host, om_host, oa, a_data, om, m_data, w, f, u, uc,
+                     dims, 0, dims[0], up_tile(oa_host, om_host, dims),
+                     "fused_up_sweep")
     fused_up_sweep.launches += 1
     return out
 
@@ -302,21 +444,17 @@ def fused_up_sweep_framed(a_offsets, a_data, m_offsets, m_frame, w, f, u, uc,
         raise ValueError("the framed up leg needs at least one halo plane")
     Lm = n + 2 * hp * s2
     c2, c1, c0 = coarse_dims(dims)
-    oa = dk.offsets_on(a_offsets, f.device)
-    om = dk.offsets_on(m_offsets, f.device)
+    oa_host, om_host = _host_offsets(a_offsets), _host_offsets(m_offsets)
+    oa = dk.offsets_on(oa_host, f.device)
+    om = dk.offsets_on(om_host, f.device)
     _check_leg(dims, f, [("A", oa, a_data)],
                [("f", f, None), ("w", w, None), ("u", u, Lm),
                 ("uc", uc, (c2 + 2 * hp) * c1 * c0)])
     _check_dia("M", om, m_frame, Lm, f)
-    out = torch.empty(n, dtype=f.dtype, device=f.device)
-    with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rcode = cuda_lib.lib().amgcl_fused_up(
-            *dims, 2 * hp, dims[0] + 4 * hp, a_data.shape[0],
-            m_frame.shape[0], oa.data_ptr(), a_data.data_ptr(),
-            om.data_ptr(), m_frame.data_ptr(), w.data_ptr(), f.data_ptr(),
-            u.data_ptr(), uc.data_ptr(), out.data_ptr(), stream)
-    cuda_lib.check(rcode, "fused_up_sweep_framed")
+    out = _launch_up(oa_host, om_host, oa, a_data, om, m_frame, w, f, u, uc,
+                     dims, 2 * hp, dims[0] + 4 * hp,
+                     up_tile(oa_host, om_host, dims),
+                     "fused_up_sweep_framed")
     fused_up_sweep_framed.launches += 1
     return out
 

@@ -10,7 +10,7 @@ lies. The CUDA source is ``amgcl_tpu_torch/csrc/well_block.cu``: these
 wrappers launch its scalar kernel, a sub-warp of
 :func:`launch_geometry`'s lanes per row (the block wrappers of
 :mod:`amgcl_tpu_torch.ops.well_block_kernels` share :func:`_launch` and
-launch its block kernels, a thread per node).
+launch its block kernels, a sub-warp per node).
 Storage is that of
 :class:`amgcl_tpu_torch.ops.unstructured.WindowedEllMatrix`: row ``i``
 of tile ``t = i // tile`` holds ``vals[t, i % tile, k]`` at column
@@ -150,15 +150,22 @@ class Geometry(NamedTuple):
     partials: int           # SPMV_DOTS's partial sums: ndots per 256 rows
 
 
+#: lanes per node of the block kernels: 4 up to this K, 8 above
+BLOCK_LANES_K = 8
+
+
 def launch_geometry(n_out, K, block=False, ndots=0):
-    """The grid that covers ``n_out`` rows (nodes) of K slots. Block
-    values take a thread per node. A scalar row is loaded by one lane per
-    4-slot vector, rounded up to a power of two and at most 4 (K = 4: 1
-    lane, 8: 2, from 12: 4), 256 / lanes rows a block of 256 threads.
-    ``partials`` holds ``ndots`` sums per 256 rows, as the dots are
+    """The grid that covers ``n_out`` rows (nodes) of K slots. A scalar
+    row is loaded by one lane per 4-slot vector, rounded up to a power of
+    two and at most 4 (K = 4: 1 lane, 8: 2, from 12: 4). A block node is
+    loaded by 4 lanes up to K = :data:`BLOCK_LANES_K` and by 8 above, b of
+    which then sum its b rows. A block of 256 threads covers 256 / lanes
+    rows. ``partials`` holds ``ndots`` sums per 256 rows, as the dots are
     formed a thread per row."""
-    lanes = 1
-    if not block:
+    if block:
+        lanes = 4 if K <= BLOCK_LANES_K else 8
+    else:
+        lanes = 1
         while lanes < min(4, K // 4):
             lanes *= 2
     rows = _BLOCK // lanes
@@ -182,11 +189,11 @@ def _launch(mode, window_starts, cols_local, vals, x, n_out, f=None, w=None,
                              "of size %s, got %dx%d"
                              % (" or ".join(map(str, BLOCK_SIZES)), br, bc))
         b = br
-    elif K % 4 or cols_local.data_ptr() % 16 or vals.data_ptr() % 16:
-        # the scalar kernel reads each row in 4-slot, 16-byte vectors
-        raise ValueError("scalar windowed-ELL kernels take K a multiple of "
-                         "4 and cols_local and vals on 16-byte boundaries, "
-                         "got K=%d" % K)
+    if K % 4 or cols_local.data_ptr() % 16 or vals.data_ptr() % 16:
+        # the kernels read each row (node) in 4-slot, 16-byte vectors
+        raise ValueError("%swindowed-ELL kernels take K a multiple of 4 and "
+                         "cols_local and vals on 16-byte boundaries, got "
+                         "K=%d" % ("block " if block else "scalar ", K))
     if x.dim() != 1 or x.shape[0] % b:
         raise ValueError("x must be a vector of %d entries per column, got "
                          "shape %s" % (b, tuple(x.shape)))

@@ -749,8 +749,10 @@ def check_fused(solve, failures):
         for mode in ("zero", "base", "up"):
             if mode == "up":
                 name = "fused_up_sweep"
-                args = (A.offsets_t, A.data, M.offsets_t, M.data, w, f, u,
-                        uc, dims)
+                # the offsets as host ints, as the main path passes them
+                args = (A.offsets, A.data, M.offsets, M.data, w, f, u, uc,
+                        dims)
+                tile = vk.up_tile(A.offsets, M.offsets, dims)
                 # Σ|terms| of each entry: the plain version on |operands|
                 # with the operators negated, so every subtraction adds
                 terms = vk.fused_up_sweep_plain(
@@ -780,6 +782,7 @@ def check_fused(solve, failures):
                 ops = 2 * (live_entries(A) + live_entries(Mt)) + n \
                     + (n if zero else 0)
                 ops_name = "Mt"
+                tile = None
             kern, plain = wrappers()[name]
             got, want = kern(*args), plain(*args)
             torch.cuda.synchronize()
@@ -797,11 +800,12 @@ def check_fused(solve, failures):
             label = "L%d %s" % (i, mode)
             print("%-22s %-8s n=%-8d nA=%-3d n%s=%-3d float32  err %.3e "
                   "(max |err|/Σ|terms| %.2e, tol %.0e)  ms %.4f  plain %.4f"
-                  "  composed %.4f  bound %.4f (%s, %.1f MB)  %s"
+                  "  composed %.4f  bound %.4f (%s, %.1f MB)%s  %s"
                   % (name, label, n, len(A.offsets), ops_name,
                      len(M.offsets if mode == "up" else Mt.offsets), err,
                      ratio, rtol, ms, plain_ms, composed_ms, b_ms, b_by,
-                     nbytes / 1e6, "ok" if ok else "FAIL"))
+                     nbytes / 1e6, "" if tile is None else "  tile %s"
+                     % (tile,), "ok" if ok else "FAIL"))
             if not ok:
                 failures.append("%s %s disagrees with its plain version"
                                 % (name, label))
@@ -2041,8 +2045,7 @@ def check_framed(s, failures):
         nA, nM, nMt = len(offs_a), len(offs_m), len(offs_mt)
         H, Hm = fz.H, fz.hp * s2
         L, Lm = nl + 2 * H, nl + 2 * Hm
-        oa, om = dk.offsets_on(offs_a, dev), dk.offsets_on(offs_m, dev)
-        omt = dk.offsets_on(offs_mt, dev)
+        oa, omt = dk.offsets_on(offs_a, dev), dk.offsets_on(offs_mt, dev)
         # the rows each leg reads: down, A at the rows Mᵀ reaches from the
         # tile, f there too (and where A reaches from them in zero-guess
         # mode), u or w where A reaches from them; up, M and u at the rows
@@ -2065,7 +2068,7 @@ def check_framed(s, failures):
                         -fz.m_fr[j].abs(), lv.scale[j].abs(), f[j].abs(),
                         u_up[j].abs(), uc_fr[j].abs(), fz.ldims, fz.hp)
                     base = (vk.fused_up_sweep, (
-                        oa, lv.adata[j], om,
+                        offs_a, lv.adata[j], offs_m,
                         fz.m_fr[j][:, Hm:Hm + nl].contiguous(), lv.scale[j],
                         f[j], u[j], uc[j], fz.ldims))
                     nbytes = ((nM + 1) * rows_m + uc_rows

@@ -1,6 +1,7 @@
-"""Time the scalar windowed-ELL and dense-window kernels of one checkout
-of amgcl_tpu_torch at the shapes of their chip_smoke.py records, so that
-two checkouts can be compared inside one run on one card.
+"""Time the windowed-ELL (scalar and block), dense-window and fused
+up-leg kernels of one checkout of amgcl_tpu_torch at the shapes of their
+chip_smoke.py records, so that two checkouts can be compared inside one
+run on one card.
 
     python3 kernel_ab.py TREE LABEL
 
@@ -12,10 +13,20 @@ one line ``AB {json}``: the median device time in ms (chip_smoke.py's
 ``windowed_ell_scaled_correction`` and ``windowed_ell_spmv_dots`` (with
 w) at U1's L0, and ``dense_window_spmv``, ``dense_window_residual`` and
 ``dense_window_scaled_correction`` at D2's L0, with ``torch.bmm`` over
-the gathered x windows beside them. Run the two checkouts in turns (A,
+the gathered x windows beside them; every mode of the block windowed ELL
+at B1's L0 A, L0 R and L1 A in float32 and L0 A in float64 (the
+square-only modes where the operator is square), with torch's BSR
+product (``chip_smoke.library_block``) beside SPMV and RESIDUAL; and
+``fused_up_sweep`` at the main path's L0 and L1 and
+``fused_up_sweep_framed`` at S1's interior L0 and L1 slabs, on DIA
+operators of the levels' offsets. Each block and up-leg case also prints
+``digest``: the sha1 of its output's bytes (dots included), its inputs
+from one seeded numpy generator, so that equal digests on two checkouts
+show the two kernels bit-identical. Run the two checkouts in turns (A,
 B, B, A) in one command, each in its own process. Needs a CUDA card.
 """
 
+import hashlib
 import json
 import sys
 import time
@@ -23,7 +34,103 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import time_ms
+from chip_smoke import library_block, time_ms
+
+
+def digest(out):
+    """The sha1 of an output's bytes, a tuple's parts in turn."""
+    h = hashlib.sha1()
+    for t in out if isinstance(out, tuple) else (out,):
+        if t is not None:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def block_cases(out, rng):
+    """Every block kernel mode at B1's operators, timed beside torch's
+    BSR product, with its output's digest."""
+    from amgcl_tpu_torch import AMG, AMGParams, poisson3d_block
+    from amgcl_tpu_torch.ops import well_block_kernels as wbk
+    A, _ = poisson3d_block(48, 3)
+    L = AMG(A, AMGParams(), device="cuda").hierarchy.levels
+    a64 = L[0].A
+    a64 = type(a64)(a64.window_starts, a64.cols_local, a64.vals.double(),
+                    a64.shape, a64.win, a64.block)
+    for label, M in (("L0 A", L[0].A), ("L0 R", L[0].R), ("L1 A", L[1].A),
+                     ("L0 A f64", a64)):
+        n, m = M.shape
+        b, dt = M.block[0], M.dtype
+        vec = lambda k: torch.as_tensor(rng.standard_normal(k)).to(
+            device="cuda", dtype=dt)
+        x, f, w = vec(m * b), vec(n * b), vec(n * b)
+        S = vec(n * b * b).reshape(n, b, b)
+        g = (M.window_starts, M.cols_local, M.vals)
+        C, kind = library_block(M)
+        key = "B1 %s" % label
+        out[key + " format digest"] = digest((M.vals, M.cols_local))
+        cases = [("spmv", lambda: wbk.windowed_ell_block_spmv(*g, x, n)),
+                 ("residual",
+                  lambda: wbk.windowed_ell_block_residual(*g, f, x, n))]
+        if n == m:
+            cases += [
+                ("correction", lambda: wbk.windowed_ell_block_scaled_correction(
+                    *g, S, f, x, n)),
+                ("spmv_dots w", lambda: wbk.windowed_ell_block_spmv_dots(
+                    *g, x, w, n))]
+        for mode, fn in cases:
+            out["%s %s digest" % (key, mode)] = digest(fn())
+            out["%s %s" % (key, mode)] = time_ms(fn)
+        out[key + " %s mv" % kind] = time_ms(lambda: torch.mv(C, x))
+        out[key + " %s addmv" % kind] = time_ms(
+            lambda: torch.addmv(f, C, x, alpha=-1.0))
+        del C
+
+
+def _stencil_offsets(dims, level):
+    """A's (and M's) offsets at the main path's L0 (7-point) and L1 (the
+    27-point steps and the two-step ones along each axis, 33)."""
+    _, f1, f0 = dims
+    s = f1 * f0
+    if level == 0:
+        return [-s, -f0, -1, 0, 1, f0, s]
+    r = (-1, 0, 1)
+    steps = {(dz * f1 + dy) * f0 + dx for dz in r for dy in r for dx in r}
+    return sorted(steps | {2, -2, 2 * f0, -2 * f0, 2 * s, -2 * s})
+
+
+def up_cases(out, rng, host_offsets):
+    """fused_up_sweep at the main path's L0 and L1 and its framed mode
+    on S1's interior L0 and L1 slabs (hp coarse planes of frame on each
+    side), on random DIA operators of the levels' offsets."""
+    from amgcl_tpu_torch.ops import vcycle_kernels as vk
+    cuda = lambda a: torch.as_tensor(a).to(device="cuda",
+                                          dtype=torch.float32)
+    for label, dims, level, hp in (
+            ("main L0", (128, 128, 128), 0, 0),
+            ("main L1", (64, 64, 64), 1, 0),
+            ("S1 L0 interior", (32, 128, 128), 0, 1),
+            ("S1 L1 interior", (16, 64, 64), 1, 2)):
+        offs = _stencil_offsets(dims, level)
+        n = int(np.prod(dims))
+        c2, c1, c0 = vk.coarse_dims(dims)
+        s2 = 2 * dims[1] * dims[2]
+        Lm, ncf = n + 2 * hp * s2, (c2 + 2 * hp) * c1 * c0
+        a = cuda(rng.standard_normal((len(offs), n)).astype(np.float32))
+        m = cuda(rng.standard_normal((len(offs), Lm)).astype(np.float32))
+        w = cuda(rng.rand(n).astype(np.float32))
+        f = cuda(rng.standard_normal(n).astype(np.float32))
+        u = cuda(rng.standard_normal(Lm).astype(np.float32))
+        uc = cuda(rng.standard_normal(ncf).astype(np.float32))
+        if hp:
+            fn = lambda: vk.fused_up_sweep_framed(offs, a, offs, m, w, f, u,
+                                                  uc, dims, hp)
+        else:
+            o = offs if host_offsets else torch.tensor(
+                offs, dtype=torch.int32, device="cuda")
+            fn = lambda: vk.fused_up_sweep(o, a, o, m, w, f, u, uc, dims)
+        out["up %s digest" % label] = digest(fn())
+        out["up %s" % label] = time_ms(fn)
+        del a, m
 
 
 def main(tree, label):
@@ -78,6 +185,13 @@ def main(tree, label):
         lambda: dwk.dense_window_residual(st, B, f, x, n))
     out["D2 L0 correction"] = time_ms(
         lambda: dwk.dense_window_scaled_correction(st, B, w, f, x, n))
+    del D, B, xw
+    rng = np.random.RandomState(10)
+    block_cases(out, rng)
+    # a tree whose up leg plans its tile on the host takes the offsets as
+    # ints; an earlier one as device tensors
+    from amgcl_tpu_torch.ops import vcycle_kernels as vk
+    up_cases(out, rng, hasattr(vk, "up_tile"))
     print("AB " + json.dumps(out))
     return 0
 

@@ -359,6 +359,108 @@ def test_fused_legs_are_bit_identical_from_run_to_run(cuda):
     assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
+_UP_TILE_CASES = {
+    # name: (dims, A offsets, M offsets, zoff, frame planes); the tiles
+    # below leave f2 and f1 no multiple of tz and ty
+    "ragged": ((6, 10, 12), None, None, 0, None),
+    "f0_100": ((4, 6, 100), None, None, 0, None),
+    "small_f0": ((6, 9, 2), None, None, 0, None),
+    "f0_1": ((4, 7, 1), None, None, 0, None),
+    "wide_reach": ((8, 6, 5), None, None, 0, None),
+    "framed": ((6, 10, 12), None, None, 2, 10),
+    "framed_two_planes": ((4, 8, 16), (-256, -129, -1, 0, 1, 129, 256),
+                          (-128, -1, 0, 1, 128), 4, 12),
+}
+
+
+def _up_tile_case(name, device):
+    dims, oa, om, zoff, fz = _UP_TILE_CASES[name]
+    f2, f1, f0 = dims
+    s = f1 * f0
+    oa = list(oa or _plane_offsets(dims))
+    om = list(om or _plane_offsets(dims))
+    if name == "wide_reach":
+        # the 27-point steps and two-step ones along each axis, as L1's
+        r = (-1, 0, 1)
+        oa = om = sorted({(dz * f1 + dy) * f0 + dx for dz in r for dy in r
+                          for dx in r} | {2, -2, 2 * f0, -2 * f0, 2 * s,
+                                          -2 * s})
+    fz = f2 if fz is None else fz
+    n, Lm = f2 * s, fz * s
+    rng = np.random.RandomState(len(name))
+    cast = lambda a: torch.as_tensor(a).to(device=device,
+                                           dtype=torch.float32)
+    c2, c1, c0 = vk.coarse_dims((fz, f1, f0))
+    return dims, oa, om, zoff, fz, (
+        cast(rng.standard_normal((len(oa), n))),
+        cast(rng.standard_normal((len(om), Lm))), cast(rng.rand(n)),
+        cast(rng.standard_normal(n)), cast(rng.standard_normal(Lm)),
+        cast(rng.standard_normal(c2 * c1 * c0)))
+
+
+@pytest.mark.parametrize("name", sorted(_UP_TILE_CASES))
+def test_up_tiles_agree_bit_for_bit(cuda, name):
+    """The up leg over every tile shape from one plane by one row to
+    4 × 5, f2 and f1 no multiple of the tile, f0 = 100 (no multiple of a
+    warp), small f0, and framed (tile plane z at frame plane z + zoff, the box's halo
+    planes from the frame): every tile gives the same bits, which agree
+    with the plain version."""
+    dims, oa, om, zoff, fz, (a, m, w, f, u, uc) = _up_tile_case(name, cuda)
+    ot, mt = (torch.tensor(o, dtype=torch.int32, device=cuda)
+              for o in (oa, om))
+    hp = zoff // 2
+    if zoff:
+        want = vk.fused_up_sweep_framed_plain(oa, a, om, m, w, f, u, uc,
+                                              dims, hp)
+        got = vk.fused_up_sweep_framed(oa, a, om, m, w, f, u, uc, dims, hp)
+        terms = vk.fused_up_sweep_framed_plain(
+            oa, -a.abs(), om, -m.abs(), w.abs(), f.abs(), u.abs(),
+            uc.abs(), dims, hp)
+    else:
+        want = vk.fused_up_sweep_plain(ot, a, mt, m, w, f, u, uc, dims)
+        got = vk.fused_up_sweep(oa, a, mt, m, w, f, u, uc, dims)
+        terms = _up_terms(ot, a, mt, m, w, f, u, uc, dims)
+    _within(got, want, terms)
+    tile = vk.up_tile(oa, om, dims)
+    for tz in (1, 2, 4):
+        for ty in (1, 3, 5):
+            t = tile._replace(tz=tz, ty=ty)
+            other = vk._launch_up(oa, om, ot, a, mt, m, w, f, u, uc, dims,
+                                  zoff, fz, t, "up")
+            assert torch.equal(other, got), (tz, ty)
+
+
+def test_up_entry_refuses_a_short_halo(cuda):
+    """The C entry checks the tile against A's and M's offsets: a halo of
+    either box one row or plane short on any side is refused."""
+    dims, oa, om, zoff, fz, (a, m, w, f, u, uc) = _up_tile_case(
+        "wide_reach", cuda)
+    ot, mt = (torch.tensor(o, dtype=torch.int32, device=cuda)
+              for o in (oa, om))
+    tile = vk.up_tile(oa, om, dims)
+    assert all(tile.halo) and all(tile.mhalo)
+    for field in ("halo", "mhalo"):
+        for k in range(4):
+            halo = list(getattr(tile, field))
+            halo[k] -= 1
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                vk._launch_up(oa, om, ot, a, mt, m, w, f, u, uc, dims, zoff,
+                              fz, tile._replace(**{field: tuple(halo)}),
+                              "up")
+
+
+def test_up_wrapper_refuses_a_box_past_shared_memory(cuda):
+    """A grid row of 2,048 points with a row and a plane of halo on each
+    side cannot be staged: the wrapper raises, with no fallback."""
+    dims = (4, 4, 2048)
+    oa, a, om, m, w, f, u, uc = _leg(dims, _plane_offsets(dims),
+                                     _plane_offsets(dims), cuda)
+    launches = vk.fused_up_sweep.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        vk.fused_up_sweep(oa, a, om, m, w, f, u, uc, dims)
+    assert vk.fused_up_sweep.launches == launches
+
+
 @pytest.mark.parametrize("bad", ["device", "dtype", "float64", "f_shape",
                                  "uc_shape", "offsets_dtype", "dims"])
 def test_fused_wrappers_refuse_malformed_operands(cuda, bad):
@@ -862,6 +964,98 @@ def test_well_block_wrappers_refuse_malformed_operands(cuda, bad):
     if bad in ("block5", "rect_block"):
         assert "2 or 3 or 4" in str(err.value)
     assert [c.launches for c in counters] == launches
+
+
+def _well_block_edges(n_out, ncols, K, b, dtype, device, seed=0):
+    """Block windowed-ELL operands at the sub-warp kernel's edges, laid
+    out as _well_edges: tiles of 1,024 (the last ragged), tile 1 without
+    entries and starting at ncols where there are three tiles or more,
+    and the last tile's window starting 512 block columns before ncols,
+    so that some of its slots, blocks nonzero, lie past the end of x."""
+    empty = 1 if n_out > 2 * 1024 else None
+    st, cl, v, x, f, S, w = _well_block(n_out, ncols, K, b, dtype, "cpu",
+                                        seed=seed, empty=empty)
+    rng = np.random.RandomState(seed + 2)
+    st[-1] = max(ncols - 512, 0)
+    cl[-1] = torch.as_tensor(rng.randint(0, 1024, cl[-1].shape),
+                             dtype=torch.int32)
+    v[-1] = torch.as_tensor(rng.standard_normal(v[-1].shape)).to(dtype)
+    return [t.to(device) for t in (st, cl, v, x, f, S, w)]
+
+
+_WELL_BLOCK_EDGE_CASES = [
+    # (n_out, K, b): n_out no multiple of a block's 32 or 64 nodes
+    (3109, 48, 2), (3109, 48, 3), (3109, 48, 4), (2085, 8, 3), (200, 4, 4),
+    (3109, 12, 2), (3109, 20, 3), (1049, 100, 3),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,K,b", _WELL_BLOCK_EDGE_CASES)
+def test_well_block_geometry_edges(cuda, n, K, b, dtype):
+    """Every mode of the sub-warp block kernel at K 4-100 (steps of 16,
+    8 or 4 slots, the last one partly filled), b = 2, 3, 4, on every node
+    of a ragged grid, an empty tile and slots past the end of x; the dots
+    also bit for bit from run to run."""
+    st, cl, v, x, f, S, w = _well_block_edges(n, n, K, b, dtype, cuda,
+                                              seed=K + b)
+    assert int(((cl[-1].long() + st[-1]) >= n).sum()) > 0
+    assert wk.launch_geometry(n, K, block=True).lanes >= b
+    terms = wbk.windowed_ell_block_spmv_plain(st, cl, v.abs(), x.abs(), n)
+    m = n * b
+    got = _written(lambda: wbk.windowed_ell_block_spmv(st, cl, v, x, n), m,
+                   dtype, cuda)
+    _close(got, wbk.windowed_ell_block_spmv_plain(st, cl, v, x, n),
+           float(terms.max()), dtype)
+    res_terms = terms + f.abs()
+    got = _written(lambda: wbk.windowed_ell_block_residual(st, cl, v, f, x,
+                                                           n), m, dtype,
+                   cuda)
+    _close(got, wbk.windowed_ell_block_residual_plain(st, cl, v, f, x, n),
+           float(res_terms.max()), dtype)
+    corr_terms = x.abs() + torch.einsum(
+        "nij,nj->ni", S.abs(), res_terms.reshape(-1, b)).reshape(-1)
+    got = _written(lambda: wbk.windowed_ell_block_scaled_correction(
+        st, cl, v, S, f, x, n), m, dtype, cuda)
+    _close(got, wbk.windowed_ell_block_scaled_correction_plain(
+        st, cl, v, S, f, x, n), float(corr_terms.max()), dtype)
+    for wv in (None, w):
+        got = _written(lambda: wbk.windowed_ell_block_spmv_dots(
+            st, cl, v, x, wv, n), m, dtype, cuda)
+        want = wbk.windowed_ell_block_spmv_dots_plain(st, cl, v, x, wv, n)
+        _close(got[0], want[0], float(terms.max()), dtype)
+        _dot_close(got[1], want[1], terms, 2 * terms, dtype)
+        _dot_close(got[2], want[2], terms, x, dtype)
+        if wv is not None:
+            _dot_close(got[3], want[3], terms, wv, dtype)
+        again = wbk.windowed_ell_block_spmv_dots(st, cl, v, x, wv, n)
+        assert all(a is None and c is None or torch.equal(a, c)
+                   for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("bad", ["vals", "cols", "K"])
+def test_well_block_refuses_misaligned_nodes(cuda, bad):
+    """The block kernel reads a node's slots in 16-byte vectors: a base
+    off a 16-byte boundary, or K no multiple of 4, raises before any
+    launch."""
+    n = 3000
+    st, cl, v, x, f, _, _ = _well_block(n, n, 8, 3, torch.float32, cuda)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    if bad == "vals":
+        v = shifted(v)
+    elif bad == "cols":
+        cl = shifted(cl)
+    else:
+        cl, v = cl[:, :, :6].contiguous(), v[:, :, :6].contiguous()
+    launches = wbk.windowed_ell_block_residual.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        wbk.windowed_ell_block_residual(st, cl, v, f, x, n)
+    assert wbk.windowed_ell_block_residual.launches == launches
 
 
 def test_block_solve_on_card_matches_cpu(cuda):

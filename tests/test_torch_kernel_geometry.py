@@ -1,5 +1,6 @@
-"""Launch geometry of the scalar windowed-ELL kernel (csrc/well_block.cu)
-and the dense-window kernel (csrc/densewin.cu), on the CPU.
+"""Launch geometry of the windowed-ELL kernels (csrc/well_block.cu), the
+dense-window kernel (csrc/densewin.cu) and the fused up leg's tiles
+(csrc/vcycle.cu), on the CPU.
 
 Each wrapper computes its grid in one small function
 (``well_kernels.launch_geometry``, ``densewin_kernels.launch_geometry``).
@@ -10,15 +11,23 @@ float64), the grid must cover ``n_out``, ``partials`` must hold one
 entry per block and per dot, the lanes must be a power of two that
 divides a block, and the dense window's chunk must be a multiple of 128
 columns whose two buffers fit the 232,448 bytes of shared memory a
-block can have. The kernels themselves run only on a card
-(tests/test_torch_cuda.py).
+block can have. The block kernels' sub-warps cover every node at K 4-48
+and b 2-4. The up leg's tile (``vcycle_kernels.up_tile``) is checked
+by brute force: for every tile of the main path's L0 and L1, of S1's
+framed slabs and of random offset sets on odd and small grids, every row
+that the first design's up_kernel read (each tile row's A neighbours
+inside the frame) must lie in the staged box at the slot the kernel
+reads; a halo one row or plane short must leave one out. The kernels
+themselves run only on a card (tests/test_torch_cuda.py).
 """
 
+import numpy as np
 import pytest
 import torch
 
 from amgcl_tpu_torch import AMG, AMGParams, fe_like_problem
 from amgcl_tpu_torch.ops import densewin_kernels as dwk
+from amgcl_tpu_torch.ops import vcycle_kernels as vk
 from amgcl_tpu_torch.ops import well_kernels as wk
 from amgcl_tpu_torch.ops.densewin import DenseWindowMatrix
 from amgcl_tpu_torch.ops.unstructured import WindowedEllMatrix
@@ -138,12 +147,21 @@ def test_well_geometry_extremes(K, n_out):
     assert geo.lanes == want
 
 
-def test_well_block_geometry_is_a_thread_per_node():
-    """The block kernels (b = 2-4) keep a thread per node, whatever K."""
-    for K in (4, 12, 48):
-        geo = wk.launch_geometry(110592, K, block=True, ndots=3)
-        assert geo.lanes == 1 and geo.nblocks == 432
-        assert geo.partials == 432 * 3
+@pytest.mark.parametrize("n_out", [1, 31, 33, 1049, 13310, 110591])
+@pytest.mark.parametrize("b", [2, 3, 4])
+@pytest.mark.parametrize("K", [4, 8, 12, 16, 24, 32, 48])
+def test_well_block_geometry_is_a_sub_warp_per_node(K, b, n_out):
+    """The block kernels (b = 2-4) load a node with 4 lanes up to K = 8
+    and 8 above, whatever b; the grid covers every node with no idle
+    block, at node counts that are no multiple of a block's nodes, and
+    the dots' partials stay one per 256 nodes."""
+    geo = wk.launch_geometry(n_out, K, block=True, ndots=3)
+    assert geo.lanes == (4 if K <= wk.BLOCK_LANES_K else 8)
+    assert geo.lanes >= b and 32 % geo.lanes == 0
+    assert geo.rows_per_block == _BLOCK // geo.lanes
+    assert geo.nblocks * geo.rows_per_block >= n_out
+    assert (geo.nblocks - 1) * geo.rows_per_block < n_out
+    assert geo.partials == -(-n_out // _BLOCK) * 3
 
 
 def _widest(itemsize):
@@ -182,3 +200,246 @@ def test_a_grid_sized_by_threads_would_not_cover_the_rows():
     assert geo.lanes == 4 and geo.rows_per_block == 64
     assert geo.nblocks == 1338 and geo.partials == 3 * 335
     assert -(-85623 // _BLOCK) * geo.rows_per_block < 85623
+
+
+# -- the fused up leg's tiles (csrc/vcycle.cu, up_kernel) ---------------------
+
+#: up_tile's plan at the main path's L0 and L1: (tz, ty, U rows and T
+#: rows a tile row)
+PLANS = {128: (8, 16, 1.40625, 1.875), 64: (4, 8, 3.0, 6.0)}
+
+def _box_faults(dims, offsets, rows, inner, halo, zoff, fz):
+    """Reads from the rows ``rows`` (flat tile-relative rows with their
+    box's inner origin ``inner`` = (plane, row) and extent (nz, ny)) that
+    miss a box of that inner region with ``halo``: for every row inside
+    the frame and every offset whose neighbour lies inside the frame, the
+    slot the kernel reads (the row's slot plus the offset's nearest split)
+    must lie in the box and hold that neighbour's frame row, wrapped rows
+    included."""
+    f2, f1, f0 = dims
+    s = f1 * f0
+    (rz, ry, x), (oz, oy), (nz, ny) = rows, inner[:2], inner[2:]
+    z_lo, z_hi, y_lo, y_hi = halo
+    BY, BZ = ny + y_lo + y_hi, nz + z_lo + z_hi
+    nbox = BZ * BY * f0
+    bz0, by0 = oz + zoff - z_lo, oy - y_lo
+    b = ((rz - oz + z_lo) * BY + ry - oy + y_lo) * f0 + x
+    j = (rz + zoff) * s + ry * f0 + x           # the frame row
+    live = (j >= 0) & (j < fz * s)
+    faults = 0
+    for o in offsets:
+        q = j + o
+        read = live & (q >= 0) & (q < fz * s)
+        dz, dy, dx = vk.split_nearest(o, s, f0)
+        e = b + (dz * BY + dy) * f0 + dx
+        inside = (e >= 0) & (e < nbox)
+        e = np.clip(e, 0, nbox - 1)
+        r = e // f0
+        held = ((bz0 + r // BY) * f1 + by0 + r % BY) * f0 + e % f0
+        faults += int((read & ~(inside & (held == q))).sum())
+    return faults
+
+
+def _up_faults(dims, a_offsets, m_offsets, tile, zoff=0, fz=None):
+    """Rows that the first design's up_kernel read and the tiled kernel
+    does not find where it looks, over every tile at once: the A
+    neighbours of each tile row inside the frame (where the first design
+    recomputed u') in box U, and the M neighbours of each of U's rows
+    inside the frame (where it read T uc) in box T."""
+    f2, f1, f0 = dims
+    fz = f2 if fz is None else fz
+    hz_lo, hz_hi, hy_lo, hy_hi = tile.halo
+    tz0, ty0 = np.meshgrid(np.arange(0, f2, tile.tz),
+                           np.arange(0, f1, tile.ty), indexing="ij")
+    tz0, ty0 = tz0.reshape(-1, 1), ty0.reshape(-1, 1)     # a tile a row
+
+    def rows(z_from, z_to, y_from, y_to, clip):
+        z, y, x = np.meshgrid(np.arange(z_from, z_to),
+                              np.arange(y_from, y_to), np.arange(f0),
+                              indexing="ij")
+        z, y, x = tz0 + z.ravel(), ty0 + y.ravel(), x.ravel() + 0 * tz0
+        if clip:                     # tile rows inside the grid only
+            keep = (z < f2) & (y < f1)
+            return z[keep], y[keep], x[keep], tz0 + 0 * z, ty0 + 0 * y, keep
+        return z, y, x, tz0 + 0 * z, ty0 + 0 * y, None
+
+    z, y, x, oz, oy, keep = rows(0, tile.tz, 0, tile.ty, True)
+    faults = _box_faults(dims, a_offsets, (z, y, x),
+                         (oz[keep], oy[keep], tile.tz, tile.ty), tile.halo,
+                         zoff, fz)
+    # every row of U, rows past f1 running into the next plane
+    z, y, x, oz, oy, _ = rows(-hz_lo, tile.tz + hz_hi, -hy_lo,
+                              tile.ty + hy_hi, False)
+    faults += _box_faults(dims, m_offsets, (z, y, x),
+                          (oz - hz_lo, oy - hy_lo,
+                           tile.tz + hz_lo + hz_hi, tile.ty + hy_lo + hy_hi),
+                          tile.mhalo, zoff, fz)
+    return faults
+
+
+def _stencil(dims, reach):
+    """The flat offsets of every (dz, dy, dx) step with |step| <= reach
+    on each axis that a 27-point (reach 1) or wider stencil has."""
+    _, f1, f0 = dims
+    r = range(-reach, reach + 1)
+    return sorted({(dz * f1 + dy) * f0 + dx for dz in r for dy in r
+                   for dx in r})
+
+
+def _plane_offsets(dims):
+    _, f1, f0 = dims
+    return [-f1 * f0, -f0, -1, 0, 1, f0, f1 * f0]
+
+
+@pytest.fixture(scope="module")
+def l1_steps():
+    """L0's and L1's A offsets of a port device build of poisson3d(32)
+    on the CPU, as (dz, dy, dx) steps, so that they can be laid on any
+    grid: 7 and 33 diagonals."""
+    from amgcl_tpu_torch import CG, make_solver, poisson3d
+    A, _ = poisson3d(32)
+    solve = make_solver(A, AMGParams(), CG(tol=1e-6), device="cpu",
+                        device_setup=True)
+    steps = []
+    for lv in solve.precond.hierarchy.levels[:2]:
+        _, f1, f0 = lv.P.T.fine
+        steps.append([vk.split_nearest(o, f1 * f0, f0)
+                      for o in lv.A.offsets])
+        assert lv.A.offsets == lv.P.M.offsets
+    assert [len(st) for st in steps] == [7, 33]
+    return steps
+
+
+def _lay(steps, dims):
+    _, f1, f0 = dims
+    return sorted((dz * f1 + dy) * f0 + dx for dz, dy, dx in steps)
+
+
+def _check_tile(dims, a_offsets, m_offsets, zoff=0, fz=None):
+    tile = vk.up_tile(a_offsets, m_offsets, dims)
+    assert tile is not None and tile.smem <= vk.MAX_BOX_BYTES
+    assert tile.smem == vk.up_box(tile.tz, tile.ty, tile.halo, tile.mhalo,
+                                  dims[2])
+    assert tile.halo == vk.up_halo(a_offsets, dims)
+    assert tile.mhalo == vk.up_halo(m_offsets, dims)
+    assert tile.nblocks == -(-dims[0] // tile.tz) * -(-dims[1] // tile.ty)
+    assert _up_faults(dims, a_offsets, m_offsets, tile, zoff, fz) == 0
+    return tile
+
+
+def _short(tile):
+    """The tile with each nonzero side of its A halo, then of its M halo,
+    one short, in turn."""
+    for field in ("halo", "mhalo"):
+        for k, h in enumerate(getattr(tile, field)):
+            if h:
+                halo = list(getattr(tile, field))
+                halo[k] -= 1
+                yield tile._replace(**{field: tuple(halo)})
+
+
+@pytest.mark.parametrize("level,dims", [
+    (0, (128, 128, 128)), (1, (64, 64, 64)), (0, (32, 32, 32)),
+    (1, (16, 16, 16))])
+def test_up_tile_holds_the_main_path_reads(l1_steps, level, dims):
+    """The main path's L0 and L1 (128³ and 64³; the build's own 32³ and
+    16³): every tile row's A neighbours lie in the box, including the
+    rows an x step wraps into the previous or next grid row and plane."""
+    offsets = _lay(l1_steps[level], dims)
+    tile = _check_tile(dims, offsets, offsets)
+    assert tile.halo == tile.mhalo == ((1, 1, 1, 1) if level == 0
+                                       else (2, 2, 2, 2))
+
+
+@pytest.mark.parametrize("level,dims,hp", [
+    (0, (32, 128, 128), 1), (1, (16, 64, 64), 2), (0, (8, 32, 32), 1),
+    (1, (4, 16, 16), 2)])
+def test_up_tile_holds_the_framed_slab_reads(l1_steps, level, dims, hp):
+    """S1's framed slabs (and those of poisson3d(32) on four shards):
+    tile plane z is frame plane z + 2·hp of a frame of lz + 4·hp planes,
+    so the box's halo planes come from the frame."""
+    offsets = _lay(l1_steps[level], dims)
+    assert hp == vk._reach(offsets) * 2 // (2 * dims[1] * dims[2])
+    _check_tile(dims, offsets, offsets, zoff=2 * hp, fz=dims[0] + 4 * hp)
+
+
+_RANDOM_GRIDS = [(2, 2, 2), (4, 3, 5), (6, 7, 8), (8, 5, 3), (2, 9, 1),
+                 (10, 4, 7), (4, 33, 6), (34, 3, 2)]
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("dims", _RANDOM_GRIDS)
+def test_up_tile_holds_random_reads(dims, seed):
+    """Random offset sets, one-sided ones included, of up to two planes'
+    reach on odd and small grids (f0 <= 8), base and framed, and every
+    tile shape up to 4 × 4 beside up_tile's own, ragged ones included."""
+    rng = np.random.RandomState(seed * 131 + sum(dims))
+    f2, f1, f0 = dims
+    s = f1 * f0
+    reach = min(2 * s, f2 * s - 1)
+
+    def offsets():
+        o = sorted(set(rng.randint(-reach, reach + 1, 9).tolist()) | {0})
+        return [v for v in o if v >= 0] if seed % 2 else o
+    oa, om = offsets(), offsets()
+    tile = _check_tile(dims, oa, om)
+    hp = -(-(vk._reach(oa) + vk._reach(om)) // (2 * s))
+    for zoff, fz in ((0, None), (2 * hp, f2 + 4 * hp)):
+        for tz in range(1, 5):
+            for ty in range(1, 5):
+                forced = tile._replace(tz=tz, ty=ty)
+                assert _up_faults(dims, oa, om, forced, zoff, fz) == 0
+
+
+@pytest.mark.parametrize("case", ["L0", "L1", "S1 L1", "random"])
+def test_up_tile_short_halo_misses_a_read(l1_steps, case):
+    """The mutant: a halo one row or plane short on any side, of either
+    box, leaves a read outside the box (or at a slot holding another
+    row); on poisson3d(32)'s own L0 and L1, S1's L1 slab and a random
+    set."""
+    if case == "random":
+        dims, oa = (6, 7, 8), [-75, -9, -1, 0, 2, 57, 110]
+        om = [-66, -8, 0, 1, 63]
+        zoff, fz = 0, None
+    else:
+        dims = {"L0": (32, 32, 32), "L1": (16, 16, 16),
+                "S1 L1": (16, 64, 64)}[case]
+        oa = om = _lay(l1_steps[case != "L0"], dims)
+        zoff, fz = (4, 24) if case == "S1 L1" else (0, None)
+    tile = _check_tile(dims, oa, om, zoff, fz)
+    mutants = list(_short(tile))
+    assert len(mutants) == sum(1 for h in tile.halo + tile.mhalo if h) >= 4
+    for m in mutants:
+        assert _up_faults(dims, oa, om, m, zoff, fz) > 0, (m.halo, m.mhalo)
+
+
+@pytest.mark.parametrize("f0,fits", [(1024, True), (1648, True),
+                                     (1649, False), (8192, False)])
+def test_up_tile_refuses_a_box_past_shared_memory(f0, fits):
+    """One grid row of a 7-point level stages 3 × 3 rows of u' and 5 × 5
+    of T uc, 34 × f0 × 4 bytes: up to f0 = 1,648 they fit a block's
+    shared memory beside its offsets, past it there is no tile (and the
+    up leg is not built for such a level)."""
+    dims = (4, 4, f0)
+    offsets = _plane_offsets(dims)
+    tile = vk.up_tile(offsets, offsets, dims)
+    assert (tile is not None) == fits
+    assert fits or 34 * f0 * 4 > vk.MAX_BOX_BYTES
+
+
+def test_up_tile_main_path_plan():
+    """The tiles the main path's L0 and L1 get, with the rows their boxes
+    stage per tile row (U, T)."""
+    plans = {}
+    for dims, reach in (((128, 128, 128), None), ((64, 64, 64), 1)):
+        offsets = _plane_offsets(dims) if reach is None else sorted(
+            set(_stencil(dims, reach)) | {2, -2, 2 * dims[2],
+                                          -2 * dims[2],
+                                          2 * dims[1] * dims[2],
+                                          -2 * dims[1] * dims[2]})
+        tile = vk.up_tile(offsets, offsets, dims)
+        rows = tile.tz * tile.ty
+        plans[dims[0]] = (tile.tz, tile.ty) + tuple(
+            r / rows for r in vk.up_boxes(tile.tz, tile.ty, tile.halo,
+                                          tile.mhalo))
+    assert plans == PLANS
