@@ -22,41 +22,46 @@
 // Design. The TPU kernel DMAs a window of 2s + 2H floats per operand
 // into VMEM for each coarse plane (s = one fine plane); at the 128³ fine
 // level that is 384 KB per operand, more than a block's 227 KB of shared
-// memory for all of them together.
-//   down: one thread per fine row of a block of 32 consecutive coarse
-//         cells × their 8 children. Each thread computes t = r − Mᵀ r at
-//         its row, recomputing r = f − A u at the row and at each of its
-//         Mᵀ neighbours from A, u and f read through L1/L2 ((1 + nM)
-//         residuals a row). The 8 values of a cell meet in shared memory
-//         and one thread per cell sums them in a fixed order: no float
-//         atomics, so the same inputs give bit-identical results on every
-//         run.
-//   up:   a block takes a tile of tz fine planes × ty rows × all f0
-//         (UpTile, chosen by vcycle_kernels.up_tile) and stages two boxes
-//         of grid rows in shared memory (dynamic, above 48 KB by the
-//         attribute). T holds T uc at every row that the M neighbours of
-//         U's rows reach; U holds u' = u + T uc − M (T uc), formed once
-//         for every row that the tile's A neighbours reach; then each
-//         thread forms out = u' + w ∘ (f − A u') for its tile rows. A box
-//         is its inner region plus a halo of planes and rows wide enough
-//         for each offset's nearest (dz, dy, dx) split and the carry an x
-//         step past the grid row adds; its rows run on past a plane's end
-//         into the next, so a neighbour whose row wraps is in the box,
-//         and every neighbour lies at a fixed distance per offset. The
-//         first design recomputed u' at a row and at each of its nA
-//         neighbours, (1 + nA)·nM reads of M a row, and located each
-//         T uc term by carries and a coarse index; now M is read
-//         (U rows / tile rows)·nM times a row and each term is a shared
-//         load. A warp walks a grid row, a lane a point; each thread
-//         issues kBatch loads of M (or A) before it adds them, since a
-//         1,024-thread block keeps too few loads in flight otherwise, and
-//         a row whose every neighbour lies in the frame skips the
-//         per-point frame test. The arithmetic is the first design's:
-//         T uc copied, M's sum and A's sum in offset order, each skipping
-//         a neighbour outside the frame (the first design's plane test
-//         after carries, which is the flat row falling outside [0, frame
-//         rows)), so results are bit-identical to it. The C entry refuses
-//         boxes that do not hold the offsets' reach.
+// memory for all of them together. So each leg takes a tile of tz fine
+// planes × ty rows × all f0 a block (DownTile / UpTile, chosen by
+// vcycle_kernels.down_tile / up_tile) and stages what the tile's sums
+// read in boxes of grid rows in shared memory (dynamic, above 48 KB by
+// the attribute), each intermediate formed once a box row:
+//   down: box U holds u (w ∘ f in zero-guess mode) at every row that the
+//         A neighbours of R's rows reach (faster at every shape measured
+//         than reading u through L1); box R holds r = f − A u at
+//         every row that the tile's Mᵀ neighbours reach; each tile row
+//         then forms t = r − Mᵀ r into U's space, and one thread per
+//         coarse cell sums its 8 children in a fixed order: no float
+//         atomics, so the same inputs give bit-identical results on
+//         every run. The first design recomputed r at a row and at each
+//         of its nM neighbours, (1 + nM)·nA reads of A a row; now A is
+//         read (R rows / tile rows)·nA times a row, less in a cluster of
+//         tiles (the planner takes pairs where they pay), where each row
+//         of R is formed by one block and read by the others through
+//         distributed shared memory.
+//   up:   box T holds T uc at every row that the M neighbours of U's
+//         rows reach; box U holds u' = u + T uc − M (T uc) at every row
+//         that the tile's A neighbours reach; then each thread forms
+//         out = u' + w ∘ (f − A u') for its tile rows. The first design
+//         recomputed u' at a row and at each of its nA neighbours,
+//         (1 + nA)·nM reads of M a row.
+// A box is its inner region plus a halo of planes and rows wide enough
+// for each offset's nearest (dz, dy, dx) split and the carry an x step
+// past the grid row adds; its rows run on past a plane's end into the
+// next, so a neighbour whose row wraps is in the box, and every neighbour
+// lies at a fixed distance per offset. A warp walks a grid row, a lane a
+// point; each thread issues kBatch loads of an operator before it adds
+// them, since a 1,024-thread block keeps too few loads in flight
+// otherwise, and a row whose every neighbour lies in the frame skips the
+// per-point frame test. The arithmetic is the first designs': each sum in
+// offset order from the same first term, each skipping a neighbour
+// outside the frame (never a multiply by a staged 0: −0 − (+0) is +0, and
+// an Inf in a diagonal would give a NaN), the zero-guess iterate the same
+// rounded product u·f, the cell sum (pz, py) in order, px = 0 then 1,
+// with + 0 for a child past the grid's end; so results are bit-identical
+// to them. The C entries refuse a tile whose boxes do not hold the
+// offsets' reach.
 // Every index is guarded: r, u and T uc are 0 outside the frame below
 // ([0, n) in the base mode), as the TPU kernel's zero-padded frames make
 // them, and a flat offset that runs off one grid row into the next reads
@@ -65,34 +70,37 @@
 // Framed mode (a z-slab of a grid sharded over a mesh, framed by real rows
 // of its neighbour slabs; pallas_vcycle.py:187-194 and :477-483). Down:
 // A, Mᵀ, f and u (or w) are frames of L rows in which tile row i is frame
-// row H + i. Up: M, u and T uc live on a frame of fz fine planes in which
-// tile plane z is frame plane z + zoff (zoff even, uc carrying zoff / 2
-// coarse planes on each side); A, f, w and the output are the tile's own.
-// Every index guard below is "inside the frame", so r, u' and T uc read 0
-// only outside it; the up leg's box lies in frame planes. The base mode is the framed mode on a zero frame
-// (H = 0, L = n; zoff = 0, fz = f2): the same operations in the same
-// order, so its results are those of the kernels before the framed mode.
-// It runs its own instantiation (FRAMED false), whose frame is known at
-// compile time: with the frame as runtime arguments the base up leg
-// took 16% longer at the 128³ main path's L0 on an H100 (0.2942 against
-// 0.2541 ms; NVIDIA H100 80GB HBM3 at 700 W).
+// row H + i, H any count of rows (a frame edge may cut a grid row, so a
+// box row is tested point by point unless it lies wholly inside). Up: M,
+// u and T uc live on a frame of fz fine planes in which tile plane z is
+// frame plane z + zoff (zoff even, uc carrying zoff / 2 coarse planes on
+// each side); A, f, w and the output are the tile's own. Every index
+// guard below is "inside the frame", so r, u' and T uc read 0 only
+// outside it. The base mode is the framed mode on a zero frame (H = 0,
+// L = n; zoff = 0, fz = f2): the same operations in the same order, so
+// its results are those of the kernels before the framed mode. It runs
+// its own instantiation (FRAMED false), whose frame is known at compile
+// time: with the frame as runtime arguments the base up leg took 16%
+// longer at the 128³ main path's L0 on an H100 (0.2942 against 0.2541 ms;
+// NVIDIA H100 80GB HBM3 at 700 W).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace amgcl_port {
 namespace {
 
-constexpr int kBlock = 256;       // threads per block
-constexpr int kCells = 32;        // coarse cells per down block (× 8 = kBlock)
 constexpr int kMaxDiag = 512;
-// threads per up block: of 256, 512 and 1,024, 1,024 was the fastest at
-// every level measured on an H100 (PERF.md §6)
-constexpr int kUpThreads = 1024;
-// up-leg loads a thread issues together: 16 was the fastest of 8, 16 and
-// 32 at S1's L1 slab, within 5% of 8 at the main path's L0 and L1 on an
-// H100 (PERF.md §6)
-constexpr int kBatch = 16;
-// the dynamic shared memory an up block may take beside its static arrays
-constexpr int kUpMaxBox = 232448 - 4 * kMaxDiag * 4;
+// threads per block: of 256, 512 and 1,024, 1,024 was the fastest at
+// every level of the up leg measured on an H100 (PERF.md §6)
+constexpr int kThreads = 1024;
+// loads a thread issues together: of 8, 16 and 32, 16 was the fastest for
+// the up leg on an H100, and 11 then beat 16 and 17 for the down leg at
+// every shape measured and for the up leg at the L1 shapes (level at L0):
+// the main path's 7 and 33 diagonals take one and three batches, where 16
+// took a third batch for one load at L1 (PERF.md §6)
+constexpr int kBatch = 11;
+// the dynamic shared memory a block may take beside its static arrays
+constexpr int kMaxBox = 232448 - 4 * kMaxDiag * 4;
 constexpr int kMaxDevices = 16;
 
 struct Grid {
@@ -101,86 +109,9 @@ struct Grid {
   int n;                          // f2 * f1 * f0
 };
 
-// r = f[j] − Σ_l A[l, j] u[j + off_l] at one frame row j of a frame of L
-// rows; in zero-guess mode u is the smoother scale and the iterate w ∘ f.
-template <bool ZERO>
-__device__ __forceinline__ float residual_at(
-    int j, int L, int na, const int* s_a, const float* __restrict__ a,
-    const float* __restrict__ f, const float* __restrict__ u) {
-  float r = f[j];
-  for (int l = 0; l < na; ++l) {
-    const int q = j + s_a[l];
-    if (q >= 0 && q < L) {
-      const float uq = ZERO ? u[q] * f[q] : u[q];
-      r -= a[static_cast<size_t>(l) * L + j] * uq;
-    }
-  }
-  return r;
-}
-
-// h, len: the frame (tile row i is frame row H + i of L); a, mt, f and u
-// are frames, u_out and rc the tile's own. Without FRAMED the frame is the
-// tile (H = 0, L = n), known at compile time.
-template <bool ZERO, bool FRAMED>
-__global__ void __launch_bounds__(kBlock)
-down_kernel(Grid g, int h, int len, int nc, int na, int nm,
-            const int* __restrict__ a_off, const float* __restrict__ a,
-            const int* __restrict__ m_off, const float* __restrict__ mt,
-            const float* __restrict__ f, const float* __restrict__ u,
-            float* __restrict__ u_out, float* __restrict__ rc) {
-  __shared__ int s_a[kMaxDiag];
-  __shared__ int s_m[kMaxDiag];
-  __shared__ float s_t[kBlock];
-  const int H = FRAMED ? h : 0;
-  const int L = FRAMED ? len : g.n;
-  for (int k = threadIdx.x; k < na; k += kBlock) s_a[k] = a_off[k];
-  for (int k = threadIdx.x; k < nm; k += kBlock) s_m[k] = m_off[k];
-  __syncthreads();
-
-  // thread t = ((pz * 2 + py) * kCells + cell) * 2 + px: a warp covers 32
-  // consecutive fine x of one (z, y) parity, so its loads coalesce
-  const int t = threadIdx.x;
-  const int px = t & 1;
-  const int cell = (t >> 1) & (kCells - 1);
-  const int py = (t >> 6) & 1;
-  const int pz = t >> 7;
-  const int c = blockIdx.x * kCells + cell;
-  float ti = 0.f;
-  if (c < nc) {
-    const int cx = c % g.c0;
-    const int cyz = c / g.c0;
-    const int cy = cyz % g.c1;
-    const int cz = cyz / g.c1;
-    const int x = 2 * cx + px, y = 2 * cy + py, z = 2 * cz + pz;
-    if (x < g.f0 && y < g.f1 && z < g.f2) {
-      const int i = (z * g.f1 + y) * g.f0 + x;
-      const int p = H + i;
-      if (ZERO) u_out[i] = u[p] * f[p];
-      ti = residual_at<ZERO>(p, L, na, s_a, a, f, u);
-      for (int k = 0; k < nm; ++k) {
-        const int j = p + s_m[k];
-        if (j >= 0 && j < L)
-          ti -= mt[static_cast<size_t>(k) * L + p] *
-                residual_at<ZERO>(j, L, na, s_a, a, f, u);
-      }
-    }
-  }
-  s_t[t] = ti;
-  __syncthreads();
-  if (t < kCells) {
-    const int cc = blockIdx.x * kCells + t;
-    if (cc < nc) {
-      float sum = 0.f;
-      for (int p = 0; p < 4; ++p)           // (pz, py) in order, then px
-        sum += s_t[(p * kCells + t) * 2] + s_t[(p * kCells + t) * 2 + 1];
-      rc[cc] = sum;
-    }
-  }
-}
-
 // Flat offset o as dz·s + dy·f0 + dx with each part rounded to the
 // nearest (dx in [−f0/2, f0/2), then dy likewise within a plane): the
-// decomposition by which the up leg's box is sized and indexed.
+// decomposition by which the boxes are sized and indexed.
 // A truncating split would write a step of (−1, 0, +1) as
 // (0, 1 − f1, 1 − f0), asking for a halo of nearly a plane.
 __host__ __device__ inline int floor_div(int a, int b) {       // b > 0
@@ -194,20 +125,38 @@ __host__ __device__ inline void split_nearest(int o, int s, int f0, int* dz,
   *dx = rem - *dy * f0;
 }
 
-// The up leg's tile: tz fine planes × ty fine rows × all f0 of the grid.
-// Its block stages two boxes of whole grid rows in shared memory: U, the
-// rows whose u' the tile's A neighbours read (the tile with A's halo),
-// and T, the rows whose T uc the U rows' M neighbours read (U with M's
-// halo). A halo is (planes below, planes above, rows before, rows after).
-// Box rows are counted in extended coordinates: box row (bz, by) holds
-// the grid row at plane bz0 + bz and row by0 + by, where a row index past
-// [0, f1) is the row that many rows on in the next (or previous) plane,
-// as a flat offset's carry gives it; so a neighbour at flat offset o
-// lies at a fixed distance in the box for every row, wrapped rows
-// included.
+// A box's halo around its inner rows: (planes below, planes above, rows
+// before, rows after). Box rows are counted in extended coordinates: box
+// row (bz, by) holds the grid row at plane bz0 + bz and row by0 + by,
+// where a row index past [0, f1) is the row that many rows on in the
+// next (or previous) plane, as a flat offset's carry gives it; so a
+// neighbour at flat offset o lies at a fixed distance in the box for
+// every row, wrapped rows included.
 struct Halo {
   int z_lo, z_hi, y_lo, y_hi;
 };
+
+// The down leg's tile: tz fine planes × ty fine rows × all f0, tz and ty
+// even and the tile at an even plane and row, so that every coarse cell
+// of the tile has its children in it. Box R holds r at the rows the
+// tile's Mᵀ neighbours read (the tile with Mᵀ's halo m), box U u (or
+// w ∘ f) at the rows the R rows' A neighbours read (R with A's halo a).
+// In a cluster of cz × cy blocks (tiles side by side, a block a tile),
+// each block forms r only at the rows of R that it owns: its tile, and
+// the part of the cluster's outer halo beside it (a row (Z, Y) of the
+// cluster's box belongs to the tile (clamp(Z / tz), clamp(Y / ty))); it
+// reads the rest of its box R from their owners' shared memory.
+struct DownTile {
+  int tz, ty;
+  Halo m, a;
+  int cz, cy;                       // the cluster's tiles (1 × 1: none)
+  int a_min, a_max, m_min, m_max;   // the least and greatest offsets and 0
+};
+
+// The up leg's tile: tz fine planes × ty fine rows × all f0. Box U holds
+// u' at the rows the tile's A neighbours read (the tile with A's halo a),
+// box T holds T uc at the rows the U rows' M neighbours read (U with M's
+// halo m).
 struct UpTile {
   int tz, ty;
   Halo a, m;
@@ -225,6 +174,19 @@ __host__ __device__ inline bool halo_holds(const Halo& h, int o, int s,
          dy + (dx > 0) <= h.y_hi;
 }
 
+// Whether the halo holds each of the n offsets; widens [*lo, *hi] to
+// them.
+inline bool halo_holds_all(const Halo& h, const int* off, int n, int s,
+                           int f0, int* lo, int* hi) {
+  bool holds = h.z_lo >= 0 && h.z_hi >= 0 && h.y_lo >= 0 && h.y_hi >= 0;
+  for (int k = 0; k < n; ++k) {
+    holds = holds && halo_holds(h, off[k], s, f0);
+    if (off[k] < *lo) *lo = off[k];
+    if (off[k] > *hi) *hi = off[k];
+  }
+  return holds;
+}
+
 // The distance in a box of `rows` rows a plane to the row at offset o.
 __device__ __forceinline__ int box_step(int o, int s, int f0, int rows) {
   int dz, dy, dx;
@@ -233,8 +195,7 @@ __device__ __forceinline__ int box_step(int o, int s, int f0, int rows) {
 }
 
 // Whether diagonal k < n exists and its neighbour of frame row q lies
-// inside the frame of L rows, as the first design's plane test after
-// carries found it.
+// inside the frame of L rows, as the first designs' tests found it.
 __device__ __forceinline__ bool in_frame(int k, int n, int q,
                                          const int* off, size_t L) {
   if (k >= n) return false;
@@ -242,29 +203,182 @@ __device__ __forceinline__ bool in_frame(int k, int n, int q,
   return r >= 0 && static_cast<size_t>(r) < L;
 }
 
-// One DIA row sum at point x of a grid row (frame row q0 + x): acc −=
-// data[k][i0 + x] · box[x + dist[k]] over the n diagonals in order,
-// skipping a neighbour outside the frame of L rows; a diagonal holds ld
-// rows of data. Each batch issues its kBatch loads of data together,
-// then adds them in order. CHECK false: the caller found every neighbour
-// of the row inside the frame, so no point is tested.
-template <bool CHECK>
-__device__ __forceinline__ float row_sum(
-    float acc, int x, int q0, int i0, size_t ld, int n, const int* off,
-    const int* dist, size_t L, const float* __restrict__ data,
-    const float* box) {
+// One DIA row sum at frame row q: acc −= data[k][i] · nb(k) over the n
+// diagonals in order, skipping a neighbour outside the frame of L rows;
+// a diagonal holds ld rows of data, and nb(k) is the neighbour's value
+// in a box. Each batch issues its kBatch loads
+// of data together, then adds them in order. CHECK false: the caller
+// found every neighbour of the row inside the frame, so no point is
+// tested.
+template <bool CHECK, class Nb>
+__device__ __forceinline__ float row_sum(float acc, int q, int i,
+                                         size_t ld, int n, const int* off,
+                                         size_t L,
+                                         const float* __restrict__ data,
+                                         Nb nb) {
   for (int k0 = 0; k0 < n; k0 += kBatch) {
     float v[kBatch];
 #pragma unroll
     for (int b = 0; b < kBatch; ++b)
-      v[b] = (CHECK ? in_frame(k0 + b, n, q0 + x, off, L) : k0 + b < n)
-                 ? data[(k0 + b) * ld + i0 + x] : 0.f;
+      v[b] = (CHECK ? in_frame(k0 + b, n, q, off, L) : k0 + b < n)
+                 ? data[(k0 + b) * ld + i] : 0.f;
 #pragma unroll
     for (int b = 0; b < kBatch; ++b)
-      if (CHECK ? in_frame(k0 + b, n, q0 + x, off, L) : k0 + b < n)
-        acc -= v[b] * box[x + dist[k0 + b]];
+      if (CHECK ? in_frame(k0 + b, n, q, off, L) : k0 + b < n)
+        acc -= v[b] * nb(k0 + b);
   }
   return acc;
+}
+
+// h, len: the frame (tile row i is frame row H + i of L); a, mt, f and u
+// are frames, u_out and rc the tile's own. Without FRAMED the frame is the
+// tile (H = 0, L = n), known at compile time. Cluster c of cz × cy blocks
+// takes the tiles (c / nsy, c % nsy) of ceil(f1 / (cy·ty)) cluster tiles a
+// band of cz·tz planes; its block of rank iz·cy + iy the tile (iz, iy).
+template <bool ZERO, bool FRAMED>
+__global__ void __launch_bounds__(kThreads, 1)
+down_kernel(Grid g, int h, int len, DownTile t, int na, int nm,
+            const int* __restrict__ a_off, const float* __restrict__ a,
+            const int* __restrict__ m_off, const float* __restrict__ mt,
+            const float* __restrict__ f, const float* __restrict__ u,
+            float* __restrict__ u_out, float* __restrict__ rc) {
+  extern __shared__ float s_box[];
+  __shared__ int s_a[kMaxDiag], s_ad[kMaxDiag];   // A: offset, U distance
+  __shared__ int s_m[kMaxDiag], s_md[kMaxDiag];   // Mᵀ: offset, R distance
+  const int s = g.f1 * g.f0;
+  const int RY = t.ty + t.m.y_lo + t.m.y_hi;      // R: RZ planes × RY rows
+  const int RZ = t.tz + t.m.z_lo + t.m.z_hi;
+  // block (iz, iy) of its cluster owns R's rows [oz0, oz1) × [oy0, oy1)
+  const int nc = t.cz * t.cy, rank = blockIdx.x % nc;
+  const int iz = rank / t.cy, iy = rank % t.cy;
+  const int oz0 = iz == 0 ? 0 : t.m.z_lo;
+  const int oz1 = iz == t.cz - 1 ? RZ : t.m.z_lo + t.tz;
+  const int oy0 = iy == 0 ? 0 : t.m.y_lo;
+  const int oy1 = iy == t.cy - 1 ? RY : t.m.y_lo + t.ty;
+  const int OY = oy1 - oy0;
+  const int UY = OY + t.a.y_lo + t.a.y_hi;        // U: UZ planes × UY rows
+  const int UZ = oz1 - oz0 + t.a.z_lo + t.a.z_hi;
+  float* s_r = s_box;
+  float* s_u = s_box + RZ * RY * g.f0;            // U, then the tile's t
+  for (int k = threadIdx.x; k < na; k += kThreads) {
+    s_a[k] = a_off[k];
+    s_ad[k] = box_step(s_a[k], s, g.f0, UY);
+  }
+  for (int k = threadIdx.x; k < nm; k += kThreads) {
+    s_m[k] = m_off[k];
+    s_md[k] = box_step(s_m[k], s, g.f0, RY);
+  }
+
+  const int H = FRAMED ? h : 0;
+  const int L = FRAMED ? len : g.n;
+  const int nsy = (g.f1 + t.cy * t.ty - 1) / (t.cy * t.ty);
+  const int cl = blockIdx.x / nc;              // the cluster
+  const int z0 = ((cl / nsy) * t.cz + iz) * t.tz;   // the tile's 1st plane
+  const int y0 = ((cl % nsy) * t.cy + iy) * t.ty;   // ... and row
+  const int rz0 = z0 - t.m.z_lo, ry0 = y0 - t.m.y_lo;   // R's row (0, 0)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr int nwarps = kThreads / 32;
+
+  // 0. u (w ∘ f) at every U row, 0 outside the frame (never read)
+  const int uz0 = rz0 + oz0 - t.a.z_lo, uy0 = ry0 + oy0 - t.a.y_lo;
+  for (int r = warp; r < UZ * UY; r += nwarps) {
+    const int q0 = H + ((uz0 + r / UY) * g.f1 + uy0 + r % UY) * g.f0;
+    float* row = s_u + r * g.f0;
+    for (int x = lane; x < g.f0; x += 32) {
+      const int q = q0 + x;
+      row[x] = q >= 0 && q < L ? (ZERO ? u[q] * f[q] : u[q]) : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // 1. r = f − A u at every R row the block owns inside the frame, A's
+  // sum in offset order, skipping neighbours outside the frame; in
+  // zero-guess mode the tile rows also write w ∘ f
+  for (int r = warp; r < (oz1 - oz0) * OY; r += nwarps) {
+    const int bz = oz0 + r / OY, by = oy0 + r % OY;
+    const int q0 = H + ((rz0 + bz) * g.f1 + ry0 + by) * g.f0;
+    float* row = s_r + (bz * RY + by) * g.f0;
+    const float* urow =
+        s_u + ((bz - oz0 + t.a.z_lo) * UY + by - oy0 + t.a.y_lo) * g.f0;
+    const int lz = bz - t.m.z_lo, ly = by - t.m.y_lo;
+    const bool own = ZERO && lz >= 0 && lz < t.tz && ly >= 0 &&
+                     ly < t.ty && z0 + lz < g.f2 && y0 + ly < g.f1;
+    const bool inside = q0 + t.a_min >= 0 && q0 + g.f0 - 1 + t.a_max < L;
+    for (int x = lane; x < g.f0; x += 32) {
+      const int q = q0 + x;
+      if (!inside && (q < 0 || q >= L)) {
+        row[x] = 0.f;
+        continue;
+      }
+      auto nb = [&](int k) { return urow[x + s_ad[k]]; };
+      row[x] = inside ? row_sum<false>(f[q], q, q, L, na, s_a, L, a, nb)
+                      : row_sum<true>(f[q], q, q, L, na, s_a, L, a, nb);
+      if (own) u_out[q - H] = urow[x];
+    }
+  }
+  __syncthreads();
+
+  // 1b. in a cluster: the rest of R from its owners' boxes
+  if (nc > 1) {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    for (int r = warp; r < RZ * RY; r += nwarps) {
+      const int bz = r / RY, by = r % RY;
+      if (bz >= oz0 && bz < oz1 && by >= oy0 && by < oy1) continue;
+      // the row's place in the cluster's box, its owner, and its row there
+      const int Z = bz - t.m.z_lo + iz * t.tz, Y = by - t.m.y_lo + iy * t.ty;
+      const int jz = min(max(floor_div(Z, t.tz), 0), t.cz - 1);
+      const int jy = min(max(floor_div(Y, t.ty), 0), t.cy - 1);
+      const float* src = cluster.map_shared_rank(s_r, jz * t.cy + jy) +
+                         ((Z - jz * t.tz + t.m.z_lo) * RY + Y - jy * t.ty +
+                          t.m.y_lo) * g.f0;
+      float* row = s_r + r * g.f0;
+      for (int x = lane; x < g.f0; x += 32) row[x] = src[x];
+    }
+    cluster.sync();        // no block leaves while another reads its box
+  }
+
+  // 2. t = r − Mᵀ r at each tile row into U's space, Mᵀ's sum in offset
+  // order, skipping neighbours outside the frame; 0 past the grid's end
+  float* s_t = s_u;
+  for (int r = warp; r < t.tz * t.ty; r += nwarps) {
+    const int lz = r / t.ty, ly = r % t.ty;
+    const int z = z0 + lz, y = y0 + ly;
+    float* trow = s_t + r * g.f0;
+    if (z >= g.f2 || y >= g.f1) {
+      for (int x = lane; x < g.f0; x += 32) trow[x] = 0.f;
+      continue;
+    }
+    const float* rrow = s_r + ((lz + t.m.z_lo) * RY + ly + t.m.y_lo) * g.f0;
+    const int q0 = H + (z * g.f1 + y) * g.f0;
+    const bool inside = q0 + t.m_min >= 0 && q0 + g.f0 - 1 + t.m_max < L;
+    for (int x = lane; x < g.f0; x += 32) {
+      auto nb = [&](int k) { return rrow[x + s_md[k]]; };
+      const int q = q0 + x;
+      trow[x] = inside ? row_sum<false>(rrow[x], q, q, L, nm, s_m, L, mt, nb)
+                       : row_sum<true>(rrow[x], q, q, L, nm, s_m, L, mt, nb);
+    }
+  }
+  __syncthreads();
+
+  // 3. rc = Tᵀ t: a thread per coarse cell sums its children, (pz, py) in
+  // order and px = 0 then 1, a child past the grid's end adding 0
+  const int ncy = t.ty / 2;
+  const int c2 = (g.f2 + 1) / 2;
+  for (int c = threadIdx.x; c < t.tz / 2 * ncy * g.c0; c += kThreads) {
+    const int cx = c % g.c0, lc = c / g.c0;
+    const int lcy = lc % ncy, lcz = lc / ncy;
+    const int cz = z0 / 2 + lcz, cy = y0 / 2 + lcy;
+    if (cz >= c2 || cy >= g.c1) continue;
+    float sum = 0.f;
+    for (int p = 0; p < 4; ++p) {
+      const float* trow =
+          s_t + ((2 * lcz + (p >> 1)) * t.ty + 2 * lcy + (p & 1)) * g.f0;
+      sum += trow[2 * cx] + (2 * cx + 1 < g.f0 ? trow[2 * cx + 1] : 0.f);
+    }
+    rc[(cz * g.c1 + cy) * g.c0 + cx] = sum;
+  }
 }
 
 // z_off, f_z: the frame (tile plane z is frame plane z + zoff of fz); m, u
@@ -273,7 +387,7 @@ __device__ __forceinline__ float row_sum(
 // takes tile (b / nty, b % nty) of ceil(f1 / ty) tiles a plane band; each
 // phase walks whole grid rows, a warp a row and a lane an x.
 template <bool FRAMED>
-__global__ void __launch_bounds__(kUpThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 up_kernel(Grid g, int z_off, int f_z, UpTile t, int na, int nm,
           const int* __restrict__ a_off, const float* __restrict__ a,
           const int* __restrict__ m_off, const float* __restrict__ m,
@@ -290,11 +404,11 @@ up_kernel(Grid g, int z_off, int f_z, UpTile t, int na, int nm,
   const int TZ = BZ + t.m.z_lo + t.m.z_hi;
   float* s_u = s_box;
   float* s_t = s_box + BZ * BY * g.f0;
-  for (int k = threadIdx.x; k < na; k += kUpThreads) {
+  for (int k = threadIdx.x; k < na; k += kThreads) {
     s_a[k] = a_off[k];
     s_ad[k] = box_step(s_a[k], s, g.f0, BY);
   }
-  for (int k = threadIdx.x; k < nm; k += kUpThreads) {
+  for (int k = threadIdx.x; k < nm; k += kThreads) {
     s_m[k] = m_off[k];
     s_md[k] = box_step(s_m[k], s, g.f0, TY);
   }
@@ -310,7 +424,7 @@ up_kernel(Grid g, int z_off, int f_z, UpTile t, int na, int nm,
   const int by0 = y0 - t.a.y_lo;               // extended row of U's row 0
   const int frame_rows = fz * g.f1;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  constexpr int nwarps = kUpThreads / 32;
+  constexpr int nwarps = kThreads / 32;
 
   // 0. T uc at every T row inside the frame (the rest is never read):
   // fine row (z, y, x) takes the coarse cell (z/2, y/2, x/2)
@@ -344,12 +458,13 @@ up_kernel(Grid g, int z_off, int f_z, UpTile t, int na, int nm,
     const bool inside = q0 + t.m_min >= 0 &&
                         static_cast<size_t>(q0 + g.f0 - 1 + t.m_max) < Lm;
     for (int x = lane; x < g.f0; x += 32) {
+      auto nb = [&](int k) { return trow[x + s_md[k]]; };
       const float uq = u[q0 + x];
       const float p =
-          inside ? row_sum<false>(trow[x], x, q0, q0, Lm, nm, s_m, s_md,
-                                      Lm, m, trow)
-                 : row_sum<true>(trow[x], x, q0, q0, Lm, nm, s_m, s_md,
-                                     Lm, m, trow);
+          inside ? row_sum<false>(trow[x], q0 + x, q0 + x, Lm, nm, s_m, Lm,
+                                  m, nb)
+                 : row_sum<true>(trow[x], q0 + x, q0 + x, Lm, nm, s_m, Lm,
+                                 m, nb);
       row[x] = uq + p;
     }
   }
@@ -367,12 +482,13 @@ up_kernel(Grid g, int z_off, int f_z, UpTile t, int na, int nm,
     const bool inside = q0 + t.a_min >= 0 &&
                         static_cast<size_t>(q0 + g.f0 - 1 + t.a_max) < Lm;
     for (int x = lane; x < g.f0; x += 32) {
+      auto nb = [&](int k) { return urow[x + s_ad[k]]; };
       const float wi = w[i0 + x];
       const float acc =
-          inside ? row_sum<false>(f[i0 + x], x, q0, i0, g.n, na, s_a,
-                                      s_ad, Lm, a, urow)
-                 : row_sum<true>(f[i0 + x], x, q0, i0, g.n, na, s_a,
-                                     s_ad, Lm, a, urow);
+          inside ? row_sum<false>(f[i0 + x], q0 + x, i0 + x, g.n, na, s_a,
+                                  Lm, a, nb)
+                 : row_sum<true>(f[i0 + x], q0 + x, i0 + x, g.n, na, s_a,
+                                 Lm, a, nb);
       out[i0 + x] = urow[x] + wi * acc;
     }
   }
@@ -386,50 +502,102 @@ Grid make_grid(int f2, int f1, int f0) {
   return g;
 }
 
+// Lets `kernel` take kMaxBox bytes of dynamic shared memory beside its
+// static arrays: above 48 KB (static and dynamic together) only by the
+// attribute, set once per instantiation (`raised`) and device.
+template <class Kernel>
+cudaError_t allow_box(Kernel kernel, bool (&raised)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < kMaxDevices && raised[dev]) return cudaSuccess;
+  rc = cudaFuncSetAttribute(kernel,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            kMaxBox);
+  if (rc == cudaSuccess && dev < kMaxDevices) raised[dev] = true;
+  return rc;
+}
+
 }  // namespace
 }  // namespace amgcl_port
 
 // Down leg on the tile of fine dims (f2, f1, f0), n rows, inside a frame of
 // L rows at offset H (base mode: H = 0, L = n). a/mt: (na, L) and (nm, L)
-// float32 DIA data with int32 offsets; f, u: (L,); with zero_guess != 0, u
-// is the smoother scale w and u_out (n,) receives w ∘ f. rc: (nc,) with
-// nc = ceil(f2/2)·ceil(f1/2)·ceil(f0/2). The caller guarantees L < 2^30,
-// na, nm ≤ 512 and, in a frame, an even f2 and H at least the reach of A
-// plus that of Mᵀ. Returns the launch's cudaError_t.
+// float32 DIA data with int32 offsets a_off and m_off on the device, and
+// a_host and m_host the same offsets on the host; f, u: (L,); with
+// zero_guess != 0, u is the smoother scale w and u_out (n,) receives
+// w ∘ f. rc: (nc,) with nc = ceil(f2/2)·ceil(f1/2)·ceil(f0/2). Blocks of
+// kThreads threads take tiles of tz planes × ty rows (both even), in
+// clusters of cz × cy tiles (at most 8; 1 × 1 launches no cluster);
+// `halos` holds Mᵀ's halo and then A's (planes below, above, rows before,
+// after: DownTile). The call is refused if tz or ty is odd, an Mᵀ offset
+// reaches outside R, an A offset outside U, or the boxes pass kMaxBox
+// bytes. The caller guarantees
+// L < 2^30, na, nm ≤ 512 and, in a frame, H at least the reach of A plus
+// that of Mᵀ. Returns the launch's cudaError_t.
 extern "C" int amgcl_fused_down(int zero_guess, int f2, int f1, int f0,
                                 int H, int L, int na, int nm,
-                                const void* a_off, const void* a,
-                                const void* m_off, const void* mt,
-                                const void* f, const void* u, void* u_out,
-                                void* rc, void* stream) {
+                                const int* a_host, const int* m_host,
+                                int tz, int ty, int cz, int cy,
+                                const int* halos, const void* a_off,
+                                const void* a, const void* m_off,
+                                const void* mt, const void* f,
+                                const void* u, void* u_out, void* rc,
+                                void* stream) {
   using namespace amgcl_port;
-  if (na > kMaxDiag || nm > kMaxDiag) return cudaErrorInvalidValue;
+  if (na < 1 || na > kMaxDiag || nm < 1 || nm > kMaxDiag || tz < 2 ||
+      ty < 2 || tz % 2 || ty % 2 || cz < 1 || cy < 1 || cz * cy > 8)
+    return cudaErrorInvalidValue;
   const Grid g = make_grid(f2, f1, f0);
-  const int nc = ((f2 + 1) / 2) * g.c1 * g.c0;
-  const int blocks = (nc + kCells - 1) / kCells;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ao = static_cast<const int*>(a_off);
-  const int* mo = static_cast<const int*>(m_off);
-  const float* ad = static_cast<const float*>(a);
-  const float* md = static_cast<const float*>(mt);
-  const float* fv = static_cast<const float*>(f);
-  const float* uv = static_cast<const float*>(u);
-  float* uo = static_cast<float*>(u_out);
-  float* out = static_cast<float*>(rc);
+  DownTile t{tz, ty, {halos[0], halos[1], halos[2], halos[3]},
+             {halos[4], halos[5], halos[6], halos[7]}, cz, cy, 0, 0, 0, 0};
+  const int s = f1 * f0;
+  if (!halo_holds_all(t.m, m_host, nm, s, f0, &t.m_min, &t.m_max) ||
+      !halo_holds_all(t.a, a_host, na, s, f0, &t.a_min, &t.a_max))
+    return cudaErrorInvalidValue;
+  const long long rz = tz + t.m.z_lo + t.m.z_hi;
+  const long long ry = ty + t.m.y_lo + t.m.y_hi;
+  // the most rows of R a block of the cluster forms, and U around them
+  // (which the tile's t then takes, as it holds the tile)
+  const long long oz =
+      cz == 1 ? rz : tz + (t.m.z_lo > t.m.z_hi ? t.m.z_lo : t.m.z_hi);
+  const long long oy =
+      cy == 1 ? ry : ty + (t.m.y_lo > t.m.y_hi ? t.m.y_lo : t.m.y_hi);
+  const long long box =
+      (rz * ry + (oz + t.a.z_lo + t.a.z_hi) * (oy + t.a.y_lo + t.a.y_hi)) *
+      f0 * static_cast<long long>(sizeof(float));
+  if (box > kMaxBox) return cudaErrorInvalidValue;
   const bool framed = H != 0 || L != g.n;
-  if (zero_guess && framed)
-    down_kernel<true, true><<<blocks, kBlock, 0, s>>>(
-        g, H, L, nc, na, nm, ao, ad, mo, md, fv, uv, uo, out);
-  else if (zero_guess)
-    down_kernel<true, false><<<blocks, kBlock, 0, s>>>(
-        g, H, L, nc, na, nm, ao, ad, mo, md, fv, uv, uo, out);
-  else if (framed)
-    down_kernel<false, true><<<blocks, kBlock, 0, s>>>(
-        g, H, L, nc, na, nm, ao, ad, mo, md, fv, uv, uo, out);
-  else
-    down_kernel<false, false><<<blocks, kBlock, 0, s>>>(
-        g, H, L, nc, na, nm, ao, ad, mo, md, fv, uv, uo, out);
-  return cudaGetLastError();
+  const int which = (zero_guess ? 2 : 0) + (framed ? 1 : 0);
+  using DownFn = void (*)(Grid, int, int, DownTile, int, int, const int*,
+                          const float*, const int*, const float*,
+                          const float*, const float*, float*, float*);
+  // down_kernel<ZERO, FRAMED> at ZERO·2 + FRAMED
+  static const DownFn kernels[4] = {
+      down_kernel<false, false>, down_kernel<false, true>,
+      down_kernel<true, false>, down_kernel<true, true>};
+  static bool raised[4][kMaxDevices] = {};
+  cudaError_t err = allow_box(kernels[which], raised[which]);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(((f2 + cz * tz - 1) / (cz * tz)) *
+                        ((f1 + cy * ty - 1) / (cy * ty)) * cz * cy);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(box);
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = cz * cy;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = cz * cy > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(
+      &config, kernels[which], g, H, L, t, na, nm,
+      static_cast<const int*>(a_off), static_cast<const float*>(a),
+      static_cast<const int*>(m_off), static_cast<const float*>(mt),
+      static_cast<const float*>(f), static_cast<const float*>(u),
+      static_cast<float*>(u_out), static_cast<float*>(rc));
 }
 
 // Up leg on the tile of fine dims (f2, f1, f0), n rows, inside a frame of
@@ -437,11 +605,11 @@ extern "C" int amgcl_fused_down(int zero_guess, int f2, int f1, int f0,
 // a: (na, n) and m: (nm, fz·f1·f0) float32 DIA data with int32 offsets
 // a_off and m_off on the device, and a_host and m_host the same offsets
 // on the host; w, f, out: (n,); u: (fz·f1·f0,); uc: the coarse vector of
-// the frame, ceil(fz/2) coarse planes. Blocks of kUpThreads threads take
+// the frame, ceil(fz/2) coarse planes. Blocks of kThreads threads take
 // tiles of tz planes × ty rows; `halos` holds A's halo
 // and then M's (planes below, above, rows before, after: UpTile). The
 // call is refused if an A offset reaches outside U, an M offset outside
-// T, or the two boxes pass kUpMaxBox bytes. The caller guarantees
+// T, or the two boxes pass kMaxBox bytes. The caller guarantees
 // fz·f1·f0 < 2^30, na, nm ≤ 512 and, in a frame, an even zoff and f2 and
 // zoff · f1 · f0 at least the reach of A plus that of M.
 extern "C" int amgcl_fused_up(int f2, int f1, int f0, int zoff, int fz,
@@ -456,44 +624,25 @@ extern "C" int amgcl_fused_up(int f2, int f1, int f0, int zoff, int fz,
   if (na < 1 || na > kMaxDiag || nm < 1 || nm > kMaxDiag || tz < 1 ||
       ty < 1)
     return cudaErrorInvalidValue;
-
-  for (int k = 0; k < 8; ++k)
-    if (halos[k] < 0) return cudaErrorInvalidValue;
   const Grid g = make_grid(f2, f1, f0);
   UpTile t{tz, ty, {halos[0], halos[1], halos[2], halos[3]},
            {halos[4], halos[5], halos[6], halos[7]},
            a_host[0], a_host[0], m_host[0], m_host[0]};
-  for (int k = 0; k < na; ++k) {
-    if (!halo_holds(t.a, a_host[k], f1 * f0, f0)) return cudaErrorInvalidValue;
-    if (a_host[k] < t.a_min) t.a_min = a_host[k];
-    if (a_host[k] > t.a_max) t.a_max = a_host[k];
-  }
-  for (int k = 0; k < nm; ++k) {
-    if (!halo_holds(t.m, m_host[k], f1 * f0, f0)) return cudaErrorInvalidValue;
-    if (m_host[k] < t.m_min) t.m_min = m_host[k];
-    if (m_host[k] > t.m_max) t.m_max = m_host[k];
-  }
+  if (!halo_holds_all(t.a, a_host, na, f1 * f0, f0, &t.a_min, &t.a_max) ||
+      !halo_holds_all(t.m, m_host, nm, f1 * f0, f0, &t.m_min, &t.m_max))
+    return cudaErrorInvalidValue;
   const long long bz = tz + t.a.z_lo + t.a.z_hi, by = ty + t.a.y_lo + t.a.y_hi;
   const long long box =
       (bz * by + (bz + t.m.z_lo + t.m.z_hi) * (by + t.m.y_lo + t.m.y_hi)) *
       f0 * static_cast<long long>(sizeof(float));
-  if (box > kUpMaxBox) return cudaErrorInvalidValue;
+  if (box > kMaxBox) return cudaErrorInvalidValue;
   const bool framed = zoff != 0 || fz != f2;
   auto kernel = framed ? up_kernel<true> : up_kernel<false>;
-  // static and dynamic shared memory above 48 KB only by the attribute,
-  // set once per instantiation and device
   static bool raised[2][kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
+  cudaError_t rc = allow_box(kernel, raised[framed]);
   if (rc != cudaSuccess) return rc;
-  if (dev >= kMaxDevices || !raised[framed][dev]) {
-    rc = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kUpMaxBox);
-    if (rc != cudaSuccess) return rc;
-    if (dev < kMaxDevices) raised[framed][dev] = true;
-  }
   const int blocks = ((f2 + tz - 1) / tz) * ((f1 + ty - 1) / ty);
-  kernel<<<blocks, kUpThreads, static_cast<size_t>(box),
+  kernel<<<blocks, kThreads, static_cast<size_t>(box),
            static_cast<cudaStream_t>(stream)>>>(
       g, zoff, fz, t, na, nm, static_cast<const int*>(a_off),
       static_cast<const float*>(a), static_cast<const int*>(m_off),

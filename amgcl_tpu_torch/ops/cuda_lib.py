@@ -103,9 +103,10 @@ def _bind(lib) -> None:
     lib.amgcl_gather_spmv.argtypes = [i32, i32, i64, i64, i32] + [vp] * 5 \
         + [vp]
     lib.amgcl_gather_spmv.restype = i32
-    lib.amgcl_fused_down.argtypes = [i32] * 8 + [vp] * 8 + [vp]
-    lib.amgcl_fused_down.restype = i32
     ip = ctypes.POINTER(i32)
+    lib.amgcl_fused_down.argtypes = [i32] * 8 + [ip, ip] + [i32] * 4 \
+        + [ip] + [vp] * 8 + [vp]
+    lib.amgcl_fused_down.restype = i32
     lib.amgcl_fused_up.argtypes = [i32] * 7 + [ip, ip, i32, i32, ip] \
         + [vp] * 9 + [vp]
     lib.amgcl_fused_up.restype = i32

@@ -111,7 +111,8 @@ def offsets_on(offsets, device):
     """The int32 tensor of the host ints ``offsets`` on ``device``, made
     once per (offsets, device): callers that keep offsets on the host
     pay no copy (and no host sync) per launch."""
-    key = (tuple(int(o) for o in offsets), torch.device(device))
+    key = (offsets if type(offsets) is tuple
+           else tuple(int(o) for o in offsets), torch.device(device))
     t = _OFFSETS.get(key)
     if t is None:
         t = _OFFSETS[key] = torch.tensor(key[0], dtype=torch.int32,

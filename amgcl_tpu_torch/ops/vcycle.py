@@ -11,11 +11,12 @@ decide at setup whether a level is eligible and attach a handle.
 The gates are the structural ones, those that define the math: a DIA
 level operator, DIA M/Mᵀ, blocks (2, 2, 2), a ≤32-bit dtype (float64
 hierarchies keep the composed legs, as in the reference), non-empty
-offsets; the up leg and the zero-guess mode also need a scalar
-``ScaledResidualSmoother``, and the up leg an even fine z extent and a
-tile whose boxes of T uc and u' fit a block's shared memory
-(``vk.up_tile``; one grid row of a 7-point level up to 1,648 points
-wide). The CUDA kernels guard every index, so they need none of the TPU
+offsets, and a tile whose boxes fit a block's shared memory: for the
+down leg boxes of r and u (``vk.down_tile``; one grid row of a 7-point
+level up to 1,218 points wide), for the up leg of T uc and u'
+(``vk.up_tile``; up to 1,648). The up leg and the zero-guess mode also
+need a scalar ``ScaledResidualSmoother``, and the up leg an even fine z
+extent. The CUDA kernels guard every index, so they need none of the TPU
 kernel's frames or lane packing.
 """
 
@@ -68,14 +69,16 @@ class FusedDownSweep:
         self.w = w
         self.dims = T.fine
 
+    # the offsets as host ints: the kernel checks its tile against them
+    # without a copy from the card
     def __call__(self, f, u):
-        return vk.fused_down_sweep(self.A.offsets_t, self.A.data,
-                                   self.Mt.offsets_t, self.Mt.data, f, u,
+        return vk.fused_down_sweep(self.A.offsets, self.A.data,
+                                   self.Mt.offsets, self.Mt.data, f, u,
                                    self.dims)
 
     def zero(self, f):
-        return vk.fused_down_sweep(self.A.offsets_t, self.A.data,
-                                   self.Mt.offsets_t, self.Mt.data, f,
+        return vk.fused_down_sweep(self.A.offsets, self.A.data,
+                                   self.Mt.offsets, self.Mt.data, f,
                                    self.w, self.dims, zero_guess=True)
 
 
@@ -115,7 +118,9 @@ def build_fused_down(A_dev, R_dev, relax=None):
     enables the zero-guess mode."""
     if not isinstance(R_dev, ImplicitSmoothedR) \
             or not _grid_transfer(A_dev, R_dev.T, R_dev.Mt) \
-            or not _eligible_dtype(A_dev.dtype, R_dev.Mt.dtype):
+            or not _eligible_dtype(A_dev.dtype, R_dev.Mt.dtype) \
+            or vk.down_tile(A_dev.offsets, R_dev.Mt.offsets,
+                            R_dev.T.fine) is None:
         return None
     return FusedDownSweep(A_dev, R_dev.Mt, R_dev.T,
                           _scalar_scale(relax, A_dev.dtype))

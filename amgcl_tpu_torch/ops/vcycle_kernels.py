@@ -25,11 +25,12 @@ planes) on each side and uc with ``hp`` coarse planes on each side, with
 2·hp fine planes at least the reach of A plus that of M. Their offsets
 are Python ints (the reach is checked on the host).
 
-The up leg stages u' and T uc for a tile of the grid in shared memory
-(``csrc/vcycle.cu``); :func:`up_tile` plans the tile from the offsets
-and dims once per level, and the kernel checks it against the offsets
-on the host, so the base up leg takes its offsets as Python ints too
-(a tensor's are copied to the host at each call).
+Each leg stages its intermediates for a tile of the grid in shared
+memory (``csrc/vcycle.cu``): the down leg r = f − A u (and u, or w ∘ f),
+the up leg u' and T uc. :func:`down_tile` and :func:`up_tile` plan the
+tile from the offsets and dims once per level, and the kernel checks it
+against the offsets on the host, so the base legs take their offsets as
+Python ints too (a tensor's are copied to the host at each call).
 
 Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it checks device, dtype (float32), shapes and contiguity and
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -52,11 +54,20 @@ from amgcl_tpu_torch.ops.structured import GridTentative
 BLOCK = (2, 2, 2)
 #: the kernels index rows with 32-bit ints, offsets included
 MAX_ROWS = 1 << 30
-#: the up leg's staged boxes: the dynamic shared memory a block may take
+#: the legs' staged boxes: the dynamic shared memory a block may take
 #: beside its static arrays (232,448 bytes less 4 × 512 offsets)
 MAX_BOX_BYTES = 232448 - 4 * dk.MAX_DIAG * 4
-#: the SMs of the H100 that up_tile plans for
+#: the SMs of the H100 that down_tile and up_tile plan for
 _SMS = 132
+#: the down leg's clusters (cz, cy): pairs of tiles share the rows of box
+#: R between them; clusters of 4 or 8 took 1.5× longer on an H100, whose
+#: GPCs hold too few of them at once (PERF.md §6)
+_CLUSTERS = ((1, 1), (2, 1), (1, 2))
+#: a cluster's two syncs and its copies between blocks, as a share of the
+#: busiest block's loads: fitted to kernel_ab.py's sweep on an H100, where
+#: pairs paid at the 33-diagonal levels (the main path's L1, S1's L1
+#: slab) and not at the 7-diagonal ones (PERF.md §6)
+_CLUSTER_COST = 1.15
 
 
 def coarse_dims(dims):
@@ -72,13 +83,14 @@ def _tentative(dims):
 def fused_down_sweep_plain(a_offsets, a_data, mt_offsets, mt_data, f, u,
                            dims, zero_guess=False):
     """``Tᵀ (r − Mᵀ r)`` with ``r = f − A u``; ``(w ∘ f, rc)`` when
-    ``zero_guess`` (``u`` is then the scale w)."""
+    ``zero_guess`` (``u`` is then the scale w); offsets as int32 tensors
+    or Python ints."""
     fused_down_sweep_plain.calls += 1
     if zero_guess:
         u = u * f
-    r = dk.dia_residual_plain(a_offsets, a_data, f, u)
-    rc = _tentative(dims).rmv(dk.dia_residual_plain(mt_offsets, mt_data,
-                                                    r, r))
+    r = dk.dia_residual_plain(_on(a_offsets, f.device), a_data, f, u)
+    rc = _tentative(dims).rmv(dk.dia_residual_plain(
+        _on(mt_offsets, f.device), mt_data, r, r))
     return (u, rc) if zero_guess else rc
 
 
@@ -243,6 +255,100 @@ def up_tile(a_offsets, m_offsets, dims):
                     tuple(int(d) for d in dims))
 
 
+class DownTile(NamedTuple):
+    """The down leg's launch: a block of 1,024 threads on each tile of
+    ``tz`` planes × ``ty`` rows × all f0, both even, in clusters of ``cz``
+    × ``cy`` tiles. Box R (the tile with Mᵀ's ``halo``) stages r = f − A
+    u, each row formed by one block of the cluster: its tile's rows and
+    the cluster's outer halo beside them; box U (the rows a block forms,
+    with A's ``ahalo``) stages u or w ∘ f, and then t = r − Mᵀ r.
+    ``smem`` bytes, ``nblocks`` blocks launched."""
+    tz: int
+    ty: int
+    halo: tuple
+    ahalo: tuple
+    nblocks: int
+    smem: int
+    cz: int = 1
+    cy: int = 1
+
+
+def down_halo(a_offsets, mt_offsets, dims):
+    """(box R's halo, box U's halo): Mᵀ's reach around the tile, A's
+    around R, each as :func:`up_halo` sizes a box."""
+    return up_halo(mt_offsets, dims), up_halo(a_offsets, dims)
+
+
+def down_owned(tz, ty, halo, cz=1, cy=1):
+    """(planes, rows) of box R that the busiest block of a cluster of cz
+    × cy tiles forms: its tile and, at the cluster's edge, the halo beside
+    it; all of R alone."""
+    z_lo, z_hi, y_lo, y_hi = halo
+    return (tz + (z_lo + z_hi if cz == 1 else max(z_lo, z_hi)),
+            ty + (y_lo + y_hi if cy == 1 else max(y_lo, y_hi)))
+
+
+def down_boxes(tz, ty, halo, ahalo, cz=1, cy=1):
+    """(R rows, U rows): the grid rows of the two boxes a down tile of
+    ``tz`` planes × ``ty`` rows stages (U at the busiest block of a
+    cluster of cz × cy tiles)."""
+    oz, oy = down_owned(tz, ty, halo, cz, cy)
+    return ((tz + halo[0] + halo[1]) * (ty + halo[2] + halo[3]),
+            (oz + ahalo[0] + ahalo[1]) * (oy + ahalo[2] + ahalo[3]))
+
+
+def down_box(tz, ty, halo, ahalo, f0, cz=1, cy=1):
+    """Bytes of shared memory the two boxes of a down tile take (box U
+    holds the tile's t after u)."""
+    return sum(down_boxes(tz, ty, halo, ahalo, cz, cy)) * f0 * 4
+
+
+def _even_extents(f):
+    top = f + f % 2
+    return sorted({c for c in (2, 4, 6, 8, 12, 16, 24, 32) if c <= top}
+                  | ({top} if top <= 32 else set()))
+
+
+@functools.lru_cache(maxsize=256)
+def _down_tile(a_offsets, mt_offsets, dims):
+    f2, f1, f0 = dims
+    halo, ahalo = down_halo(a_offsets, mt_offsets, dims)
+    na, nm = len(a_offsets), len(mt_offsets)
+    best = None
+    for (cz, cy), tz, ty in itertools.product(_CLUSTERS, _even_extents(f2),
+                                              _even_extents(f1)):
+        smem = down_box(tz, ty, halo, ahalo, f0, cz, cy)
+        if smem > MAX_BOX_BYTES or (cz > 1 and tz >= f2) \
+                or (cy > 1 and ty >= f1):
+            continue
+        nblocks = -(-f2 // (cz * tz)) * -(-f1 // (cy * ty)) * cz * cy
+        # the busiest SM's loads: u at each U row, A and f at each row of
+        # R the block forms, the rest of R from its cluster, Mᵀ at each
+        # tile row and the tile's writes
+        oz, oy = down_owned(tz, ty, halo, cz, cy)
+        rows_r, rows_u = down_boxes(tz, ty, halo, ahalo, cz, cy)
+        work = -(-nblocks // _SMS) * (rows_u + oz * oy * (na + 1)
+                                      + rows_r - oz * oy
+                                      + tz * ty * (nm + 1))
+        if cz * cy > 1:
+            work *= _CLUSTER_COST
+        if best is None or (work, smem) < best[0]:
+            best = ((work, smem), DownTile(tz, ty, halo, ahalo, nblocks,
+                                           smem, cz, cy))
+    return None if best is None else best[1]
+
+
+def down_tile(a_offsets, mt_offsets, dims):
+    """The down leg's tile for A's and Mᵀ's offsets (Python ints) on fine
+    dims (f2, f1, f0), or None where not even two planes by two rows fit
+    the shared memory: of the tiles of 2–32 planes and rows (even) whose
+    boxes fit, alone or in pairs, the one with the least loads on the
+    busiest of 132 SMs. Computed once per (offsets, dims)."""
+    return _down_tile(tuple(int(o) for o in a_offsets),
+                      tuple(int(o) for o in mt_offsets),
+                      tuple(int(d) for d in dims))
+
+
 def _check_dia(name, offsets, data, n, ref):
     if data.device != ref.device or data.dtype != torch.float32 \
             or data.dim() != 2 or data.shape[1] != n \
@@ -287,42 +393,78 @@ def _check_leg(dims, ref, operators, vectors, ncols=None):
     return n, nc
 
 
+def _host_offsets(offsets):
+    """Offsets as a tuple of ints: a tensor's are copied to the host (a
+    sync on the card), so a hot path passes a tuple (taken as it is)."""
+    if isinstance(offsets, torch.Tensor):
+        return tuple(offsets.tolist())
+    if type(offsets) is tuple:
+        return offsets
+    return tuple(int(o) for o in offsets)
+
+
+def _c_ints(values):
+    """The ctypes int array of a sequence of ints, made once per tuple of
+    them (the C entries only read it): a warm solve launches the legs
+    with the same offsets and halos again and again."""
+    return _c_array(tuple(values))
+
+
+@functools.lru_cache(maxsize=512)
+def _c_array(values):
+    return (ctypes.c_int * len(values))(*values)
+
+
+def _launch_down(oa_host, om_host, oa, a_data, om, mt_data, f, u, dims,
+                 H, L, zero_guess, tile, what):
+    """Launch down_kernel on the checked operands over ``tile``
+    (DownTile); returns rc, or ``(w ∘ f, rc)`` with ``zero_guess``."""
+    if tile is None:
+        raise ValueError("%s: no tile of the down leg on fine dims %s holds "
+                         "the operators' reach in %d bytes of shared "
+                         "memory" % (what, tuple(dims), MAX_BOX_BYTES))
+    n = dims[0] * dims[1] * dims[2]
+    c2, c1, c0 = coarse_dims(dims)
+    rc = torch.empty(c2 * c1 * c0, dtype=f.dtype, device=f.device)
+    u_out = torch.empty(n, dtype=f.dtype, device=f.device) \
+        if zero_guess else None
+    with torch.cuda.device(f.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rcode = cuda_lib.lib().amgcl_fused_down(
+            int(bool(zero_guess)), *dims, H, L, len(oa_host), len(om_host),
+            _c_ints(oa_host), _c_ints(om_host), tile.tz, tile.ty, tile.cz,
+            tile.cy, _c_ints(tile.halo + tile.ahalo), oa.data_ptr(),
+            a_data.data_ptr(), om.data_ptr(), mt_data.data_ptr(),
+            f.data_ptr(), u.data_ptr(),
+            None if u_out is None else u_out.data_ptr(), rc.data_ptr(),
+            stream)
+    cuda_lib.check(rcode, what)
+    return (u_out, rc) if zero_guess else rc
+
+
 def fused_down_sweep(a_offsets, a_data, mt_offsets, mt_data, f, u, dims,
                      zero_guess=False):
     """The whole down leg in one pass: ``rc = Tᵀ (r − Mᵀ r)``, ``r = f −
     A u``, as a flat coarse vector. With ``zero_guess`` the ``u`` argument
     is the smoother scale w and the result is ``(w ∘ f, rc)``: pre-smooth
-    from zero, residual and restriction in one kernel."""
+    from zero, residual and restriction in one kernel. Offsets are int32
+    tensors or Python ints; the kernel needs them on the host to check
+    its tile (``down_tile``), so a hot path passes them as ints."""
     if f.device.type == "cpu":
         return fused_down_sweep_plain(a_offsets, a_data, mt_offsets,
                                       mt_data, f, u, dims, zero_guess)
-    n, nc = _check_leg(dims, f, [("A", a_offsets, a_data),
-                                 ("Mt", mt_offsets, mt_data)],
-                       [("f", f, None), ("w" if zero_guess else "u", u,
-                                         None)])
-    rc = torch.empty(nc, dtype=f.dtype, device=f.device)
-    u_out = torch.empty(n, dtype=f.dtype, device=f.device) \
-        if zero_guess else None
-    f2, f1, f0 = (int(d) for d in dims)
-    with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rcode = cuda_lib.lib().amgcl_fused_down(
-            int(bool(zero_guess)), f2, f1, f0, 0, n, a_data.shape[0],
-            mt_data.shape[0], a_offsets.data_ptr(), a_data.data_ptr(),
-            mt_offsets.data_ptr(), mt_data.data_ptr(), f.data_ptr(),
-            u.data_ptr(), None if u_out is None else u_out.data_ptr(),
-            rc.data_ptr(), stream)
-    cuda_lib.check(rcode, "fused_down_sweep")
+    oa_host, om_host = _host_offsets(a_offsets), _host_offsets(mt_offsets)
+    oa, om = _on(a_offsets, f.device), _on(mt_offsets, f.device)
+    n, _ = _check_leg(dims, f, [("A", oa, a_data), ("Mt", om, mt_data)],
+                      [("f", f, None), ("w" if zero_guess else "u", u,
+                                        None)])
+    dims = tuple(int(d) for d in dims)
+    out = _launch_down(oa_host, om_host, oa, a_data, om, mt_data, f, u,
+                       dims, 0, n, zero_guess,
+                       _down_tile(oa_host, om_host, dims),
+                       "fused_down_sweep")
     fused_down_sweep.launches += 1
-    return (u_out, rc) if zero_guess else rc
-
-
-def _host_offsets(offsets):
-    """Offsets as a tuple of Python ints: a tensor's are copied to the
-    host (a sync on the card), so a hot path passes ints."""
-    if isinstance(offsets, torch.Tensor):
-        return tuple(offsets.tolist())
-    return tuple(int(o) for o in offsets)
+    return out
 
 
 def _launch_up(oa_host, om_host, oa, a_data, om, m_data, w, f, u, uc, dims,
@@ -333,12 +475,12 @@ def _launch_up(oa_host, om_host, oa, a_data, om, m_data, w, f, u, uc, dims,
                          "the operators' reach in %d bytes of shared "
                          "memory" % (what, tuple(dims), MAX_BOX_BYTES))
     out = torch.empty(f.shape[0], dtype=f.dtype, device=f.device)
-    ints = lambda v: (ctypes.c_int * len(v))(*v)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream().cuda_stream
         rcode = cuda_lib.lib().amgcl_fused_up(
-            *dims, zoff, fz, len(oa_host), len(om_host), ints(oa_host),
-            ints(om_host), tile.tz, tile.ty, ints(tile.halo + tile.mhalo),
+            *dims, zoff, fz, len(oa_host), len(om_host), _c_ints(oa_host),
+            _c_ints(om_host), tile.tz, tile.ty,
+            _c_ints(tile.halo + tile.mhalo),
             oa.data_ptr(), a_data.data_ptr(), om.data_ptr(),
             m_data.data_ptr(), w.data_ptr(), f.data_ptr(), u.data_ptr(),
             uc.data_ptr(), out.data_ptr(), stream)
@@ -363,7 +505,7 @@ def fused_up_sweep(a_offsets, a_data, m_offsets, m_data, w, f, u, uc, dims):
                        ("uc", uc, c2 * c1 * c0)])
     dims = tuple(int(d) for d in dims)
     out = _launch_up(oa_host, om_host, oa, a_data, om, m_data, w, f, u, uc,
-                     dims, 0, dims[0], up_tile(oa_host, om_host, dims),
+                     dims, 0, dims[0], _up_tile(oa_host, om_host, dims),
                      "fused_up_sweep")
     fused_up_sweep.launches += 1
     return out
@@ -402,25 +544,17 @@ def fused_down_sweep_framed(a_offsets, a_frame, mt_offsets, mt_frame, f, u,
     dims, n = _check_frame(dims, _reach(a_offsets) + _reach(mt_offsets), H,
                            "the halo H")
     L = n + 2 * H
-    oa = dk.offsets_on(a_offsets, f.device)
-    om = dk.offsets_on(mt_offsets, f.device)
-    _, nc = _check_leg(dims, f, [("A", oa, a_frame), ("Mt", om, mt_frame)],
-                       [("f", f, L), ("w" if zero_guess else "u", u, L)],
-                       ncols=L)
-    rc = torch.empty(nc, dtype=f.dtype, device=f.device)
-    u_out = torch.empty(n, dtype=f.dtype, device=f.device) \
-        if zero_guess else None
-    with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rcode = cuda_lib.lib().amgcl_fused_down(
-            int(bool(zero_guess)), *dims, H, L, a_frame.shape[0],
-            mt_frame.shape[0], oa.data_ptr(), a_frame.data_ptr(),
-            om.data_ptr(), mt_frame.data_ptr(), f.data_ptr(), u.data_ptr(),
-            None if u_out is None else u_out.data_ptr(), rc.data_ptr(),
-            stream)
-    cuda_lib.check(rcode, "fused_down_sweep_framed")
+    oa_host, om_host = _host_offsets(a_offsets), _host_offsets(mt_offsets)
+    oa = dk.offsets_on(oa_host, f.device)
+    om = dk.offsets_on(om_host, f.device)
+    _check_leg(dims, f, [("A", oa, a_frame), ("Mt", om, mt_frame)],
+               [("f", f, L), ("w" if zero_guess else "u", u, L)], ncols=L)
+    out = _launch_down(oa_host, om_host, oa, a_frame, om, mt_frame, f, u,
+                       dims, H, L, zero_guess,
+                       _down_tile(oa_host, om_host, dims),
+                       "fused_down_sweep_framed")
     fused_down_sweep_framed.launches += 1
-    return (u_out, rc) if zero_guess else rc
+    return out
 
 
 def fused_up_sweep_framed(a_offsets, a_data, m_offsets, m_frame, w, f, u, uc,
@@ -453,7 +587,7 @@ def fused_up_sweep_framed(a_offsets, a_data, m_offsets, m_frame, w, f, u, uc,
     _check_dia("M", om, m_frame, Lm, f)
     out = _launch_up(oa_host, om_host, oa, a_data, om, m_frame, w, f, u, uc,
                      dims, 2 * hp, dims[0] + 4 * hp,
-                     up_tile(oa_host, om_host, dims),
+                     _up_tile(oa_host, om_host, dims),
                      "fused_up_sweep_framed")
     fused_up_sweep_framed.launches += 1
     return out

@@ -28,11 +28,12 @@ amgcl/mpi/partition/merge.hpp:47-137). CG runs inline, one host sync an
 iteration for its convergence test.
 
 A level's framed legs are chosen by geometry alone: 2×2×2 blocks (an
-even slab), ``npre == 1`` for the down leg and a halo H = reach(A) +
-reach(Mᵀ) ≤ nl for its frames, and for the up leg ``npost ≥ 1``, hp ≤ cz
-and hp·2s ≤ nl with hp = ceil((reach(A) + reach(M)) / 2s). A level keeps
-its M and Mᵀ slabs only for a leg that it composes. A kernel that does
-not build, launch or agree raises; nothing falls back.
+even slab), ``npre == 1`` for the down leg, a halo H = reach(A) +
+reach(Mᵀ) ≤ nl for its frames and a tile of the slab whose boxes fit
+shared memory (``vk.down_tile``), and for the up leg ``npost ≥ 1``,
+hp ≤ cz and hp·2s ≤ nl with hp = ceil((reach(A) + reach(M)) / 2s). A
+level keeps its M and Mᵀ slabs only for a leg that it composes. A kernel
+that does not build, launch or agree raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -247,7 +248,8 @@ def framed_geometry(a_flats, m_flats, mt_flats, ldims, lcoarse, blocks,
     if tuple(blocks) != vk.BLOCK or lz % 2 or not (a_flats and m_flats
                                                    and mt_flats):
         return False, False, H, hp
-    return (npre == 1 and H <= lz * s,
+    return (npre == 1 and H <= lz * s
+            and vk.down_tile(a_flats, mt_flats, ldims) is not None,
             npost >= 1 and hp <= lcoarse[0] and hp * 2 * s <= lz * s, H, hp)
 
 

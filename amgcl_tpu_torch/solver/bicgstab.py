@@ -42,6 +42,10 @@ class BiCGStab(HistoryMixin):
         the residual history appended when ``record_history``.
         ``precond`` maps a vector r to an approximate solution of
         A z = r."""
+        if rhs.dim() != 1:
+            raise NotImplementedError(
+                "a stacked (n, B) rhs (the JAX package's serving entry) is "
+                "not ported; solve one right-hand side at a time")
         if self.precond_side not in ("left", "right"):
             raise ValueError("precond_side must be 'left' or 'right', got %r"
                              % self.precond_side)

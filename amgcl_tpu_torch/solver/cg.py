@@ -33,6 +33,10 @@ class CG(HistoryMixin):
         ``precond`` maps a residual r to an approximate solution of
         A z = r. ``abstol`` overrides the field (iterative refinement stops
         correction solves exactly at the global target)."""
+        if rhs.dim() != 1:
+            raise NotImplementedError(
+                "a stacked (n, B) rhs (the JAX package's serving entry) is "
+                "not ported; solve one right-hand side at a time")
         x = torch.zeros_like(rhs) if x0 is None else x0
         # fused residual + <r,r>: one operator pass
         r, rr0 = fv.residual_dot(rhs, A, x)

@@ -768,8 +768,10 @@ def check_fused(solve, failures):
                 name = "fused_down_sweep"
                 zero = mode == "zero"
                 x = w if zero else u
-                args = (A.offsets_t, A.data, Mt.offsets_t, Mt.data, f, x,
-                        dims, zero)
+                # the offsets as host ints, as the main path passes them
+                args = (A.offsets, A.data, Mt.offsets, Mt.data, f, x, dims,
+                        zero)
+                tile = vk.down_tile(A.offsets, Mt.offsets, dims)
                 terms = vk.fused_down_sweep_plain(
                     A.offsets_t, -A.data.abs(), Mt.offsets_t,
                     -Mt.data.abs(), f.abs(), x.abs(), dims, zero)
@@ -782,7 +784,6 @@ def check_fused(solve, failures):
                 ops = 2 * (live_entries(A) + live_entries(Mt)) + n \
                     + (n if zero else 0)
                 ops_name = "Mt"
-                tile = None
             kern, plain = wrappers()[name]
             got, want = kern(*args), plain(*args)
             torch.cuda.synchronize()
@@ -804,8 +805,8 @@ def check_fused(solve, failures):
                   % (name, label, n, len(A.offsets), ops_name,
                      len(M.offsets if mode == "up" else Mt.offsets), err,
                      ratio, rtol, ms, plain_ms, composed_ms, b_ms, b_by,
-                     nbytes / 1e6, "" if tile is None else "  tile %s"
-                     % (tile,), "ok" if ok else "FAIL"))
+                     nbytes / 1e6, "  tile %s" % (tile,),
+                     "ok" if ok else "FAIL"))
             if not ok:
                 failures.append("%s %s disagrees with its plain version"
                                 % (name, label))
@@ -2017,7 +2018,6 @@ def check_framed(s, failures):
     base mode on the same slab (the slab alone, zero beyond it) and the
     least time for the bytes read and written once. The first case, L0
     interior in the path's mode, is the record."""
-    from amgcl_tpu_torch.ops import dia_kernels as dk
     from amgcl_tpu_torch.ops import vcycle_kernels as vk
     from amgcl_tpu_torch.parallel.dist_stencil import _halo_extend
     rng = np.random.RandomState(20261018)
@@ -2045,7 +2045,6 @@ def check_framed(s, failures):
         nA, nM, nMt = len(offs_a), len(offs_m), len(offs_mt)
         H, Hm = fz.H, fz.hp * s2
         L, Lm = nl + 2 * H, nl + 2 * Hm
-        oa, omt = dk.offsets_on(offs_a, dev), dk.offsets_on(offs_mt, dev)
         # the rows each leg reads: down, A at the rows Mᵀ reaches from the
         # tile, f there too (and where A reaches from them in zero-guess
         # mode), u or w where A reaches from them; up, M and u at the rows
@@ -2084,8 +2083,10 @@ def check_framed(s, failures):
                         offs_a, -fz.a_fr[j].abs(), offs_mt,
                         -fz.mt_fr[j].abs(), f_fr[j].abs(), x.abs(),
                         fz.ldims, H, zero)
+                    # the offsets as host ints, as the main path passes
+                    # them: a tensor's are copied to the host at each call
                     base = (vk.fused_down_sweep, (
-                        oa, lv.adata[j], omt,
+                        offs_a, lv.adata[j], offs_mt,
                         fz.mt_fr[j][:, H:H + nl].contiguous(), f[j],
                         lv.scale[j] if zero else u[j], fz.ldims, zero))
                     rows_f = rows_u if zero else rows_a

@@ -1,9 +1,9 @@
 """Time the windowed-ELL (scalar and block), dense-window and fused
-up-leg kernels of one checkout of amgcl_tpu_torch at the shapes of their
-chip_smoke.py records, so that two checkouts can be compared inside one
-run on one card.
+down- and up-leg kernels of one checkout of amgcl_tpu_torch at the shapes
+of their chip_smoke.py records, so that two checkouts can be compared
+inside one run on one card.
 
-    python3 kernel_ab.py TREE LABEL
+    python3 kernel_ab.py TREE LABEL [--sweep] [--legs]
 
 imports ``amgcl_tpu_torch`` from the directory TREE (a checkout, or an
 unpacked ``git archive`` of one), builds its kernels there, and prints
@@ -19,11 +19,21 @@ square-only modes where the operator is square), with torch's BSR
 product (``chip_smoke.library_block``) beside SPMV and RESIDUAL; and
 ``fused_up_sweep`` at the main path's L0 and L1 and
 ``fused_up_sweep_framed`` at S1's interior L0 and L1 slabs, on DIA
-operators of the levels' offsets. Each block and up-leg case also prints
-``digest``: the sha1 of its output's bytes (dots included), its inputs
-from one seeded numpy generator, so that equal digests on two checkouts
-show the two kernels bit-identical. Run the two checkouts in turns (A,
-B, B, A) in one command, each in its own process. Needs a CUDA card.
+operators of the levels' offsets; ``fused_down_sweep`` in zero-guess and
+base mode at the main path's L0 and L1, and ``fused_down_sweep_framed``
+(zero guess) at S1's interior L0 and L1 slabs beside the base mode on the
+same slab. Each block, down-leg and up-leg case also prints ``digest``:
+the sha1 of its output's bytes (dots included), its inputs from one
+seeded numpy generator, so that equal digests on two checkouts show the
+two kernels bit-identical. Run the two checkouts in turns (A, B, B, A)
+in one command, each in its own process. With ``--sweep`` (a tree that
+plans the down tile) it also times each down-leg case over a set of
+tiles, alone and in clusters of tiles, and prints whether each one's
+digest equals the planner's tile's; with ``--legs`` it times the fused
+legs alone; with ``--solve`` it also times the two paths that run the
+fused legs, the main path and S1, as chip_smoke.py builds them: the
+median host-clock time of 7 warm solves, each synchronised, with the
+iterations. Needs a CUDA card.
 """
 
 import hashlib
@@ -133,25 +143,145 @@ def up_cases(out, rng, host_offsets):
         del a, m
 
 
-def main(tree, label):
+def down_cases(out, rng, host_offsets, sweep):
+    """fused_down_sweep at the main path's L0 and L1 (zero guess and
+    base) and fused_down_sweep_framed (zero guess, H = reach(A) +
+    reach(Mᵀ)) at S1's interior L0 and L1 slabs beside the base mode on
+    the slab, on random DIA operators of the levels' offsets; with
+    ``sweep`` each case over other tiles too."""
+    from amgcl_tpu_torch.ops import vcycle_kernels as vk
+    cuda = lambda a: torch.as_tensor(a).to(device="cuda",
+                                          dtype=torch.float32)
+    for label, dims, level, framed in (
+            ("main L0", (128, 128, 128), 0, False),
+            ("main L1", (64, 64, 64), 1, False),
+            ("S1 L0 interior", (32, 128, 128), 0, True),
+            ("S1 L1 interior", (16, 64, 64), 1, True)):
+        offs = _stencil_offsets(dims, level)
+        n = int(np.prod(dims))
+        H = 2 * max(abs(o) for o in offs) if framed else 0
+        L = n + 2 * H
+        a = cuda(rng.standard_normal((len(offs), L)).astype(np.float32))
+        mt = cuda(rng.standard_normal((len(offs), L)).astype(np.float32))
+        f = cuda(rng.standard_normal(L).astype(np.float32))
+        u = cuda(rng.standard_normal(L).astype(np.float32))
+        w = cuda(rng.rand(L).astype(np.float32))
+        o = offs if host_offsets else torch.tensor(
+            offs, dtype=torch.int32, device="cuda")
+        inner = lambda v: v[..., H:H + n].contiguous()
+        modes = [("zero", w, True)] + ([] if framed else [("base", u, False)])
+        for mode, x, zero in modes:
+            if framed:
+                args = (offs, a, offs, mt, f, x, dims, H, zero)
+                fn = lambda: vk.fused_down_sweep_framed(*args)
+                key = "down %s framed %s" % (label, mode)
+                # the base mode on the slab's own rows
+                sargs = (o, inner(a), o, inner(mt), inner(f), inner(x),
+                         dims, zero)
+                out["down %s slab base %s digest" % (label, mode)] = digest(
+                    vk.fused_down_sweep(*sargs))
+                out["down %s slab base %s" % (label, mode)] = time_ms(
+                    lambda: vk.fused_down_sweep(*sargs))
+            else:
+                args = (o, a, o, mt, f, x, dims, zero)
+                fn = lambda: vk.fused_down_sweep(*args)
+                key = "down %s %s" % (label, mode)
+            out[key + " digest"] = digest(fn())
+            out[key] = time_ms(fn)
+            if sweep:
+                _sweep_down(out, key, offs, a, mt, f, x, dims, H, L, zero)
+        del a, mt
+
+
+def _sweep_down(out, key, offs, a, mt, f, x, dims, H, L, zero):
+    """One down-leg case over even tiles of 2–16 planes and rows whose
+    boxes fit, alone and in clusters of 2–8 tiles: each launch's time, and
+    whether its digest equals the planner's tile's."""
+    from amgcl_tpu_torch.ops import dia_kernels as dk
+    from amgcl_tpu_torch.ops import vcycle_kernels as vk
+    o = dk.offsets_on(offs, "cuda")
+    plan = vk.down_tile(offs, offs, dims)
+    want = out[key + " digest"]
+    res = {}
+    for cz, cy in ((1, 1), (2, 1), (1, 2), (2, 2), (4, 2), (2, 4)):
+        for tz in (2, 4, 8, 16):
+            for ty in (2, 4, 8, 16):
+                t = plan._replace(tz=tz, ty=ty, cz=cz, cy=cy)
+                if vk.down_box(tz, ty, t.halo, t.ahalo, dims[2], cz, cy) \
+                        > vk.MAX_BOX_BYTES or cz * tz > dims[0] \
+                        or cy * ty > dims[1]:
+                    continue
+                fn = lambda: vk._launch_down(offs, offs, o, a, o, mt, f, x,
+                                             dims, H, L, zero, t, "sweep")
+                res["%dx%d c%dx%d" % (tz, ty, cz, cy)] = [
+                    time_ms(fn), digest(fn()) == want]
+    out[key + " sweep"] = res
+
+
+def _warm(fn, n=7):
+    """(iterations, median ms) of n warm solves after two more."""
+    fn()
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, info = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return info.iters, float(np.median(times))
+
+
+def solve_cases(out):
+    """The main path (poisson3d(128), CG, refine=3, the stencil levels
+    built on the card) and S1 (its four z-slab shards of one card)."""
+    from amgcl_tpu_torch import (AMGParams, CG, DistStencilSolver,
+                                 make_mesh, make_solver, poisson3d)
+    A, rhs = poisson3d(128)
+    solve = make_solver(A, AMGParams(dtype=torch.float32),
+                        CG(maxiter=100, tol=1e-6), refine=3)
+    out["main iters"], out["main warm ms"] = _warm(lambda: solve(rhs))
+    del solve
+    s = DistStencilSolver(A, make_mesh(4), AMGParams(dtype=torch.float32),
+                          CG(maxiter=100, tol=1e-6))
+    out["S1 iters"], out["S1 warm ms"] = _warm(lambda: s(rhs))
+
+
+def main(tree, label, sweep=False, legs=False, solve=False):
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, tree)
     import amgcl_tpu_torch
-    from amgcl_tpu_torch import fe_like_problem
     from amgcl_tpu_torch.ops import cuda_lib
-    from amgcl_tpu_torch.ops import densewin_kernels as dwk
-    from amgcl_tpu_torch.ops import well_kernels as wk
-    from amgcl_tpu_torch.ops.densewin import csr_to_dense_window
-    from amgcl_tpu_torch.ops.unstructured import csr_to_windowed_ell
-    from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
+    from amgcl_tpu_torch.ops import vcycle_kernels as vk
     if not amgcl_tpu_torch.__file__.startswith(tree):
         raise RuntimeError("imported %s, not the tree %s"
                            % (amgcl_tpu_torch.__file__, tree))
     t0 = time.perf_counter()
     cuda_lib.lib()
     out = {"tree": label, "build_s": round(time.perf_counter() - t0, 2)}
+    if not legs:
+        other_cases(out)
+    # a tree whose legs plan their tile on the host takes the offsets as
+    # ints; an earlier one as device tensors
+    up_cases(out, np.random.RandomState(10), hasattr(vk, "up_tile"))
+    down_cases(out, np.random.RandomState(11), hasattr(vk, "down_tile"),
+               sweep)
+    if solve:
+        solve_cases(out)
+    print("AB " + json.dumps(out))
+    return 0
+
+
+def other_cases(out):
+    """The windowed-ELL, dense-window and block cases."""
+    from amgcl_tpu_torch import fe_like_problem
+    from amgcl_tpu_torch.ops import densewin_kernels as dwk
+    from amgcl_tpu_torch.ops import well_kernels as wk
+    from amgcl_tpu_torch.ops.densewin import csr_to_dense_window
+    from amgcl_tpu_torch.ops.unstructured import csr_to_windowed_ell
+    from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
     rng = np.random.RandomState(7)
     A, _ = fe_like_problem()
     Ap = permute(A, cuthill_mckee(A))
@@ -186,15 +316,9 @@ def main(tree, label):
     out["D2 L0 correction"] = time_ms(
         lambda: dwk.dense_window_scaled_correction(st, B, w, f, x, n))
     del D, B, xw
-    rng = np.random.RandomState(10)
-    block_cases(out, rng)
-    # a tree whose up leg plans its tile on the host takes the offsets as
-    # ints; an earlier one as device tensors
-    from amgcl_tpu_torch.ops import vcycle_kernels as vk
-    up_cases(out, rng, hasattr(vk, "up_tile"))
-    print("AB " + json.dumps(out))
-    return 0
+    block_cases(out, np.random.RandomState(10))
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1], sys.argv[2]))
+    sys.exit(main(sys.argv[1], sys.argv[2], "--sweep" in sys.argv[3:],
+                  "--legs" in sys.argv[3:], "--solve" in sys.argv[3:]))

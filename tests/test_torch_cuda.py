@@ -4,7 +4,10 @@ row counts that are no multiple of the block, columns out of range on
 both sides, rectangular operators, the 512-diagonal limit, an empty
 operator, a grid-stride pass longer than its fixed grid; for the fused
 V-cycle legs odd and small grids, f0 that does not divide 128, a halo of
-two coarse planes and asymmetric offsets; for the windowed-ELL kernels K
+two coarse planes and asymmetric offsets, every tile of the down and up
+legs (the down leg's alone and in clusters) bit for bit, a frame whose H
+cuts a grid row, and the down leg's skip of an Inf entry whose
+neighbour lies outside the frame; for the windowed-ELL kernels K
 from 4 to 100 (no multiple of 4 x the scalar kernel's lanes among them),
 window starts that differ from tile to tile, a tile without entries (its
 padding addresses one past x), a ragged last tile, slots past the end of
@@ -459,6 +462,176 @@ def test_up_wrapper_refuses_a_box_past_shared_memory(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         vk.fused_up_sweep(oa, a, om, m, w, f, u, uc, dims)
     assert vk.fused_up_sweep.launches == launches
+
+
+_DOWN_TILE_CASES = {
+    # name: (dims, A offsets, Mᵀ offsets, H, or None for the base mode);
+    # the tiles below leave f2 and f1 no multiple of tz and ty
+    "ragged": ((6, 10, 12), None, None, None),
+    "odd_all": ((5, 7, 9), None, None, None),
+    "f0_100": ((4, 6, 100), None, None, None),
+    "small_f0": ((6, 9, 2), None, None, None),
+    "f0_1": ((5, 7, 1), None, None, None),
+    "wide_reach": ((8, 6, 5), None, None, None),
+    "one_sided": ((6, 5, 8), (0, 1, 9, 40, 81), (-81, -40, -8, 0), None),
+    # H cuts a grid row: the frame's first and last rows end mid-row
+    "framed_cut_row": ((6, 10, 12), None, None, 2 * 120 + 5),
+    "framed_two_planes": ((4, 8, 16), (-256, -129, -1, 0, 1, 129, 256),
+                          (-128, -1, 0, 1, 128), 384),
+}
+
+
+def _down_tile_case(name, device):
+    """A down-leg case on ``device``: dims, offsets, H, L and the frames
+    (the tile's own rows in the base mode, H = 0) a, mt, f, u, w."""
+    dims, oa, om, H = _DOWN_TILE_CASES[name]
+    f2, f1, f0 = dims
+    s = f1 * f0
+    oa = list(oa or _plane_offsets(dims))
+    om = list(om or _plane_offsets(dims))
+    if name == "wide_reach":
+        # the 27-point steps and two-step ones along each axis, as L1's
+        r = (-1, 0, 1)
+        oa = om = sorted({(dz * f1 + dy) * f0 + dx for dz in r for dy in r
+                          for dx in r} | {2, -2, 2 * f0, -2 * f0, 2 * s,
+                                          -2 * s})
+    H = H or 0
+    L = f2 * s + 2 * H
+    rng = np.random.RandomState(len(name))
+    cast = lambda a: torch.as_tensor(a).to(device=device,
+                                           dtype=torch.float32)
+    return dims, oa, om, H, L, (
+        cast(rng.standard_normal((len(oa), L))),
+        cast(rng.standard_normal((len(om), L))),
+        cast(rng.standard_normal(L)), cast(rng.standard_normal(L)),
+        cast(rng.rand(L)))
+
+
+def _down_any(oa, a, om, mt, f, x, dims, H, zero, plain=False):
+    """The down leg in its base mode (H = 0) or framed, kernel or plain."""
+    if H:
+        fn = vk.fused_down_sweep_framed_plain if plain \
+            else vk.fused_down_sweep_framed
+        return fn(oa, a, om, mt, f, x, dims, H, zero)
+    fn = vk.fused_down_sweep_plain if plain else vk.fused_down_sweep
+    return fn(oa, a, om, mt, f, x, dims, zero)
+
+
+def _down_pairs(got, want, zero):
+    return list(zip(got, want)) if zero else [(got, want)]
+
+
+@pytest.mark.parametrize("zero", [False, True])
+@pytest.mark.parametrize("name", sorted(_DOWN_TILE_CASES))
+def test_down_tiles_agree_bit_for_bit(cuda, name, zero):
+    """The down leg over every even tile from 2 × 2 to 6 × 4, alone and
+    in clusters of 2 to 8 tiles (rows of box R read from the block that
+    formed them), in the base mode on odd extents, f2 and
+    f1 no multiple of the tile, f0 = 100 (no multiple of a warp), small
+    f0, one-sided offsets, and framed on a frame whose H cuts a grid row:
+    every tile gives the same bits, which agree with the plain version."""
+    dims, oa, om, H, L, (a, mt, f, u, w) = _down_tile_case(name, cuda)
+    x = w if zero else u
+    got = _down_any(oa, a, om, mt, f, x, dims, H, zero)
+    want = _down_any(oa, a, om, mt, f, x, dims, H, zero, plain=True)
+    terms = _down_any(oa, -a.abs(), om, -mt.abs(), f.abs(), x.abs(), dims,
+                      H, zero, plain=True)
+    if zero:
+        assert torch.equal(got[0], want[0])   # one product per entry
+        _within(got[1], want[1], terms[1])
+    else:
+        _within(got, want, terms)
+    ot, mt_o = (torch.tensor(o, dtype=torch.int32, device=cuda)
+                for o in (oa, om))
+    tile = vk.down_tile(oa, om, dims)
+    for cz, cy in ((1, 1), (2, 1), (1, 2), (2, 2), (4, 2)):
+        for tz in (2, 4, 6):
+            for ty in (2, 4):
+                t = tile._replace(tz=tz, ty=ty, cz=cz, cy=cy)
+                other = vk._launch_down(oa, om, ot, a, mt_o, mt, f, x, dims,
+                                        H, L, zero, t, "down")
+                assert all(torch.equal(o_, g)
+                           for o_, g in _down_pairs(other, got, zero)), \
+                    (tz, ty, cz, cy)
+
+
+@pytest.mark.parametrize("framed", [False, True])
+def test_down_skips_neighbours_outside_the_frame(cuda, framed):
+    """An A or Mᵀ entry whose neighbour lies outside the frame is skipped,
+    not multiplied by a staged 0: with +Inf in every such entry the
+    results stay finite and equal, bit for bit, those with the entries
+    0, and agree with the plain version (which skips them too)."""
+    name = "framed_cut_row" if framed else "ragged"
+    dims, oa, om, H, L, (a, mt, f, u, w) = _down_tile_case(name, cuda)
+    rows = torch.arange(L, device=cuda)
+
+    def poison(data, offsets, value):
+        data = data.clone()
+        for k, o in enumerate(offsets):
+            out = (rows + o < 0) | (rows + o >= L)
+            data[k, out] = value
+        return data
+    ot, mt_o = (torch.tensor(o, dtype=torch.int32, device=cuda)
+                for o in (oa, om))
+    tile = vk.down_tile(oa, om, dims)
+    for zero, x in ((False, u), (True, w)):
+        runs = []
+        for value in (float("inf"), 0.0):
+            ai, mti = poison(a, oa, value), poison(mt, om, value)
+            for cz in (1, 2):
+                runs.append(vk._launch_down(
+                    oa, om, ot, ai, mt_o, mti, f, x, dims, H, L, zero,
+                    tile._replace(cz=cz, cy=1), "down"))
+        want = _down_any(oa, poison(a, oa, float("inf")), om,
+                         poison(mt, om, float("inf")), f, x, dims, H, zero,
+                         plain=True)
+        rc = [r[1] if zero else r for r in runs]
+        assert all(bool(torch.isfinite(v).all()) for v in rc)
+        assert all(torch.equal(v, rc[0]) for v in rc[1:])
+        w_rc = want[1] if zero else want
+        assert bool(torch.isfinite(w_rc).all())
+        terms = _down_any(oa, -poison(a, oa, 0.0).abs(), om,
+                          -poison(mt, om, 0.0).abs(), f.abs(), x.abs(), dims,
+                          H, zero, plain=True)
+        _within(rc[0], w_rc, terms[1] if zero else terms)
+
+
+def test_down_entry_refuses_a_short_tile(cuda):
+    """The C entry checks the tile against A's and Mᵀ's offsets: a halo of
+    box R or box U one row or plane short on any side is refused, and so
+    are odd tile extents and clusters past 8 tiles."""
+    dims, oa, om, H, L, (a, mt, f, u, w) = _down_tile_case("wide_reach",
+                                                           cuda)
+    ot, mt_o = (torch.tensor(o, dtype=torch.int32, device=cuda)
+                for o in (oa, om))
+    tile = vk.down_tile(oa, om, dims)
+    assert all(tile.halo) and all(tile.ahalo)
+    bad = [tile._replace(tz=3), tile._replace(ty=1), tile._replace(tz=0),
+           tile._replace(cz=0), tile._replace(cz=3, cy=3)]
+    for field in ("halo", "ahalo"):
+        for k in range(4):
+            halo = list(getattr(tile, field))
+            halo[k] -= 1
+            bad.append(tile._replace(**{field: tuple(halo)}))
+    launches = vk.fused_down_sweep.launches
+    for t in bad:
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            vk._launch_down(oa, om, ot, a, mt_o, mt, f, u, dims, H, L,
+                            False, t, "down")
+    assert vk.fused_down_sweep.launches == launches
+
+
+def test_down_wrapper_refuses_a_box_past_shared_memory(cuda):
+    """A grid row of 4,096 points with a row and a plane of halo on each
+    side cannot be staged: the wrappers raise, with no fallback."""
+    dims = (4, 4, 4096)
+    oa, a, om, mt, w, f, u, _ = _leg(dims, _plane_offsets(dims),
+                                     _plane_offsets(dims), cuda)
+    launches = vk.fused_down_sweep.launches
+    for zero, x in ((False, u), (True, w)):
+        with pytest.raises(ValueError, match="shared memory"):
+            vk.fused_down_sweep(oa, a, om, mt, f, x, dims, zero)
+    assert vk.fused_down_sweep.launches == launches
 
 
 @pytest.mark.parametrize("bad", ["device", "dtype", "float64", "f_shape",

@@ -1,5 +1,5 @@
 """Launch geometry of the windowed-ELL kernels (csrc/well_block.cu), the
-dense-window kernel (csrc/densewin.cu) and the fused up leg's tiles
+dense-window kernel (csrc/densewin.cu) and the fused legs' tiles
 (csrc/vcycle.cu), on the CPU.
 
 Each wrapper computes its grid in one small function
@@ -17,8 +17,14 @@ by brute force: for every tile of the main path's L0 and L1, of S1's
 framed slabs and of random offset sets on odd and small grids, every row
 that the first design's up_kernel read (each tile row's A neighbours
 inside the frame) must lie in the staged box at the slot the kernel
-reads; a halo one row or plane short must leave one out. The kernels
-themselves run only on a card (tests/test_torch_cuda.py).
+reads; a halo one row or plane short must leave one out. The down leg's
+tile (``vcycle_kernels.down_tile``) likewise: each tile row's Mᵀ
+neighbours in box R, the A neighbours of each row of R that a block forms
+in box U, the rows a block of a cluster fetches from the block that
+formed them, and each coarse cell's children in its tile, on the main
+path's levels, S1's slabs with frames whose edges cut a grid row, and
+random offsets on odd grids. The kernels themselves run only on a card
+(tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -208,10 +214,11 @@ def test_a_grid_sized_by_threads_would_not_cover_the_rows():
 #: rows a tile row)
 PLANS = {128: (8, 16, 1.40625, 1.875), 64: (4, 8, 3.0, 6.0)}
 
-def _box_faults(dims, offsets, rows, inner, halo, zoff, fz):
+def _box_faults(dims, offsets, rows, inner, halo, h, L):
     """Reads from the rows ``rows`` (flat tile-relative rows with their
     box's inner origin ``inner`` = (plane, row) and extent (nz, ny)) that
-    miss a box of that inner region with ``halo``: for every row inside
+    miss a box of that inner region with ``halo``, in a frame of ``L``
+    rows where tile row i is frame row ``h`` + i: for every row inside
     the frame and every offset whose neighbour lies inside the frame, the
     slot the kernel reads (the row's slot plus the offset's nearest split)
     must lie in the box and hold that neighbour's frame row, wrapped rows
@@ -222,22 +229,44 @@ def _box_faults(dims, offsets, rows, inner, halo, zoff, fz):
     z_lo, z_hi, y_lo, y_hi = halo
     BY, BZ = ny + y_lo + y_hi, nz + z_lo + z_hi
     nbox = BZ * BY * f0
-    bz0, by0 = oz + zoff - z_lo, oy - y_lo
-    b = ((rz - oz + z_lo) * BY + ry - oy + y_lo) * f0 + x
-    j = (rz + zoff) * s + ry * f0 + x           # the frame row
-    live = (j >= 0) & (j < fz * s)
+    bz0, by0 = oz - z_lo, oy - y_lo
+    b = ((rz - bz0) * BY + ry - by0) * f0 + x
+    j = h + rz * s + ry * f0 + x                # the frame row
+    live = (j >= 0) & (j < L)
     faults = 0
     for o in offsets:
         q = j + o
-        read = live & (q >= 0) & (q < fz * s)
+        read = live & (q >= 0) & (q < L)
         dz, dy, dx = vk.split_nearest(o, s, f0)
         e = b + (dz * BY + dy) * f0 + dx
         inside = (e >= 0) & (e < nbox)
         e = np.clip(e, 0, nbox - 1)
         r = e // f0
-        held = ((bz0 + r // BY) * f1 + by0 + r % BY) * f0 + e % f0
+        held = h + ((bz0 + r // BY) * f1 + by0 + r % BY) * f0 + e % f0
         faults += int((read & ~(inside & (held == q))).sum())
     return faults
+
+
+def _tile_rows(dims, tz, ty, z_from, z_to, y_from, y_to, clip,
+               origins=None):
+    """The rows (z, y, x) from plane z_from to z_to and row y_from to
+    y_to of every tile of tz planes × ty rows (or of the tiles at
+    ``origins``), relative to each tile's origin (oz, oy), a tile a row
+    of the arrays; with ``clip`` the rows inside the grid only. Returns
+    (z, y, x), (oz, oy)."""
+    f2, f1, f0 = dims
+    if origins is None:
+        origins = np.meshgrid(np.arange(0, f2, tz), np.arange(0, f1, ty),
+                              indexing="ij")
+    tz0, ty0 = (np.asarray(o).reshape(-1, 1) for o in origins)
+    z, y, x = np.meshgrid(np.arange(z_from, z_to), np.arange(y_from, y_to),
+                          np.arange(f0), indexing="ij")
+    z, y, x = tz0 + z.ravel(), ty0 + y.ravel(), x.ravel() + 0 * tz0
+    oz, oy = tz0 + 0 * z, ty0 + 0 * y
+    if clip:
+        keep = (z < f2) & (y < f1)
+        return (z[keep], y[keep], x[keep]), (oz[keep], oy[keep])
+    return (z, y, x), (oz, oy)
 
 
 def _up_faults(dims, a_offsets, m_offsets, tile, zoff=0, fz=None):
@@ -248,32 +277,20 @@ def _up_faults(dims, a_offsets, m_offsets, tile, zoff=0, fz=None):
     inside the frame (where it read T uc) in box T."""
     f2, f1, f0 = dims
     fz = f2 if fz is None else fz
+    h, L = zoff * f1 * f0, fz * f1 * f0
     hz_lo, hz_hi, hy_lo, hy_hi = tile.halo
-    tz0, ty0 = np.meshgrid(np.arange(0, f2, tile.tz),
-                           np.arange(0, f1, tile.ty), indexing="ij")
-    tz0, ty0 = tz0.reshape(-1, 1), ty0.reshape(-1, 1)     # a tile a row
-
-    def rows(z_from, z_to, y_from, y_to, clip):
-        z, y, x = np.meshgrid(np.arange(z_from, z_to),
-                              np.arange(y_from, y_to), np.arange(f0),
-                              indexing="ij")
-        z, y, x = tz0 + z.ravel(), ty0 + y.ravel(), x.ravel() + 0 * tz0
-        if clip:                     # tile rows inside the grid only
-            keep = (z < f2) & (y < f1)
-            return z[keep], y[keep], x[keep], tz0 + 0 * z, ty0 + 0 * y, keep
-        return z, y, x, tz0 + 0 * z, ty0 + 0 * y, None
-
-    z, y, x, oz, oy, keep = rows(0, tile.tz, 0, tile.ty, True)
-    faults = _box_faults(dims, a_offsets, (z, y, x),
-                         (oz[keep], oy[keep], tile.tz, tile.ty), tile.halo,
-                         zoff, fz)
+    rows, (oz, oy) = _tile_rows(dims, tile.tz, tile.ty, 0, tile.tz, 0,
+                                tile.ty, True)
+    faults = _box_faults(dims, a_offsets, rows,
+                         (oz, oy, tile.tz, tile.ty), tile.halo, h, L)
     # every row of U, rows past f1 running into the next plane
-    z, y, x, oz, oy, _ = rows(-hz_lo, tile.tz + hz_hi, -hy_lo,
-                              tile.ty + hy_hi, False)
-    faults += _box_faults(dims, m_offsets, (z, y, x),
+    rows, (oz, oy) = _tile_rows(dims, tile.tz, tile.ty, -hz_lo,
+                                tile.tz + hz_hi, -hy_lo, tile.ty + hy_hi,
+                                False)
+    faults += _box_faults(dims, m_offsets, rows,
                           (oz - hz_lo, oy - hy_lo,
                            tile.tz + hz_lo + hz_hi, tile.ty + hy_lo + hy_hi),
-                          tile.mhalo, zoff, fz)
+                          tile.mhalo, h, L)
     return faults
 
 
@@ -443,3 +460,271 @@ def test_up_tile_main_path_plan():
             r / rows for r in vk.up_boxes(tile.tz, tile.ty, tile.halo,
                                           tile.mhalo))
     assert plans == PLANS
+
+
+# -- the fused down leg's tiles (csrc/vcycle.cu, down_kernel) -----------------
+
+#: down_tile's plan at the main path's L0 and L1: (tz, ty, cluster, R
+#: rows and U rows a tile row)
+DOWN_PLANS = {128: (8, 16, (1, 1), 1.40625, 1.875),
+              64: (4, 8, (2, 1), 3.0, 5.0)}
+
+
+def _blocks(dims, tile):
+    """Every block the down leg launches: its tile's origin (z0, y0) and
+    its place (iz, iy) in its cluster of cz × cy tiles."""
+    f2, f1, _ = dims
+    cz, cy = tile.cz, tile.cy
+    sz, sy, iz, iy = np.meshgrid(np.arange(-(-f2 // (cz * tile.tz))),
+                                 np.arange(-(-f1 // (cy * tile.ty))),
+                                 np.arange(cz), np.arange(cy), indexing="ij")
+    return ((sz * cz + iz).ravel() * tile.tz, (sy * cy + iy).ravel()
+            * tile.ty, iz.ravel(), iy.ravel())
+
+
+def _owned(tile, iz, iy):
+    """The rows [oz0, oz1) × [oy0, oy1) of box R that block (iz, iy) of
+    its cluster forms, as down_kernel takes them."""
+    z_lo, z_hi, y_lo, y_hi = tile.halo
+    return (np.where(iz == 0, 0, z_lo),
+            np.where(iz == tile.cz - 1, tile.tz + z_lo + z_hi,
+                     z_lo + tile.tz),
+            np.where(iy == 0, 0, y_lo),
+            np.where(iy == tile.cy - 1, tile.ty + y_lo + y_hi,
+                     y_lo + tile.ty))
+
+
+def _copy_faults(dims, tile):
+    """Rows of a block's box R that it does not form and that the copy
+    from its cluster fetches wrongly: the owner down_kernel computes must
+    form that row (of the same grid, at the box slot read)."""
+    _, f1, _ = dims
+    z_lo, z_hi, y_lo, y_hi = tile.halo
+    z0, y0, iz, iy = _blocks(dims, tile)
+    bz, by = np.meshgrid(np.arange(tile.tz + z_lo + z_hi),
+                         np.arange(tile.ty + y_lo + y_hi), indexing="ij")
+    bz, by = bz.ravel(), by.ravel()
+    faults = 0
+    for b in range(len(z0)):
+        oz0, oz1, oy0, oy1 = _owned(tile, iz[b], iy[b])
+        foreign = ~((bz >= oz0) & (bz < oz1) & (by >= oy0) & (by < oy1))
+        Z = bz - z_lo + iz[b] * tile.tz
+        Y = by - y_lo + iy[b] * tile.ty
+        jz = np.clip(Z // tile.tz, 0, tile.cz - 1)
+        jy = np.clip(Y // tile.ty, 0, tile.cy - 1)
+        pz, py = Z - jz * tile.tz + z_lo, Y - jy * tile.ty + y_lo
+        qz0, qz1, qy0, qy1 = _owned(tile, jz, jy)
+        formed = (pz >= qz0) & (pz < qz1) & (py >= qy0) & (py < qy1)
+        row = (z0[b] - z_lo + bz) * f1 + y0[b] - y_lo + by
+        there = ((z0[b] + (jz - iz[b]) * tile.tz - z_lo + pz) * f1
+                 + y0[b] + (jy - iy[b]) * tile.ty - y_lo + py)
+        faults += int((foreign & ~(formed & (row == there))).sum())
+    return faults
+
+
+def _down_faults(dims, a_offsets, mt_offsets, tile, H=0, L=None):
+    """Rows that the first design's down_kernel read and the tiled kernel
+    does not find where it looks, over every block at once, in a frame of
+    L rows where tile row i is frame row H + i: the Mᵀ neighbours of each
+    tile row inside the frame (where the first design recomputed r) in
+    box R; the A neighbours of each row of R that a block forms, inside
+    the frame (where the first design read u), in box U; and in a
+    cluster, the rows of box R that the copy fetches."""
+    f2, f1, f0 = dims
+    L = f2 * f1 * f0 if L is None else L
+    z_lo, y_lo = tile.halo[0], tile.halo[2]
+    z0, y0, iz, iy = _blocks(dims, tile)
+    rows, (oz, oy) = _tile_rows(dims, tile.tz, tile.ty, 0, tile.tz, 0,
+                                tile.ty, True, (z0, y0))
+    faults = _box_faults(dims, mt_offsets, rows,
+                         (oz, oy, tile.tz, tile.ty), tile.halo, H, L)
+    for pz in range(tile.cz):
+        for py in range(tile.cy):
+            # the rows of R that the blocks at (pz, py) form, rows past f1
+            # running into the next plane
+            at = (iz == pz) & (iy == py)
+            oz0, oz1, oy0, oy1 = (int(v) for v in _owned(tile, pz, py))
+            rows, (oz, oy) = _tile_rows(
+                dims, tile.tz, tile.ty, oz0 - z_lo, oz1 - z_lo, oy0 - y_lo,
+                oy1 - y_lo, False, (z0[at], y0[at]))
+            faults += _box_faults(dims, a_offsets, rows,
+                                  (oz + oz0 - z_lo, oy + oy0 - y_lo,
+                                   oz1 - oz0, oy1 - oy0), tile.ahalo, H, L)
+    return faults + _copy_faults(dims, tile)
+
+
+def _cell_faults(dims, tz, ty):
+    """Coarse cells that the tiles' cell sums miss or take twice, and
+    children that lie outside the tile of their cell's sum: the kernel
+    sums the cells (z0/2 + [0, tz/2)) × (y0/2 + [0, ty/2)) × all c0 of
+    the tile at (z0, y0) that lie in the coarse grid."""
+    f2, f1, f0 = dims
+    c2, c1, _ = vk.coarse_dims(dims)
+    taken = np.zeros((c2, c1), int)
+    faults = 0
+    for z0 in range(0, f2, tz):
+        for y0 in range(0, f1, ty):
+            for cz in range(z0 // 2, min(c2, z0 // 2 + tz // 2)):
+                for cy in range(y0 // 2, min(c1, y0 // 2 + ty // 2)):
+                    taken[cz, cy] += 1
+                    for z in (2 * cz, 2 * cz + 1):
+                        for y in (2 * cy, 2 * cy + 1):
+                            if z < f2 and y < f1:
+                                faults += not (z0 <= z < z0 + tz
+                                               and y0 <= y < y0 + ty)
+    return faults + int((taken != 1).sum())
+
+
+def _check_down(dims, a_offsets, mt_offsets, H=0, L=None):
+    tile = vk.down_tile(a_offsets, mt_offsets, dims)
+    assert tile is not None and tile.smem <= vk.MAX_BOX_BYTES
+    assert tile.tz % 2 == 0 and tile.ty % 2 == 0
+    assert tile.smem == vk.down_box(tile.tz, tile.ty, tile.halo,
+                                    tile.ahalo, dims[2], tile.cz, tile.cy)
+    assert (tile.halo, tile.ahalo) == vk.down_halo(a_offsets, mt_offsets,
+                                                   dims)
+    assert tile.cz * tile.cy <= 2
+    assert tile.nblocks == len(_blocks(dims, tile)[0])
+    assert _down_faults(dims, a_offsets, mt_offsets, tile, H, L) == 0
+    assert _cell_faults(dims, tile.tz, tile.ty) == 0
+    return tile
+
+
+def _short_down(tile):
+    """The tile with each nonzero side of its R halo, then of its U halo,
+    one short, in turn."""
+    for field in ("halo", "ahalo"):
+        for k, h in enumerate(getattr(tile, field)):
+            if h:
+                halo = list(getattr(tile, field))
+                halo[k] -= 1
+                yield tile._replace(**{field: tuple(halo)})
+
+
+@pytest.mark.parametrize("level,dims", [
+    (0, (128, 128, 128)), (1, (64, 64, 64)), (0, (32, 32, 32)),
+    (1, (16, 16, 16))])
+def test_down_tile_holds_the_main_path_reads(l1_steps, level, dims):
+    """The main path's L0 and L1 (128³ and 64³; the build's own 32³ and
+    16³): every tile row's Mᵀ neighbours lie in box R and every R row's
+    A neighbours in box U, including the rows an x step wraps into the
+    previous or next grid row and plane; every cell's children lie in
+    its tile."""
+    offsets = _lay(l1_steps[level], dims)
+    tile = _check_down(dims, offsets, offsets)
+    assert tile.halo == tile.ahalo == ((1, 1, 1, 1) if level == 0
+                                       else (2, 2, 2, 2))
+    for cz, cy in ((1, 1), (2, 2)):
+        pair = tile._replace(cz=cz, cy=cy, tz=4, ty=8)
+        assert _down_faults(dims, offsets, offsets, pair) == 0
+
+
+@pytest.mark.parametrize("extra", [0, 37])
+@pytest.mark.parametrize("level,dims", [
+    (0, (32, 128, 128)), (1, (16, 64, 64)), (0, (8, 32, 32)),
+    (1, (4, 16, 16))])
+def test_down_tile_holds_the_framed_slab_reads(l1_steps, level, dims, extra):
+    """S1's framed slabs (and those of poisson3d(32) on four shards):
+    tile row i is frame row H + i of L = n + 2H, H = reach(A) + reach(Mᵀ)
+    (whole planes on S1) and, with ``extra``, 37 rows more, so that the
+    frame's edges cut a grid row and the box's rows past the slab come
+    from the frame point by point."""
+    offsets = _lay(l1_steps[level], dims)
+    n = int(np.prod(dims))
+    H = 2 * vk._reach(offsets) + extra
+    assert extra or H == (2 if level == 0 else 4) * dims[1] * dims[2]
+    _check_down(dims, offsets, offsets, H, n + 2 * H)
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("dims", _RANDOM_GRIDS + [(3, 5, 7), (5, 3, 1)])
+def test_down_tile_holds_random_reads(dims, seed):
+    """Random offset sets, one-sided ones included, of up to two planes'
+    reach on odd and small grids (f0 <= 8), base and framed (H a random
+    count of rows at or above the reach), alone and in clusters of 2 to 8
+    tiles, and every even tile shape up to 4 × 4
+    beside down_tile's own."""
+    rng = np.random.RandomState(seed * 137 + sum(dims))
+    f2, f1, f0 = dims
+    s = f1 * f0
+    n = f2 * s
+    reach = min(2 * s, n - 1)
+
+    def offsets():
+        o = sorted(set(rng.randint(-reach, reach + 1, 9).tolist()) | {0})
+        return [v for v in o if v >= 0] if seed % 2 else o
+    oa, om = offsets(), offsets()
+    tile = _check_down(dims, oa, om)
+    H = vk._reach(oa) + vk._reach(om) + int(rng.randint(0, 2 * f0 + 1))
+    for h, L in ((0, None), (H, n + 2 * H)):
+        for cz, cy in ((1, 1), (2, 1), (1, 2), (2, 2), (4, 2)):
+            for tz in (2, 4):
+                for ty in (2, 4):
+                    forced = tile._replace(tz=tz, ty=ty, cz=cz, cy=cy)
+                    assert _down_faults(dims, oa, om, forced, h, L) == 0
+                    assert _cell_faults(dims, tz, ty) == 0
+
+
+@pytest.mark.parametrize("case", ["L0", "L1", "S1 L1", "random"])
+def test_down_tile_short_halo_misses_a_read(l1_steps, case):
+    """The mutant: a halo one row or plane short on any side, of box R or
+    box U, leaves a read outside the box (or at a slot holding another
+    row), alone and in clusters of 2 × 2 tiles; on poisson3d(32)'s own L0
+    and L1, S1's L1 slab with a frame whose edges cut a grid row, and a
+    random set."""
+    H, L = 0, None
+    if case == "random":
+        dims, oa = (6, 7, 8), [-75, -9, -1, 0, 2, 57, 110]
+        om = [-66, -8, 0, 1, 63]
+    else:
+        dims = {"L0": (32, 32, 32), "L1": (16, 16, 16),
+                "S1 L1": (16, 64, 64)}[case]
+        oa = om = _lay(l1_steps[case != "L0"], dims)
+        if case == "S1 L1":
+            H = 2 * vk._reach(oa) + 37
+            L = int(np.prod(dims)) + 2 * H
+    tile = _check_down(dims, oa, om, H, L)
+    for cz, cy in ((1, 1), (2, 2)):
+        tile = tile._replace(cz=cz, cy=cy)
+        mutants = list(_short_down(tile))
+        assert len(mutants) == sum(1 for h in tile.halo + tile.ahalo
+                                   if h) >= 4
+        for m in mutants:
+            assert _down_faults(dims, oa, om, m, H, L) > 0, \
+                (m.halo, m.ahalo, cz, cy)
+
+
+@pytest.mark.parametrize("f0,fits", [(1024, True), (1218, True),
+                                     (1219, False), (8192, False)])
+def test_down_tile_refuses_a_box_past_shared_memory(f0, fits):
+    """A tile of 2 × 2 rows of a 7-point level in a pair of tiles stages
+    4 × 4 rows of r and, around the 3 × 4 it forms, 5 × 6 of u: 46 × f0 ×
+    4 bytes, up to f0 = 1,218 beside a block's offsets (alone, 52 rows, up
+    to 1,078); past that there is no tile (and the down leg is not built
+    for such a level)."""
+    dims = (4, 4, f0)
+    offsets = _plane_offsets(dims)
+    tile = vk.down_tile(offsets, offsets, dims)
+    assert (tile is not None) == fits
+    if fits:
+        assert (tile.tz, tile.ty, tile.cz * tile.cy) == (2, 2, 2)
+        assert tile.smem <= vk.MAX_BOX_BYTES
+    assert 46 * 1218 * 4 <= vk.MAX_BOX_BYTES < 46 * 1219 * 4
+
+
+def test_down_tile_main_path_plan():
+    """The tiles the main path's L0 and L1 get, with the rows their boxes
+    stage per tile row (R, U): L0's tiles alone, L1's in pairs."""
+    plans = {}
+    for dims, reach in (((128, 128, 128), None), ((64, 64, 64), 1)):
+        offsets = _plane_offsets(dims) if reach is None else sorted(
+            set(_stencil(dims, reach)) | {2, -2, 2 * dims[2],
+                                          -2 * dims[2],
+                                          2 * dims[1] * dims[2],
+                                          -2 * dims[1] * dims[2]})
+        tile = vk.down_tile(offsets, offsets, dims)
+        rows = tile.tz * tile.ty
+        plans[dims[0]] = (tile.tz, tile.ty, (tile.cz, tile.cy)) + tuple(
+            r / rows for r in vk.down_boxes(tile.tz, tile.ty, tile.halo,
+                                            tile.ahalo, tile.cz, tile.cy))
+    assert plans == DOWN_PLANS
