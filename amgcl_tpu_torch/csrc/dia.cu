@@ -1,26 +1,63 @@
 // DIA sparse kernels for Hopper (sm_90a): SpMV, residual, SPAI-0/Jacobi
-// correction, SpMV + dots, residual + norm — one template, five modes.
+// correction (dia_kernel), and SpMV + dots, residual + norm (dots_kernel,
+// dots_kernel_batched).
 //
 // Replaces the Pallas TPU kernels of amgcl_tpu/ops/pallas_spmv.py:
 //   dia_spmv (SPMV), _dia_fused (RESIDUAL, CORRECTION), dia_spmv_dots
 //   (SPMV_DOTS), dia_residual_dot (RESIDUAL_DOT).
 //
-// What bounds it on the H100: memory traffic. Per row the kernel does
+// What bounds them on the H100: memory traffic. Per row a kernel does
 // ndiag multiply-adds (2·ndiag operations) against ndiag·sizeof(T) bytes
 // of diagonal data plus ~2-4 vectors — about 0.25 operations per byte at
 // the 7-diagonal fine level, far below the card's ~20 (float32) balance
 // point, so the least time is bytes / 3.35 TB/s.
 //
-// Design (simple and correct first): one thread per row. The offsets sit
-// in shared memory (up to kMaxDiag); the loop over diagonals reads
-// data[k, i] and x[i + off_k], both coalesced across a warp because
+// dia_kernel (SPMV, RESIDUAL, CORRECTION): one thread per row. The
+// offsets sit in shared memory (up to kMaxDiag); the loop over diagonals
+// reads data[k, i] and x[i + off_k], both coalesced across a warp because
 // consecutive threads take consecutive rows. The x index is guarded
 // against [0, m) explicitly, which also covers rectangular operators.
-// x is re-read once per diagonal from L2/L1 (the ±n² z-halo of the fine
-// level is 64 KB per float32 plane, so neighbouring planes stay cached);
-// staging the x window in shared memory with cp.async/TMA is later work.
-// Dots use the deterministic two-stage reduction of reduce.cuh and
-// accumulate in T: float32 for float32 data, float64 for float64 data,
+//
+// dots_kernel / dots_kernel_batched (SPMV_DOTS, RESIDUAL_DOT; square
+// operators): one launch a call. Its results are bit for bit those of the first design (a
+// thread-per-row pass writing one partial per 256 rows, then a reduction
+// kernel), whose order this kernel keeps:
+//   1. Row value: acc = 0 (SPMV_DOTS) or f[i] (RESIDUAL_DOT); for k = 0 …
+//      ndiag−1 in order, acc = fma(±data[k, i], x[i + off_k], acc); a term
+//      whose column falls outside [0, m) is skipped, not added as 0 (the
+//      first design's `acc += data * x` under nvcc's default --fmad=true
+//      is this fma; written out here).
+//   2. Products, each rounded alone (no contraction): d0 = acc·acc,
+//      d1 = acc·x[i], d2 = acc·w[i]; rows ≥ n give 0.
+//   3. Partial of group g, rows [256g, 256g+256): the tree
+//      s[t] += s[t+stride] for stride = 128, 64, …, 1.
+//   4. Each dot: lane t of 256 adds partials t, t+256, t+512, … to 0 in
+//      that order, then the same 128 … 1 tree.
+// The design, against what held the first one back:
+//   - A thread per row, each batch of loads issued before its ordered fma
+//     chain: all 7 diagonals of the stencil fine level (dots_kernel's
+//     instantiation), batches of kBatch otherwise (dots_kernel_batched,
+//     capped at 32 registers in float32 so that a 33-diagonal level's
+//     1,024 groups fit on the card at once); f, x[i] and w[i] are loaded
+//     with the first batch. The first design issued one load at a time
+//     behind a bounds test.
+//   - Interior groups (the host's [lo, hi): every row < n, every column
+//     in [0, m)) run without a bounds test; edge groups test each term.
+//   - The offsets are a kernel parameter (__grid_constant__), not staged.
+//   - A block of 256 threads walks the groups blockIdx.x + k · gridDim.x,
+//     the grid as many blocks as fit on the card at once. Per group it
+//     writes its rows' products to shared memory, one barrier, and warp j
+//     runs dot j's tree while the others go on to the next group (two
+//     buffers): the tree's first level (stride 128) inside a lane that
+//     holds positions 4l … 4l+3 and 128+4l … 131+4l, the next five
+//     (64 … 4) as __shfl_down_sync by 16 … 1, the last two inside lane 0.
+//     One barrier a group, not eight.
+//   - The last block to finish (a __threadfence and an atomic ticket,
+//     once a block) sums the partials, so one launch does both stages.
+//     The ticket is atomicInc'd modulo the grid: the last block leaves it
+//     at 0, so no host reset is needed. The wrapper keeps one zeroed
+//     ticket per (device, stream).
+// Dots accumulate in T: float32 for float32 data, float64 for float64,
 // as the TPU kernels do (pallas_spmv.py:429-430).
 #include <cuda_runtime.h>
 
@@ -39,17 +76,14 @@ __global__ void __launch_bounds__(kBlock)
 dia_kernel(long long n, long long m, int ndiag,
            const int* __restrict__ offsets, const T* __restrict__ data,
            const T* __restrict__ x, const T* __restrict__ f,
-           const T* __restrict__ w, T* __restrict__ y,
-           T* __restrict__ partials) {
+           const T* __restrict__ w, T* __restrict__ y) {
   __shared__ int s_off[kMaxDiag];
   for (int k = threadIdx.x; k < ndiag; k += kBlock) s_off[k] = offsets[k];
   __syncthreads();
 
-  constexpr bool from_f =
-      MODE == RESIDUAL || MODE == CORRECTION || MODE == RESIDUAL_DOT;
+  constexpr bool from_f = MODE == RESIDUAL || MODE == CORRECTION;
   const long long i = static_cast<long long>(blockIdx.x) * kBlock +
                       threadIdx.x;
-  T d0 = T(0), d1 = T(0), d2 = T(0);
   if (i < n) {
     T acc = from_f ? f[i] : T(0);
     for (int k = 0; k < ndiag; ++k) {
@@ -64,50 +98,26 @@ dia_kernel(long long n, long long m, int ndiag,
     } else {
       y[i] = acc;
     }
-    if constexpr (MODE == SPMV_DOTS) {
-      d0 = acc * acc;
-      d1 = acc * x[i];
-      if (w != nullptr) d2 = acc * w[i];
-    }
-    if constexpr (MODE == RESIDUAL_DOT) d0 = acc * acc;
-  }
-  if constexpr (MODE == SPMV_DOTS) {
-    const T v[3] = {d0, d1, d2};
-    block_reduce_store<T, 3>(v, partials);
-  } else if constexpr (MODE == RESIDUAL_DOT) {
-    const T v[1] = {d0};
-    block_reduce_store<T, 1>(v, partials);
   }
 }
 
 template <typename T>
 cudaError_t run(int mode, long long n, long long m, int ndiag,
                 const int* offsets, const T* data, const T* x, const T* f,
-                const T* w, T* y, T* partials, T* dots, int nblocks,
-                cudaStream_t s) {
+                const T* w, T* y, int nblocks, cudaStream_t s) {
   if (ndiag > kMaxDiag) return cudaErrorInvalidValue;
   switch (mode) {
     case SPMV:
       dia_kernel<T, SPMV><<<nblocks, kBlock, 0, s>>>(
-          n, m, ndiag, offsets, data, x, f, w, y, partials);
+          n, m, ndiag, offsets, data, x, f, w, y);
       break;
     case RESIDUAL:
       dia_kernel<T, RESIDUAL><<<nblocks, kBlock, 0, s>>>(
-          n, m, ndiag, offsets, data, x, f, w, y, partials);
+          n, m, ndiag, offsets, data, x, f, w, y);
       break;
     case CORRECTION:
       dia_kernel<T, CORRECTION><<<nblocks, kBlock, 0, s>>>(
-          n, m, ndiag, offsets, data, x, f, w, y, partials);
-      break;
-    case SPMV_DOTS:
-      dia_kernel<T, SPMV_DOTS><<<nblocks, kBlock, 0, s>>>(
-          n, m, ndiag, offsets, data, x, f, w, y, partials);
-      launch_reduce<T>(partials, nblocks, 3, dots, s);
-      break;
-    case RESIDUAL_DOT:
-      dia_kernel<T, RESIDUAL_DOT><<<nblocks, kBlock, 0, s>>>(
-          n, m, ndiag, offsets, data, x, f, w, y, partials);
-      launch_reduce<T>(partials, nblocks, 1, dots, s);
+          n, m, ndiag, offsets, data, x, f, w, y);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -115,19 +125,317 @@ cudaError_t run(int mode, long long n, long long m, int ndiag,
   return cudaGetLastError();
 }
 
+// ---- SPMV_DOTS / RESIDUAL_DOT ------------------------------------------
+
+constexpr int kGroup = 256;           // rows of one partial; threads a block
+constexpr int kStencilDiag = 7;       // the unrolled instantiation
+constexpr int kBatch = 11;            // diagonals a batch otherwise
+constexpr int kUnroll = 8;            // partials a lane loads at once
+
+template <typename T>
+struct DotsArgs {
+  long long n, m;
+  int ndiag, ndots, ngroups, lo, hi;          // interior groups [lo, hi)
+  const T* data;
+  const T* x;
+  const T* f;
+  const T* w;
+  T* y;
+  T* scratch;             // ndots dots, then ndots × ngroups partials
+  unsigned int* ticket;
+  int off[kMaxDiag];
+};
+
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+// The row value of row i < n (point 1). Each batch issues its loads of
+// data and x together, then adds them in order. CHECK false: the caller
+// found every column of the row in [0, m), so no term is tested.
+template <typename T, bool SUB, bool CHECK, int ND>
+__device__ __forceinline__ T row_value(const DotsArgs<T>& a, long long i,
+                                       T acc) {
+  constexpr int KB = ND > 0 ? ND : kBatch;
+  const int nd = ND > 0 ? ND : a.ndiag;
+  for (int k0 = 0; k0 < nd; k0 += KB) {
+    T dv[KB], xv[KB];
+    bool in[KB];
+#pragma unroll
+    for (int b = 0; b < KB; ++b) {
+      const int k = k0 + b;
+      const long long j = i + ((ND > 0 || k < nd) ? a.off[k] : 0);
+      in[b] = (ND > 0 || k < nd) && (!CHECK || (j >= 0 && j < a.m));
+      dv[b] = in[b] ? __ldg(a.data + static_cast<size_t>(k) * a.n + i)
+                    : T(0);
+      xv[b] = in[b] ? __ldg(a.x + j) : T(0);
+    }
+#pragma unroll
+    for (int b = 0; b < KB; ++b)
+      if (in[b]) acc = fma_rn(SUB ? -dv[b] : dv[b], xv[b], acc);
+  }
+  return acc;
+}
+
+// The tree of point 3 over 256 values, lane l of a warp holding positions
+// 4l+q in lo[q] and 128+4l+q in hi[q]; lane 0 returns the sum.
+template <typename T>
+__device__ __forceinline__ T warp_tree256(const T (&lo)[4],
+                                          const T (&hi)[4]) {
+  T u[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) u[q] = add_rn(lo[q], hi[q]);    // stride 128
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {                           // 64 … 4
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      u[q] = add_rn(u[q], __shfl_down_sync(0xffffffffu, u[q], s));
+  }
+  return add_rn(add_rn(u[0], u[2]), add_rn(u[1], u[3]));       // 2, 1
+}
+
+// the tree of point 3 over s[0 … 255], by one warp
+template <typename T>
+__device__ __forceinline__ T tree256(const T* s, int lane) {
+  T lo[4], hi[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    lo[q] = s[4 * lane + q];
+    hi[q] = s[kGroup / 2 + 4 * lane + q];
+  }
+  return warp_tree256(lo, hi);
+}
+
+// Lane t's sums of point 4 for dots j0 … j0+NJ−1 (those below ndots):
+// partials t, t+256, … added to 0 in order, kUnroll of each dot in
+// flight; into s[j][t].
+template <typename T, int NJ>
+__device__ __forceinline__ void lane_sums(const T* partials, int ngroups,
+                                          int ndots, int j0, int t,
+                                          T (*s)[kGroup]) {
+  T c[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) c[j] = T(0);
+  int idx = t;
+  for (; idx + (kUnroll - 1) * kGroup < ngroups; idx += kUnroll * kGroup) {
+    T v[NJ][kUnroll];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        v[j][u] = j0 + j < ndots
+                      ? __ldcg(partials + static_cast<size_t>(j0 + j) *
+                               ngroups + idx + u * kGroup)
+                      : T(0);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) c[j] = add_rn(c[j], v[j][u]);
+    }
+  }
+  for (; idx < ngroups; idx += kGroup) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j0 + j < ndots)
+        c[j] = add_rn(c[j], __ldcg(partials + static_cast<size_t>(j0 + j) *
+                                   ngroups + idx));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    if (j0 + j < ndots) s[j0 + j][t] = c[j];
+}
+
+template <typename T, int MODE, int ND>
+__device__ __forceinline__ void dots_body(const DotsArgs<T>& a) {
+  constexpr bool SUB = MODE == RESIDUAL_DOT;
+  constexpr int NDOT = MODE == SPMV_DOTS ? 3 : 1;
+  __shared__ T s_d[2][NDOT][kGroup];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  T* partials = a.scratch + a.ndots;
+
+  // groups blockIdx.x, + gridDim.x, …: a thread a row (points 1 and 2,
+  // 0 past n), then warp j sums dot j's 256 products (point 3) while the
+  // other warps go on to the next group (two buffers of products)
+  int buf = 0;
+  for (int g = blockIdx.x; g < a.ngroups; g += gridDim.x, buf ^= 1) {
+    const long long i = static_cast<long long>(g) * kGroup + t;
+    const bool interior = g >= a.lo && g < a.hi;
+    T d[NDOT];
+#pragma unroll
+    for (int j = 0; j < NDOT; ++j) d[j] = T(0);
+    if (interior || i < a.n) {
+      T xi = T(0), wi = T(0);
+      T acc = SUB ? __ldg(a.f + i) : T(0);
+      if constexpr (MODE == SPMV_DOTS) {
+        xi = __ldg(a.x + i);
+        if (a.ndots == 3) wi = __ldg(a.w + i);
+      }
+      acc = interior ? row_value<T, SUB, false, ND>(a, i, acc)
+                     : row_value<T, SUB, true, ND>(a, i, acc);
+      a.y[i] = acc;
+      d[0] = mul_rn(acc, acc);
+      if constexpr (MODE == SPMV_DOTS) {
+        d[1] = mul_rn(acc, xi);
+        if (a.ndots == 3) d[2] = mul_rn(acc, wi);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NDOT; ++j) s_d[buf][j][t] = d[j];
+    __syncthreads();
+    if (warp < a.ndots) {
+      const T p = tree256(s_d[buf][warp], lane);
+      if (lane == 0) partials[static_cast<size_t>(warp) * a.ngroups + g] = p;
+    }
+  }
+  if (warp < a.ndots && lane == 0) __threadfence();
+
+  // point 4, in the last block to finish
+  __shared__ bool s_last;
+  __syncthreads();
+  if (t == 0)
+    s_last = atomicInc(a.ticket, gridDim.x - 1) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // lane t of 256: every dot's partials in flight together at the
+  // stencil, one dot's at a time in the batched body, whose registers
+  // are capped
+  if constexpr (ND > 0) {
+    lane_sums<T, NDOT>(partials, a.ngroups, a.ndots, 0, t, s_d[0]);
+  } else {
+#pragma unroll 1
+    for (int j = 0; j < a.ndots; ++j)
+      lane_sums<T, 1>(partials, a.ngroups, a.ndots, j, t, s_d[0]);
+  }
+  __syncthreads();
+  if (warp < a.ndots) {
+    const T s = tree256(s_d[0][warp], lane);
+    if (lane == 0) a.scratch[warp] = s;
+  }
+}
+
+// The stencil's instantiation (ND 7) takes the registers ptxas gives it;
+// the batched one (ND 0) is capped at 32 in float32 and 64 in float64, so
+// that a 33-diagonal level's 1,024 groups fit on the card at once
+// (PERF.md §6).
+template <typename T, int MODE, int ND>
+__global__ void __launch_bounds__(kGroup)
+dots_kernel(const __grid_constant__ DotsArgs<T> a) {
+  dots_body<T, MODE, ND>(a);
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kGroup, sizeof(T) == 4 ? 8 : 4)
+dots_kernel_batched(const __grid_constant__ DotsArgs<T> a) {
+  dots_body<T, MODE, 0>(a);
+}
+
+// blocks that fit on the card at once: the kernel's grid (at most one per
+// group), so each block walks its groups and fences and takes a ticket
+// once
+template <typename T, int MODE, int ND>
+int dots_slots() {
+  static const int slots = [] {
+    int dev = 0, sms = 0, per = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if constexpr (ND > 0)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, dots_kernel<T, MODE, ND>, kGroup, 0);
+    else
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, dots_kernel_batched<T, MODE>, kGroup, 0);
+    return sms * per > 0 ? sms * per : 1;
+  }();
+  return slots;
+}
+
+template <typename T, int MODE, int ND>
+cudaError_t launch_dots(const DotsArgs<T>& a, cudaStream_t s) {
+  const int slots = dots_slots<T, MODE, ND>();
+  const int grid = a.ngroups < slots ? a.ngroups : slots;
+  if constexpr (ND > 0)
+    dots_kernel<T, MODE, ND><<<grid, kGroup, 0, s>>>(a);
+  else
+    dots_kernel_batched<T, MODE><<<grid, kGroup, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+// Refuses a group count other than ceil(n / 256), or an interior group
+// with a row past n or a term outside [0, m).
+template <typename T>
+cudaError_t run_dots(int mode, long long n, long long m, int ndiag,
+                     const int* offsets, const T* data, const T* x,
+                     const T* f, const T* w, T* y, T* scratch,
+                     unsigned int* ticket, int ngroups, int lo, int hi,
+                     cudaStream_t s) {
+  if ((mode != SPMV_DOTS && mode != RESIDUAL_DOT) || ndiag < 0 ||
+      ndiag > kMaxDiag || n < 1 || m != n || ticket == nullptr ||
+      ngroups != (n + kGroup - 1) / kGroup ||
+      (mode == RESIDUAL_DOT && f == nullptr) || lo < 0 || hi > ngroups)
+    return cudaErrorInvalidValue;
+  DotsArgs<T> a;
+  a.n = n;
+  a.m = m;
+  a.ndiag = ndiag;
+  a.ndots = mode == RESIDUAL_DOT ? 1 : (w != nullptr ? 3 : 2);
+  a.ngroups = ngroups;
+  a.lo = lo;
+  a.hi = hi > lo ? hi : lo;
+  a.data = data;
+  a.x = x;
+  a.f = f;
+  a.w = w;
+  a.y = y;
+  a.scratch = scratch;
+  a.ticket = ticket;
+  int omin = 0, omax = 0;
+  for (int k = 0; k < ndiag; ++k) {
+    a.off[k] = offsets[k];
+    omin = k ? (offsets[k] < omin ? offsets[k] : omin) : offsets[k];
+    omax = k ? (offsets[k] > omax ? offsets[k] : omax) : offsets[k];
+  }
+  if (a.hi > a.lo) {
+    const long long first = static_cast<long long>(a.lo) * kGroup;
+    const long long end = static_cast<long long>(a.hi) * kGroup;
+    if (end > n || first + omin < 0 || end + omax > m)
+      return cudaErrorInvalidValue;
+  }
+  const bool stencil = ndiag == kStencilDiag;
+  if (mode == SPMV_DOTS)
+    return stencil ? launch_dots<T, SPMV_DOTS, kStencilDiag>(a, s)
+                   : launch_dots<T, SPMV_DOTS, 0>(a, s);
+  return stencil ? launch_dots<T, RESIDUAL_DOT, kStencilDiag>(a, s)
+                 : launch_dots<T, RESIDUAL_DOT, 0>(a, s);
+}
+
 }  // namespace
 }  // namespace amgcl_port
 
-// dtype: 0 = float32, 1 = float64. `f` is read by the residual-shaped
-// modes, `w` by CORRECTION (scale) and optionally SPMV_DOTS (third dot).
-// `partials` holds nblocks * ndots values and `dots` ndots values of the
-// data type (ndots = 3 for SPMV_DOTS, 1 for RESIDUAL_DOT). Returns the
-// cudaError_t of the launches.
+// dtype: 0 = float32, 1 = float64. Modes SPMV, RESIDUAL, CORRECTION: `f`
+// is read by the residual-shaped modes, `w` by CORRECTION (scale).
+// Returns the cudaError_t of the launch.
 extern "C" int amgcl_dia(int dtype, int mode, long long n, long long m,
                          int ndiag, const void* offsets, const void* data,
                          const void* x, const void* f, const void* w,
-                         void* y, void* partials, void* dots, int nblocks,
-                         void* stream) {
+                         void* y, int nblocks, void* stream) {
   using namespace amgcl_port;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(offsets);
@@ -137,17 +445,50 @@ extern "C" int amgcl_dia(int dtype, int mode, long long n, long long m,
                       static_cast<const float*>(x),
                       static_cast<const float*>(f),
                       static_cast<const float*>(w), static_cast<float*>(y),
-                      static_cast<float*>(partials),
-                      static_cast<float*>(dots), nblocks, s);
+                      nblocks, s);
   if (dtype == 1)
     return run<double>(mode, n, m, ndiag, off,
                        static_cast<const double*>(data),
                        static_cast<const double*>(x),
                        static_cast<const double*>(f),
                        static_cast<const double*>(w),
-                       static_cast<double*>(y),
-                       static_cast<double*>(partials),
-                       static_cast<double*>(dots), nblocks, s);
+                       static_cast<double*>(y), nblocks, s);
+  return cudaErrorInvalidValue;
+}
+
+// Modes SPMV_DOTS (`w` optional: the third dot) and RESIDUAL_DOT (`f`),
+// square operators. `offsets` are host ints. `scratch` holds ndots dots
+// then ndots × ceil(n / 256) partials of the data type (ndots = 3 for
+// SPMV_DOTS with w, 2 without, 1 for RESIDUAL_DOT); `ticket` is a device
+// counter at 0, left at 0. ngroups = ceil(n / 256); groups [lo, hi) run
+// unchecked. Returns the cudaError_t of the launch, or
+// cudaErrorInvalidValue, launching nothing, for a geometry it refuses.
+extern "C" int amgcl_dia_dots(int dtype, int mode, long long n, long long m,
+                              int ndiag, const int* offsets, const void* data,
+                              const void* x, const void* f, const void* w,
+                              void* y, void* scratch, void* ticket,
+                              int ngroups, int lo, int hi, void* stream) {
+  using namespace amgcl_port;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned int* tk = static_cast<unsigned int*>(ticket);
+  if (dtype == 0)
+    return run_dots<float>(mode, n, m, ndiag, offsets,
+                           static_cast<const float*>(data),
+                           static_cast<const float*>(x),
+                           static_cast<const float*>(f),
+                           static_cast<const float*>(w),
+                           static_cast<float*>(y),
+                           static_cast<float*>(scratch), tk, ngroups, lo, hi,
+                           s);
+  if (dtype == 1)
+    return run_dots<double>(mode, n, m, ndiag, offsets,
+                            static_cast<const double*>(data),
+                            static_cast<const double*>(x),
+                            static_cast<const double*>(f),
+                            static_cast<const double*>(w),
+                            static_cast<double*>(y),
+                            static_cast<double*>(scratch), tk, ngroups, lo,
+                            hi, s);
   return cudaErrorInvalidValue;
 }
 

@@ -85,9 +85,13 @@ def _build(target: Path) -> None:
 
 def _bind(lib) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.amgcl_dia.argtypes = [i32, i32, i64, i64, i32] + [vp] * 8 \
+    ip = ctypes.POINTER(i32)
+    lib.amgcl_dia.argtypes = [i32, i32, i64, i64, i32] + [vp] * 6 \
         + [i32, vp]
     lib.amgcl_dia.restype = i32
+    lib.amgcl_dia_dots.argtypes = [i32, i32, i64, i64, i32, ip] \
+        + [vp] * 7 + [i32, i32, i32, vp]
+    lib.amgcl_dia_dots.restype = i32
     lib.amgcl_xr.argtypes = [i32, i64] + [vp] * 9 + [i32, vp]
     lib.amgcl_xr.restype = i32
     lib.amgcl_bicg_tail.argtypes = [i32, i64] + [vp] * 12 + [i32, vp]
@@ -103,7 +107,6 @@ def _bind(lib) -> None:
     lib.amgcl_gather_spmv.argtypes = [i32, i32, i64, i64, i32] + [vp] * 5 \
         + [vp]
     lib.amgcl_gather_spmv.restype = i32
-    ip = ctypes.POINTER(i32)
     lib.amgcl_fused_down.argtypes = [i32] * 8 + [ip, ip] + [i32] * 4 \
         + [ip] + [vp] * 8 + [vp]
     lib.amgcl_fused_down.restype = i32

@@ -322,7 +322,7 @@ def spmv_dots(A, x, w=None):
     ``mv`` and the dots, as the JAX package does."""
     if A.shape[0] == A.shape[1]:
         if isinstance(A, DiaMatrix):
-            return dk.dia_spmv_dots(A.offsets_t, A.data, x, w)
+            return dk.dia_spmv_dots(A.offsets, A.data, x, w)
         if isinstance(A, WindowedEllMatrix) and A.block[0] == A.block[1]:
             fn = wk.windowed_ell_spmv_dots if A.block == (1, 1) \
                 else wbk.windowed_ell_block_spmv_dots

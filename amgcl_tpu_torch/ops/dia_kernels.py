@@ -13,18 +13,30 @@ CUDA tensors it checks device, dtype, shape and contiguity and launches
 the kernel, or raises. ``<wrapper>.launches`` counts kernel launches and
 ``<plain>.calls`` counts plain-version calls, so a run can show which
 path it took.
+
+The dot kernels (``dia_spmv_dots``, ``dia_residual_dot``) take their
+offsets as kernel parameters: pass them as host ints (a tuple, as
+``DiaMatrix.offsets``); a tensor is copied to the host at each call.
+They sum their dots in one fixed order, :func:`ordered_dot`, and run as
+one launch whose geometry is :func:`launch_geometry`.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from amgcl_tpu_torch.ops import cuda_lib
 
 _SPMV, _RESIDUAL, _CORRECTION, _SPMV_DOTS, _RESIDUAL_DOT = range(5)
-_NDOTS = {_SPMV_DOTS: 3, _RESIDUAL_DOT: 1}
 MAX_DIAG = 512
 _BLOCK = 256
+#: rows of one partial of the dot kernels, and of one block's step
+GROUP = 256
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 
@@ -40,7 +52,7 @@ def _dia_product(offsets, data, x, y, sign):
     """y += sign · A x over the in-range part of each diagonal, in
     diagonal order."""
     n, m = data.shape[1], x.shape[0]
-    for k, d in enumerate(offsets.tolist()):
+    for k, d in enumerate(host_offsets(offsets)):
         lo, hi = max(0, -d), min(n, m - d)
         if hi > lo:
             t = data[k, lo:hi] * x[lo + d:hi + d]
@@ -107,6 +119,31 @@ for _fn in (dia_spmv_plain, dia_residual_plain, dia_scaled_correction_plain,
 
 # -- kernel launch ------------------------------------------------------------
 
+def host_offsets(offsets):
+    """Offsets as a tuple of ints: a tensor's are copied to the host (a
+    sync on the card), so a hot path passes a tuple (taken as it is)."""
+    if isinstance(offsets, torch.Tensor):
+        return tuple(offsets.tolist())
+    if type(offsets) is tuple:
+        return offsets
+    return tuple(int(o) for o in offsets)
+
+
+def c_ints(values):
+    """The ctypes int array of a sequence of ints, made once per tuple of
+    them (the C entries only read it): a warm solve launches with the
+    same offsets again and again."""
+    return _c_array(tuple(values))
+
+
+@functools.lru_cache(maxsize=512)
+def _c_array(values):
+    if any(not -2 ** 31 <= v < 2 ** 31 for v in values):
+        # ctypes would wrap the value silently
+        raise ValueError("values outside int32: %s" % (values,))
+    return (ctypes.c_int * len(values))(*values)
+
+
 def offsets_on(offsets, device):
     """The int32 tensor of the host ints ``offsets`` on ``device``, made
     once per (offsets, device): callers that keep offsets on the host
@@ -132,9 +169,8 @@ def _check_vec(name, v, n, ref):
                        v.dtype, v.device))
 
 
-def _launch(mode, offsets, data, x, f=None, w=None):
-    """Validate the operands and launch one dia.cu kernel; returns
-    (y, dots) with dots an (ndots,) tensor or None."""
+def _check_operands(data, x, f, w):
+    """Validate data, x and the optional f and w; returns (ndiag, n, m)."""
     if data.device.type != "cuda":
         raise ValueError("DIA kernels run on CUDA tensors, got data on %s"
                          % data.device)
@@ -147,10 +183,6 @@ def _launch(mode, offsets, data, x, f=None, w=None):
     if ndiag > MAX_DIAG:
         raise ValueError("%d diagonals exceed the kernel's limit of %d"
                          % (ndiag, MAX_DIAG))
-    if offsets.device != data.device or offsets.dtype != torch.int32 \
-            or offsets.shape != (ndiag,) or not offsets.is_contiguous():
-        raise ValueError("offsets must be a contiguous (%d,) int32 tensor "
-                         "on %s" % (ndiag, data.device))
     if x.dim() != 1:
         raise ValueError("x must be a vector, got shape %s"
                          % (tuple(x.shape),))
@@ -160,29 +192,135 @@ def _launch(mode, offsets, data, x, f=None, w=None):
         _check_vec("f", f, n, data)
     if w is not None:
         _check_vec("w", w, n, data)
-    if mode in (_CORRECTION, _SPMV_DOTS, _RESIDUAL_DOT) and m != n:
+    return ndiag, n, m
+
+
+def _launch(mode, offsets, data, x, f=None, w=None):
+    """Validate the operands and launch dia.cu's dia_kernel (SPMV,
+    RESIDUAL, CORRECTION); returns y."""
+    ndiag, n, m = _check_operands(data, x, f, w)
+    if offsets.device != data.device or offsets.dtype != torch.int32 \
+            or offsets.shape != (ndiag,) or not offsets.is_contiguous():
+        raise ValueError("offsets must be a contiguous (%d,) int32 tensor "
+                         "on %s" % (ndiag, data.device))
+    if mode == _CORRECTION and m != n:
         raise ValueError("this DIA kernel needs a square operator, got "
                          "%d x %d" % (n, m))
     y = torch.empty(n, dtype=data.dtype, device=data.device)
-    ndots = _NDOTS.get(mode, 0)
     if n == 0:
-        return y, (torch.zeros(ndots, dtype=data.dtype, device=data.device)
-                   if ndots else None)
-    # the reduction kernel writes every dot
-    dots = torch.empty(ndots, dtype=data.dtype, device=data.device) \
-        if ndots else None
-    nblocks = -(-n // _BLOCK)
-    partials = torch.empty(nblocks * ndots, dtype=data.dtype,
-                           device=data.device) if ndots else None
+        return y
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = cuda_lib.lib().amgcl_dia(
             _DTYPE_CODE[data.dtype], mode, n, m, ndiag, offsets.data_ptr(),
             data.data_ptr(), x.data_ptr(), ptr(f), ptr(w), y.data_ptr(),
-            ptr(partials), ptr(dots), nblocks, stream)
+            -(-n // _BLOCK), stream)
     cuda_lib.check(rc, "dia mode %d" % mode)
-    return y, dots
+    return y
+
+
+class Geometry(NamedTuple):
+    """The dot kernels' launch: ``groups`` of GROUP rows (one partial a
+    dot each), groups [lo, hi) interior."""
+    groups: int
+    lo: int
+    hi: int
+
+
+def launch_geometry(n, m, offsets):
+    """The groups of the dot kernels over ``n`` rows of an operator with
+    ``m`` columns and these host offsets: ceil(n / GROUP), a thread a row
+    (the kernel's blocks walk them, as many blocks as fit on the card).
+    Groups [lo, hi) are interior: each of their rows is below n and each
+    term's column ``i + offset`` lies in [0, m), so they run without a
+    bounds test (an empty range is (0, 0))."""
+    groups = -(-int(n) // GROUP)
+    below = max([0] + [-o for o in offsets])
+    above = max([0] + list(offsets))
+    lo = -(-below // GROUP)
+    hi = max(0, min(n, m - above)) // GROUP
+    if hi <= lo:
+        lo = hi = 0
+    return Geometry(groups, lo, hi)
+
+
+def _ticket(device, stream):
+    """The dot kernels' ticket for launches on ``stream``: one zeroed
+    counter per (device, stream), made once on that stream and left at 0
+    by every launch, so two launches in flight on two streams never share
+    one."""
+    key = (device, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
+
+
+_TICKETS = {}
+
+
+def _launch_dots(mode, offsets, data, x, f=None, w=None):
+    """Validate the operands and launch dia.cu's dots_kernel (SPMV_DOTS,
+    RESIDUAL_DOT) once; returns (y, dots), dots an (ndots,) tensor of its
+    own allocation (3 with w, 2 without, 1 for RESIDUAL_DOT)."""
+    ndiag, n, m = _check_operands(data, x, f, w)
+    offs = host_offsets(offsets)
+    if len(offs) != ndiag:
+        raise ValueError("%d offsets for %d diagonals" % (len(offs), ndiag))
+    if m != n:
+        raise ValueError("this DIA kernel needs a square operator, got "
+                         "%d x %d" % (n, m))
+    ndots = 1 if mode == _RESIDUAL_DOT else (2 if w is None else 3)
+    y = torch.empty(n, dtype=data.dtype, device=data.device)
+    if n == 0:
+        return y, torch.zeros(ndots, dtype=data.dtype, device=data.device)
+    geo = launch_geometry(n, m, offs)
+    # the dots, then the partials: the kernel writes every entry
+    scratch = torch.empty(ndots * (1 + geo.groups), dtype=data.dtype,
+                          device=data.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ticket = _ticket(data.device, stream)
+        rc = cuda_lib.lib().amgcl_dia_dots(
+            _DTYPE_CODE[data.dtype], mode, n, m, ndiag, c_ints(offs),
+            data.data_ptr(), x.data_ptr(), ptr(f), ptr(w), y.data_ptr(),
+            scratch.data_ptr(), ticket.data_ptr(), geo.groups, geo.lo,
+            geo.hi, stream)
+    cuda_lib.check(rc, "dia dots mode %d" % mode)
+    return y, scratch[:ndots]
+
+
+# -- the dot kernels' order ---------------------------------------------------
+
+def _tree(s):
+    """Pairwise sums s[:, t] += s[:, t + stride] for stride = 128 … 1
+    over the rows of a (k, 256) array; returns the (k,) sums."""
+    while s.shape[1] > 1:
+        half = s.shape[1] // 2
+        s = s[:, :half] + s[:, half:]
+    return s[:, 0]
+
+
+def ordered_dot(a, b):
+    """⟨a, b⟩ in numpy at a's type, summed in the dot kernels' order:
+    the products a_i b_i, each rounded; per group of GROUP rows (rows past
+    the end give 0) the tree of :func:`_tree`; then lane t of 256 adds
+    partials t, t + 256, … to 0 in that order, and the same tree over the
+    256 lanes. Numpy rounds each float32 or float64 operation as the card
+    does, so on the kernel's own y this gives its dots bit for bit."""
+    a, b = np.asarray(a), np.asarray(b)
+    n = a.shape[0]
+    groups = -(-n // GROUP)
+    p = np.zeros(groups * GROUP, a.dtype)
+    p[:n] = a * b
+    part = _tree(p.reshape(groups, GROUP))
+    lanes = np.zeros(256, a.dtype)
+    for r in range(0, groups, 256):
+        chunk = part[r:r + 256]
+        lanes[:chunk.shape[0]] += chunk
+    return _tree(lanes.reshape(1, 256))[0]
 
 
 # -- wrappers -----------------------------------------------------------------
@@ -191,7 +329,7 @@ def dia_spmv(offsets, data, x):
     """y = A x (square or rectangular)."""
     if x.device.type == "cpu":
         return dia_spmv_plain(offsets, data, x)
-    y, _ = _launch(_SPMV, offsets, data, x)
+    y = _launch(_SPMV, offsets, data, x)
     dia_spmv.launches += 1
     return y
 
@@ -200,7 +338,7 @@ def dia_residual(offsets, data, f, x):
     """r = f − A x in one pass (square or rectangular)."""
     if x.device.type == "cpu":
         return dia_residual_plain(offsets, data, f, x)
-    r, _ = _launch(_RESIDUAL, offsets, data, x, f=f)
+    r = _launch(_RESIDUAL, offsets, data, x, f=f)
     dia_residual.launches += 1
     return r
 
@@ -209,17 +347,18 @@ def dia_scaled_correction(offsets, data, w, f, x):
     """x + w ∘ (f − A x) in one pass (square operators)."""
     if x.device.type == "cpu":
         return dia_scaled_correction_plain(offsets, data, w, f, x)
-    y, _ = _launch(_CORRECTION, offsets, data, x, f=f, w=w)
+    y = _launch(_CORRECTION, offsets, data, x, f=f, w=w)
     dia_scaled_correction.launches += 1
     return y
 
 
 def dia_spmv_dots(offsets, data, x, w=None):
-    """(y, ⟨y,y⟩, ⟨y,x⟩, ⟨y,w⟩) in one pass, y = A x; the dots are 0-d
-    tensors on the device (⟨y,w⟩ is None without w). Square operators."""
+    """(y, ⟨y,y⟩, ⟨y,x⟩, ⟨y,w⟩) in one launch, y = A x; the dots are 0-d
+    tensors on the device (⟨y,w⟩ is None without w). Square operators;
+    offsets as host ints or an int32 tensor (copied to the host)."""
     if x.device.type == "cpu":
         return dia_spmv_dots_plain(offsets, data, x, w)
-    y, dots = _launch(_SPMV_DOTS, offsets, data, x, w=w)
+    y, dots = _launch_dots(_SPMV_DOTS, offsets, data, x, w=w)
     dia_spmv_dots.launches += 1
     return y, dots[0], dots[1], (None if w is None else dots[2])
 
@@ -231,10 +370,11 @@ def dia_spmv_dot(offsets, data, x):
 
 
 def dia_residual_dot(offsets, data, f, x):
-    """(r, ⟨r, r⟩) with r = f − A x in one pass. Square operators."""
+    """(r, ⟨r, r⟩) with r = f − A x in one launch. Square operators;
+    offsets as for dia_spmv_dots."""
     if x.device.type == "cpu":
         return dia_residual_dot_plain(offsets, data, f, x)
-    r, dots = _launch(_RESIDUAL_DOT, offsets, data, x, f=f)
+    r, dots = _launch_dots(_RESIDUAL_DOT, offsets, data, x, f=f)
     dia_residual_dot.launches += 1
     return r, dots[0]
 

@@ -188,6 +188,6 @@ def residual_dot(f, A, x):
     """``(r, ⟨r, r⟩)`` with ``r = f − A x``: one kernel pass for square DIA
     operators, the residual seam plus a dot elsewhere."""
     if isinstance(A, dev.DiaMatrix) and A.shape[0] == A.shape[1]:
-        return dia_residual_dot(A.offsets_t, A.data, f, x)
+        return dia_residual_dot(A.offsets, A.data, f, x)
     r = dev.residual(f, A, x)
     return r, dev.inner_product(r, r)

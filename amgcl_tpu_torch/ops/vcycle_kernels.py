@@ -40,7 +40,6 @@ launches and ``<plain>.calls`` plain-version calls.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import itertools
 from typing import NamedTuple
@@ -393,28 +392,6 @@ def _check_leg(dims, ref, operators, vectors, ncols=None):
     return n, nc
 
 
-def _host_offsets(offsets):
-    """Offsets as a tuple of ints: a tensor's are copied to the host (a
-    sync on the card), so a hot path passes a tuple (taken as it is)."""
-    if isinstance(offsets, torch.Tensor):
-        return tuple(offsets.tolist())
-    if type(offsets) is tuple:
-        return offsets
-    return tuple(int(o) for o in offsets)
-
-
-def _c_ints(values):
-    """The ctypes int array of a sequence of ints, made once per tuple of
-    them (the C entries only read it): a warm solve launches the legs
-    with the same offsets and halos again and again."""
-    return _c_array(tuple(values))
-
-
-@functools.lru_cache(maxsize=512)
-def _c_array(values):
-    return (ctypes.c_int * len(values))(*values)
-
-
 def _launch_down(oa_host, om_host, oa, a_data, om, mt_data, f, u, dims,
                  H, L, zero_guess, tile, what):
     """Launch down_kernel on the checked operands over ``tile``
@@ -432,8 +409,8 @@ def _launch_down(oa_host, om_host, oa, a_data, om, mt_data, f, u, dims,
         stream = torch.cuda.current_stream().cuda_stream
         rcode = cuda_lib.lib().amgcl_fused_down(
             int(bool(zero_guess)), *dims, H, L, len(oa_host), len(om_host),
-            _c_ints(oa_host), _c_ints(om_host), tile.tz, tile.ty, tile.cz,
-            tile.cy, _c_ints(tile.halo + tile.ahalo), oa.data_ptr(),
+            dk.c_ints(oa_host), dk.c_ints(om_host), tile.tz, tile.ty, tile.cz,
+            tile.cy, dk.c_ints(tile.halo + tile.ahalo), oa.data_ptr(),
             a_data.data_ptr(), om.data_ptr(), mt_data.data_ptr(),
             f.data_ptr(), u.data_ptr(),
             None if u_out is None else u_out.data_ptr(), rc.data_ptr(),
@@ -453,7 +430,7 @@ def fused_down_sweep(a_offsets, a_data, mt_offsets, mt_data, f, u, dims,
     if f.device.type == "cpu":
         return fused_down_sweep_plain(a_offsets, a_data, mt_offsets,
                                       mt_data, f, u, dims, zero_guess)
-    oa_host, om_host = _host_offsets(a_offsets), _host_offsets(mt_offsets)
+    oa_host, om_host = dk.host_offsets(a_offsets), dk.host_offsets(mt_offsets)
     oa, om = _on(a_offsets, f.device), _on(mt_offsets, f.device)
     n, _ = _check_leg(dims, f, [("A", oa, a_data), ("Mt", om, mt_data)],
                       [("f", f, None), ("w" if zero_guess else "u", u,
@@ -478,9 +455,9 @@ def _launch_up(oa_host, om_host, oa, a_data, om, m_data, w, f, u, uc, dims,
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream().cuda_stream
         rcode = cuda_lib.lib().amgcl_fused_up(
-            *dims, zoff, fz, len(oa_host), len(om_host), _c_ints(oa_host),
-            _c_ints(om_host), tile.tz, tile.ty,
-            _c_ints(tile.halo + tile.mhalo),
+            *dims, zoff, fz, len(oa_host), len(om_host), dk.c_ints(oa_host),
+            dk.c_ints(om_host), tile.tz, tile.ty,
+            dk.c_ints(tile.halo + tile.mhalo),
             oa.data_ptr(), a_data.data_ptr(), om.data_ptr(),
             m_data.data_ptr(), w.data_ptr(), f.data_ptr(), u.data_ptr(),
             uc.data_ptr(), out.data_ptr(), stream)
@@ -497,7 +474,7 @@ def fused_up_sweep(a_offsets, a_data, m_offsets, m_data, w, f, u, uc, dims):
     if f.device.type == "cpu":
         return fused_up_sweep_plain(a_offsets, a_data, m_offsets, m_data, w,
                                     f, u, uc, dims)
-    oa_host, om_host = _host_offsets(a_offsets), _host_offsets(m_offsets)
+    oa_host, om_host = dk.host_offsets(a_offsets), dk.host_offsets(m_offsets)
     oa, om = _on(a_offsets, f.device), _on(m_offsets, f.device)
     c2, c1, c0 = coarse_dims(dims)
     n, _ = _check_leg(dims, f, [("A", oa, a_data), ("M", om, m_data)],
@@ -544,7 +521,7 @@ def fused_down_sweep_framed(a_offsets, a_frame, mt_offsets, mt_frame, f, u,
     dims, n = _check_frame(dims, _reach(a_offsets) + _reach(mt_offsets), H,
                            "the halo H")
     L = n + 2 * H
-    oa_host, om_host = _host_offsets(a_offsets), _host_offsets(mt_offsets)
+    oa_host, om_host = dk.host_offsets(a_offsets), dk.host_offsets(mt_offsets)
     oa = dk.offsets_on(oa_host, f.device)
     om = dk.offsets_on(om_host, f.device)
     _check_leg(dims, f, [("A", oa, a_frame), ("Mt", om, mt_frame)],
@@ -578,7 +555,7 @@ def fused_up_sweep_framed(a_offsets, a_data, m_offsets, m_frame, w, f, u, uc,
         raise ValueError("the framed up leg needs at least one halo plane")
     Lm = n + 2 * hp * s2
     c2, c1, c0 = coarse_dims(dims)
-    oa_host, om_host = _host_offsets(a_offsets), _host_offsets(m_offsets)
+    oa_host, om_host = dk.host_offsets(a_offsets), dk.host_offsets(m_offsets)
     oa = dk.offsets_on(oa_host, f.device)
     om = dk.offsets_on(om_host, f.device)
     _check_leg(dims, f, [("A", oa, a_data)],

@@ -622,6 +622,22 @@ def compare_and_time(name, kern, plain, args, rtol, scale, dot_terms, lib,
             "bound_by": b_by}
 
 
+def ordered_dots_hold(kern, args, x):
+    """Whether a DIA dot kernel's dots equal, bit for bit, the first
+    design's summation order (``dia_kernels.ordered_dot``) applied to its
+    own output y (or r) and x."""
+    from amgcl_tpu_torch.ops import dia_kernels as dk
+    out = kern(*args)
+    y = out[0].cpu().numpy()
+    pairs = [(out[1], y)] + ([(out[2], x.cpu().numpy())]
+                             if len(out) > 2 else [])
+    ok = all(float(d).hex() == float(dk.ordered_dot(y, b)).hex()
+             for d, b in pairs)
+    print("%-22s dots bit for bit with the first design's order: %s"
+          % (kern.__name__, "ok" if ok else "FAIL"))
+    return ok
+
+
 def check_kernels(solve, failures):
     from amgcl_tpu_torch.ops import device as dev
     hier = solve.precond.hierarchy
@@ -686,12 +702,13 @@ def check_kernels(solve, failures):
             nbytes, ops = (M.data.numel() + m + 3 * n) * s, 2 * live + 2 * n
             scale = float((w.abs() * (ax + f.abs()) + x.abs()).max())
         elif name == "dia_spmv_dots":
-            args = (off, M.data, x)
+            # host offsets, as the main path passes them
+            args = (M.offsets, M.data, x)
             nbytes, ops = (M.data.numel() + m + n) * s, 2 * live + 4 * n
             scale = float(ax.max())
             dots = lambda want: [(1, want[0], want[0]), (2, want[0], x)]
         elif name == "dia_residual_dot":
-            args = (off, M.data, f, x)
+            args = (M.offsets, M.data, f, x)
             nbytes, ops = (M.data.numel() + m + 2 * n) * s, 2 * live + 2 * n
             dots = lambda want: [(1, want[0], want[0])]
         else:                                       # xr_update
@@ -715,6 +732,10 @@ def check_kernels(solve, failures):
         if not r["ok"]:
             failures.append("%s %s disagrees with its plain version"
                             % (name, label))
+        if name in ("dia_spmv_dots", "dia_residual_dot") \
+                and not ordered_dots_hold(kern, args, x):
+            failures.append("%s %s: dots differ from the first design's "
+                            "order on its own output" % (name, label))
         if name not in records:      # the first case is the L0 shape
             records[name] = {k: r[k] for k in RECORD_KEYS}
             records[name]["shape"] = (

@@ -1,9 +1,9 @@
-"""Time the windowed-ELL (scalar and block), dense-window and fused
-down- and up-leg kernels of one checkout of amgcl_tpu_torch at the shapes
-of their chip_smoke.py records, so that two checkouts can be compared
-inside one run on one card.
+"""Time the windowed-ELL (scalar and block), dense-window, fused
+down- and up-leg and DIA kernels of one checkout of amgcl_tpu_torch at
+the shapes of their chip_smoke.py records, so that two checkouts can be
+compared inside one run on one card.
 
-    python3 kernel_ab.py TREE LABEL [--sweep] [--legs]
+    python3 kernel_ab.py TREE LABEL [--sweep] [--legs] [--dia] [--solve]
 
 imports ``amgcl_tpu_torch`` from the directory TREE (a checkout, or an
 unpacked ``git archive`` of one), builds its kernels there, and prints
@@ -33,7 +33,13 @@ digest equals the planner's tile's; with ``--legs`` it times the fused
 legs alone; with ``--solve`` it also times the two paths that run the
 fused legs, the main path and S1, as chip_smoke.py builds them: the
 median host-clock time of 7 warm solves, each synchronised, with the
-iterations. Needs a CUDA card.
+iterations. With ``--dia`` it times, alone, every mode of the DIA
+kernels (``dia_spmv``, ``dia_residual``, ``dia_scaled_correction``,
+``dia_spmv_dots`` with and without w, ``dia_residual_dot``) with a
+digest each (dots included) at the main path's L0 in float32 and
+float64 and L1 in float32, at 70,000 rows of 8 diagonals and at a
+ragged 1,000 rows of 5, on random operators of those offsets. Needs a
+CUDA card.
 """
 
 import hashlib
@@ -218,6 +224,43 @@ def _sweep_down(out, key, offs, a, mt, f, x, dims, H, L, zero):
     out[key + " sweep"] = res
 
 
+def dia_cases(out, host_offsets):
+    """Every DIA kernel mode at the main path's L0 (float32 and float64)
+    and L1, at 70,000 rows of 8 diagonals and at 1,000 rows of 5 (both
+    dtypes), each timed with its output's digest. A tree whose dot
+    kernels take host offsets gets them so, an earlier one the tensor."""
+    from amgcl_tpu_torch.ops import dia_kernels as dk
+    rng = np.random.RandomState(12)
+    f32, f64 = torch.float32, torch.float64
+    for label, offs, n, dtypes in (
+            ("main L0", _stencil_offsets((128, 128, 128), 0), 1 << 21,
+             (f32, f64)),
+            ("main L1", _stencil_offsets((64, 64, 64), 1), 1 << 18, (f32,)),
+            ("batched", [-4096, -64, -3, -1, 0, 2, 64, 4096], 70000,
+             (f32, f64)),
+            ("ragged", [-37, -1, 0, 2, 40], 1000, (f32, f64))):
+        for dt in dtypes:
+            cuda = lambda a: torch.as_tensor(a).to(device="cuda", dtype=dt)
+            data = cuda(rng.standard_normal((len(offs), n)))
+            x, f = cuda(rng.standard_normal(n)), cuda(rng.standard_normal(n))
+            w = cuda(rng.rand(n))
+            o = torch.tensor(offs, dtype=torch.int32, device="cuda")
+            oh = tuple(offs) if host_offsets else o
+            key = "dia %s %s" % (label, str(dt).split(".")[-1])
+            for mode, fn in (
+                    ("spmv", lambda: dk.dia_spmv(o, data, x)),
+                    ("residual", lambda: dk.dia_residual(o, data, f, x)),
+                    ("correction",
+                     lambda: dk.dia_scaled_correction(o, data, w, f, x)),
+                    ("spmv_dots w", lambda: dk.dia_spmv_dots(oh, data, x, w)),
+                    ("spmv_dots", lambda: dk.dia_spmv_dots(oh, data, x)),
+                    ("residual_dot",
+                     lambda: dk.dia_residual_dot(oh, data, f, x))):
+                out["%s %s digest" % (key, mode)] = digest(fn())
+                out["%s %s" % (key, mode)] = time_ms(fn)
+            del data
+
+
 def _warm(fn, n=7):
     """(iterations, median ms) of n warm solves after two more."""
     fn()
@@ -247,7 +290,7 @@ def solve_cases(out):
     out["S1 iters"], out["S1 warm ms"] = _warm(lambda: s(rhs))
 
 
-def main(tree, label, sweep=False, legs=False, solve=False):
+def main(tree, label, sweep=False, legs=False, solve=False, dia=False):
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -261,13 +304,17 @@ def main(tree, label, sweep=False, legs=False, solve=False):
     t0 = time.perf_counter()
     cuda_lib.lib()
     out = {"tree": label, "build_s": round(time.perf_counter() - t0, 2)}
-    if not legs:
-        other_cases(out)
-    # a tree whose legs plan their tile on the host takes the offsets as
-    # ints; an earlier one as device tensors
-    up_cases(out, np.random.RandomState(10), hasattr(vk, "up_tile"))
-    down_cases(out, np.random.RandomState(11), hasattr(vk, "down_tile"),
-               sweep)
+    if dia:
+        from amgcl_tpu_torch.ops import dia_kernels as dk
+        dia_cases(out, hasattr(dk, "launch_geometry"))
+    else:
+        if not legs:
+            other_cases(out)
+        # a tree whose legs plan their tile on the host takes the offsets
+        # as ints; an earlier one as device tensors
+        up_cases(out, np.random.RandomState(10), hasattr(vk, "up_tile"))
+        down_cases(out, np.random.RandomState(11), hasattr(vk, "down_tile"),
+                   sweep)
     if solve:
         solve_cases(out)
     print("AB " + json.dumps(out))
@@ -321,4 +368,5 @@ def other_cases(out):
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1], sys.argv[2], "--sweep" in sys.argv[3:],
-                  "--legs" in sys.argv[3:], "--solve" in sys.argv[3:]))
+                  "--legs" in sys.argv[3:], "--solve" in sys.argv[3:],
+                  "--dia" in sys.argv[3:]))

@@ -21,6 +21,10 @@ counts that are no multiple of 64, rectangular operators, blocks packed
 on the card, and the staged x window in one chunk, in several with a
 ragged last one and as wide as the reference's 10 MiB rule admits in
 both dtypes.
+The DIA dot kernels' dots bit for bit with the first design's summation
+order (``dia_kernels.ordered_dot``) on their own output, from 1 to
+300,000 rows and at 512 diagonals, with and without interior groups; two
+streams at once; a call after a refused launch; one device kernel a call.
 Also the wrappers' refusals, bit-identical results from run to run, and
 small solves on the card against the same solves on the CPU. The gather
 kernel (csrc/gather.cu) at K = 4, 8, 12 and 16 with window starts that
@@ -204,6 +208,144 @@ def test_wrappers_refuse_malformed_operands(cuda, bad):
             dk.dia_residual(off, data, f, x)
     assert (dk.dia_residual.launches, dk.dia_residual_dot.launches) \
         == launches
+
+
+def _bits(t):
+    return t.detach().cpu().contiguous().numpy().tobytes()
+
+
+def _ordered(a, b):
+    return dk.ordered_dot(a.cpu().numpy(), b.cpu().numpy()).tobytes()
+
+
+#: (n, offsets) of the dot kernels' order tests: group tails past n, the
+#: 7-diagonal instantiation with interior blocks, 8 diagonals (the batched
+#: one) and the 512-diagonal limit with interior blocks
+_DOTS_CASES = [(n, (-300, -17, -1, 0, 1, 17, 300))
+               for n in (1, 255, 256, 257, 70_000, 300_000)] + [
+    (70_000, (-4096, -64, -3, -1, 0, 2, 64, 4096)),
+    (70_000, tuple(range(-256, 256))),
+    (257, tuple(range(-255, 257)))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,offsets", _DOTS_CASES)
+def test_dia_dots_follow_the_first_designs_order(cuda, monkeypatch, n,
+                                                 offsets, dtype):
+    """The dots of dia_spmv_dots (with and without w) and
+    dia_residual_dot equal, bit for bit, the first design's order
+    (dia_kernels.ordered_dot) applied to the kernel's own y (r) and x,
+    and the same calls with every block testing its terms (no interior
+    range) give the same bits."""
+    off, data, x, f, w = _dia(n, n, offsets, dtype, cuda, seed=n)
+    host = tuple(offsets)
+    launches = (dk.dia_spmv_dots.launches, dk.dia_residual_dot.launches)
+
+    def calls():
+        return [dk.dia_spmv_dots(host, data, x, w),
+                dk.dia_spmv_dots(host, data, x),
+                dk.dia_residual_dot(host, data, f, x)]
+    got = calls()
+    for (y, yy, yx, yw), ww in zip(got[:2], (w, None)):
+        assert _bits(yy) == _ordered(y, y)
+        assert _bits(yx) == _ordered(y, x)
+        if ww is None:
+            assert yw is None
+        else:
+            assert _bits(yw) == _ordered(y, ww)
+        assert all(d.dim() == 0 and d.device.type == "cuda"
+                   for d in (yy, yx) + (() if yw is None else (yw,)))
+        _close(y, dk.dia_spmv_plain(off, data, x), _scale(off, data, x, f),
+               dtype)
+    r, rr = got[2]
+    assert _bits(rr) == _ordered(r, r)
+    # a tensor of offsets (copied to the host) gives the same bits
+    assert _bits(dk.dia_residual_dot(off, data, f, x)[1]) == _bits(rr)
+    assert (dk.dia_spmv_dots.launches, dk.dia_residual_dot.launches) \
+        == (launches[0] + 2, launches[1] + 2)
+    geometry = dk.launch_geometry
+    monkeypatch.setattr(dk, "launch_geometry", lambda *args: geometry(
+        *args)._replace(lo=0, hi=0))
+    checked = calls()
+    assert [[_bits(t) for t in out if t is not None] for out in checked] \
+        == [[_bits(t) for t in out if t is not None] for out in got]
+
+
+def test_dia_dots_on_two_streams_at_once(cuda):
+    """Two streams run dia_spmv_dots (and dia_residual_dot) at the main
+    path's L0 shape at once, each several times: every call gets the bits
+    of the same call made alone (each stream has its own ticket)."""
+    n, offsets = 1 << 21, (-16384, -128, -1, 0, 1, 128, 16384)
+    ops = [_dia(n, n, offsets, torch.float32, cuda, seed=s) for s in (1, 2)]
+    alone = []
+    for off, data, x, f, w in ops:
+        alone.append([_bits(t) for t in dk.dia_spmv_dots(offsets, data, x, w)]
+                     + [_bits(t) for t in dk.dia_residual_dot(offsets, data,
+                                                               f, x)])
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(4):
+        for k, (s, (off, data, x, f, w)) in enumerate(zip(streams, ops)):
+            with torch.cuda.stream(s):
+                outs[k].append(dk.dia_spmv_dots(offsets, data, x, w)
+                               + dk.dia_residual_dot(offsets, data, f, x))
+    torch.cuda.synchronize()
+    for k in (0, 1):
+        for got in outs[k]:
+            assert [_bits(t) for t in got] == alone[k]
+
+
+@pytest.mark.parametrize("fault", ["short_groups", "wide_interior"])
+def test_dia_dots_after_a_refused_launch(cuda, monkeypatch, fault):
+    """The C entry refuses a group count one short of n, or an interior
+    range one group too wide: the wrapper raises and counts no launch,
+    and the next call gives the bits of a call made before."""
+    n, offsets = 70_000, (-300, -17, -1, 0, 1, 17, 300)
+    off, data, x, f, w = _dia(n, n, offsets, torch.float32, cuda, seed=5)
+    before = [_bits(t) for t in dk.dia_spmv_dots(offsets, data, x, w)]
+    geometry = dk.launch_geometry
+
+    def faulty(*args, **kwargs):
+        geo = geometry(*args, **kwargs)
+        if fault == "short_groups":
+            return geo._replace(groups=geo.groups - 1)
+        return geo._replace(hi=geo.hi + 1)
+    monkeypatch.setattr(dk, "launch_geometry", faulty)
+    launches = dk.dia_spmv_dots.launches
+    with pytest.raises(RuntimeError):
+        dk.dia_spmv_dots(offsets, data, x, w)
+    assert dk.dia_spmv_dots.launches == launches
+    monkeypatch.setattr(dk, "launch_geometry", geometry)
+    assert [_bits(t) for t in dk.dia_spmv_dots(offsets, data, x, w)] \
+        == before
+
+
+def test_dia_dots_are_one_kernel_a_call(cuda):
+    """A call of dia_spmv_dots and one of dia_residual_dot under one
+    torch.profiler: two device kernels in all, each a dots kernel (the
+    partials' sum runs in the grid's last block, not in a second
+    kernel), and one launch counted each."""
+    from torch.profiler import ProfilerActivity, profile
+    n, offsets = 1 << 20, (-16384, -128, -1, 0, 1, 128, 16384)
+    off, data, x, f, w = _dia(n, n, offsets, torch.float32, cuda)
+    calls = (lambda: dk.dia_spmv_dots(offsets, data, x, w),
+             lambda: dk.dia_residual_dot(offsets, data, f, x))
+    for fn in calls:            # the stream's ticket is made once, here
+        fn()
+    torch.cuda.synchronize()
+    launches = (dk.dia_spmv_dots.launches, dk.dia_residual_dot.launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 2 and all("dots_kernel" in k for k in kernels), \
+        kernels
+    assert (dk.dia_spmv_dots.launches, dk.dia_residual_dot.launches) \
+        == (launches[0] + 1, launches[1] + 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -1,6 +1,6 @@
 """Launch geometry of the windowed-ELL kernels (csrc/well_block.cu), the
-dense-window kernel (csrc/densewin.cu) and the fused legs' tiles
-(csrc/vcycle.cu), on the CPU.
+dense-window kernel (csrc/densewin.cu), the fused legs' tiles
+(csrc/vcycle.cu) and the DIA dot kernels (csrc/dia.cu), on the CPU.
 
 Each wrapper computes its grid in one small function
 (``well_kernels.launch_geometry``, ``densewin_kernels.launch_geometry``).
@@ -23,7 +23,12 @@ neighbours in box R, the A neighbours of each row of R that a block forms
 in box U, the rows a block of a cluster fetches from the block that
 formed them, and each coarse cell's children in its tile, on the main
 path's levels, S1's slabs with frames whose edges cut a grid row, and
-random offsets on odd grids. The kernels themselves run only on a card
+random offsets on odd grids. The DIA dot kernels' groups
+(``dia_kernels.launch_geometry``) by brute force over random offset
+sets, square and rectangular, at group edges: one partial per 256 rows,
+every interior group's terms in range, and no group more could be
+interior; and their summation order (``dia_kernels.ordered_dot``)
+against ``torch.dot``. The kernels themselves run only on a card
 (tests/test_torch_cuda.py).
 """
 
@@ -33,6 +38,7 @@ import torch
 
 from amgcl_tpu_torch import AMG, AMGParams, fe_like_problem
 from amgcl_tpu_torch.ops import densewin_kernels as dwk
+from amgcl_tpu_torch.ops import dia_kernels as dk
 from amgcl_tpu_torch.ops import vcycle_kernels as vk
 from amgcl_tpu_torch.ops import well_kernels as wk
 from amgcl_tpu_torch.ops.densewin import DenseWindowMatrix
@@ -728,3 +734,124 @@ def test_down_tile_main_path_plan():
             r / rows for r in vk.down_boxes(tile.tz, tile.ty, tile.halo,
                                             tile.ahalo, tile.cz, tile.cy))
     assert plans == DOWN_PLANS
+
+
+# -- the DIA dot kernels (csrc/dia.cu dots_kernel) -----------------------------
+
+def _dots_faults(n, m, offsets, geo):
+    """Faults of a dot-kernel geometry, by brute force: a group count
+    other than one per GROUP rows, and each interior group with a row
+    past n or a row and diagonal whose column lies outside [0, m)."""
+    R = dk.GROUP
+    faults = []
+    if geo.groups * R < n or (geo.groups - 1) * R >= n:
+        faults.append(("groups", geo.groups))
+    if geo.lo < 0 or geo.hi > geo.groups:
+        faults.append(("range", geo.lo, geo.hi))
+    offs = np.asarray(offsets, dtype=np.int64)
+    for b in range(geo.lo, geo.hi):
+        rows = np.arange(b * R, (b + 1) * R)
+        faults += [("row", b, int(r)) for r in rows[rows >= n][:1]]
+        cols = rows[:, None] + offs[None, :]
+        bad = (cols < 0) | (cols >= m)
+        faults += [("term", b, int(r), int(o))
+                   for r, o in zip(*np.nonzero(bad))][:1]
+    return faults
+
+
+def _dots_cases():
+    rng = np.random.RandomState(12)
+    edges = (1, 255, 256, 257, 511, 512, 513, 2048, 6145, 10000, 20482)
+    cases = []
+    for n in edges:
+        for rect in (0, 1, -1):
+            m = max(1, n + rect * int(rng.randint(1, 3000)))
+            k = int(rng.randint(0, 12))
+            offs = sorted(set(int(o) for o in rng.randint(-2500, 2500, k)))
+            cases.append((n, m, tuple(offs)))
+    cases += [(2097152, 2097152, (-16384, -128, -1, 0, 1, 128, 16384)),
+              (262144, 262144, (-4096, -64, -1, 0, 1, 64, 4096)),
+              (8192, 8192, (0,)), (8192, 8192, ()), (4098, 4098, (-1, 1)),
+              (1000, 1000, (-37, -1, 0, 2, 40))]
+    return cases
+
+
+@pytest.mark.parametrize("n,m,offsets", _dots_cases())
+def test_dia_dots_geometry_by_brute_force(n, m, offsets):
+    """The groups cover n, one per 256 rows (a partial each), every
+    interior group's terms lie in range, and the range is as wide as it
+    may be: one group more on either side (where there is one) is
+    caught."""
+    geo = dk.launch_geometry(n, m, offsets)
+    assert _dots_faults(n, m, offsets, geo) == []
+    wider = []
+    if geo.lo > 0:
+        wider.append(geo._replace(lo=geo.lo - 1))
+    if geo.hi < geo.groups:
+        wider.append(geo._replace(hi=geo.hi + 1))
+    for w in wider:
+        assert _dots_faults(n, m, offsets, w), w
+
+
+def test_dia_dots_geometry_main_path():
+    """The main path's L0: 8,192 groups of 256 rows (a partial a dot
+    each), all but the 64 at each end (the ±16,384 reach) interior."""
+    geo = dk.launch_geometry(2097152, 2097152,
+                             (-16384, -128, -1, 0, 1, 128, 16384))
+    assert geo == dk.Geometry(8192, 64, 8128)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 70000, 300000])
+def test_ordered_dot_agrees_with_torch_dot(n, dtype):
+    """The dot kernels' order (ops/dia_kernels.ordered_dot) is a dot
+    product: within the card tests' dot tolerance of torch.dot."""
+    from tests.test_torch_cuda import _dot_close
+    rng = np.random.RandomState(n)
+    a, b = (rng.standard_normal(n).astype(dtype) for _ in range(2))
+    got = dk.ordered_dot(a, b)
+    assert got.dtype == dtype
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+    _dot_close(torch.tensor(got), torch.dot(ta, tb), ta, tb,
+               torch.float32 if dtype == np.float32 else torch.float64)
+
+
+def test_ordered_dot_sums_in_its_stated_order():
+    """Spelled out on 3 × 256 groups: each group's pairwise tree, then
+    lane t of 256 adds partials t, t+256, … to 0 — a reversed sum or a
+    plain left-to-right sum of the same products gives other bits."""
+    rng = np.random.RandomState(3)
+    n = 256 * 600 + 17
+    a = (rng.standard_normal(n) * 10.0 ** rng.randint(-3, 4, n)).astype(
+        np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    p = np.zeros(601 * 256, np.float32)
+    p[:n] = a * b
+    s = p.reshape(601, 256)
+    for stride in (128, 64, 32, 16, 8, 4, 2, 1):
+        s = s[:, :stride] + s[:, stride:2 * stride]
+    part = s[:, 0]
+    lanes = []
+    for t in range(256):
+        acc = np.float32(0)
+        for c in range(t, 601, 256):
+            acc = np.float32(acc + part[c])
+        lanes.append(acc)
+    s = np.asarray(lanes, np.float32).reshape(1, 256)
+    for stride in (128, 64, 32, 16, 8, 4, 2, 1):
+        s = s[:, :stride] + s[:, stride:2 * stride]
+    want = s[0, 0]
+    assert dk.ordered_dot(a, b).tobytes() == want.tobytes()
+    assert dk.ordered_dot(a[::-1], b[::-1]).tobytes() != want.tobytes()
+    assert np.float32(np.cumsum(a * b, dtype=np.float32)[-1]).tobytes() \
+        != want.tobytes()
+
+
+def test_c_ints_refuses_values_outside_int32():
+    """The C entries take offsets as C ints: a value ctypes would wrap is
+    refused, not passed on."""
+    assert list(dk.c_ints((-16384, 0, 2 ** 31 - 1))) == [-16384, 0,
+                                                         2 ** 31 - 1]
+    for bad in ((2 ** 31,), (-2 ** 31 - 1, 0)):
+        with pytest.raises(ValueError):
+            dk.c_ints(bad)
