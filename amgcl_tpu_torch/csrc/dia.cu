@@ -50,13 +50,14 @@
 //     runs dot j's tree while the others go on to the next group (two
 //     buffers): the tree's first level (stride 128) inside a lane that
 //     holds positions 4l … 4l+3 and 128+4l … 131+4l, the next five
-//     (64 … 4) as __shfl_down_sync by 16 … 1, the last two inside lane 0.
-//     One barrier a group, not eight.
+//     (64 … 4) as __shfl_down_sync by 16 … 1, the last two inside lane 0
+//     (reduce.cuh's tree256). One barrier a group, not eight.
 //   - The last block to finish (a __threadfence and an atomic ticket,
-//     once a block) sums the partials, so one launch does both stages.
-//     The ticket is atomicInc'd modulo the grid: the last block leaves it
-//     at 0, so no host reset is needed. The wrapper keeps one zeroed
-//     ticket per (device, stream).
+//     once a block; reduce.cuh's last_block) sums the partials
+//     (lane_sums, then tree256), so one launch does both stages. The
+//     ticket is atomicInc'd modulo the grid: the last block leaves it at
+//     0, so no host reset is needed. The wrapper keeps one zeroed ticket
+//     per (device, stream).
 // Dots accumulate in T: float32 for float32 data, float64 for float64,
 // as the TPU kernels do (pallas_spmv.py:429-430).
 #include <cuda_runtime.h>
@@ -127,10 +128,8 @@ cudaError_t run(int mode, long long n, long long m, int ndiag,
 
 // ---- SPMV_DOTS / RESIDUAL_DOT ------------------------------------------
 
-constexpr int kGroup = 256;           // rows of one partial; threads a block
 constexpr int kStencilDiag = 7;       // the unrolled instantiation
 constexpr int kBatch = 11;            // diagonals a batch otherwise
-constexpr int kUnroll = 8;            // partials a lane loads at once
 
 template <typename T>
 struct DotsArgs {
@@ -145,25 +144,6 @@ struct DotsArgs {
   unsigned int* ticket;
   int off[kMaxDiag];
 };
-
-__device__ __forceinline__ float fma_rn(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-__device__ __forceinline__ double fma_rn(double a, double b, double c) {
-  return __fma_rn(a, b, c);
-}
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
 
 // The row value of row i < n (point 1). Each batch issues its loads of
 // data and x together, then adds them in order. CHECK false: the caller
@@ -190,76 +170,6 @@ __device__ __forceinline__ T row_value(const DotsArgs<T>& a, long long i,
       if (in[b]) acc = fma_rn(SUB ? -dv[b] : dv[b], xv[b], acc);
   }
   return acc;
-}
-
-// The tree of point 3 over 256 values, lane l of a warp holding positions
-// 4l+q in lo[q] and 128+4l+q in hi[q]; lane 0 returns the sum.
-template <typename T>
-__device__ __forceinline__ T warp_tree256(const T (&lo)[4],
-                                          const T (&hi)[4]) {
-  T u[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) u[q] = add_rn(lo[q], hi[q]);    // stride 128
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {                           // 64 … 4
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      u[q] = add_rn(u[q], __shfl_down_sync(0xffffffffu, u[q], s));
-  }
-  return add_rn(add_rn(u[0], u[2]), add_rn(u[1], u[3]));       // 2, 1
-}
-
-// the tree of point 3 over s[0 … 255], by one warp
-template <typename T>
-__device__ __forceinline__ T tree256(const T* s, int lane) {
-  T lo[4], hi[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    lo[q] = s[4 * lane + q];
-    hi[q] = s[kGroup / 2 + 4 * lane + q];
-  }
-  return warp_tree256(lo, hi);
-}
-
-// Lane t's sums of point 4 for dots j0 … j0+NJ−1 (those below ndots):
-// partials t, t+256, … added to 0 in order, kUnroll of each dot in
-// flight; into s[j][t].
-template <typename T, int NJ>
-__device__ __forceinline__ void lane_sums(const T* partials, int ngroups,
-                                          int ndots, int j0, int t,
-                                          T (*s)[kGroup]) {
-  T c[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) c[j] = T(0);
-  int idx = t;
-  for (; idx + (kUnroll - 1) * kGroup < ngroups; idx += kUnroll * kGroup) {
-    T v[NJ][kUnroll];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        v[j][u] = j0 + j < ndots
-                      ? __ldcg(partials + static_cast<size_t>(j0 + j) *
-                               ngroups + idx + u * kGroup)
-                      : T(0);
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) c[j] = add_rn(c[j], v[j][u]);
-    }
-  }
-  for (; idx < ngroups; idx += kGroup) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      if (j0 + j < ndots)
-        c[j] = add_rn(c[j], __ldcg(partials + static_cast<size_t>(j0 + j) *
-                                   ngroups + idx));
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-    if (j0 + j < ndots) s[j0 + j][t] = c[j];
 }
 
 template <typename T, int MODE, int ND>
@@ -306,14 +216,8 @@ __device__ __forceinline__ void dots_body(const DotsArgs<T>& a) {
   }
   if (warp < a.ndots && lane == 0) __threadfence();
 
-  // point 4, in the last block to finish
-  __shared__ bool s_last;
-  __syncthreads();
-  if (t == 0)
-    s_last = atomicInc(a.ticket, gridDim.x - 1) == gridDim.x - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
+  // point 4, in the last block to finish (reduce.cuh)
+  if (!last_block(a.ticket)) return;
   // lane t of 256: every dot's partials in flight together at the
   // stencil, one dot's at a time in the batched body, whose registers
   // are capped

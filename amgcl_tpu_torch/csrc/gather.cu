@@ -17,138 +17,166 @@
 // operations per byte in float32, far below the card's balance point, so
 // the least time is (cols + vals + x + y) bytes / 3.35 TB/s.
 //
-// Design (simple and correct first): a block of kRows consecutive rows
-// stages its contiguous (rows x K) slab of cols and vals in shared memory
-// with coalesced 16-byte loads (int4; float4 or double2), then each
-// thread sums its row from shared memory in slot order, the K loop
-// unrolled, reading x through the read-only path. The shared row stride
-// is K + 1 words (K + 1 doubles): K + 1 is odd, so the 32 rows a warp
-// reads at one slot fall in distinct banks. The TPU's window DMA into
-// VMEM has no use here: the H100 gathers from L2, which holds x (343 KB
-// at the 85,623-row FE level in float32). Where B.8's kernel
-// (well_block.cu) lets each thread walk its row at stride K, so that a
-// warp's loads of one slot touch 32 rows K words apart, this one reads the
-// slab once, coalesced. kRows = 128 keeps the float64 slab at K = 16
-// (128 x 17 x 12 bytes) under the 48 KB of static shared memory. Offsets
-// are 64-bit.
-#include <cstdint>
-
+// The sum, which every path's iteration counts depend on (G1's IDR(s)
+// moved from 65 to 70 iterations under another order): one thread runs
+// the row's chain in slot order, acc = 0, then acc = fma(v_k, x_j, acc)
+// for each slot k whose column j is below ncols; a slot past ncols is
+// skipped (not added as 0: fma(0, x, -0) is +0), padding slots below
+// ncols are not. That is the first design's `acc += v[k] * x[j]` under
+// nvcc's default contraction, written out.
+//
+// Design: nothing is staged. The first design staged each 128-row
+// block's cols and then its vals through shared memory in two strided
+// loops, a barrier, then gathered x: two serial phases of memory latency
+// in a life of a few microseconds. Here a thread takes a row: it loads
+// the row's K / 4 4-slot vectors straight from device memory, 16 bytes at
+// a time (int4 columns; a float4 or two double2 values: the wrapper
+// checks that cols and vals start on 16-byte boundaries, and K is a
+// multiple of 4, so every row does), all of them issued before the first
+// x gather, and the row's tile start beside them; then all the row's x
+// gathers through the read-only path (x stays in the 50 MB L2: 343 KB at
+// the 85,623-row FE level in float32; the TPU's window DMA has no use
+// here), then the chain. Blocks of `threads` rows
+// (`gather_kernels.launch_geometry`) cover the rows once, every row of an
+// 85,623-row level in flight in one wave. Two or four lanes a row, each
+// loading a vector and handing its pairs to the row's first lane by
+// shuffles, were no faster (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W).
+// Offsets are 64-bit; the tile index takes a 32-bit division where n_out
+// allows.
 #include <cuda_runtime.h>
+
+#include "reduce.cuh"
 
 namespace amgcl_port {
 namespace {
 
-constexpr int kRows = 128;           // rows (and threads) per block
+constexpr int kMaxThreads = 256;     // threads (rows) per block, at most
 
-// Copy n consecutive elements of a row-major (rows, K) slab from device
-// memory into shared memory at row stride K + 1, 16 bytes a load where
-// the source is 16-byte aligned (n is a multiple of K, hence of the 4 or
-// 2 elements such a load holds).
-template <typename E, int K>
-__device__ __forceinline__ void stage(const E* __restrict__ g,
-                                      E* __restrict__ s, int n) {
-  constexpr int V = 16 / sizeof(E);
-  static_assert(K % V == 0, "a 16-byte load must not cross a row");
-  if ((reinterpret_cast<std::uintptr_t>(g) & 15) == 0) {
-    union {
-      int4 raw;
-      E e[V];
-    } u;
-    for (int q = threadIdx.x; q < n / V; q += kRows) {
-      u.raw = __ldg(reinterpret_cast<const int4*>(g) + q);
-      const int e = q * V;
-      E* d = s + (e / K) * (K + 1) + e % K;
-#pragma unroll
-      for (int v = 0; v < V; ++v) d[v] = u.e[v];
-    }
-  } else {
-    for (int e = threadIdx.x; e < n; e += kRows)
-      s[(e / K) * (K + 1) + e % K] = g[e];
-  }
+// One 4-slot vector of values, 16 bytes at a time: a float4, two double2.
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+}
+__device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
+  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
 }
 
 template <typename T, int K>
-__global__ void __launch_bounds__(kRows)
-gather_kernel(long long n_out, long long ncols, int tile,
+__global__ void __launch_bounds__(kMaxThreads)
+gather_kernel(long long n_out, long long ncols, int tile, bool narrow,
               const int* __restrict__ starts, const int* __restrict__ cols,
               const T* __restrict__ vals, const T* __restrict__ x,
               T* __restrict__ y) {
-  __shared__ int s_cols[kRows * (K + 1)];
-  __shared__ T s_vals[kRows * (K + 1)];
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const long long left = n_out - row0;
-  const int rows = left < kRows ? static_cast<int>(left) : kRows;
-  stage<int, K>(cols + row0 * K, s_cols, rows * K);
-  stage<T, K>(vals + row0 * K, s_vals, rows * K);
-  __syncthreads();
-  if (threadIdx.x >= rows) return;
-  const long long i = row0 + threadIdx.x;
-  const long long s = starts[i / tile];
-  const int* c = s_cols + threadIdx.x * (K + 1);
-  const T* v = s_vals + threadIdx.x * (K + 1);
+  constexpr int NQ = K / 4;                  // 4-slot vectors a row
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (i >= n_out) return;
+  // the row's columns and values, every vector issued before any use
+  int4 c[NQ];
+  T v[NQ][4], xv[NQ][4];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    c[q] = __ldg(reinterpret_cast<const int4*>(cols + i * K) + q);
+    load4(vals + i * K + 4 * q, v[q]);
+  }
+  const long long t =
+      narrow ? static_cast<long long>(static_cast<unsigned>(i) /
+                                      static_cast<unsigned>(tile))
+             : i / tile;
+  const long long s = __ldg(starts + t);
+  // then every x gather of a slot whose column is below ncols
+  bool in[NQ][4];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const long long j[4] = {s + c[q].x, s + c[q].y, s + c[q].z,
+                            s + c[q].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      in[q][e] = j[e] < ncols;
+      xv[q][e] = in[q][e] ? __ldg(x + j[e]) : T(0);
+    }
+  }
   T acc = T(0);
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const long long j = s + c[k];
-    if (j < ncols) acc += v[k] * __ldg(x + j);
+  for (int q = 0; q < NQ; ++q) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (in[q][e]) acc = fma_rn(v[q][e], xv[q][e], acc);
   }
   y[i] = acc;
 }
 
+template <typename T, int K>
+cudaError_t launch_k(int threads, int nblocks, long long n_out,
+                     long long ncols, int tile, const int* starts,
+                     const int* cols, const T* vals, const T* x, T* y,
+                     cudaStream_t s) {
+  gather_kernel<T, K><<<nblocks, threads, 0, s>>>(
+      n_out, ncols, tile, n_out <= 0x7fffffffLL, starts, cols, vals, x, y);
+  return cudaGetLastError();
+}
+
+// Refuses K other than 4, 8, 12 or 16, a block that is not whole warps of
+// at most kMaxThreads threads, and a grid that does not cover n_out.
 template <typename T>
-cudaError_t run(int K, long long n_out, long long ncols, int tile,
-                const int* starts, const int* cols, const T* vals,
-                const T* x, T* y, cudaStream_t s) {
-  if (tile <= 0 || n_out <= 0) return cudaErrorInvalidValue;
-  const long long blocks = (n_out + kRows - 1) / kRows;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(blocks));
+cudaError_t run(int K, int threads, int nblocks, long long n_out,
+                long long ncols, int tile, const int* starts,
+                const int* cols, const T* vals, const T* x, T* y,
+                cudaStream_t s) {
+  if (tile <= 0 || n_out <= 0 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 || nblocks < 1 ||
+      static_cast<long long>(nblocks) * threads < n_out)
+    return cudaErrorInvalidValue;
   switch (K) {
     case 4:
-      gather_kernel<T, 4><<<grid, kRows, 0, s>>>(n_out, ncols, tile, starts,
-                                                  cols, vals, x, y);
-      break;
+      return launch_k<T, 4>(threads, nblocks, n_out, ncols, tile, starts,
+                            cols, vals, x, y, s);
     case 8:
-      gather_kernel<T, 8><<<grid, kRows, 0, s>>>(n_out, ncols, tile, starts,
-                                                  cols, vals, x, y);
-      break;
+      return launch_k<T, 8>(threads, nblocks, n_out, ncols, tile, starts,
+                            cols, vals, x, y, s);
     case 12:
-      gather_kernel<T, 12><<<grid, kRows, 0, s>>>(n_out, ncols, tile,
-                                                   starts, cols, vals, x, y);
-      break;
+      return launch_k<T, 12>(threads, nblocks, n_out, ncols, tile, starts,
+                             cols, vals, x, y, s);
     case 16:
-      gather_kernel<T, 16><<<grid, kRows, 0, s>>>(n_out, ncols, tile,
-                                                   starts, cols, vals, x, y);
-      break;
+      return launch_k<T, 16>(threads, nblocks, n_out, ncols, tile, starts,
+                             cols, vals, x, y, s);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace amgcl_port
 
-// dtype: 0 = float32, 1 = float64; K: the column slots (4, 8, 12 or 16).
-// n_out rows are computed, ceil(n_out / 128) blocks of 128 threads; cols
-// and vals hold at least n_out * K entries, x ncols, y n_out. Returns the
-// cudaError_t of the launch.
-extern "C" int amgcl_gather_spmv(int dtype, int K, long long n_out,
-                                 long long ncols, int tile,
+// dtype: 0 = float32, 1 = float64; K: the column slots (4, 8, 12 or 16);
+// blocks of `threads` threads, a row each, `nblocks` blocks covering
+// n_out rows. cols and vals hold at least n_out * K entries from 16-byte
+// boundaries, x ncols, y n_out. Returns the cudaError_t of the launch, or
+// cudaErrorInvalidValue, launching nothing, for a geometry it refuses.
+extern "C" int amgcl_gather_spmv(int dtype, int K, int threads,
+                                 long long n_out, long long ncols, int tile,
                                  const void* starts, const void* cols,
                                  const void* vals, const void* x, void* y,
-                                 void* stream) {
+                                 int nblocks, void* stream) {
   using namespace amgcl_port;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* st = static_cast<const int*>(starts);
   const int* cl = static_cast<const int*>(cols);
   if (dtype == 0)
-    return run<float>(K, n_out, ncols, tile, st, cl,
+    return run<float>(K, threads, nblocks, n_out, ncols, tile, st, cl,
                       static_cast<const float*>(vals),
                       static_cast<const float*>(x), static_cast<float*>(y),
                       s);
   if (dtype == 1)
-    return run<double>(K, n_out, ncols, tile, st, cl,
+    return run<double>(K, threads, nblocks, n_out, ncols, tile, st, cl,
                        static_cast<const double*>(vals),
                        static_cast<const double*>(x),
                        static_cast<double*>(y), s);

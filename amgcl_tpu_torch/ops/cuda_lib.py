@@ -94,9 +94,9 @@ def _bind(lib) -> None:
     lib.amgcl_dia_dots.restype = i32
     lib.amgcl_xr.argtypes = [i32, i64] + [vp] * 9 + [i32, vp]
     lib.amgcl_xr.restype = i32
-    lib.amgcl_bicg_tail.argtypes = [i32, i64] + [vp] * 12 + [i32, vp]
+    lib.amgcl_bicg_tail.argtypes = [i32, i64] + [vp] * 13 + [i32, vp]
     lib.amgcl_bicg_tail.restype = i32
-    lib.amgcl_axpby_dot.argtypes = [i32, i64] + [vp] * 7 + [i32, vp]
+    lib.amgcl_axpby_dot.argtypes = [i32, i64] + [vp] * 8 + [i32, vp]
     lib.amgcl_axpby_dot.restype = i32
     lib.amgcl_well_block.argtypes = [i32, i32, i32, i32, i64, i64, i32,
                                      i32] + [vp] * 9 + [i32, vp]
@@ -104,8 +104,8 @@ def _bind(lib) -> None:
     lib.amgcl_densewin.argtypes = [i32, i32, i64, i64, i32, i32, i32, i32] \
         + [vp] * 6 + [vp]
     lib.amgcl_densewin.restype = i32
-    lib.amgcl_gather_spmv.argtypes = [i32, i32, i64, i64, i32] + [vp] * 5 \
-        + [vp]
+    lib.amgcl_gather_spmv.argtypes = [i32, i32, i32, i64, i64, i32] \
+        + [vp] * 5 + [i32, vp]
     lib.amgcl_gather_spmv.restype = i32
     lib.amgcl_fused_down.argtypes = [i32] * 8 + [ip, ip] + [i32] * 4 \
         + [ip] + [vp] * 8 + [vp]

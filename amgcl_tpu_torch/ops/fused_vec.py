@@ -9,32 +9,69 @@ need it:
   kernel ``_fused_pass`` in mode ``xr``), on CPU tensors
   :func:`xr_update_plain`.
 * :func:`bicgstab_tail` — the BiCGStab tail ``x + α·p̂ + ω·ŝ``,
-  ``s − ω·t`` with ``⟨r, r⟩`` and ``⟨r̂, r⟩`` from one read; the same
-  kernel in mode BICG_TAIL (replacing ``_fused_pass`` in mode
+  ``s − ω·t`` with ``⟨r, r⟩`` and ``⟨r̂, r⟩`` from one read; vec.cu in
+  mode BICG_TAIL, one launch (replacing ``_fused_pass`` in mode
   ``bicg_tail``), :func:`bicgstab_tail_plain` on CPU tensors.
 * :func:`axpby_dot` — ``z = a·x + b·y`` and ``⟨z, z⟩`` from one read of
-  {x, y}; the same kernel in mode AXPBY_DOT (replacing ``_fused_pass`` in
-  mode ``axpby_dot``), :func:`axpby_dot_plain` on CPU tensors.
+  {x, y}; vec.cu in mode AXPBY_DOT, one launch (replacing ``_fused_pass``
+  in mode ``axpby_dot``), :func:`axpby_dot_plain` on CPU tensors.
+
 * :func:`stack_dots` and :func:`block_dots` — the stacked products of
   GMRES's and IDR(s)'s bases and the Gram matrix of BiCGStab(L)'s
   minimal-residual step, each one matrix product (the JAX package
   computes them outside any Pallas kernel too).
 * :func:`residual_dot` — ``r = f − A x`` and ``⟨r, r⟩`` in one operator
   pass (the DIA kernel for DIA operators, composed otherwise).
+
+The three tails sum their dots in one fixed order over the grid of
+:func:`tail_blocks`: XR in a second launch, the other two in the grid's
+last block (an atomic ticket per (device, stream), as the DIA dot
+kernels keep), which :func:`ordered_tail_dots` emulates in numpy.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from amgcl_tpu_torch.ops import cuda_lib
 from amgcl_tpu_torch.ops import device as dev
-from amgcl_tpu_torch.ops.dia_kernels import (_BLOCK, _DTYPE_CODE,
-                                             _acc_dtype, dia_residual_dot)
+from amgcl_tpu_torch.ops.dia_kernels import (_BLOCK, _DTYPE_CODE, _acc_dtype,
+                                             _ticket, dia_residual_dot,
+                                             ordered_dot)
 
 #: fixed block count of the grid-stride pass: a constant grid keeps the
 #: partial sums in the same order for a given n on every run
 _MAX_BLOCKS = 1056
+
+
+def tail_blocks(n):
+    """The tails' grid over n elements: one block of 256 threads per 256
+    elements, at most :data:`_MAX_BLOCKS` (element i in thread i mod
+    (blocks · 256)); the C entries refuse any other."""
+    return min(-(-int(n) // _BLOCK), _MAX_BLOCKS)
+
+
+def ordered_tail_dots(r, rhat=None):
+    """``(⟨r, r⟩,)``, or ``(⟨r, r⟩, ⟨r̂, r⟩)`` with ``rhat``, in numpy at
+    r's type, summed in the tail kernels' order: each thread's product
+    (+0 where a thread has no element), per block of 256 threads the
+    256-tree, then lane t of 256 adds partials t, t + 256, … to 0 in that
+    order, and the same tree over the 256 lanes. Applied to a kernel's own
+    r' (or z) and r̂, it gives the kernel's dots bit for bit. Only for
+    n ≤ 256 · 1056: there block b holds elements [256b, 256b + 256), one
+    a thread, which is ``dia_kernels.ordered_dot``'s grouping (a thread's
+    fma onto +0 and ordered_dot's bare product differ at most in the sign
+    of a zero, which the lanes' sums from +0 erase). Above, a thread
+    chains several elements' fmas, which numpy cannot round as the card
+    does, so larger n is refused."""
+    r = np.asarray(r)
+    if r.shape[0] > _BLOCK * _MAX_BLOCKS:
+        raise ValueError("ordered_tail_dots emulates at most %d elements "
+                         "(one a thread), got %d"
+                         % (_BLOCK * _MAX_BLOCKS, r.shape[0]))
+    return tuple(ordered_dot(a, r) for a in
+                 (r,) + (() if rhat is None else (np.asarray(rhat),)))
 
 
 def xr_update_plain(alpha, p, q, x, r):
@@ -84,10 +121,11 @@ def _scalar(name, v, x):
     return v.contiguous()
 
 
-def _launch_tail(what, entry, scalars, vecs, nout, ndots):
+def _launch_tail(what, entry, scalars, vecs, nout, ndots, ticket):
     """Validate a tail's operands and launch its vec.cu mode through the
-    C entry point named ``entry``; returns (outs, dots) with ``outs`` the
-    ``nout`` output vectors and dots an (ndots,) tensor."""
+    C entry point named ``entry`` (with the stream's ticket where
+    ``ticket``: the one-launch modes); returns (outs, dots) with ``outs``
+    the ``nout`` output vectors and dots an (ndots,) tensor."""
     x = vecs["x"]
     if x.dtype not in _DTYPE_CODE:
         raise ValueError("%s takes float32 or float64, got %s"
@@ -104,16 +142,17 @@ def _launch_tail(what, entry, scalars, vecs, nout, ndots):
     outs = [torch.empty_like(x) for _ in range(nout)]
     if n == 0:
         return outs, torch.zeros(ndots, dtype=x.dtype, device=x.device)
-    # the reduction kernel writes every dot
+    # the kernels write every dot and partial
     dots = torch.empty(ndots, dtype=x.dtype, device=x.device)
-    nblocks = min(-(-n // _BLOCK), _MAX_BLOCKS)
+    nblocks = tail_blocks(n)
     partials = torch.empty(nblocks * ndots, dtype=x.dtype, device=x.device)
     ptrs = [v.data_ptr() for v in scalars + list(vecs.values())]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        extra = (_ticket(x.device, stream).data_ptr(),) if ticket else ()
         rc = getattr(cuda_lib.lib(), entry)(
             _DTYPE_CODE[x.dtype], n, *ptrs, *(o.data_ptr() for o in outs),
-            partials.data_ptr(), dots.data_ptr(), nblocks, stream)
+            partials.data_ptr(), dots.data_ptr(), *extra, nblocks, stream)
     cuda_lib.check(rc, what)
     return outs, dots
 
@@ -126,7 +165,8 @@ def xr_update(alpha, p, q, x, r):
         return xr_update_plain(alpha, p, q, x, r)
     (xn, rn), dots = _launch_tail("xr_update", "amgcl_xr",
                                   [("alpha", alpha)],
-                                  {"p": p, "q": q, "x": x, "r": r}, 2, 1)
+                                  {"p": p, "q": q, "x": x, "r": r}, 2, 1,
+                                  False)
     xr_update.launches += 1
     return xn, rn, dots[0]
 
@@ -146,7 +186,7 @@ def bicgstab_tail(alpha, phat, omega, shat, s, t, x, rhat):
         "bicgstab_tail", "amgcl_bicg_tail",
         [("alpha", alpha), ("omega", omega)],
         {"phat": phat, "shat": shat, "s": s, "t": t, "x": x, "rhat": rhat},
-        2, 2)
+        2, 2, True)
     bicgstab_tail.launches += 1
     return xn, rn, dots[0], dots[1]
 
@@ -162,7 +202,8 @@ def axpby_dot(a, x, b, y):
     if x.device.type == "cpu":
         return axpby_dot_plain(a, x, b, y)
     (z,), dots = _launch_tail("axpby_dot", "amgcl_axpby_dot",
-                              [("a", a), ("b", b)], {"x": x, "y": y}, 1, 1)
+                              [("a", a), ("b", b)], {"x": x, "y": y}, 1, 1,
+                              True)
     axpby_dot.launches += 1
     return z, dots[0]
 

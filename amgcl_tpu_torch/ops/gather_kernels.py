@@ -15,12 +15,16 @@ accumulator of the values' dtype; an absolute column at or past the end
 of x contributes nothing, as the TPU kernel's zero-padded window gives.
 
 The wrapper takes its plain version only for tensors on the CPU. For
-CUDA tensors it checks device, dtype, shape, K and contiguity and
-launches the kernel, or raises. ``gather_spmv.launches`` counts kernel
-launches and ``gather_spmv_plain.calls`` plain-version calls.
+CUDA tensors it checks device, dtype, shape, K, contiguity and the
+16-byte alignment of ``cols_local`` and ``vals`` (the kernel loads a
+row's slots in 16-byte vectors) and launches the kernel over the grid of
+:func:`launch_geometry`, or raises. ``gather_spmv.launches`` counts
+kernel launches and ``gather_spmv_plain.calls`` plain-version calls.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -33,6 +37,28 @@ KS = (4, 8, 12, 16)
 #: widest K that ``WindowedEllMatrix.mv`` sends to this kernel (the
 #: reference's ``_AUTO_MAX_K``, amgcl_tpu/ops/pallas_gather.py:53)
 AUTO_MAX_K = 16
+
+
+#: rows (threads) a block: at or under 64 and 128 on the paths' operators
+#: (PERF.md §6), and at 64 registers a thread (K 16 in float64) 4 blocks
+#: an SM, so an 85,623-row level's 335 blocks are in flight at once
+THREADS = 256
+
+
+class Geometry(NamedTuple):
+    """The gather kernel's launch: a thread a row, blocks of ``threads``
+    rows, ``nblocks`` blocks."""
+    threads: int
+    nblocks: int
+
+
+def launch_geometry(n_out, K):
+    """The grid that covers ``n_out`` rows of K slots, a thread a row:
+    ceil(n_out / THREADS) blocks of :data:`THREADS`."""
+    if K not in KS:
+        raise ValueError("the gather kernel takes K in %s, got %d"
+                         % (KS, K))
+    return Geometry(THREADS, -(-int(n_out) // THREADS))
 
 
 def gather_spmv_plain(window_starts, cols_local, vals, x, n_out):
@@ -61,9 +87,10 @@ def gather_spmv(window_starts, cols_local, vals, x, n_out):
         return gather_spmv_plain(window_starts, cols_local, vals, x, n_out)
     _, tile, K, n_out = check_geometry(window_starts, cols_local, vals,
                                        n_out, block=False)
-    if K not in KS:
-        raise ValueError("the gather kernel takes K in %s, got %d"
-                         % (KS, K))
+    geo = launch_geometry(n_out, K)
+    if cols_local.data_ptr() % 16 or vals.data_ptr() % 16:
+        raise ValueError("the gather kernel takes cols_local and vals on "
+                         "16-byte boundaries")
     if x.dim() != 1:
         raise ValueError("x must be a vector, got shape %s"
                          % (tuple(x.shape),))
@@ -74,9 +101,10 @@ def gather_spmv(window_starts, cols_local, vals, x, n_out):
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = cuda_lib.lib().amgcl_gather_spmv(
-            _DTYPE_CODE[vals.dtype], K, n_out, x.shape[0], tile,
-            window_starts.data_ptr(), cols_local.data_ptr(),
-            vals.data_ptr(), x.data_ptr(), y.data_ptr(), stream)
+            _DTYPE_CODE[vals.dtype], K, geo.threads, n_out, x.shape[0],
+            tile, window_starts.data_ptr(), cols_local.data_ptr(),
+            vals.data_ptr(), x.data_ptr(), y.data_ptr(), geo.nblocks,
+            stream)
     cuda_lib.check(rc, "gather_spmv K %d" % K)
     gather_spmv.launches += 1
     return y

@@ -39,7 +39,9 @@ Run from the root of a checkout, with no arguments:
    plain-version call; the windowed-ELL kernels and the BiCGStab tail must
    each launch on one of the two. Then each of those kernels is held
    against its plain version and timed at the L0 and L1 operators and
-   transfers of both orders, as in 3.
+   transfers of both orders, as in 3; the BiCGStab tail's two dots must
+   equal, bit for bit, the tails' summation order
+   (``fused_vec.ordered_tail_dots``) on its own r' and r̂.
 5. The block path B1 (U1's and U2's hierarchies freed first):
    ``poisson3d_block(48, 3)`` (110,592 3×3 block rows, 331,776 unknowns)
    → ``make_solver(A, AMGParams(dtype=float32), BiCGStab(maxiter=200,
@@ -79,7 +81,8 @@ Run from the root of a checkout, with no arguments:
    iteration, no plain version ran, and a further warm solve makes at
    most 8 host syncs beside one per BiCG step. Then axpby_dot is held
    against its plain version and timed at n = 85,623 in float32 and
-   float64.
+   float64, its dot bit for bit with ``fused_vec.ordered_tail_dots`` on
+   its own z.
 8. The GMRES family (K1's hierarchy freed first). Path G1:
    ``fe_like_problem(85623, nnz_target=6*85623)`` (five nearest
    neighbours) → ``make_solver(A, AMGParams(dtype=float32),
@@ -638,6 +641,22 @@ def ordered_dots_hold(kern, args, x):
     return ok
 
 
+def ordered_tail_dots_hold(kern, args, at, rhat=None):
+    """Whether a tail kernel's dots, the entries of its output after
+    ``at``, equal, bit for bit, the tails' summation order
+    (``fused_vec.ordered_tail_dots``) applied to its own r' (or z), the
+    entry ``at``, and r̂."""
+    from amgcl_tpu_torch.ops import fused_vec as fv
+    out = kern(*args)
+    want = fv.ordered_tail_dots(out[at].cpu().numpy(), None if rhat is None
+                                else rhat.cpu().numpy())
+    ok = [float(d).hex() for d in out[at + 1:]] \
+        == [float(w).hex() for w in want]
+    print("%-22s dots bit for bit with the tails' order: %s"
+          % (kern.__name__, "ok" if ok else "FAIL"))
+    return ok
+
+
 def check_kernels(solve, failures):
     from amgcl_tpu_torch.ops import device as dev
     hier = solve.precond.hierarchy
@@ -1088,6 +1107,10 @@ def check_unstructured_kernels(solves, failures):
         if not r["ok"]:
             failures.append("%s %s disagrees with its plain version"
                             % (name, label))
+        if name == "bicgstab_tail" \
+                and not ordered_tail_dots_hold(kern, args, 1, rh):
+            failures.append("bicgstab_tail %s: dots differ from the tails' "
+                            "order on its own output" % label)
         if name not in records:
             records[name] = {k: r[k] for k in RECORD_KEYS}
             records[name]["shape"] = (
@@ -1603,6 +1626,9 @@ def check_axpby_dot(failures):
         if not r["ok"]:
             failures.append("axpby_dot %s disagrees with its plain version"
                             % dt)
+        if not ordered_tail_dots_hold(kern, (a, x, b, y), 0):
+            failures.append("axpby_dot %s: dot differs from the tails' "
+                            "order on its own output" % dt)
         if "axpby_dot" not in records:
             records["axpby_dot"] = {k: r[k] for k in RECORD_KEYS}
             records["axpby_dot"]["shape"] = "K1 n=%d, %s" % (n, dt)

@@ -3,7 +3,8 @@ down- and up-leg and DIA kernels of one checkout of amgcl_tpu_torch at
 the shapes of their chip_smoke.py records, so that two checkouts can be
 compared inside one run on one card.
 
-    python3 kernel_ab.py TREE LABEL [--sweep] [--legs] [--dia] [--solve]
+    python3 kernel_ab.py TREE LABEL [--sweep] [--legs] [--dia] [--gather]
+                         [--tail] [--solve]
 
 imports ``amgcl_tpu_torch`` from the directory TREE (a checkout, or an
 unpacked ``git archive`` of one), builds its kernels there, and prints
@@ -38,8 +39,24 @@ kernels (``dia_spmv``, ``dia_residual``, ``dia_scaled_correction``,
 ``dia_spmv_dots`` with and without w, ``dia_residual_dot``) with a
 digest each (dots included) at the main path's L0 in float32 and
 float64 and L1 in float32, at 70,000 rows of 8 diagonals and at a
-ragged 1,000 rows of 5, on random operators of those offsets. Needs a
-CUDA card.
+ragged 1,000 rows of 5, on random operators of those offsets. With
+``--gather`` it times ``gather_spmv`` with a digest each at G1's and
+G1r's L0 and G1's float64 refinement operator (built as chip_smoke.py's
+``check_gather`` builds them: the hierarchy's L0, ``to_device`` in
+float64), beside B.8 (``windowed_ell_spmv``) and torch's CSR product on
+the same operator, and on chip_smoke.py's random operators at K 4, 8 and
+12 in both dtypes; with ``--sweep`` as well, on a tree whose gather has
+``launch_geometry``, each case over blocks of 64, 128 and 256 rows, with
+whether its digest equals the default's. Beside G1's, G1r's and the
+float64 case it also reads, for attribution, ``torch.sum`` over as many
+cold bytes as the operator's format (the floor of a cold read under this
+timer). With
+``--tail`` it times and digests (dots included) ``xr_update``,
+``bicgstab_tail`` and ``axpby_dot`` in both dtypes at n = 85,623 (the
+BiCGStab paths'), 2,097,152 (the main path's) and a ragged 1,000, and
+one empty kernel launch (``torch.cuda._sleep(0)``), the floor under
+them. ``--dia``, ``--gather`` and ``--tail`` run alone (without the
+default cases), together if given together. Needs a CUDA card.
 """
 
 import hashlib
@@ -261,6 +278,91 @@ def dia_cases(out, host_offsets):
             del data
 
 
+def gather_cases(out, sweep):
+    """gather_spmv at G1's and G1r's L0, G1's float64 refinement
+    operator and random K 4/8/12 operators in both dtypes, each beside
+    B.8 and torch's CSR product on the same operator; with ``sweep`` each
+    case over every geometry the kernel takes."""
+    from amgcl_tpu_torch import AMG, AMGParams
+    from amgcl_tpu_torch.ops import device as dev
+    from amgcl_tpu_torch.ops import gather_kernels as gk
+    from amgcl_tpu_torch.ops import well_kernels as wk
+    from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
+    from chip_smoke import g1_problem, library_csr, random_gather_operator
+    A, _ = g1_problem()
+    Ap = permute(A, cuthill_mckee(A))
+    cases = [
+        ("G1 L0", AMG(A, AMGParams(), device="cuda").hierarchy.levels[0].A),
+        ("G1r L0", AMG(Ap, AMGParams(), device="cuda").hierarchy.levels[0].A),
+        ("G1 L0 f64", dev.to_device(A, "auto", torch.float64, "cuda"))]
+    rng = np.random.RandomState(20261017)
+    for K in (4, 8, 12):
+        for dt in (torch.float32, torch.float64):
+            cases.append(("random K%d %s" % (K, str(dt).split(".")[-1]),
+                          random_gather_operator(K, dt, rng)))
+    rng = np.random.RandomState(13)
+    for label, M in cases:
+        n, m = M.shape
+        x = torch.as_tensor(rng.standard_normal(m)).to(device="cuda",
+                                                       dtype=M.dtype)
+        g = (M.window_starts, M.cols_local, M.vals)
+        key = "gather %s" % label
+        fn = lambda: gk.gather_spmv(*g, x, n)
+        out[key + " K"] = M.K
+        out[key + " digest"] = digest(fn())
+        out[key] = time_ms(fn)
+        out[key + " B.8"] = time_ms(lambda: wk.windowed_ell_spmv(*g, x, n))
+        C = library_csr(M)
+        out[key + " CSR"] = time_ms(lambda: torch.mv(C, x))
+        if not label.startswith("random"):
+            # the floor under a cold read of the format's bytes: one
+            # library reduction over as many bytes (not the port's)
+            buf = torch.ones(M.vals[0].numel() * M.window_starts.numel()
+                             * (M.vals.element_size() + 4) // 4,
+                             device="cuda")
+            out[key + " read floor"] = time_ms(lambda: torch.sum(buf))
+            del buf
+        if sweep and hasattr(gk, "launch_geometry"):
+            res = {}
+            plan = gk.launch_geometry
+            for threads in (64, 128, 256):
+                gk.launch_geometry = (lambda n_, K_, t=threads:
+                                      gk.Geometry(t, -(-n_ // t)))
+                try:
+                    res[threads] = [time_ms(fn),
+                                    digest(fn()) == out[key + " digest"]]
+                finally:
+                    gk.launch_geometry = plan
+            out[key + " sweep"] = res
+        del C
+
+
+def tail_cases(out):
+    """xr_update, bicgstab_tail and axpby_dot in both dtypes at the
+    BiCGStab paths' n, the main path's and a ragged 1,000, each timed
+    with its outputs' digest (dots included), and one empty launch."""
+    from amgcl_tpu_torch.ops import fused_vec as fv
+    rng = np.random.RandomState(14)
+    out["empty launch"] = time_ms(lambda: torch.cuda._sleep(0))
+    for n in (85623, 1 << 21, 1000):
+        for dt in (torch.float32, torch.float64):
+            v = [torch.as_tensor(rng.standard_normal(n)).to(device="cuda",
+                                                            dtype=dt)
+                 for _ in range(6)]
+            a, w, b, one = (torch.tensor(c, dtype=dt, device="cuda")
+                            for c in (0.37, -1.3, -0.37, 1.0))
+            key = "tail n=%d %s" % (n, str(dt).split(".")[-1])
+            for mode, fn in (
+                    ("xr", lambda: fv.xr_update(a, *v[:4])),
+                    ("bicg_tail", lambda: fv.bicgstab_tail(a, v[0], w,
+                                                           *v[1:])),
+                    ("axpby_dot", lambda: fv.axpby_dot(b, v[0], one,
+                                                       v[1]))):
+                out["%s %s digest" % (key, mode)] = digest(fn())
+                out["%s %s" % (key, mode)] = time_ms(fn)
+            del v
+
+
 def _warm(fn, n=7):
     """(iterations, median ms) of n warm solves after two more."""
     fn()
@@ -290,7 +392,8 @@ def solve_cases(out):
     out["S1 iters"], out["S1 warm ms"] = _warm(lambda: s(rhs))
 
 
-def main(tree, label, sweep=False, legs=False, solve=False, dia=False):
+def main(tree, label, sweep=False, legs=False, solve=False, dia=False,
+         gather=False, tail=False):
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -304,9 +407,14 @@ def main(tree, label, sweep=False, legs=False, solve=False, dia=False):
     t0 = time.perf_counter()
     cuda_lib.lib()
     out = {"tree": label, "build_s": round(time.perf_counter() - t0, 2)}
-    if dia:
-        from amgcl_tpu_torch.ops import dia_kernels as dk
-        dia_cases(out, hasattr(dk, "launch_geometry"))
+    if dia or gather or tail:
+        if dia:
+            from amgcl_tpu_torch.ops import dia_kernels as dk
+            dia_cases(out, hasattr(dk, "launch_geometry"))
+        if gather:
+            gather_cases(out, sweep)
+        if tail:
+            tail_cases(out)
     else:
         if not legs:
             other_cases(out)
@@ -369,4 +477,5 @@ def other_cases(out):
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1], sys.argv[2], "--sweep" in sys.argv[3:],
                   "--legs" in sys.argv[3:], "--solve" in sys.argv[3:],
-                  "--dia" in sys.argv[3:]))
+                  "--dia" in sys.argv[3:], "--gather" in sys.argv[3:],
+                  "--tail" in sys.argv[3:]))

@@ -25,11 +25,14 @@ The DIA dot kernels' dots bit for bit with the first design's summation
 order (``dia_kernels.ordered_dot``) on their own output, from 1 to
 300,000 rows and at 512 diagonals, with and without interior groups; two
 streams at once; a call after a refused launch; one device kernel a call.
+The same for the Krylov tails' dots (``fused_vec.ordered_tail_dots``,
+one launch for bicgstab_tail and axpby_dot) from 1 to 270,336 elements.
 Also the wrappers' refusals, bit-identical results from run to run, and
 small solves on the card against the same solves on the CPU. The gather
 kernel (csrc/gather.cu) at K = 4, 8, 12 and 16 with window starts that
 differ from tile to tile, an empty tile, a ragged last tile and
-rectangular operators; GMRES through it, and a cycle with npre = 2 and
+rectangular operators, bit for bit under every block size it takes,
+rows off a 16-byte boundary refused; GMRES through it, and a cycle with npre = 2 and
 npost = 0 on a hierarchy built on the card. The framed fused legs on
 frames whose halos hold values on both sides, a halo wider than the
 operators reach, a halo of two coarse planes and one-sided offsets,
@@ -1094,6 +1097,116 @@ def test_bicgstab_tail_matches_plain(cuda, n, dtype):
                          x, rh)
 
 
+# -- the Krylov tails' one launch (csrc/vec.cu tail_dots_kernel) -------------
+
+def _tail_calls(n, dtype, device, seed):
+    """The three tails on one set of random vectors, each a closure."""
+    rng = np.random.RandomState(seed)
+    v = [torch.as_tensor(rng.standard_normal(n)).to(device=device,
+                                                    dtype=dtype)
+         for _ in range(6)]
+    a, w, b, one = (torch.tensor(c, dtype=dtype, device=device)
+                    for c in (0.37, -1.3, -0.37, 1.0))
+    return v, {"bicg_tail": lambda: fv.bicgstab_tail(a, v[0], w, *v[1:]),
+               "axpby_dot": lambda: fv.axpby_dot(b, v[0], one, v[1]),
+               "xr": lambda: fv.xr_update(a, *v[:4])}
+
+
+def _tail_ordered(mode, out, v):
+    """The tails' order (fused_vec.ordered_tail_dots) on a call's own
+    r' (or z) and r̂, as bytes."""
+    np_ = lambda t: t.cpu().numpy()
+    if mode == "bicg_tail":
+        want = fv.ordered_tail_dots(np_(out[1]), np_(v[5]))
+    else:
+        want = fv.ordered_tail_dots(np_(out[-2]))
+    return [d.tobytes() for d in want]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 255, 257, 1000, 85623, 256 * 1056])
+def test_tail_dots_follow_the_tails_order(cuda, n, dtype):
+    """The dots of bicgstab_tail and axpby_dot (one launch) and of
+    xr_update (two) equal, bit for bit, the tails' order
+    (fused_vec.ordered_tail_dots) on the call's own r' (or z) and r̂, at
+    ragged n, the BiCGStab paths' and the largest n of one element a
+    thread."""
+    v, calls = _tail_calls(n, dtype, cuda, seed=n)
+    for mode, fn in calls.items():
+        out = fn()
+        dots = out[2:] if mode == "bicg_tail" else out[-1:]
+        assert [_bits(d) for d in dots] == _tail_ordered(mode, out, v), mode
+        assert all(d.dim() == 0 and d.device.type == "cuda" for d in dots)
+
+
+def test_tail_dots_are_one_kernel_a_call(cuda):
+    """A call of bicgstab_tail and one of axpby_dot under one
+    torch.profiler: two device kernels in all, each the one-launch tail
+    (the partials' sum runs in the grid's last block), and one launch
+    counted each."""
+    from torch.profiler import ProfilerActivity, profile
+    _, calls = _tail_calls(85623, torch.float32, cuda, seed=1)
+    fns = (calls["bicg_tail"], calls["axpby_dot"])
+    for fn in fns:              # the stream's ticket is made once, here
+        fn()
+    torch.cuda.synchronize()
+    launches = (fv.bicgstab_tail.launches, fv.axpby_dot.launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 2 and all("tail_dots_kernel" in k
+                                     for k in kernels), kernels
+    assert (fv.bicgstab_tail.launches, fv.axpby_dot.launches) \
+        == (launches[0] + 1, launches[1] + 1)
+
+
+def test_tail_dots_on_two_streams_at_once(cuda):
+    """Two streams run bicgstab_tail and axpby_dot at the BiCGStab paths'
+    n at once, each several times: every call gets the bits of the same
+    call made alone (each stream has its own ticket)."""
+    sets = [_tail_calls(85623, torch.float32, cuda, seed=s)[1]
+            for s in (1, 2)]
+    run = lambda c: c["bicg_tail"]() + c["axpby_dot"]()
+    alone = [[_bits(t) for t in run(c)] for c in sets]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(4):
+        for k, (s, c) in enumerate(zip(streams, sets)):
+            with torch.cuda.stream(s):
+                outs[k].append(run(c))
+    torch.cuda.synchronize()
+    for k in (0, 1):
+        for got in outs[k]:
+            assert [_bits(t) for t in got] == alone[k]
+
+
+@pytest.mark.parametrize("mode", ["bicg_tail", "axpby_dot", "xr"])
+def test_tail_after_a_refused_launch(cuda, monkeypatch, mode):
+    """The C entries refuse a grid one block short: the wrapper raises and
+    counts no launch, the stream's ticket is still 0, and the next call
+    gives the bits of a call made before."""
+    v, calls = _tail_calls(85623, torch.float32, cuda, seed=5)
+    wrapper = {"bicg_tail": fv.bicgstab_tail, "axpby_dot": fv.axpby_dot,
+               "xr": fv.xr_update}[mode]
+    before = [_bits(t) for t in calls[mode]()]
+    blocks = fv.tail_blocks
+    monkeypatch.setattr(fv, "tail_blocks", lambda n: blocks(n) - 1)
+    launches = wrapper.launches
+    with pytest.raises(RuntimeError):
+        calls[mode]()
+    assert wrapper.launches == launches
+    monkeypatch.setattr(fv, "tail_blocks", blocks)
+    ticket = dk._ticket(v[0].device,
+                        torch.cuda.current_stream().cuda_stream)
+    assert int(ticket.item()) == 0
+    assert [_bits(t) for t in calls[mode]()] == before
+
+
 @pytest.mark.parametrize("order,side", [("identity", "right"),
                                         ("rcm", "left")])
 def test_unstructured_solve_on_card_matches_cpu(cuda, order, side):
@@ -1823,6 +1936,61 @@ def test_gather_refuses_malformed_operands(cuda, bad):
         x = x[:, None]
     launches = gk.gather_spmv.launches
     with pytest.raises(ValueError):
+        gk.gather_spmv(st, cl, v, x, n)
+    assert gk.gather_spmv.launches == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K", gk.KS)
+def test_gather_geometries_agree_bit_for_bit(cuda, monkeypatch, K, dtype):
+    """Every block size the kernel takes gives the default grid's bits
+    (each row's chain runs in one thread, in slot order), over a ragged
+    last tile, an empty tile and slots past the end of x."""
+    n = 5000
+    st, cl, v, x, _, _ = _well(n, n, K, dtype, cuda, seed=K, empty=2)
+    want = _bits(gk.gather_spmv(st, cl, v, x, n))
+    for threads in (32, 64, 96, 128):
+        monkeypatch.setattr(gk, "launch_geometry", lambda n_, K_, t=threads:
+                            gk.Geometry(t, -(-n_ // t)))
+        assert _bits(gk.gather_spmv(st, cl, v, x, n)) == want, threads
+
+
+@pytest.mark.parametrize("threads,short", [(100, 0), (16, 0), (512, 0),
+                                           (128, 1)])
+def test_gather_entry_refuses_a_bad_grid(cuda, monkeypatch, threads,
+                                         short):
+    """The C entry refuses blocks that are not whole warps of at most 256
+    threads and a grid one block short of the rows: the wrapper raises
+    and counts no launch."""
+    n = 5000
+    st, cl, v, x, _, _ = _well(n, n, 16, torch.float32, cuda)
+    monkeypatch.setattr(gk, "launch_geometry", lambda n_, K_: gk.Geometry(
+        threads, -(-n_ // threads) - short))
+    launches = gk.gather_spmv.launches
+    with pytest.raises(RuntimeError):
+        gk.gather_spmv(st, cl, v, x, n)
+    assert gk.gather_spmv.launches == launches
+
+
+@pytest.mark.parametrize("bad", ["vals", "cols"])
+def test_gather_refuses_misaligned_rows(cuda, bad):
+    """The gather kernel reads rows in 16-byte vectors: cols_local or vals
+    off a 16-byte boundary raises before any launch."""
+    n = 3000
+    st, cl, v, x, _, _ = _well(n, n, 8, torch.float32, cuda)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    if bad == "vals":
+        v = shifted(v)
+    else:
+        cl = shifted(cl)
+    assert (v.data_ptr() | cl.data_ptr()) % 16
+    launches = gk.gather_spmv.launches
+    with pytest.raises(ValueError, match="16-byte"):
         gk.gather_spmv(st, cl, v, x, n)
     assert gk.gather_spmv.launches == launches
 

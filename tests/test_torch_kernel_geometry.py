@@ -1,6 +1,7 @@
 """Launch geometry of the windowed-ELL kernels (csrc/well_block.cu), the
 dense-window kernel (csrc/densewin.cu), the fused legs' tiles
-(csrc/vcycle.cu) and the DIA dot kernels (csrc/dia.cu), on the CPU.
+(csrc/vcycle.cu), the DIA dot kernels (csrc/dia.cu), the gather kernel
+(csrc/gather.cu) and the Krylov tails' order (csrc/vec.cu), on the CPU.
 
 Each wrapper computes its grid in one small function
 (``well_kernels.launch_geometry``, ``densewin_kernels.launch_geometry``).
@@ -28,8 +29,12 @@ random offsets on odd grids. The DIA dot kernels' groups
 sets, square and rectangular, at group edges: one partial per 256 rows,
 every interior group's terms in range, and no group more could be
 interior; and their summation order (``dia_kernels.ordered_dot``)
-against ``torch.dot``. The kernels themselves run only on a card
-(tests/test_torch_cuda.py).
+against ``torch.dot``. The gather kernel's grid
+(``gather_kernels.launch_geometry``) by brute force: every row's every
+4-slot vector taken by exactly one lane, a row's lanes in one warp, and
+the refusals; the tails' order (``fused_vec.ordered_tail_dots``) spelled
+out, against ``torch.dot``, and refused where a thread chains elements.
+The kernels themselves run only on a card (tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -39,6 +44,8 @@ import torch
 from amgcl_tpu_torch import AMG, AMGParams, fe_like_problem
 from amgcl_tpu_torch.ops import densewin_kernels as dwk
 from amgcl_tpu_torch.ops import dia_kernels as dk
+from amgcl_tpu_torch.ops import fused_vec as fv
+from amgcl_tpu_torch.ops import gather_kernels as gk
 from amgcl_tpu_torch.ops import vcycle_kernels as vk
 from amgcl_tpu_torch.ops import well_kernels as wk
 from amgcl_tpu_torch.ops.densewin import DenseWindowMatrix
@@ -855,3 +862,111 @@ def test_c_ints_refuses_values_outside_int32():
     for bad in ((2 ** 31,), (-2 ** 31 - 1, 0)):
         with pytest.raises(ValueError):
             dk.c_ints(bad)
+
+
+# -- the gather kernel (csrc/gather.cu) ----------------------------------------
+
+def _gather_cover(n_out, geo):
+    """How many threads take each of n_out rows, by brute force over every
+    thread of the grid: thread t of block b serves row b · threads + t."""
+    row = np.arange(geo.nblocks * geo.threads)
+    return np.bincount(row[row < n_out], minlength=n_out)
+
+
+@pytest.mark.parametrize("K", gk.KS)
+@pytest.mark.parametrize("n_out", [1, 31, 32, 33, 255, 256, 257, 1000,
+                                   30000, 85623])
+def test_gather_geometry_takes_every_row_once(n_out, K):
+    """Each row taken by exactly one thread, blocks of whole warps up to
+    the kernel's 256 threads, and no block wholly idle."""
+    geo = gk.launch_geometry(n_out, K)
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= 256
+    assert (geo.nblocks - 1) * geo.threads < n_out \
+        <= geo.nblocks * geo.threads
+    assert np.all(_gather_cover(n_out, geo) == 1), geo
+
+
+def test_gather_geometry_main_paths():
+    """G1's and G1r's L0 (85,623 rows): 335 blocks of 256 rows, which at
+    64 registers a thread (4 blocks an SM) are all in flight on the
+    card's 132 SMs at once."""
+    geo = gk.launch_geometry(85623, 16)
+    assert geo == gk.Geometry(256, 335) and geo.nblocks <= 132 * 4
+
+
+@pytest.mark.parametrize("K", [0, 2, 6, 20, 48])
+def test_gather_geometry_refuses_other_k(K):
+    with pytest.raises(ValueError, match="takes K"):
+        gk.launch_geometry(1000, K)
+
+
+# -- the Krylov tails' order (csrc/vec.cu) --------------------------------------
+
+@pytest.mark.parametrize("n,blocks", [(1, 1), (256, 1), (257, 2),
+                                      (85623, 335), (270336, 1056),
+                                      (270337, 1056), (1 << 21, 1056)])
+def test_tail_blocks(n, blocks):
+    """One block per 256 elements up to the fixed grid of 1,056."""
+    assert fv.tail_blocks(n) == blocks
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 85623, 270336])
+def test_ordered_tail_dots_agree_with_torch_dot(n, dtype):
+    """Both dots of the tails' order are dot products: within the card
+    tests' dot tolerance of torch.dot."""
+    from tests.test_torch_cuda import _dot_close
+    rng = np.random.RandomState(n + 1)
+    r, rh = (rng.standard_normal(n).astype(dtype) for _ in range(2))
+    rr, hr = fv.ordered_tail_dots(r, rh)
+    assert (rr.dtype, hr.dtype) == (dtype, dtype)
+    assert fv.ordered_tail_dots(r) == (rr,)
+    tr, th = torch.as_tensor(r), torch.as_tensor(rh)
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    _dot_close(torch.tensor(rr), torch.dot(tr, tr), tr, tr, tdt)
+    _dot_close(torch.tensor(hr), torch.dot(th, tr), th, tr, tdt)
+
+
+def test_ordered_tail_dots_sum_in_their_stated_order():
+    """Spelled out at the BiCGStab paths' n (335 blocks): a thread's
+    product fma'd onto +0, each block's pairwise tree, lane t of 256
+    adding partials t, t+256 to 0, the tree over the lanes — the order of
+    block_reduce_store and reduce_partials. A left-to-right sum of the
+    same products gives other bits."""
+    rng = np.random.RandomState(4)
+    n = 85623
+    r = (rng.standard_normal(n) * 10.0 ** rng.randint(-3, 4, n)).astype(
+        np.float32)
+    rh = rng.standard_normal(n).astype(np.float32)
+    blocks = fv.tail_blocks(n)
+
+    def spelled(a):
+        p = np.zeros(blocks * 256, np.float32)
+        p[:n] = a * r + np.float32(0)
+        s = p.reshape(blocks, 256)
+        for stride in (128, 64, 32, 16, 8, 4, 2, 1):
+            s = s[:, :stride] + s[:, stride:2 * stride]
+        part = s[:, 0]
+        lanes = []
+        for t in range(256):
+            acc = np.float32(0)
+            for c in range(t, blocks, 256):
+                acc = np.float32(acc + part[c])
+            lanes.append(acc)
+        s = np.asarray(lanes, np.float32).reshape(1, 256)
+        for stride in (128, 64, 32, 16, 8, 4, 2, 1):
+            s = s[:, :stride] + s[:, stride:2 * stride]
+        return s[0, 0]
+    want = (spelled(r), spelled(rh))
+    got = fv.ordered_tail_dots(r, rh)
+    assert [g.tobytes() for g in got] == [w.tobytes() for w in want]
+    assert np.float32(np.cumsum(r * r, dtype=np.float32)[-1]).tobytes() \
+        != want[0].tobytes()
+
+
+def test_ordered_tail_dots_refuse_a_chained_length():
+    """Past 256 · 1,056 elements a thread chains several fmas, which numpy
+    cannot round as the card does: refused."""
+    fv.ordered_tail_dots(np.ones(256 * 1056, np.float32))
+    with pytest.raises(ValueError, match="one a thread"):
+        fv.ordered_tail_dots(np.ones(256 * 1056 + 1, np.float32))
