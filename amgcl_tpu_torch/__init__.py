@@ -1,7 +1,13 @@
 """amgcl_tpu_torch — the PyTorch/CUDA port of amgcl_tpu.
 
-Algebraic multigrid (smoothed aggregation, SPAI-0, V-cycle) as the
-preconditioner of a Krylov solver, with tensors on a CUDA device and the
+Algebraic multigrid as the preconditioner of a Krylov solver: smoothed
+aggregation (the default; with rigid-body near-nullspaces through
+``SmoothedAggregation(nullspace=rigid_body_modes(coords))``), plain
+aggregation, energy-minimizing SA, Ruge–Stüben and ``AsScalar`` for the
+coarsening; SPAI-0 (the default), damped Jacobi, Chebyshev, SPAI-1,
+multicolour Gauss–Seidel, ILU(0), ILUT, ILU(k), ILU(p) and ``AsBlock``
+for the smoother, e.g. ``AMGParams(coarsening=RugeStuben(),
+relax=Chebyshev())``; V- or W-cycles, with tensors on a CUDA device and the
 hot sparse kernels written by hand for Hopper (``csrc/``). The JAX package
 ``amgcl_tpu`` is the reference it is held against; this package imports
 nothing of it.
@@ -72,16 +78,28 @@ mode. One process drives every shard, and shards may share a card::
 """
 
 from amgcl_tpu_torch.ops.csr import CSR
+from amgcl_tpu_torch.coarsening import (Aggregation, AsScalar, RugeStuben,
+                                        SmoothedAggrEMin,
+                                        SmoothedAggregation,
+                                        rigid_body_modes)
 from amgcl_tpu_torch.models.amg import AMG, AMGParams
 from amgcl_tpu_torch.models.make_solver import make_solver
 from amgcl_tpu_torch.ops.unstructured import fe_like_problem
 from amgcl_tpu_torch.parallel import (DistStencilSolver, dist_stencil_build,
                                       make_mesh)
+from amgcl_tpu_torch.relaxation import (ILU0, ILUK, ILUP, ILUT, AsBlock,
+                                        Chebyshev, DampedJacobi, GaussSeidel,
+                                        Spai0, Spai1)
 from amgcl_tpu_torch.solver import (CG, FGMRES, GMRES, IDRs, LGMRES,
                                     BiCGStab, BiCGStabL, PreOnly, Richardson)
-from amgcl_tpu_torch.utils.sample_problem import poisson3d, poisson3d_block
+from amgcl_tpu_torch.utils.sample_problem import (poisson3d, poisson3d_block,
+                                                  q1_elasticity2d)
 
 __all__ = ["CSR", "AMG", "AMGParams", "make_solver", "BiCGStab",
            "BiCGStabL", "CG", "DistStencilSolver", "FGMRES", "GMRES", "IDRs",
            "LGMRES", "PreOnly", "Richardson", "dist_stencil_build",
-           "fe_like_problem", "make_mesh", "poisson3d", "poisson3d_block"]
+           "fe_like_problem", "make_mesh", "poisson3d", "poisson3d_block",
+           "q1_elasticity2d", "Aggregation", "AsScalar", "RugeStuben",
+           "SmoothedAggrEMin", "SmoothedAggregation", "rigid_body_modes",
+           "AsBlock", "Chebyshev", "DampedJacobi", "GaussSeidel", "ILU0",
+           "ILUK", "ILUP", "ILUT", "Spai0", "Spai1"]

@@ -7,6 +7,12 @@ the reference's own algorithm (amgcl/coarsening/plain_aggregates.hpp:
 (``csrc/setup_kernels.cpp::aggregate_d2``). This is the same pass in
 numpy: the scan over candidate roots is sequential, and each root's
 claims are vectorized over its neighbourhood.
+
+The distance-2 maximal-independent-set formulation of the JAX package's
+numpy route (:func:`mis_aggregates`, reference:
+amgcl/mpi/coarsening/pmis.hpp:49-1131) is here too: its Luby rounds
+colour the graph for multicolour Gauss–Seidel and split C/F points for
+Ruge–Stüben's PMIS.
 """
 
 from __future__ import annotations
@@ -72,16 +78,111 @@ def greedy_aggregates(S: sp.csr_matrix):
     return agg, count
 
 
+def _priority(n: int) -> np.ndarray:
+    """A unique pseudo-random priority per node (a seeded permutation of
+    1..n): small integers, exact in float64, so that a row maximum
+    identifies its argmax."""
+    return (np.random.RandomState(7919).permutation(n) + 1).astype(
+        np.float64)
+
+
+def _row_max(indptr: np.ndarray, indices: np.ndarray,
+             score: np.ndarray) -> np.ndarray:
+    """Per-row max of score[col] over a CSR pattern (0 on empty rows)."""
+    n = len(indptr) - 1
+    out = np.zeros(n, dtype=score.dtype)
+    nonempty = indptr[:-1] < indptr[1:]
+    if nonempty.any():
+        out[nonempty] = np.maximum.reduceat(score[indices],
+                                            indptr[:-1][nonempty])
+    return out
+
+
+def _luby_mis(S2: sp.csr_matrix, active: np.ndarray, prio: np.ndarray,
+              max_rounds: int = 1000) -> np.ndarray:
+    """Maximal independent set of S2 over the ``active`` nodes: Luby
+    rounds in which an undecided node whose priority beats every
+    undecided neighbour's joins, and its neighbourhood leaves the pool."""
+    und = active.copy()
+    in_set = np.zeros(S2.shape[0], dtype=bool)
+    indptr, indices = S2.indptr, S2.indices
+    for _ in range(max_rounds):
+        if not und.any():
+            break
+        nbr_max = _row_max(indptr, indices, np.where(und, prio, 0.0))
+        winners = und & (prio > nbr_max)
+        in_set |= winners
+        covered = _row_max(indptr, indices,
+                           winners.astype(np.float64)) > 0
+        und &= ~(winners | covered)
+    return in_set
+
+
+def mis_aggregates(S: sp.csr_matrix, max_rounds: int = 1000):
+    """Aggregates from a distance-2 MIS over the strength graph S: roots
+    are an MIS of S + S² (no two within distance 2), their strong
+    neighbours join them, and the rest join their highest-priority
+    assigned neighbour (two sweeps); an active node left over becomes an
+    aggregate of its own. Returns ``(agg, n_agg)``, ``agg[i] == -1`` for
+    isolated rows."""
+    n = S.shape[0]
+    prio = _priority(n)
+    active = np.diff(S.indptr) > 0
+    S2 = ((S + S @ S) > 0).astype(np.int8)
+    S2.setdiag(0)
+    S2.eliminate_zeros()
+    roots = _luby_mis(S2, active, prio, max_rounds)
+    root_of = np.full(n, -1, dtype=np.int64)
+    root_of[roots] = np.flatnonzero(roots)
+    rows_all = np.repeat(np.arange(n), np.diff(S.indptr))
+
+    # distance 1: the adjacent root (unique: roots are S2-independent)
+    p_root = np.where(roots, prio, 0.0)
+    nbr_root_max = _row_max(S.indptr, S.indices, p_root)
+    d1 = active & ~roots & (nbr_root_max > 0)
+    sc = p_root[S.indices]
+    match = d1[rows_all] & (sc > 0) & (sc == nbr_root_max[rows_all])
+    root_of[rows_all[match]] = S.indices[match]
+
+    # distance 2: the highest-priority assigned neighbour's aggregate
+    assigned = root_of >= 0
+    for _ in range(2):
+        todo = active & ~assigned
+        if not todo.any():
+            break
+        p_asgn = np.where(assigned, prio, 0.0)
+        nbr_max = _row_max(S.indptr, S.indices, p_asgn)
+        join = todo & (nbr_max > 0)
+        sc = p_asgn[S.indices]
+        match = join[rows_all] & (sc > 0) & (sc == nbr_max[rows_all])
+        root_of[rows_all[match]] = root_of[S.indices[match]]
+        assigned = root_of >= 0
+
+    left = active & (root_of < 0)
+    root_of[left] = np.flatnonzero(left)
+    roots = roots | left
+    root_nodes = np.flatnonzero(roots)
+    agg_id = np.full(n, -1, dtype=np.int64)
+    agg_id[root_nodes] = np.arange(len(root_nodes))
+    agg = np.full(n, -1, dtype=np.int64)
+    agg[root_of >= 0] = agg_id[root_of[root_of >= 0]]
+    return agg, len(root_nodes)
+
+
 def plain_aggregates(A: CSR, eps_strong: float = 0.08):
     """Aggregates over the scalar strength graph of A (reference default
     eps_strong = 0.08)."""
     return greedy_aggregates(strength_graph(A, eps_strong))
 
 
-def pointwise_aggregates(A: CSR, eps_strong: float = 0.08):
-    """Aggregates of a block system (BCSR) over its pointwise matrix, one
-    value per block (amgcl/coarsening/pointwise_aggregates.hpp:54-197;
+def pointwise_aggregates(A: CSR, eps_strong: float = 0.08,
+                         block_size: int = 1):
+    """Aggregates of a block system over its pointwise matrix, one value
+    per block (amgcl/coarsening/pointwise_aggregates.hpp:54-197;
     counterpart of ``amgcl_tpu/coarsening/aggregates.py::
-    pointwise_aggregates``). ``agg`` indexes block rows."""
-    return plain_aggregates(pointwise_matrix(A, A.block_size[0]),
-                            eps_strong)
+    pointwise_aggregates``): a BCSR, or a scalar matrix with
+    ``block_size``² blocks. ``agg`` indexes block rows."""
+    if block_size == 1 and not A.is_block:
+        return plain_aggregates(A, eps_strong)
+    b = A.block_size[0] if A.is_block else block_size
+    return plain_aggregates(pointwise_matrix(A, b), eps_strong)

@@ -26,11 +26,16 @@ from amgcl_tpu_torch.ops.densewin import DenseWindowMatrix
 from amgcl_tpu_torch.ops.device import DenseMatrix, DiaMatrix
 from amgcl_tpu_torch.ops.structured import (AggTentative, GridTentative,
                                             ImplicitSmoothedP,
-                                            ImplicitSmoothedR)
+                                            ImplicitSmoothedR, TentativeP,
+                                            TentativeR)
 from amgcl_tpu_torch.ops.unstructured import WindowedEllMatrix
 from amgcl_tpu_torch.ops.vcycle import build_fused_down, build_fused_up
 from amgcl_tpu_torch.parallel.dist_stencil import FusedSlab
 from amgcl_tpu_torch.relaxation.base import ScaledResidualSmoother
+from amgcl_tpu_torch.relaxation.chebyshev import ChebyshevState
+from amgcl_tpu_torch.relaxation.gauss_seidel import MulticolorGS
+from amgcl_tpu_torch.relaxation.ilu0 import ILU0State
+from amgcl_tpu_torch.relaxation.spai1 import Spai1State
 from amgcl_tpu_torch.solver.idrs import IDRs
 from amgcl_tpu_torch.solver.direct import DenseDirectSolver
 from amgcl_tpu_torch.utils.devices import resolve_device
@@ -65,14 +70,33 @@ def _operator(spec, dtype, device):
                                     device=device))
 
 
+def _smoother(spec, dtype, device):
+    """A smoother state from the arrays of a ``"relax"`` dict (see
+    :func:`hierarchy_from_arrays`)."""
+    vec = lambda a: None if a is None else torch.tensor(
+        np.asarray(a), dtype=dtype, device=device)
+    if "scale" in spec:
+        return ScaledResidualSmoother(vec(spec["scale"]))
+    if "chebyshev" in spec:
+        dinv, degree, theta, delta, scale = spec["chebyshev"]
+        return ChebyshevState(vec(dinv), degree, theta, delta, scale)
+    if "M" in spec:
+        return Spai1State(_operator(spec["M"], dtype, device))
+    if "masks" in spec:
+        return MulticolorGS(vec(spec["masks"]))
+    return ILU0State(_operator(spec["L"], dtype, device),
+                     _operator(spec["U"], dtype, device), vec(spec["uinv"]),
+                     spec["iters"])
+
+
 def level_from_arrays(lv, dtype, device) -> Level:
     """One level of a hierarchy from plain arrays (keys as in
     :func:`hierarchy_from_arrays`, all but the coarsest level's), with the
     port's own fused V-cycle handles attached where the level is
     eligible (``ops/vcycle.py``)."""
     A = _operator(lv["A"], dtype, device)
-    relax = ScaledResidualSmoother(torch.tensor(np.asarray(lv["scale"]),
-                                                dtype=dtype, device=device))
+    relax = _smoother(lv["relax"] if "relax" in lv
+                      else {"scale": lv["scale"]}, dtype, device)
     if "P" in lv:
         # stored transfers (block systems): no fused legs
         return Level(A, relax, _operator(lv["P"], dtype, device),
@@ -85,6 +109,9 @@ def level_from_arrays(lv, dtype, device) -> Level:
         block = tuple(int(b) for b in lv["block"])
         coarse = tuple(-(-d // b) for d, b in zip(fine, block))
         T = GridTentative(fine, block, coarse)
+    if "M" not in lv:
+        # plain aggregation: P = T
+        return Level(A, relax, TentativeP(T), TentativeR(T))
     P = ImplicitSmoothedP(T, _operator(lv["M"], dtype, device))
     R = ImplicitSmoothedR(T, _operator(lv["Mt"], dtype, device))
     return Level(A, relax, P, R, build_fused_down(A, R, relax),
@@ -102,14 +129,21 @@ def hierarchy_from_arrays(levels, coarse_inv, params: AMGParams = None,
     dense-window dict (keys ``window_starts``, ``blocks``, ``shape``,
     ``win``: the arrays of
     :class:`~amgcl_tpu_torch.ops.densewin.DenseWindowMatrix`) or as a
-    dense 2-D array. Every level but the last also has ``"scale"`` (the
-    SPAI-0 diagonal, or its (n, b, b) blocks) and its transfers: either
-    stored, as ``"P"`` and ``"R"`` in the same forms (block systems), or
-    matrix-free, as ``"M"`` and ``"Mt"`` (the smoothed transfer's
-    M = ω D⁻¹ A_f and its transpose) with the tentative prolongation as
-    either ``"fine"`` and ``"block"`` (grid dims and aggregation blocks)
-    or ``"agg"`` and ``"n_agg"`` (the aggregate id of each fine point, -1
-    for none, and the aggregate count).
+    dense 2-D array. Every level but the last also has its smoother and
+    its transfers. The smoother is ``"scale"`` (the SPAI-0 or damped
+    Jacobi diagonal, or its (n, b, b) blocks) or a ``"relax"`` dict:
+    ``{"scale": w}`` likewise; ``{"chebyshev": (dinv, degree, theta,
+    delta, scale)}`` (dinv None unless scale); ``{"M": op}`` (SPAI-1);
+    ``{"masks": (ncolors, n)}`` (multicolour Gauss–Seidel's pre-scaled
+    masks); ``{"L": op, "U": op, "uinv": (n,), "iters": k}`` (the ILU
+    family: strict factors, U's inverted diagonal, Jacobi iterations),
+    each op in the forms of ``"A"``. The transfers are either stored, as
+    ``"P"`` and ``"R"`` in the same forms, or matrix-free with the
+    tentative prolongation as either ``"fine"`` and ``"block"`` (grid
+    dims and aggregation blocks) or ``"agg"`` and ``"n_agg"`` (the
+    aggregate id of each fine point, -1 for none, and the aggregate
+    count): smoothed with ``"M"`` and ``"Mt"`` (M = ω D⁻¹ A_f and its
+    transpose), plain (P = T) without them.
     ``coarse_inv`` is the dense inverse of the last level's operator.
     ``params`` supplies the dtype and the cycle shape (npre, npost,
     ncycle, pre_cycles)."""

@@ -137,8 +137,7 @@ class Hierarchy:
             for part in (lv.A, lv.P, lv.R):
                 total += part.bytes() if part is not None else 0
             if lv.relax is not None:
-                total += lv.relax.scale.numel() \
-                    * lv.relax.scale.element_size()
+                total += lv.relax.bytes()
         if self.coarse is not None:
             total += self.coarse.inv.numel() * self.coarse.inv.element_size()
         return total
@@ -225,7 +224,8 @@ class AMG:
                 A = got["leftover"]
                 ctx["eps_strong"] = got["eps_next"]
         coarsening = prm.coarsening
-        if prm.dtype.itemsize <= 4:
+        if prm.dtype.itemsize <= 4 \
+                and getattr(coarsening, "setup_dtype", False) is None:
             # a <=32-bit device hierarchy lets the stencil setup algebra
             # run in float32 — same convergence, half the memory traffic
             ctx["setup_dtype"] = np.float32

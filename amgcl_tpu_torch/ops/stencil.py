@@ -297,7 +297,8 @@ def _odiff(a, b):
 
 class StencilGalerkinPlan:
     """Static plan for the diagonal-space Galerkin product
-    ``Ac = Tᵀ (I − Mᵀ) A (I − M) T``.
+    ``Ac = Tᵀ (I − Mᵀ) A (I − M) T`` (``m_offs3=None``: the plain
+    aggregation collapse ``Tᵀ A T``).
 
     Everything value-independent — the pair multiply lists for
     X = A − A·M and S = X − Mᵀ·X, the Mᵀ shift table, and the parity→
@@ -306,13 +307,45 @@ class StencilGalerkinPlan:
 
     def __init__(self, a_offs3, m_offs3, dims, blocks, coarse_dims, dtype):
         self.a_offs = [tuple(int(c) for c in o) for o in a_offs3]
-        self.m_offs = [tuple(int(c) for c in o) for o in m_offs3]
+        self.m_offs = None if m_offs3 is None else \
+            [tuple(int(c) for c in o) for o in m_offs3]
         self.dims = tuple(int(d) for d in dims)
         self.blocks = tuple(int(b) for b in blocks)
         self.coarse = tuple(int(c) for c in coarse_dims)
         self.dtype = np.dtype(dtype)
         self.n = int(np.prod(self.dims))
         dims_ = self.dims
+        if self.m_offs is None:
+            # plain aggregation (P = T): S is A itself
+            self.s_offs = list(self.a_offs)
+        else:
+            self._pair_lists(dims_)
+        # collapse keys: every (s_offset, parity) maps to one coarse
+        # diagonal — the static output pattern of the product
+        b2, b1, b0 = self.blocks
+        c2, c1, c0 = self.coarse
+        self.dims_p = (c2 * b2, c1 * b1, c0 * b0)
+        co_slot = {}
+        keys = []
+        for oc in self.s_offs:
+            oz, oy, ox = oc
+            for pz in range(b2):
+                for py in range(b1):
+                    for px in range(b0):
+                        co = ((pz + oz) // b2, (py + oy) // b1,
+                              (px + ox) // b0)
+                        if co not in co_slot:
+                            co_slot[co] = len(co_slot)
+                        keys.append(co_slot[co])
+        order = sorted(co_slot, key=lambda o: _flat(o, self.coarse))
+        remap = {co_slot[o]: k for k, o in enumerate(order)}
+        self.coarse_offs = order
+        self.collapse_keys = np.asarray([remap[k] for k in keys],
+                                        dtype=np.int64).reshape(
+            len(self.s_offs), b2 * b1 * b0)
+
+    def _pair_lists(self, dims_):
+        """The pair multiply lists of X = A − A·M and S = X − Mᵀ·X."""
         a_idx = {o: k for k, o in enumerate(self.a_offs)}
         m_idx = {o: k for k, o in enumerate(self.m_offs)}
         self.x_offs = sorted(
@@ -350,33 +383,12 @@ class StencilGalerkinPlan:
                 ps.append(self.mt_shifts[kmt])
                 po.append(ks)
         self.pairs_s = (pa, pb, ps, po)
-        # collapse keys: every (s_offset, parity) maps to one coarse
-        # diagonal — the static output pattern of the product
-        b2, b1, b0 = self.blocks
-        c2, c1, c0 = self.coarse
-        self.dims_p = (c2 * b2, c1 * b1, c0 * b0)
-        co_slot = {}
-        keys = []
-        for oc in self.s_offs:
-            oz, oy, ox = oc
-            for pz in range(b2):
-                for py in range(b1):
-                    for px in range(b0):
-                        co = ((pz + oz) // b2, (py + oy) // b1,
-                              (px + ox) // b0)
-                        if co not in co_slot:
-                            co_slot[co] = len(co_slot)
-                        keys.append(co_slot[co])
-        order = sorted(co_slot, key=lambda o: _flat(o, self.coarse))
-        remap = {co_slot[o]: k for k, o in enumerate(order)}
-        self.coarse_offs = order
-        self.collapse_keys = np.asarray([remap[k] for k in keys],
-                                        dtype=np.int64).reshape(
-            len(self.s_offs), b2 * b1 * b0)
 
     def _s_diagonals(self, a_data, m_data):
         """The fine-grid sandwich S = (I − Mᵀ)A(I − M) as (nS, n) rows."""
         n, dt = self.n, self.dtype
+        if self.m_offs is None:
+            return a_data
         scratch = np.empty(n, dtype=dt)
 
         def apply_pairs(abase, bbase, pairs, obase):
@@ -429,7 +441,8 @@ class StencilGalerkinPlan:
         """Numeric Galerkin product; returns the full (pre-drop_empty)
         coarse HostDia in the plan's static diagonal order."""
         S = self._s_diagonals(np.asarray(a_data, dtype=self.dtype),
-                              np.asarray(m_data, dtype=self.dtype))
+                              None if m_data is None
+                              else np.asarray(m_data, dtype=self.dtype))
         return self._collapse(S)
 
 
@@ -460,13 +473,15 @@ class StencilTransfer:
 
 
 def stencil_transfer_operators(A: CSR, grid, eps_strong, relax_omega,
-                               setup_dtype=None):
+                               power_iters=0, setup_dtype=None):
     """The whole smoothed-aggregation transfer construction on diagonals.
 
     Returns (P, R) StencilTransfer proxies, or None when the
     matrix/strength structure falls off the stencil path (caller uses the
     generic CSR route). ``setup_dtype`` optionally runs the setup algebra
-    in a narrower dtype (float32 when the device hierarchy is float32)."""
+    in a narrower dtype (float32 when the device hierarchy is float32);
+    ``power_iters`` > 0 estimates ρ(D⁻¹ A_f) by power iteration instead of
+    the Gershgorin bound."""
     if np.iscomplexobj(A.val):
         return None
     Ad = host_dia_from_csr(A, grid, setup_dtype)
@@ -482,7 +497,11 @@ def stencil_transfer_operators(A: CSR, grid, eps_strong, relax_omega,
     if blocks is None:
         return None                    # no strong axis: MIS fallback
     coarse = tuple(-(-d // b) for d, b in zip(grid, blocks))
-    rho = gershgorin_scaled(Af, Dinv)
+    if power_iters and power_iters > 0:
+        from amgcl_tpu_torch.ops.csr import spectral_radius
+        rho = spectral_radius(Af.to_csr(), power_iters, scale=True)
+    else:
+        rho = gershgorin_scaled(Af, Dinv)
     omega = relax_omega * (4.0 / 3.0) / max(rho, 1e-30)
     M = scale_rows(Af, Dinv)
     M.data = M.data * omega
@@ -494,25 +513,54 @@ def stencil_transfer_operators(A: CSR, grid, eps_strong, relax_omega,
     return P, R
 
 
-def stencil_coarse_operator(A: CSR, P: StencilTransfer) -> CSR:
+def stencil_plain_transfer_operators(A: CSR, grid, eps_strong,
+                                     setup_dtype=None):
+    """Plain aggregation's transfers on the grid, P = T (reference:
+    amgcl/coarsening/aggregation.hpp:71-160): (P, R) proxies with no M,
+    or None (the caller takes the aggregate route)."""
+    if np.iscomplexobj(A.val):
+        return None
+    Ad = host_dia_from_csr(A, grid, setup_dtype)
+    if Ad is None or len(Ad.offsets3) > 13:
+        return None
+    Af, _ = filtered_dia(Ad, eps_strong)
+    blocks = strength_axes(Af)
+    if blocks is None:
+        return None
+    coarse = tuple(-(-d // b) for d, b in zip(grid, blocks))
+    nc = int(np.prod(coarse))
+    spec = {"M": None, "dtype": Ad.dtype, "fine": grid, "block": blocks,
+            "coarse": coarse}
+    return (StencilTransfer(spec, (A.nrows, nc)),
+            StencilTransfer(spec, (nc, A.nrows)))
+
+
+def stencil_coarse_operator(A: CSR, P: StencilTransfer, scale=None) -> CSR:
     """Galerkin product for the stencil path; the result CSR carries its
     grid dims and prepacked DIA data for a transfer-only device move.
+    ``spec["M"] is None`` is plain aggregation (P = T): the product is
+    the parity collapse of A itself. ``scale`` multiplies the product
+    (plain aggregation's over-interpolation correction).
     The pair/collapse plan and the coarse DIA→CSR index map cache on the
     transfer spec, so a second product through the same transfer pays
     only the numeric passes."""
     spec = P._implicit_spec
-    Ad = host_dia_from_csr(A, spec["fine"], spec["M"].dtype)
+    M = spec["M"]
+    Ad = host_dia_from_csr(A, spec["fine"],
+                           M.dtype if M is not None else spec["dtype"])
     if Ad is None:
         raise ValueError("matrix does not match the transfer grid")
     plan = spec.get("_gplan")
     if plan is None or plan.a_offs != Ad.offsets3 \
             or plan.dtype != Ad.dtype:
         plan = StencilGalerkinPlan(
-            Ad.offsets3, spec["M"].offsets3, Ad.dims, spec["block"],
-            spec["coarse"], Ad.dtype)
+            Ad.offsets3, None if M is None else M.offsets3, Ad.dims,
+            spec["block"], spec["coarse"], Ad.dtype)
         spec["_gplan"] = plan
         spec.pop("_csr_cache", None)
-    Ac = plan.apply(Ad.data, spec["M"].data)
+    Ac = plan.apply(Ad.data, None if M is None else M.data)
+    if scale is not None and scale != 1.0:
+        Ac = HostDia(Ac.offsets3, Ac.data * Ac.dtype.type(scale), Ac.dims)
     cache = spec.get("_csr_cache")
     if cache is not None:
         got = _csr_from_dia_cache(Ac, cache)

@@ -16,7 +16,9 @@ is born on the device. Per level (:func:`_level_setup`):
    list of diagonal pairs (reference Galerkin:
    amgcl/coarsening/detail/galerkin.hpp:53);
 5. the tentative collapse Ac = Tᵀ S T by parity slices;
-6. the SPAI-0 diagonal (reference: amgcl/relaxation/spai0.hpp:49-117);
+6. the smoother's diagonal from the original operator: SPAI-0's
+   (reference: amgcl/relaxation/spai0.hpp:49-117) or damped Jacobi's
+   ω/a_ii, 0 where a_ii is 0 (amgcl/relaxation/damped_jacobi.hpp);
 7. per-coarse-diagonal nonzero counts, the only per-level fetch to the
    host: which candidate diagonals survive fixes the next level's plan.
 
@@ -26,7 +28,10 @@ a mismatch reruns the level with the measured axes (semicoarsening).
 Once a level's stencil has more than ``_MAX_DIAGS`` diagonals, the build
 stops and hands that level to the host loop as CSR. Torch is eager, so
 the static-slice forms of the reference's TPU branches are the ones
-ported. Gates: the port's ``SmoothedAggregation``, float32, SPAI-0.
+ported. Gates: the port's ``SmoothedAggregation`` with its stencil,
+grid and implicit-transfer routes on and none of ``nullspace``,
+``aggregator``, ``block_size`` or ``power_iters`` set; float32; SPAI-0 or
+damped Jacobi.
 """
 
 from __future__ import annotations
@@ -114,12 +119,31 @@ def _fnma_scan(out, src, dst, pairs, pad=0):
 
 # -- one level -------------------------------------------------------------------
 
-def _level_setup(adata, eps_strong, relax, offs, dims, blocks, coarse):
+def smoother_scale(adata, main_k, damping):
+    """The smoother's diagonal from the operator's diagonal rows: SPAI-0's
+    a_ii / Σ_j a_ij² (``damping`` None), else damped Jacobi's
+    damping / a_ii, 0 where a_ii is 0."""
+    n = adata.shape[1]
+    dt, device = adata.dtype, adata.device
+    one = torch.ones((), dtype=dt, device=device)
+    d0 = adata[main_k] if main_k is not None \
+        else torch.ones(n, dtype=dt, device=device)
+    if damping is None:
+        denom = (adata * adata).sum(dim=0)
+        return d0 / torch.where(denom != 0, denom, one)
+    w = torch.tensor(damping, dtype=torch.float32, device=device).to(dt)
+    return w * torch.where(d0 != 0, one / torch.where(d0 != 0, d0, one),
+                           torch.zeros((), dtype=dt, device=device))
+
+
+def _level_setup(adata, eps_strong, relax, offs, dims, blocks, coarse,
+                 damping=None):
     """One hierarchy level on the data's device. Returns (m, mt, ac_all,
     smoother_scale, ac_counts, axis_strong): M and Mᵀ rows in the filtered
-    operator's offset order, every candidate coarse diagonal, the SPAI-0
-    scale, the nonzeros of each candidate and the strong connections per
-    axis (host arrays for the last two)."""
+    operator's offset order, every candidate coarse diagonal, the
+    smoother's diagonal (SPAI-0's, or damped Jacobi's with ``damping``),
+    the nonzeros of each candidate and the strong connections per axis
+    (host arrays for the last two)."""
     n = adata.shape[1]
     dt, device = adata.dtype, adata.device
     eps = torch.tensor(eps_strong, dtype=torch.float32, device=device)
@@ -210,16 +234,35 @@ def _level_setup(adata, eps_strong, relax, offs, dims, blocks, coarse):
     ac_all = ac_all.view(len(c_offs), -1)
     ac_counts = (ac_all != 0).sum(dim=1)
 
-    # 6. SPAI-0 diagonal from the original operator
-    d0 = adata[main_k] if main_k is not None \
-        else torch.ones(n, dtype=dt, device=device)
-    denom = (adata * adata).sum(dim=0)
-    scale = d0 / torch.where(denom != 0, denom, one)
+    # 6. the smoother's diagonal from the original operator
+    scale = smoother_scale(adata, main_k, damping)
     return m, mt, ac_all, scale, ac_counts.cpu().numpy(), \
         axis_strong.cpu().numpy()
 
 
 # -- orchestration -------------------------------------------------------------------
+
+def sa_fields_allow(c) -> bool:
+    """The device builds' gates on ``SmoothedAggregation``'s fields
+    (``amgcl_tpu/ops/stencil_device.py:412-415``): its stencil, grid and
+    implicit-transfer routes on; no nullspace, aggregator, block size or
+    power iteration."""
+    return (c.stencil_setup and c.structured and c.implicit_transfers
+            and c.nullspace is None and c.aggregator is None
+            and c.block_size == 1 and not c.power_iters)
+
+
+def smoother_damping(relax):
+    """None for SPAI-0, the damping for damped Jacobi, False for a
+    smoother the device builds do not form."""
+    from amgcl_tpu_torch.relaxation.jacobi import DampedJacobi
+    from amgcl_tpu_torch.relaxation.spai0 import Spai0
+    if isinstance(relax, Spai0):
+        return None
+    if isinstance(relax, DampedJacobi):
+        return float(relax.damping)
+    return False
+
 
 def _to_dia_matrix(data, offs3, dims, dtype):
     """Device DIA operator from diagonal rows: flat-sort the offsets and
@@ -273,16 +316,18 @@ def device_build(A: CSR, prm, device):
                                                 detect_grid_csr)
     from amgcl_tpu_torch.ops.vcycle import build_fused_down, build_fused_up
     from amgcl_tpu_torch.relaxation.base import ScaledResidualSmoother
-    from amgcl_tpu_torch.relaxation.spai0 import Spai0
     from amgcl_tpu_torch.solver.direct import DenseDirectSolver
 
     c = prm.coarsening
     if type(c) is not SmoothedAggregation or np.iscomplexobj(A.val):
         return None
+    if not sa_fields_allow(c):
+        return None
     if prm.matrix_format not in ("auto", "dia"):
         return None
-    # damped Jacobi and bfloat16 hierarchies are not ported yet
-    if prm.dtype != torch.float32 or not isinstance(prm.relax, Spai0):
+    # bfloat16 hierarchies are not ported yet
+    damping = smoother_damping(prm.relax)
+    if prm.dtype != torch.float32 or damping is False:
         return None
     grid = detect_grid_csr(A)
     if grid is None:
@@ -320,7 +365,7 @@ def device_build(A: CSR, prm, device):
             return leftover()
         coarse = tuple(-(-d // b) for d, b in zip(dims, blocks))
         m, mt, ac_all, scale, counts, axis = _level_setup(
-            adata, eps, c.relax, offs, dims, blocks, coarse)
+            adata, eps, c.relax, offs, dims, blocks, coarse, damping)
         # speculation check: every extent>1 axis must be strongly coupled;
         # otherwise rerun with the measured axes (semicoarsening), or hand
         # over when no axis is strong (aggregation would stall)
@@ -332,7 +377,7 @@ def device_build(A: CSR, prm, device):
             blocks = want
             coarse = tuple(-(-d // b) for d, b in zip(dims, blocks))
             m, mt, ac_all, scale, counts, _ = _level_setup(
-                adata, eps, c.relax, offs, dims, blocks, coarse)
+                adata, eps, c.relax, offs, dims, blocks, coarse, damping)
 
         af_offs = offs + ([] if (0, 0, 0) in offs else [(0, 0, 0)])
         mt_offs = [_oneg(o) for o in af_offs]
@@ -370,11 +415,7 @@ def device_build(A: CSR, prm, device):
         levels.append(Level(A_last, None))
     else:
         coarse_solver = None
-        dl = adata.cpu().numpy()
         main_k = offs.index((0, 0, 0)) if (0, 0, 0) in offs else None
-        d0 = dl[main_k] if main_k is not None else np.ones(n)
-        denom = (dl * dl).sum(axis=0)
-        sc = d0 / np.where(denom != 0, denom, 1)
         levels.append(Level(A_last, ScaledResidualSmoother(
-            torch.as_tensor(sc, device=device).to(dtype))))
+            smoother_scale(adata, main_k, damping).to(dtype))))
     return result(None, coarse_solver)

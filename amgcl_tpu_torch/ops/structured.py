@@ -248,6 +248,34 @@ class AggTentative:
                    for t in (self.agg, self.perm, self.bounds))
 
 
+class TentativeP:
+    """P = T (plain, unsmoothed aggregation)."""
+
+    def __init__(self, T):
+        self.T = T
+        self.shape = (T.shape[0], T.shape[1])
+
+    def mv(self, x):
+        return self.T.mv(x)
+
+    def bytes(self):
+        return self.T.bytes()
+
+
+class TentativeR:
+    """R = Tᵀ (plain, unsmoothed aggregation)."""
+
+    def __init__(self, T):
+        self.T = T
+        self.shape = (T.shape[1], T.shape[0])
+
+    def mv(self, y):
+        return self.T.rmv(y)
+
+    def bytes(self):
+        return self.T.bytes()
+
+
 class ImplicitSmoothedP:
     """P = (I − M) T applied matrix-free; M = ω D⁻¹ A_f on the device."""
 
@@ -283,15 +311,17 @@ class ImplicitSmoothedR:
 def build_implicit_transfers(spec, dtype, device, matrix_format="auto"):
     """Realise a coarsening's implicit-transfer spec on the device.
 
-    spec keys: 'M' (host CSR or HostDia, = ω D⁻¹ A_f); either
-    'fine'/'block'/'coarse' grid dims (grid-aligned aggregates) or
-    'agg'/'n_agg' (MIS aggregates). M and Mᵀ take the hierarchy's
-    ``matrix_format``, as in the JAX package (each on its own, with no
-    shared budget). Returns (P_dev, R_dev)."""
+    spec keys: 'M' (host CSR or HostDia, = ω D⁻¹ A_f; None for plain
+    aggregation, P = T); either 'fine'/'block'/'coarse' grid dims
+    (grid-aligned aggregates) or 'agg'/'n_agg' (MIS aggregates). M and
+    Mᵀ take the hierarchy's ``matrix_format``, as in the JAX package
+    (each on its own, with no shared budget). Returns (P_dev, R_dev)."""
     if "fine" in spec:
         T = GridTentative(spec["fine"], spec["block"], spec["coarse"])
     else:
         T = AggTentative.build(spec["agg"], spec["n_agg"], device)
+    if spec.get("M") is None:
+        return TentativeP(T), TentativeR(T)
     M = dev.to_device(spec["M"], matrix_format, dtype, device)
     Mt = dev.to_device(spec["M"].transpose(), matrix_format, dtype, device)
     return ImplicitSmoothedP(T, M), ImplicitSmoothedR(T, Mt)

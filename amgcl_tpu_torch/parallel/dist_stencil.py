@@ -51,7 +51,10 @@ from amgcl_tpu_torch.ops.stencil import HostDia, _flat, _osum, \
     host_dia_from_csr
 from amgcl_tpu_torch.ops.stencil_device import (_MAX_DIAGS, _collapse_plan,
                                                 _fnma_scan, _oneg,
-                                                _product_plan)
+                                                _product_plan,
+                                                sa_fields_allow,
+                                                smoother_damping,
+                                                smoother_scale)
 from amgcl_tpu_torch.ops.vcycle import up_geometry
 from amgcl_tpu_torch.parallel.dist_matrix import (_ring_exchange,
                                                   dia_halo_mv,
@@ -75,12 +78,13 @@ def _halo_extend(slabs, w):
 # -- one sharded level ---------------------------------------------------------
 
 def _sharded_level_setup(adata, eps_strong, relax, offs, gdims, lz, blocks,
-                         coarse):
+                         coarse, damping=None):
     """One hierarchy level over the shards: ``ops/stencil_device``'s level
     with halo shifts and reductions over the shards. ``adata``: per-shard
     ``(ndiag, nl)`` slabs; ``gdims`` the global grid, ``lz`` the planes of
     a slab. Returns per-shard lists (M, Mᵀ, every candidate coarse
-    diagonal, SPAI-0 scale) and the host arrays of the global nonzeros of
+    diagonal, the smoother's diagonal: SPAI-0's, or damped Jacobi's with
+    ``damping``) and the host arrays of the global nonzeros of
     each candidate and strong connections per axis."""
     d2, d1, d0 = gdims
     nl = adata[0].shape[1]
@@ -192,14 +196,8 @@ def _sharded_level_setup(adata, eps_strong, relax, offs, gdims, lz, blocks,
     del S
     counts = sum((c != 0).sum(dim=1).cpu().numpy() for c in ac)
 
-    # 6. SPAI-0 diagonal from the original operator
-    scale = []
-    for a in adata:
-        one = torch.ones((), dtype=dt, device=a.device)
-        d = a[main_k] if main_k is not None \
-            else torch.ones(nl, dtype=dt, device=a.device)
-        denom = (a * a).sum(dim=0)
-        scale.append(d / torch.where(denom != 0, denom, one))
+    # 6. the smoother's diagonal from the original operator
+    scale = [smoother_scale(a, main_k, damping) for a in adata]
     return m, mt, ac, scale, counts, np.asarray(axis_strong)
 
 
@@ -385,25 +383,27 @@ def dist_stencil_build(A: CSR, mesh: Mesh, prm, rep_coarse_enough=3000):
     per-level row counts)``, or None when the system or configuration
     lies outside the sharded stencil path: no grid, a z extent that does
     not split into even slabs, block or complex values, a dtype other than
-    float32, a coarsening other than smoothed aggregation. A smoother other
-    than SPAI-0 raises NotImplementedError: damped Jacobi is not ported
-    yet (ROADMAP A.8)."""
+    float32, a coarsening other than smoothed aggregation or one with a
+    field the device builds decline (``stencil_device.sa_fields_allow``).
+    A smoother other than SPAI-0 and damped Jacobi raises
+    NotImplementedError: the JAX package sends those to its ``DistAMG``,
+    which is not ported yet (ROADMAP A.12)."""
     from amgcl_tpu_torch.coarsening.smoothed_aggregation import \
         SmoothedAggregation
     from amgcl_tpu_torch.models.amg import AMG
     from amgcl_tpu_torch.ops.structured import detect_grid_csr
-    from amgcl_tpu_torch.relaxation.spai0 import Spai0
 
     c = prm.coarsening
-    if type(c) is not SmoothedAggregation:
+    if type(c) is not SmoothedAggregation or not sa_fields_allow(c):
         return None
     if A.is_block or np.iscomplexobj(A.val) or prm.dtype != torch.float32:
         return None
-    if not isinstance(prm.relax, Spai0):
+    damping = smoother_damping(prm.relax)
+    if damping is False:
         raise NotImplementedError(
-            "the sharded stencil path smooths with SPAI-0 only; %s (damped "
-            "Jacobi among others) is not ported yet (ROADMAP A.8)"
-            % type(prm.relax).__name__)
+            "the sharded stencil path smooths with SPAI-0 or damped Jacobi; "
+            "the JAX package sends %s to its DistAMG, which is not ported "
+            "yet (ROADMAP A.12)" % type(prm.relax).__name__)
     grid = detect_grid_csr(A)
     if grid is None:
         return None
@@ -440,7 +440,7 @@ def dist_stencil_build(A: CSR, mesh: Mesh, prm, rep_coarse_enough=3000):
             break
         coarse = tuple(-(-d // b) for d, b in zip(dims, blocks))
         m, mt, ac, scale, counts, axis = _sharded_level_setup(
-            adata, eps, c.relax, offs, dims, lz, blocks, coarse)
+            adata, eps, c.relax, offs, dims, lz, blocks, coarse, damping)
         want = tuple(min(2, dims[i]) if dims[i] > 1 and axis[i] >= 0.5 * n
                      else 1 for i in range(3))
         if want != blocks:
@@ -454,7 +454,8 @@ def dist_stencil_build(A: CSR, mesh: Mesh, prm, rep_coarse_enough=3000):
             blocks = want
             coarse = tuple(-(-d // b) for d, b in zip(dims, blocks))
             m, mt, ac, scale, counts, _ = _sharded_level_setup(
-                adata, eps, c.relax, offs, dims, lz, blocks, coarse)
+                adata, eps, c.relax, offs, dims, lz, blocks, coarse,
+                damping)
 
         af_offs = offs + ([] if (0, 0, 0) in offs else [(0, 0, 0)])
         mt_offs = [_oneg(o) for o in af_offs]
@@ -528,7 +529,8 @@ class DistStencilSolver:
                 "matrix or configuration outside the sharded stencil path "
                 "(it needs a structured grid whose z extent splits into "
                 "even slabs over %d shards, scalar real values, float32 "
-                "and smoothed aggregation with SPAI-0)" % mesh.size)
+                "and smoothed aggregation with SPAI-0 or damped Jacobi)"
+                % mesh.size)
         self.hier, self.meta = got
         self.n = A.nrows
         self.setup_seconds = time.perf_counter() - t0

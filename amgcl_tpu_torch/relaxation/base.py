@@ -8,6 +8,26 @@ import torch
 from amgcl_tpu_torch.ops import device as dev
 
 
+def setup_device(device):
+    """Where a smoother's set-up runs its large sparse products and
+    gathers: the CUDA device its state is built for, else None (numpy and
+    scipy on the host)."""
+    device = torch.device(device)
+    return device if device.type == "cuda" else None
+
+
+def state_bytes(*parts) -> int:
+    """Device bytes of a smoother state's parts: tensors and device
+    matrices (anything with ``bytes()``); None counts 0."""
+    total = 0
+    for p in parts:
+        if torch.is_tensor(p):
+            total += p.numel() * p.element_size()
+        elif p is not None:
+            total += p.bytes()
+    return total
+
+
 class ScaledResidualSmoother:
     """State for smoothers of the form x += scale ∘ (f − A x), with a
     per-unknown scale (damped Jacobi, SPAI-0) or a per-node b×b block
@@ -31,6 +51,9 @@ class ScaledResidualSmoother:
         return x + self._mul(dev.residual(f, A, x))
 
     apply_post = apply_pre
+
+    def bytes(self) -> int:
+        return state_bytes(self.scale)
 
     def apply(self, A, f):
         """One application from a zero initial guess

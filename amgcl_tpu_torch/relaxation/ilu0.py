@@ -1,0 +1,363 @@
+"""ILU(0), ILUT, ILU(k) and ILU(p) smoothers (counterpart of
+``amgcl_tpu/relaxation/ilu0.py``).
+
+Construction: Chow–Patel fixed-point sweeps (reference:
+amgcl/relaxation/ilu0_chow_patel.hpp:86-593, 5 sweeps). Each sweep forms
+(L + I)·U once and reads it on the factor pattern, so every entry of L
+and U updates at once: with scipy on the host (the JAX package's route
+without its native library), or, for a hierarchy on a CUDA device, with
+torch's sparse product on that device, which takes the ILU(p) and ILUT
+set-ups at 85,623 rows from minutes of host time to seconds. Application: the triangular solves are
+replaced by a fixed number of Jacobi iterations, the reference's
+approximate ``ilu_solve`` for GPU backends
+(amgcl/relaxation/detail/ilu_solve.hpp:44-129, 2 iterations): products
+with L and U through their device format's kernel and vector updates.
+"""
+
+from __future__ import annotations
+
+import heapq
+from dataclasses import dataclass
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from amgcl_tpu_torch.ops import device as dev
+from amgcl_tpu_torch.ops.csr import CSR
+from amgcl_tpu_torch.relaxation.base import setup_device, state_bytes
+from amgcl_tpu_torch.relaxation.spai1 import gather_sparse_entries
+
+
+def ilu_jacobi_solve(mv_lower, mv_upper, uinv, iters, f):
+    """Approximate (LU)⁻¹ f: y = f − Ls y iterated, then x = uinv ∘
+    (y − Us x) iterated."""
+    y = f
+    for _ in range(iters):
+        y = f - mv_lower(y)
+    x = uinv * y
+    for _ in range(iters):
+        x = uinv * (y - mv_upper(x))
+    return x
+
+
+class ILU0State:
+    """Strict-lower L (unit diagonal implied) and strict-upper U as device
+    matrices, and U's inverted diagonal."""
+
+    def __init__(self, Ls, Us, uinv, jacobi_iters=2):
+        self.Ls = Ls
+        self.Us = Us
+        self.uinv = uinv
+        self.jacobi_iters = int(jacobi_iters)
+
+    def apply(self, A, f):
+        return ilu_jacobi_solve(lambda v: dev.spmv(self.Ls, v),
+                                lambda v: dev.spmv(self.Us, v),
+                                self.uinv, self.jacobi_iters, f)
+
+    def apply_pre(self, A, f, x):
+        return x + self.apply(A, dev.residual(f, A, x))
+
+    apply_post = apply_pre
+
+    def bytes(self) -> int:
+        return state_bytes(self.Ls, self.Us, self.uinv)
+
+
+def _pattern_product(n, li_ptr, li_cols, up_ptr, up_cols, keys, on):
+    """A function (li_vals, up_vals) → the entries of (L + I)·U at the
+    pattern's sorted ``keys`` (row·n + col; 0 where the product has none),
+    L + I and U given by their values on the fixed structures (li_ptr,
+    li_cols) and (up_ptr, up_cols). ``on`` None: scipy's product on the
+    host; a torch device: torch's sparse product and a searchsorted
+    there."""
+    if on is None:
+        def product(li_vals, up_vals):
+            LI = sp.csr_matrix((li_vals, li_cols, li_ptr), shape=(n, n))
+            U = sp.csr_matrix((up_vals, up_cols, up_ptr), shape=(n, n))
+            LU = (LI @ U).tocsr()
+            pkeys = np.repeat(np.arange(n, dtype=np.int64),
+                              np.diff(LU.indptr)) * n + LU.indices
+            pos = np.minimum(np.searchsorted(keys, pkeys), len(keys) - 1)
+            hit = keys[pos] == pkeys
+            out = np.zeros(len(keys))
+            out[pos[hit]] = LU.data[hit]
+            return out
+        return product
+
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=on)
+    li_ptr_t, li_cols_t, up_ptr_t, up_cols_t, keys_t = (
+        t(li_ptr), t(li_cols), t(up_ptr), t(up_cols), t(keys))
+
+    def product(li_vals, up_vals):
+        import warnings
+        with warnings.catch_warnings():
+            # torch announces its sparse CSR tensors as beta
+            warnings.simplefilter("ignore", UserWarning)
+            LI = torch.sparse_csr_tensor(
+                li_ptr_t, li_cols_t, torch.as_tensor(li_vals, device=on),
+                (n, n))
+            U = torch.sparse_csr_tensor(
+                up_ptr_t, up_cols_t, torch.as_tensor(up_vals, device=on),
+                (n, n))
+            LU = LI @ U
+        crow = LU.crow_indices()
+        pkeys = torch.repeat_interleave(
+            torch.arange(n, device=on), crow[1:] - crow[:-1]) * n \
+            + LU.col_indices()
+        pos = torch.searchsorted(keys_t, pkeys).clamp_(max=len(keys) - 1)
+        hit = keys_t[pos] == pkeys
+        out = torch.zeros(len(keys), dtype=torch.float64, device=on)
+        out[pos[hit]] = LU.values()[hit]
+        return out.cpu().numpy()
+    return product
+
+
+def _chow_patel_build(ptr, col, val, n, sweeps, on=None):
+    """Fixed-point ILU on the sorted pattern (ptr, col), ``val`` holding
+    A's values on it (fill entries 0). Returns the host factors (L, U,
+    udia): strict-lower L, strict-upper U and U's diagonal.
+
+    Each sweep forms (L + I)·U from the pattern's lower part (with a unit
+    diagonal) and its upper part alone (the pattern's other slots hold
+    zeros, which would add only exact zeros to each sum), with scipy or,
+    ``on`` a torch device, there (:func:`_pattern_product`), and reads
+    it on the pattern."""
+    rows = np.repeat(np.arange(n), np.diff(ptr))
+    cols = col
+    lower = rows > cols
+    upper = ~lower                      # the diagonal included
+    a = val.astype(np.float64)
+    dmask = rows == cols
+    dia = np.zeros(n)
+    dia[rows[dmask]] = a[dmask]
+    dia = np.where(dia != 0, dia, 1.0)
+    # U = upper(A); L = lower(A) over U's diagonal
+    uval = np.where(upper, a, 0.0)
+    lval = np.where(lower, a / dia[cols], 0.0)
+    # the static structures: (L + I) over the pattern's lower part and
+    # its diagonal (rows without a structural diagonal get one), U over
+    # its upper part
+    no_diag = np.flatnonzero(np.bincount(rows[dmask], minlength=n) == 0)
+    li = lower | dmask
+    li_rows = np.concatenate([rows[li], no_diag])
+    li_order = np.lexsort((np.concatenate([cols[li], no_diag]), li_rows))
+    li_cols = np.concatenate([cols[li], no_diag])[li_order].astype(np.int32)
+    li_ptr = np.concatenate([[0], np.cumsum(np.bincount(li_rows,
+                                                        minlength=n))])
+    li_diag = np.concatenate([dmask[li],
+                              np.ones(len(no_diag), bool)])[li_order]
+    up_ptr = np.concatenate([[0], np.cumsum(np.bincount(rows[upper],
+                                                        minlength=n))])
+    product = _pattern_product(
+        n, li_ptr, li_cols, up_ptr, cols[upper].astype(np.int32),
+        rows.astype(np.int64) * n + cols, on)
+    for _ in range(sweeps):
+        lv = np.concatenate([lval[li], np.zeros(len(no_diag))])[li_order]
+        lu_on_a = product(np.where(li_diag, 1.0, lv), uval[upper])
+        udia = np.zeros(n)
+        udia[cols[dmask]] = uval[dmask]
+        udia = np.where(udia != 0, udia, 1.0)
+        # i > j: l_ij = (a_ij − [(LU)_ij − l_ij u_jj]) / u_jj
+        new_l = (a - (lu_on_a - lval * udia[cols])) / udia[cols]
+        # i ≤ j: u_ij = a_ij − [(LU)_ij − u_ij]
+        new_u = a - (lu_on_a - uval)
+        lval = np.where(lower, new_l, 0.0)
+        uval = np.where(upper, new_u, 0.0)
+    udia = np.zeros(n)
+    udia[cols[dmask]] = uval[dmask]
+    udia = np.where(udia != 0, udia, 1.0)
+    Lmat = CSR(ptr, cols, lval, n).filter_rows(lower)
+    Umat = CSR(ptr, cols, uval, n).filter_rows(upper & ~dmask)
+    return Lmat, Umat, udia
+
+
+def _state(factors, jacobi_iters, dtype, device) -> ILU0State:
+    L, U, udia = factors
+    return ILU0State(dev.to_device(L, "auto", dtype, device),
+                     dev.to_device(U, "auto", dtype, device),
+                     torch.as_tensor(1.0 / udia, device=device).to(dtype),
+                     jacobi_iters)
+
+
+def _scalar_sorted(A: CSR) -> sp.csr_matrix:
+    S = A.unblock() if A.is_block else A
+    m = S.to_scipy().astype(np.float64)
+    m.sort_indices()
+    return m
+
+
+def _on_pattern(m: sp.csr_matrix, pat: sp.csr_matrix, sweeps, on):
+    """Chow–Patel on ``pat`` (sorted CSR) with A's values gathered."""
+    pat.sort_indices()
+    n = m.shape[0]
+    prow = np.repeat(np.arange(n), np.diff(pat.indptr))
+    return _chow_patel_build(pat.indptr, pat.indices,
+                             gather_sparse_entries(m, prow, pat.indices), n,
+                             sweeps, on)
+
+
+def _widened(m: sp.csr_matrix, p: int) -> sp.csr_matrix:
+    """The pattern of (A + I)^(p+1), from int64 path counts."""
+    pat = (m != 0).astype(np.int64)
+    pat.setdiag(1)
+    widen = pat
+    for _ in range(p):
+        widen = ((widen @ pat) > 0).astype(np.int64)
+    return widen.tocsr()
+
+
+def iluk_pattern(ptr, col, n, k):
+    """Level-of-fill ILU(k) symbolic factorization (reference:
+    amgcl/relaxation/iluk.hpp) of the sorted pattern (ptr, col): row by
+    row in IKJ order, every column j < i of the working row (fill
+    included, ascending) with level lev(i, j) < k merges the strictly
+    upper part of factor row j at level lev(i, j) + lev(j, t) + 1,
+    keeping the minimum; entries above k are dropped. Returns (ptr, col)
+    with sorted rows.
+
+    For k ≤ 1 only A's own entries (level 0) propagate, so the pattern
+    is A's joined with that of (strict lower A)·(strict upper A): one
+    sparse product in place of the row loop."""
+    if k <= 1:
+        m = sp.csr_matrix((np.ones(len(col), np.int8), col, ptr),
+                          shape=(n, n))
+        if k == 1:
+            m = m + (sp.tril(m, -1, format="csr").astype(np.int32)
+                     @ sp.triu(m, 1, format="csr").astype(np.int32))
+        m = (m != 0).tocsr()
+        m.sort_indices()
+        return m.indptr.astype(np.int64), m.indices.astype(np.int32)
+    ucols, ulevs = [], []          # strictly upper part of each factor row
+    optr = np.zeros(n + 1, dtype=np.int64)
+    out = []
+    for i in range(n):
+        lev = dict.fromkeys(col[ptr[i]:ptr[i + 1]].tolist(), 0)
+        heap = [c for c in lev if c < i]
+        heapq.heapify(heap)
+        while heap:
+            j = heapq.heappop(heap)
+            lij = lev[j]
+            if lij >= k:
+                continue           # every merged level would exceed k
+            for c, lv in zip(ucols[j], ulevs[j]):
+                lv += lij + 1
+                if lv > k:
+                    continue
+                old = lev.get(c)
+                if old is None:
+                    lev[c] = lv
+                    if c < i:
+                        heapq.heappush(heap, c)
+                elif lv < old:
+                    lev[c] = lv
+        row = sorted(lev)
+        out.append(row)
+        optr[i + 1] = optr[i] + len(row)
+        up = [c for c in row if c > i]
+        ucols.append(up)
+        ulevs.append([lev[c] for c in up])
+    ocol = np.fromiter((c for row in out for c in row), dtype=np.int32,
+                       count=int(optr[-1]))
+    return optr, ocol
+
+
+@dataclass
+class ILU0:
+    sweeps: int = 5          # Chow–Patel construction sweeps
+    jacobi_iters: int = 2    # approximate triangular-solve iterations
+
+    def build_host(self, A: CSR, on=None):
+        m = _scalar_sorted(A)
+        return _chow_patel_build(m.indptr, m.indices, m.data, m.shape[0],
+                                 self.sweeps, on)
+
+    def build(self, A: CSR, dtype, device) -> ILU0State:
+        return _state(self.build_host(A, setup_device(device)),
+                      self.jacobi_iters, dtype, device)
+
+
+@dataclass
+class ILUT:
+    """Threshold ILU (reference: amgcl/relaxation/ilut.hpp: at most ``p``
+    fill entries a row beyond A's, drop tolerance ``tau``): Chow–Patel on
+    the pattern of (A + I)², entries under ``tau`` times their row's norm
+    dropped and each row capped at its A count + p largest, then
+    Chow–Patel again on the pruned pattern joined with A's and the
+    diagonal."""
+    p: int = 2
+    tau: float = 1e-2
+    sweeps: int = 6
+    jacobi_iters: int = 2
+
+    def build_host(self, A: CSR, on=None):
+        m = _scalar_sorted(A)
+        n = m.shape[0]
+        Lh, Uh, _ = _on_pattern(m, _widened(m, 1), self.sweeps, on)
+        keep_budget = np.diff(m.indptr) + self.p
+
+        def prune(M: CSR) -> CSR:
+            rows = M.expanded_rows()
+            absv = np.abs(M.val)
+            rnorm = np.sqrt(np.bincount(rows, weights=absv ** 2,
+                                        minlength=M.nrows))
+            keep = absv > self.tau * rnorm[rows]
+            # the largest ``budget`` entries of each row
+            order = np.lexsort((-absv, rows))
+            starts = np.concatenate(
+                [[0], np.cumsum(np.bincount(rows, minlength=M.nrows))[:-1]])
+            rank = np.empty(len(rows), dtype=np.int64)
+            rank[order] = np.arange(len(rows)) - starts[rows]
+            return M.filter_rows(keep & (rank < keep_budget[rows]))
+
+        # boolean union: scipy's + would drop exact-zero entries
+        union = ((prune(Lh).to_scipy() != 0).astype(np.int8)
+                 + (prune(Uh).to_scipy() != 0).astype(np.int8)
+                 + sp.identity(n, dtype=np.int8)
+                 + (m != 0).astype(np.int8))
+        return _on_pattern(m, (union > 0).astype(np.int8).tocsr(),
+                           self.sweeps, on)
+
+    def build(self, A: CSR, dtype, device) -> ILU0State:
+        return _state(self.build_host(A, setup_device(device)),
+                      self.jacobi_iters, dtype, device)
+
+
+@dataclass
+class ILUK:
+    """ILU(k) on the true level-of-fill pattern (reference:
+    amgcl/relaxation/iluk.hpp; :func:`iluk_pattern`), Chow–Patel for the
+    values."""
+    k: int = 1
+    sweeps: int = 8
+    jacobi_iters: int = 2
+
+    def build_host(self, A: CSR, on=None):
+        m = _scalar_sorted(A)
+        n = m.shape[0]
+        optr, ocol = iluk_pattern(m.indptr, m.indices, n, self.k)
+        pat = sp.csr_matrix((np.ones(len(ocol), np.int8), ocol, optr),
+                            shape=(n, n))
+        return _on_pattern(m, pat, self.sweeps, on)
+
+    def build(self, A: CSR, dtype, device) -> ILU0State:
+        return _state(self.build_host(A, setup_device(device)),
+                      self.jacobi_iters, dtype, device)
+
+
+@dataclass
+class ILUP:
+    """ILU on the pattern of (A + I)^(p+1), fill entries entering as
+    structural zeros (reference: amgcl/relaxation/ilup.hpp)."""
+    p: int = 1
+    sweeps: int = 8
+    jacobi_iters: int = 2
+
+    def build_host(self, A: CSR, on=None):
+        m = _scalar_sorted(A)
+        return _on_pattern(m, _widened(m, self.p), self.sweeps, on)
+
+    def build(self, A: CSR, dtype, device) -> ILU0State:
+        return _state(self.build_host(A, setup_device(device)),
+                      self.jacobi_iters, dtype, device)

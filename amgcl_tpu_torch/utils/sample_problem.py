@@ -1,5 +1,5 @@
 """Deterministic test fixtures: the 3-D Poisson problem, scalar and
-block-valued.
+block-valued, and 2-D Q1 elasticity with its node coordinates.
 
 Counterpart of ``amgcl_tpu/utils/sample_problem.py::poisson3d``, itself
 modelled on the reference's tests/sample_problem.hpp:11-84.
@@ -42,3 +42,56 @@ def poisson3d_block(n: int, b: int, dtype=np.float64):
                 format="csr")
     return CSR.from_scipy(sp.csr_matrix(S + C)).to_block(b), \
         np.ones(n ** 3 * b, dtype=dtype)
+
+
+def q1_elasticity2d(nx: int = 48, E: float = 1.0, nu: float = 0.3,
+                    contrast: float = 1e3):
+    """Q1 plane-stress elasticity on an nx × nx mesh of unit squares (2×2
+    Gauss assembly of BᵀDB), both displacements pinned on the left edge,
+    the elements of one quadrant ``contrast`` times stiffer (the
+    Serena/Nullspace tutorial situation, reference:
+    docs/tutorial/Nullspace.rst; the JAX package's
+    ``examples/elasticity_nullspace.py``). Returns ``(A: CSR, rhs,
+    coords)``: 2 unknowns a free node, interleaved, and the (nodes, 2)
+    coordinates of the free nodes for ``rigid_body_modes``."""
+    nn1 = nx + 1
+    D = E / (1 - nu * nu) * np.array(
+        [[1.0, nu, 0.0], [nu, 1.0, 0.0], [0.0, 0.0, (1 - nu) / 2]])
+    gp = np.array([-1.0, 1.0]) / np.sqrt(3.0)
+    Ke = np.zeros((8, 8))
+    for xi in gp:
+        for eta in gp:
+            dN = 0.25 * np.array([          # dN/dxi, dN/deta per node
+                [-(1 - eta), -(1 - xi)],
+                [(1 - eta), -(1 + xi)],
+                [(1 + eta), (1 + xi)],
+                [-(1 + eta), (1 - xi)]])
+            dNdx = dN * 2.0
+            B = np.zeros((3, 8))
+            B[0, 0::2] = dNdx[:, 0]
+            B[1, 1::2] = dNdx[:, 1]
+            B[2, 0::2] = dNdx[:, 1]
+            B[2, 1::2] = dNdx[:, 0]
+            Ke += 0.25 * B.T @ D @ B
+    ex, ey = np.meshgrid(np.arange(nx), np.arange(nx), indexing="ij")
+    n00 = (ex * nn1 + ey).ravel()
+    enodes = np.stack([n00, n00 + nn1, n00 + nn1 + 1, n00 + 1], axis=1)
+    edofs = np.stack([enodes * 2, enodes * 2 + 1], axis=2).reshape(-1, 8)
+    scale = np.ones(len(edofs))
+    scale[(ex.ravel() < nx // 2) & (ey.ravel() < nx // 2)] = contrast
+    rows = np.repeat(edofs, 8, axis=1).ravel()
+    cols = np.tile(edofs, (1, 8)).ravel()
+    vals = (scale[:, None, None] * Ke[None]).ravel()
+    ndof = 2 * nn1 * nn1
+    K = sp.coo_matrix((vals, (rows, cols)), shape=(ndof, ndof)).tocsr()
+    free = np.ones(ndof, bool)
+    fixed_nodes = np.arange(nn1)            # nodes with ix == 0
+    free[fixed_nodes * 2] = False
+    free[fixed_nodes * 2 + 1] = False
+    keep = np.flatnonzero(free)
+    K = K[keep][:, keep].tocsr()
+    K.sort_indices()
+    X, Y = np.meshgrid(np.arange(nn1, dtype=float),
+                       np.arange(nn1, dtype=float), indexing="ij")
+    coords = np.stack([X.ravel(), Y.ravel()], axis=1)[keep[::2] // 2]
+    return CSR.from_scipy(K), np.ones(K.shape[0]), coords

@@ -509,7 +509,7 @@ def profile_solve(solve, rhs, warm_ms):
     if not rows:
         print("profiled warm solve: no device time recorded "
               "(device busy share not measured)")
-        return
+        return None
     busy = sum(r[0] for r in rows)
     print("profiled warm solve: wall %.3f ms, device busy %.3f ms (%.1f%%"
           " of the same solve's wall)" % (wall_ms, busy, 100 * busy / wall_ms))
@@ -517,6 +517,7 @@ def profile_solve(solve, rhs, warm_ms):
           "%.3f ms = %.1f%%" % (warm_ms, 100 * busy / warm_ms))
     for ms, count, key in rows[:12]:
         print("  %9.3f ms %5d x  %s" % (ms, count, key[:90]))
+    return busy / warm_ms
 
 
 # -- phase 3: kernel against plain version, timings -------------------------
@@ -1905,17 +1906,18 @@ def gmres_family(failures):
 
 # -- phase 9: path S1, the sharded stencil solver on one card -----------------
 
-def sharded_solve(A, rhs, shards, label):
-    """Build DistStencilSolver over ``shards`` shards of the card and solve
-    cold and warm, the counts set to 0 just before the setup and read just
-    after, V-cycles counted. Returns (solver, x, info, counts, plain calls,
-    warm launches, warm V-cycles, setup seconds)."""
+def sharded_solve(A, rhs, shards, label, **params):
+    """Build DistStencilSolver over ``shards`` shards of the card (AMGParams
+    ``params`` beside the dtype) and solve cold and warm, the counts set
+    to 0 just before the setup and read just after, V-cycles counted.
+    Returns (solver, x, info, counts, plain calls, warm launches, warm
+    V-cycles, setup seconds)."""
     from amgcl_tpu_torch import AMGParams, CG, DistStencilSolver, make_mesh
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     s = DistStencilSolver(A, make_mesh(shards), AMGParams(
-        dtype=torch.float32), CG(maxiter=100, tol=1e-6))
+        dtype=torch.float32, **params), CG(maxiter=100, tol=1e-6))
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     hier = s.hier
@@ -2194,7 +2196,346 @@ def sharded_stencil(failures):
     return counts, summary, records
 
 
-def main():
+# -- phase 10: every smoother and coarsening of the JAX package ----------------
+
+#: the paths of phase 10: label -> (system, AMGParams fields, solver,
+#: refine). Systems: "poisson" poisson3d(128); "fe" U1's (fe_like_problem(),
+#: identity order); "elastic" q1_elasticity2d(512) and "elastic_block" the
+#: same as 2x2 blocks; "block" B1's poisson3d_block(48, 3). ILK and ILP
+#: take a float64 hierarchy: with a float32 one the JAX package itself
+#: needs 141 and 153 BiCGStab iterations at 12,000 rows of the same
+#: system, past the maxiter of 100 (reference_counts.py). No full-size
+#: count of the JAX package is at hand for these (it would take a
+#: full-size run on the CPU), so each path's iterations, summed over its
+#: 1 + refine solves, are held below (1 + refine) times its maxiter, and
+#: the CPU tests (tests/test_torch_relaxation.py,
+#: tests/test_torch_coarsening.py) hold the same configuration's
+#: small-size counts to the JAX package's exactly
+A8_PATHS = {
+    "J1": ("poisson", "relax=DampedJacobi()", "cg", 3),
+    "C1": ("poisson", "relax=Chebyshev()", "cg", 3),
+    "A1": ("poisson", "coarsening=Aggregation()", "cg", 3),
+    "P1": ("fe", "relax=Spai1()", "bicgstab", 3),
+    "GS1": ("fe", "relax=GaussSeidel()", "bicgstab", 3),
+    "IL0": ("fe", "relax=ILU0()", "bicgstab", 3),
+    "ILT": ("fe", "relax=ILUT()", "bicgstab", 3),
+    "ILK": ("fe", "relax=ILUK(k=1), dtype=float64", "bicgstab", 3),
+    "ILP": ("fe", "relax=ILUP(), dtype=float64", "bicgstab", 3),
+    "R1": ("fe", "coarsening=RugeStuben()", "bicgstab", 3),
+    "R1p": ("fe", "coarsening=RugeStuben(splitting='pmis')", "bicgstab", 3),
+    "E1": ("fe", "coarsening=SmoothedAggrEMin()", "bicgstab", 3),
+    "A2": ("fe", "coarsening=Aggregation()", "bicgstab", 3),
+    "N1": ("elastic", "coarsening=SmoothedAggregation("
+           "nullspace=rigid_body_modes(coords))", "cg500", 3),
+    "N1b": ("elastic_block", "coarsening=AsScalar(SmoothedAggregation()), "
+            "relax=AsBlock(Spai1())", "cg500", 3),
+    "B1j": ("block", "relax=DampedJacobi()", "bicgstab200", 0),
+}
+
+
+def a8_params(label, coords=None):
+    """The AMGParams fields of a phase-10 path (A8_PATHS' text), made
+    from the package's names and the system's node coordinates."""
+    import amgcl_tpu_torch as T
+    return {
+        "J1": lambda: dict(relax=T.DampedJacobi()),
+        "C1": lambda: dict(relax=T.Chebyshev()),
+        "A1": lambda: dict(coarsening=T.Aggregation()),
+        "P1": lambda: dict(relax=T.Spai1()),
+        "GS1": lambda: dict(relax=T.GaussSeidel()),
+        "IL0": lambda: dict(relax=T.ILU0()),
+        "ILT": lambda: dict(relax=T.ILUT()),
+        "ILK": lambda: dict(relax=T.ILUK(k=1), dtype=torch.float64),
+        "ILP": lambda: dict(relax=T.ILUP(), dtype=torch.float64),
+        "R1": lambda: dict(coarsening=T.RugeStuben()),
+        "R1p": lambda: dict(coarsening=T.RugeStuben(splitting="pmis")),
+        "E1": lambda: dict(coarsening=T.SmoothedAggrEMin()),
+        "A2": lambda: dict(coarsening=T.Aggregation()),
+        "N1": lambda: dict(coarsening=T.SmoothedAggregation(
+            nullspace=T.rigid_body_modes(coords))),
+        "N1b": lambda: dict(coarsening=T.AsScalar(T.SmoothedAggregation()),
+                            relax=T.AsBlock(T.Spai1())),
+        "B1j": lambda: dict(relax=T.DampedJacobi()),
+    }[label]()
+#: kernels each path of phase 10 must launch (its rows of PERF.md §6)
+A8_KERNELS = {
+    "J1": ON_PATH,
+    "C1": ("dia_residual", "dia_spmv_dots", "dia_residual_dot", "xr_update",
+           "fused_down_sweep"),
+    "A1": EARLIER,
+    "S1j": FRAMED + ("dia_spmv",),
+    "P1": ("windowed_ell_spmv", "windowed_ell_residual",
+           "windowed_ell_spmv_dots", "bicgstab_tail"),
+    "GS1": ("windowed_ell_scaled_correction", "windowed_ell_residual",
+            "bicgstab_tail"),
+    "B1j": ("windowed_ell_block_scaled_correction",
+            "windowed_ell_block_spmv_dots", "bicgstab_tail"),
+    "N1": ("dia_scaled_correction", "dia_spmv_dots", "dia_residual_dot",
+           "windowed_ell_spmv", "windowed_ell_scaled_correction",
+           "gather_spmv"),
+    "N1b": ("windowed_ell_block_residual", "windowed_ell_block_spmv_dots"),
+}
+for _p in ("IL0", "ILT", "ILK", "ILP"):
+    A8_KERNELS[_p] = ("windowed_ell_spmv", "windowed_ell_residual",
+                      "bicgstab_tail")
+for _p in ("R1", "R1p", "E1", "A2"):
+    A8_KERNELS[_p] = ("windowed_ell_scaled_correction", "gather_spmv",
+                      "bicgstab_tail")
+
+
+def a8_solver(label):
+    from amgcl_tpu_torch import CG, BiCGStab
+    return {"cg": CG(maxiter=100, tol=1e-6),
+            "cg500": CG(maxiter=500, tol=1e-6),
+            "bicgstab": BiCGStab(maxiter=100, tol=1e-6),
+            "bicgstab200": BiCGStab(maxiter=200, tol=1e-6)}[
+                A8_PATHS[label][2]]
+
+
+def a8_reach(label, solve):
+    """What a phase-10 path's configuration puts on each level, and the
+    structural reasons it reaches its kernels; returns (report lines,
+    faults). Run on the card by phase 10 and on the CPU at small sizes by
+    tests/test_torch_coarsening.py."""
+    from amgcl_tpu_torch.ops.structured import TentativeP
+    from amgcl_tpu_torch.ops.vcycle import _scalar_scale
+    amg = solve.precond
+    levels = amg.hierarchy.levels
+    lines, faults = [], []
+    for i, lv in enumerate(levels):
+        relax = lv.relax
+        lines.append("level %d: %d rows, A %s%s, P %s, smoother %s, fused "
+                     "down %s (w %s), up %s" % (
+                         i, lv.A.shape[0], type(lv.A).__name__,
+                         " %dx%d" % lv.A.block
+                         if getattr(lv.A, "block", (1, 1)) != (1, 1) else "",
+                         type(lv.P).__name__, type(relax).__name__,
+                         lv.down is not None,
+                         lv.down is not None and lv.down.w is not None,
+                         lv.up is not None))
+    inner = levels[:-1]
+    if label == "J1":
+        if not (amg.device_built and amg.setup_split["device_build_s"] > 0):
+            faults.append("the device build was not taken")
+        for i, lv in enumerate(inner[:2]):
+            w = lv.relax.scale
+            if lv.down is None or lv.down.w is not w or lv.up is None \
+                    or lv.up.w is not w:
+                faults.append("level %d lacks a fused leg with the Jacobi "
+                              "w" % i)
+    elif label == "C1":
+        if amg.device_built:
+            faults.append("the device build took Chebyshev")
+        for i, lv in enumerate(inner[:2]):
+            if lv.down is None or lv.down.w is not None or lv.up is not None:
+                faults.append("level %d: expected the base down leg and a "
+                              "composed up leg" % i)
+    elif label == "A1":
+        if not isinstance(inner[0].P, TentativeP):
+            faults.append("level 0 has no plain grid transfer")
+    elif label == "GS1":
+        if any(_scalar_scale(lv.relax, lv.A.dtype) is not None
+               for lv in inner):
+            faults.append("the fused legs would take the colour masks")
+    elif label in ("N1b", "B1j"):
+        if getattr(inner[0].A, "block", None) != (
+                (2, 2) if label == "N1b" else (3, 3)):
+            faults.append("level 0 is not a block windowed ELL")
+    if len(levels) < 2:
+        faults.append("one level only")
+    return lines, faults
+
+
+def a8_problem(system):
+    """(A, rhs, coords) of a phase-10 system."""
+    import amgcl_tpu_torch as T
+    if system == "poisson":
+        A, rhs = T.poisson3d(128)
+        return A, rhs, None
+    if system == "fe":
+        A, rhs = T.fe_like_problem()
+        return A, rhs, None
+    if system == "block":
+        A, rhs = T.poisson3d_block(48, 3)
+        return A, rhs, None
+    A, rhs, coords = T.q1_elasticity2d(512)
+    return (A.to_block(2) if system == "elastic_block" else A), rhs, coords
+
+
+def a8_path(label, A, rhs, coords, failures):
+    """One phase-10 path through make_solver, float32 hierarchy: set-up,
+    a cold and a warm solve with the counts set to 0 just before the
+    setup and read just after, V-cycles counted; then one more warm solve
+    profiled. Returns (counts, summary)."""
+    from amgcl_tpu_torch import make_solver, AMGParams
+    system, _, _, refine = A8_PATHS[label]
+    solver = a8_solver(label)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    prm = dict(dtype=torch.float32)
+    prm.update(a8_params(label, coords))
+    solve = make_solver(A, AMGParams(**prm), solver, refine=refine)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    amg = solve.precond
+    split = amg.setup_split
+    print("[%s] %s: setup %.3f s (device build %.3f s, host %.3f s), peak "
+          "device memory %.1f MB above %.1f MB" % (
+              label, A8_PATHS[label][1], t_setup, split["device_build_s"],
+              split["host_s"],
+              (torch.cuda.max_memory_allocated() - base) / 2**20,
+              base / 2**20))
+    lines, faults = a8_reach(label, solve)
+    for line in lines:
+        print("[%s] %s" % (label, line))
+    hier = amg.hierarchy
+    cycles = [0]
+    apply = hier.apply
+
+    def counted(r):
+        cycles[0] += 1
+        return apply(r)
+
+    hier.apply = counted
+    x, info = solve(rhs)
+    cold = info.wall_time_s
+    first, _ = read_counts()
+    c_first = cycles[0]
+    x, info = solve(rhs)
+    counts, plain_calls = read_counts()
+    n_cycles = cycles[0] - c_first
+    warm = {k: counts[k] - first[k] for k in counts if counts[k] - first[k]}
+    S = A.to_scipy()
+    x64 = x.double().cpu().numpy()
+    nb = np.linalg.norm(rhs)
+    true_res = float(np.linalg.norm(rhs - S @ x64) / nb) \
+        if np.all(np.isfinite(x64)) else float("inf")
+    limit = 1e-6
+    if refine == 0:
+        # B1's rule: float32 x cannot reach 1e-6 at this size
+        limit += 2 * 2.0 ** -24 * float(np.linalg.norm(abs(S) @ np.abs(x64))
+                                        / nb)
+    print("[%s] %d iterations (maxiter %d, refine %d), reported resid "
+          "%.3e, true %.3e (limit %.3e), health %s; cold %.4f s, warm %.4f "
+          "s, %d V-cycles warm" % (label, info.iters, solver.maxiter, refine,
+                                   info.resid, true_res, limit, info.health,
+                                   cold, info.wall_time_s, n_cycles))
+    print("[%s] kernels launched (setup + 2 solves): %s" % (
+        label, json.dumps({k: v for k, v in counts.items() if v})))
+    print("[%s] launches in the warm solve: %s" % (label, json.dumps(warm)))
+    for f in faults:
+        failures.append("%s: %s" % (label, f))
+    # iterations are summed over the 1 + refine solves: held below
+    # (1 + refine) times maxiter
+    if info.iters >= (1 + refine) * solver.maxiter or info.resid > 1e-6 \
+            or true_res > limit:
+        failures.append("%s: %d iterations (maxiter %d, refine %d), "
+                        "reported %.3e, true residual %.3e (limit %.3e)" % (
+                            label, info.iters, solver.maxiter, refine,
+                            info.resid, true_res, limit))
+    if any(plain_calls.values()):
+        failures.append("%s: plain versions ran: %s" % (label, plain_calls))
+    for k in A8_KERNELS[label]:
+        if counts[k] == 0:
+            failures.append("%s: kernel %s never launched" % (label, k))
+    for name, attr in (("fused_down_sweep", "down"),
+                       ("fused_up_sweep", "up")):
+        per_cycle = sum(getattr(lv, attr) is not None for lv in hier.levels)
+        if warm.get(name, 0) != per_cycle * n_cycles:
+            failures.append("%s: %s launched %d times in %d V-cycles over "
+                            "%d levels" % (label, name, warm.get(name, 0),
+                                           n_cycles, per_cycle))
+    busy = profile_solve(solve, rhs, info.wall_time_s * 1e3)
+    summary = {"setup_s": t_setup,
+               "device_build_s": split["device_build_s"],
+               "cold_solve_s": cold, "warm_solve_s": info.wall_time_s,
+               "busy": busy, "iters": info.iters, "resid": info.resid,
+               "true_resid": true_res,
+               "levels": [lv.A.shape[0] for lv in hier.levels],
+               "warm_launches": warm}
+    del solve, amg, hier
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def a8_sharded(failures):
+    """Path S1j: S1's configuration with damped Jacobi: the framed legs
+    take the Jacobi w. Held to S1's rules. Returns (counts, summary)."""
+    from amgcl_tpu_torch import DampedJacobi, poisson3d
+    A, rhs = poisson3d(128)
+    s, x, info, counts, plain_calls, warm, n_cycles, t_setup = \
+        sharded_solve(A, rhs, S1_SHARDS, "S1j", relax=DampedJacobi())
+    true_res = true_residual(A, rhs, x)
+    print("[S1j] %d iterations, reported resid %.3e, true %.3e (limits "
+          "1e-6, 1e-3)" % (info.iters, info.resid, true_res))
+    hier = s.hier
+    if s.meta[:-1] != S1_LEVELS or hier.n_rep != S1_TAIL:
+        failures.append("S1j: sharded levels %s, tail from %d rows"
+                        % (s.meta[:-1], hier.n_rep))
+    if info.iters >= 100 or not (info.resid <= 1e-6 and true_res <= 1e-3):
+        failures.append("S1j: %d iterations, reported residual %.3e, true "
+                        "%.3e" % (info.iters, info.resid, true_res))
+    if any(plain_calls.values()):
+        failures.append("S1j: plain versions ran: %s" % plain_calls)
+    for i, lv in enumerate(hier.levels):
+        fz = lv.fused
+        w = [0.72 / a[lv.a_flats.index(0)] for a in lv.adata]
+        if fz is None or not (fz.down_ok and fz.up_ok) or any(
+                not torch.allclose(x, y) for x, y in zip(lv.scale, w)):
+            failures.append("S1j: level %d lacks framed legs with the "
+                            "Jacobi w" % i)
+    for name, ok in (("fused_down_sweep.framed", "down_ok"),
+                     ("fused_up_sweep.framed", "up_ok")):
+        levels = sum(lv.fused is not None and getattr(lv.fused, ok)
+                     for lv in hier.levels)
+        if warm[name] != S1_SHARDS * levels * n_cycles:
+            failures.append("S1j: %s launched %d times in %d V-cycles"
+                            % (name, warm[name], n_cycles))
+    for k in A8_KERNELS["S1j"]:
+        if counts[k] == 0:
+            failures.append("S1j: kernel %s never launched" % k)
+    busy = profile_solve(s, rhs, info.wall_time_s * 1e3)
+    return counts, {"setup_s": t_setup, "warm_solve_s": info.wall_time_s,
+                    "busy": busy, "iters": info.iters, "resid": info.resid,
+                    "true_resid": true_res, "levels": s.meta,
+                    "warm_launches": {k: v for k, v in warm.items() if v}}
+
+
+def a8_family(failures, only=None):
+    """Phase 10: the paths of A8_PATHS and S1j, each system made once.
+    Returns ({label: counts}, {label: summary})."""
+    t_phase = time.perf_counter()
+    counts, summary = {}, {}
+    order = ["poisson", "fe", "elastic", "elastic_block", "block"]
+    for system in order:
+        labels = [p for p, v in A8_PATHS.items() if v[0] == system
+                  and (only is None or p in only)]
+        if system == "poisson" and (only is None or "S1j" in only):
+            counts["S1j"], summary["S1j"] = a8_sharded(failures)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if not labels:
+            continue
+        t0 = time.perf_counter()
+        A, rhs, coords = a8_problem(system)
+        print("problem %s: %d rows, %d stored entries, made in %.3f s"
+              % (system, A.nrows, A.nnz, time.perf_counter() - t0))
+        for label in labels:
+            t0 = time.perf_counter()
+            counts[label], summary[label] = a8_path(label, A, rhs, coords,
+                                                    failures)
+            summary[label]["path_s"] = time.perf_counter() - t0
+            print("[%s] path: %.1f s" % (label, summary[label]["path_s"]))
+        del A
+        gc.collect()
+    print("phase 10: %.1f s" % (time.perf_counter() - t_phase))
+    return counts, summary
+
+
+def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2207,6 +2548,14 @@ def main():
     print("kernel build: %.2f s (nvcc, %s)"
           % (time.perf_counter() - t0, " + ".join(cuda_lib.SOURCES)))
     failures = []
+    if argv and argv[0] == "--phase10":
+        # phase 10 alone, for the paths named (all without names); no
+        # result line
+        _, summary = a8_family(failures, set(argv[1:]) or None)
+        print("phase 10 paths: %s" % json.dumps(summary))
+        for f in failures:
+            print("FAIL: %s" % f, file=sys.stderr)
+        return 1 if failures else 0
     solve, counts, summary = main_path(failures)
     records = check_kernels(solve, failures)
     records.update(check_fused(solve, failures))
@@ -2251,14 +2600,17 @@ def main():
     s_counts, s_summary, s_records = sharded_stencil(failures)
     records.update(s_records)
     print("sharded stencil path: %s" % json.dumps(s_summary))
+    a_counts, a_summary = a8_family(failures)
+    print("phase 10 paths: %s" % json.dumps(a_summary))
     kernels = []
     for name in REPLACES:
         rec = records[name]
         later = {"D2": d_counts[name], "K1": k_counts[name],
                  **{p: c[name] for p, c in g_counts.items()},
-                 "S1": s_counts[name]}
+                 "S1": s_counts[name],
+                 **{p: c[name] for p, c in a_counts.items()}}
         if name in FRAMED:
-            by_path = {"S1": s_counts[name]}
+            by_path = {"S1": s_counts[name], "S1j": a_counts["S1j"][name]}
         elif name in UNSTRUCTURED:
             by_path = {"U1": u_counts["U1"][name],
                        "U2": u_counts["U2"][name], "B1": b_counts[name],
@@ -2287,4 +2639,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -2317,3 +2317,82 @@ def test_halo_mv_on_card_matches_cpu(cuda, nd):
             assert dk.dia_spmv.launches - before == nd
     np.testing.assert_allclose(got[False], got[True], rtol=0,
                                atol=1e-5 * np.abs(got[True]).max())
+
+
+_PLAIN = (dk.dia_spmv_plain, dk.dia_residual_plain,
+          dk.dia_scaled_correction_plain, dk.dia_spmv_dots_plain,
+          dk.dia_residual_dot_plain, fv.xr_update_plain,
+          fv.bicgstab_tail_plain, wk.windowed_ell_spmv_plain,
+          wk.windowed_ell_residual_plain,
+          wk.windowed_ell_scaled_correction_plain,
+          wk.windowed_ell_spmv_dots_plain, wbk.windowed_ell_block_spmv_plain,
+          wbk.windowed_ell_block_residual_plain,
+          wbk.windowed_ell_block_scaled_correction_plain,
+          wbk.windowed_ell_block_spmv_dots_plain, gk.gather_spmv_plain,
+          vk.fused_down_sweep_plain, vk.fused_up_sweep_plain)
+
+#: smoother or coarsening -> (system, AMGParams fields)
+_A8_CASES = {
+    "smoother_jacobi": ("poisson", lambda T: dict(relax=T.DampedJacobi())),
+    "smoother_chebyshev": ("poisson", lambda T: dict(relax=T.Chebyshev())),
+    "smoother_spai1": ("fe", lambda T: dict(relax=T.Spai1())),
+    "smoother_gauss_seidel": ("fe", lambda T: dict(relax=T.GaussSeidel())),
+    "smoother_ilu0": ("fe", lambda T: dict(relax=T.ILU0())),
+    "smoother_ilut": ("fe", lambda T: dict(relax=T.ILUT())),
+    "smoother_iluk": ("poisson", lambda T: dict(relax=T.ILUK(k=1))),
+    "smoother_ilup": ("poisson", lambda T: dict(relax=T.ILUP())),
+    "smoother_block_jacobi": ("block", lambda T: dict(
+        relax=T.DampedJacobi())),
+    "smoother_as_block": ("block", lambda T: dict(relax=T.AsBlock(
+        T.Spai1()))),
+    "coarsening_aggregation_grid": ("poisson", lambda T: dict(
+        coarsening=T.Aggregation())),
+    "coarsening_aggregation": ("fe", lambda T: dict(
+        coarsening=T.Aggregation())),
+    "coarsening_ruge_stuben": ("fe", lambda T: dict(
+        coarsening=T.RugeStuben())),
+    "coarsening_ruge_stuben_pmis": ("fe", lambda T: dict(
+        coarsening=T.RugeStuben(splitting="pmis"))),
+    "coarsening_emin": ("fe", lambda T: dict(
+        coarsening=T.SmoothedAggrEMin())),
+    "coarsening_nullspace": ("elastic", None),
+    "coarsening_as_scalar": ("block", lambda T: dict(
+        coarsening=T.AsScalar(T.SmoothedAggregation()))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_A8_CASES))
+def test_smoother_and_coarsening_on_card_match_cpu(cuda, name):
+    """Each smoother and coarsening on a small system in float64 (BiCGStab
+    for the unstructured and block systems, CG otherwise): the same
+    iterations on the card and the CPU, x within 1e-8, and no plain
+    version on the card."""
+    import amgcl_tpu_torch as T
+    system, fields = _A8_CASES[name]
+    if system == "poisson":
+        A, rhs = T.poisson3d(24)
+    elif system == "fe":
+        A, rhs = T.fe_like_problem(n=6000, nnz_target=28 * 6000, seed=1)
+    elif system == "block":
+        A, rhs = T.poisson3d_block(12, 3)
+    else:
+        A, rhs, coords = T.q1_elasticity2d(48)
+        fields = lambda T: dict(coarsening=T.SmoothedAggregation(
+            nullspace=T.rigid_body_modes(coords)))
+    solver = T.CG if system in ("poisson", "elastic") else T.BiCGStab
+    runs = {}
+    for device in ("cpu", cuda):
+        solve = T.make_solver(A, T.AMGParams(dtype=torch.float64,
+                                             coarse_enough=500,
+                                             **fields(T)),
+                              solver(maxiter=200, tol=1e-8), device=device)
+        calls = [p.calls for p in _PLAIN]
+        x, info = solve(rhs)
+        if device != "cpu":
+            assert [p.calls for p in _PLAIN] == calls
+        assert info.resid <= 1e-8
+        runs[torch.device(device).type] = (info.iters,
+                                           x.double().cpu().numpy())
+    assert runs["cpu"][0] == runs["cuda"][0]
+    x, x_cpu = runs["cuda"][1], runs["cpu"][1]
+    assert np.linalg.norm(x - x_cpu) <= 1e-8 * np.linalg.norm(x_cpu)
