@@ -75,6 +75,45 @@ mode. One process drives every shard, and shards may share a card::
     s = DistStencilSolver(A, make_mesh(4), AMGParams(),
                           CG(maxiter=100, tol=1e-6))
     x, info = s(rhs)                 # four z-slab shards on one card
+
+``make_solver`` takes a prebuilt preconditioner in place of
+``AMGParams``, a Krylov dtype of its own (``solver_dtype=torch.float64``
+over a float32 hierarchy), a Krylov ``matrix_format`` and
+``refine_dtype="df32"`` (compensated float32 refinement on a DIA
+operator). Components are also chosen by name, as amgcl's runtime
+configuration does, from a dict with dotted keys, a nested dict or a
+JSON file::
+
+    from amgcl_tpu_torch import make_solver_from_config
+    solve = make_solver_from_config(A, {
+        "precond.class": "nested", "precond.solver.type": "cg",
+        "precond.solver.maxiter": 4, "precond.precond.class": "amg",
+        "solver.type": "fgmres", "solver.tol": 1e-6}, refine=3)
+
+``precond.class`` is ``amg``, ``relaxation`` (a smoother alone),
+``dummy``, ``nested``, ``schur`` or ``cpr``. The coupled-system
+preconditioners take the matrix and their split::
+
+    from amgcl_tpu_torch import (CPR, FGMRES, SchurPressureCorrection,
+                                 reservoir_like, stokes_like)
+    A, pmask = stokes_like(512)                  # velocity, then pressure
+    solve = make_solver(A, SchurPressureCorrection(A, pmask, adjust_p=2),
+                        FGMRES(maxiter=500, tol=1e-6), refine=3)
+    A, rhs = reservoir_like(96, 3)               # 3x3 cell blocks
+    solve = make_solver(A, CPR(A), BiCGStab(maxiter=200, tol=1e-6),
+                        refine=3)
+
+A time-dependent loop whose matrix keeps its pattern refreshes the
+bundle instead of building it again (``deflated_solver``,
+``make_block_solver``, ``AsPreconditioner`` and ``DummyPreconditioner``
+complete the set)::
+
+    A, rhs = poisson3d(128)
+    solve = make_solver(A, AMGParams(), CG(tol=1e-6), refine=3)
+    x, _ = solve(rhs)
+    for step in range(1, 4):
+        solve.rebuild(CSR(A.ptr, A.col, A.val * (1 + 0.05 * step), A.ncols))
+        x, info = solve(rhs, x0=x)
 """
 
 from amgcl_tpu_torch.ops.csr import CSR
@@ -82,8 +121,13 @@ from amgcl_tpu_torch.coarsening import (Aggregation, AsScalar, RugeStuben,
                                         SmoothedAggrEMin,
                                         SmoothedAggregation,
                                         rigid_body_modes)
-from amgcl_tpu_torch.models.amg import AMG, AMGParams
-from amgcl_tpu_torch.models.make_solver import make_solver
+from amgcl_tpu_torch.models import (AMG, CPR, CPRDRS, AMGParams,
+                                    AsPreconditioner, DummyPreconditioner,
+                                    NestedPreconditioner,
+                                    SchurPressureCorrection, deflated_solver,
+                                    make_block_solver, make_solver,
+                                    make_solver_from_config,
+                                    precond_from_config)
 from amgcl_tpu_torch.ops.unstructured import fe_like_problem
 from amgcl_tpu_torch.parallel import (DistStencilSolver, dist_stencil_build,
                                       make_mesh)
@@ -93,7 +137,8 @@ from amgcl_tpu_torch.relaxation import (ILU0, ILUK, ILUP, ILUT, AsBlock,
 from amgcl_tpu_torch.solver import (CG, FGMRES, GMRES, IDRs, LGMRES,
                                     BiCGStab, BiCGStabL, PreOnly, Richardson)
 from amgcl_tpu_torch.utils.sample_problem import (poisson3d, poisson3d_block,
-                                                  q1_elasticity2d)
+                                                  q1_elasticity2d,
+                                                  reservoir_like, stokes_like)
 
 __all__ = ["CSR", "AMG", "AMGParams", "make_solver", "BiCGStab",
            "BiCGStabL", "CG", "DistStencilSolver", "FGMRES", "GMRES", "IDRs",
@@ -102,4 +147,8 @@ __all__ = ["CSR", "AMG", "AMGParams", "make_solver", "BiCGStab",
            "q1_elasticity2d", "Aggregation", "AsScalar", "RugeStuben",
            "SmoothedAggrEMin", "SmoothedAggregation", "rigid_body_modes",
            "AsBlock", "Chebyshev", "DampedJacobi", "GaussSeidel", "ILU0",
-           "ILUK", "ILUP", "ILUT", "Spai0", "Spai1"]
+           "ILUK", "ILUP", "ILUT", "Spai0", "Spai1", "make_block_solver",
+           "deflated_solver", "AsPreconditioner", "DummyPreconditioner",
+           "NestedPreconditioner", "SchurPressureCorrection", "CPR",
+           "CPRDRS", "make_solver_from_config", "precond_from_config",
+           "reservoir_like", "stokes_like"]

@@ -150,6 +150,22 @@ def _human_bytes(n: float) -> str:
         n /= 1024.0
 
 
+def check_dtype(dtype):
+    """Refuse a dtype the port has no kernels for, rather than running in
+    another: bfloat16 (and other half) hierarchies are ROADMAP A.14,
+    complex values the complex-values item of A.8."""
+    dtype = torch.empty((), dtype=dtype).dtype
+    if dtype.is_complex:
+        raise NotImplementedError(
+            "complex values (%s) are not ported yet (ROADMAP A.8, complex "
+            "values)" % dtype)
+    if dtype.itemsize < 4:
+        raise NotImplementedError(
+            "%s hierarchies are not ported yet (ROADMAP A.14, bfloat16 "
+            "hierarchies)" % dtype)
+    return dtype
+
+
 def check_coarse_size(n, prm):
     """Refuse to densify a coarsest level of ``n`` scalar unknowns far
     above the direct-solve regime (coarsening stalled): an error beats
@@ -179,6 +195,7 @@ class AMG:
     def __init__(self, A, prm: Optional[AMGParams] = None, device=None,
                  device_setup=None):
         self.prm = prm or AMGParams()
+        check_dtype(self.prm.dtype)
         self.device = resolve_device(device)
         self.device_setup = self.device.type == "cuda" \
             if device_setup is None else bool(device_setup)
@@ -193,6 +210,7 @@ class AMG:
         t0 = time.perf_counter()
         self.device_built = False
         self._dev_prefix = []
+        self._level_ctx = []
         meta_prefix = []
         # per-build state (eps_strong decay, grid dims, setup dtype) lives
         # in this dict, not on the policy object
@@ -240,6 +258,9 @@ class AMG:
                 break     # expected terminal condition: close here
             if P.ncols == 0 or P.ncols >= Acur.ncols:
                 break     # coarsening stalled
+            # the context the Galerkin product saw (the coarse grid dims
+            # among it), kept for a numeric rebuild to match this build
+            self._level_ctx.append(dict(ctx))
             Ac = coarsening.coarse_operator(Acur, P, R, ctx)
             host.append((Acur, P, R))
             Acur = Ac
@@ -255,7 +276,66 @@ class AMG:
         self.setup_split = {"device_build_s": t_dev,
                             "host_s": self.setup_seconds - t_dev}
 
-    def _to_device_levels(self):
+    def rebuild(self, A):
+        """Numeric-only rebuild for time-dependent problems: the matrix
+        values changed, the sparsity pattern did not (reference:
+        amg::rebuild, amgcl/amg.hpp:229-269; amgcl_tpu/models/amg.py:
+        339-445). ``A`` is a CSR (or scipy matrix) with the same pattern,
+        or just the new value array. A hierarchy built wholly or partly
+        on the device redoes its build; a host-built one reruns only the
+        Galerkin products on the kept transfer operators, rebuilds the
+        smoother states and keeps the device transfer operators."""
+        old0 = self.host_levels[0][0]
+        if isinstance(A, np.ndarray):
+            if A.shape != old0.val.shape:
+                raise ValueError(
+                    "rebuild(new_vals): value array shape %r does not "
+                    "match the operator's %r" % (A.shape, old0.val.shape))
+            A = CSR(old0.ptr, old0.col, np.asarray(A), old0.ncols)
+            same_pattern = True
+        else:
+            if not isinstance(A, CSR):
+                A = CSR.from_scipy(A)
+            if A.shape != old0.shape:
+                raise ValueError(
+                    "rebuild requires the same matrix dimensions")
+            same_pattern = A.nnz == old0.nnz and (
+                (A.ptr is old0.ptr and A.col is old0.col)
+                or (np.array_equal(A.ptr, old0.ptr)
+                    and np.array_equal(A.col, old0.col)))
+        on_device = self.device_built or self._dev_prefix
+        if not (same_pattern or on_device):
+            raise ValueError(
+                "rebuild requires the same sparsity pattern (values-only "
+                "update); construct a new AMG for structural changes")
+        if same_pattern:
+            # caches of the pattern alone carry over
+            for attr in ("_rows_cache", "_dia_offsets_cache", "_grid_dims"):
+                if not hasattr(A, attr) and hasattr(old0, attr):
+                    setattr(A, attr, getattr(old0, attr))
+        if on_device:
+            # device-built and hybrid hierarchies redo the (on-device)
+            # build; the transfer structure comes out the same
+            self._build(A)
+            return
+        t0 = time.perf_counter()
+        coarse_operator = self.prm.coarsening.coarse_operator
+        host = []
+        Acur = A
+        for (_, P, R), ctx in zip(self.host_levels[:-1], self._level_ctx):
+            host.append((Acur, P, R))
+            Acur = coarse_operator(Acur, P, R, dict(ctx))
+        host.append((Acur, None, None))
+        old_levels = self.hierarchy.levels
+        self.host_levels = host
+        self._to_device_levels(reuse_transfers=old_levels)
+        self._setup_done(t0, 0.0)
+
+    def _to_device_levels(self, reuse_transfers=None):
+        """Move the host levels to the device. ``reuse_transfers``: the
+        previous build's device levels in a numeric rebuild, whose
+        transfer operators (frozen by the rebuild contract) are kept
+        instead of converted again."""
         prm = self.prm
         host = self.host_levels
         dtype, device = prm.dtype, self.device
@@ -263,9 +343,12 @@ class AMG:
         # conversion draws on it (amgcl_tpu/models/amg.py:465)
         budget = self._dwin_budget = dense_window_budget()
         levels = list(self._dev_prefix)    # device-built levels come first
-        for Ai, P, R in host[len(levels):-1]:
+        for i, (Ai, P, R) in enumerate(host[len(levels):-1],
+                                       start=len(levels)):
             spec = getattr(P, "_implicit_spec", None)
-            if spec is not None:
+            if reuse_transfers is not None:
+                P_dev, R_dev = reuse_transfers[i].P, reuse_transfers[i].R
+            elif spec is not None:
                 # matrix-free smoothed transfers (ops/structured.py)
                 P_dev, R_dev = build_implicit_transfers(
                     spec, dtype, device, prm.matrix_format)

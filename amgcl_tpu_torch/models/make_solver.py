@@ -1,57 +1,197 @@
-"""``make_solver`` — bundle an AMG preconditioner with a Krylov solver
-behind one call (counterpart of ``amgcl_tpu/models/make_solver.py``;
-reference: amgcl/make_solver.hpp:41-231), with float64 iterative
-refinement.
+"""``make_solver`` — bundle a preconditioner with a Krylov solver behind
+one call (counterpart of ``amgcl_tpu/models/make_solver.py``; reference:
+amgcl/make_solver.hpp:41-231), with iterative refinement.
+
+Mixed precision comes at this seam: the preconditioner may live in a lower
+precision than the Krylov iteration (reference:
+amgcl/backend/detail/mixing.hpp:45-73, examples/mixed_precision.cpp:32-44);
+the apply casts the residual down and the correction back up.
 """
 
 from __future__ import annotations
 
 import inspect
 import time
+import warnings
 from typing import Any
 
+import numpy as np
 import torch
 
-from amgcl_tpu_torch.models.amg import AMG, AMGParams
+from amgcl_tpu_torch.models.amg import AMG, AMGParams, check_dtype
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops.csr import CSR
+from amgcl_tpu_torch.ops.dfloat import df_add_vec, dia_residual_df
 from amgcl_tpu_torch.solver.cg import CG
 from amgcl_tpu_torch.telemetry.report import SolveReport
+from amgcl_tpu_torch.utils.devices import resolve_device
 
 
 class make_solver:
     """P+S bundle: ``solve = make_solver(A, AMGParams(), CG())`` then
     ``x, info = solve(rhs)``; ``x`` is a tensor on the solver's device.
 
-    The Krylov loop runs in the hierarchy's dtype on the hierarchy's own
-    finest-level operator. ``refine > 0`` adds correction-form iterative
-    refinement: the outer residual b − A x is evaluated in float64 through
-    a float64 copy of the operator on the device (``A_dev64``), and up to
-    ``refine`` correction solves run in the working precision.
-    ``device=None`` means CUDA and ``device_setup=None`` builds the
-    stencil levels on the device when it is CUDA (see :class:`AMG`)."""
+    ``precond`` is an :class:`AMGParams` (the hierarchy is built here) or
+    a prebuilt preconditioner: any object with ``.hierarchy`` (``apply``,
+    ``system_matrix``), a ``dtype`` (or ``prm.dtype``) and a ``device``,
+    which must be the one this bundle resolves. The Krylov loop runs in
+    ``solver_dtype`` (default: the preconditioner's) on the hierarchy's own
+    finest-level operator when the hierarchy was built here from A in that
+    dtype and ``matrix_format`` is ``"auto"``, else on A converted to
+    ``matrix_format``. ``refine > 0`` adds correction-form iterative
+    refinement: the outer residual b − A x is evaluated beyond the working
+    precision and up to ``refine`` correction solves run in it.
+    ``refine_dtype`` picks the evaluation: ``"float64"`` (a float64 copy
+    of the operator on the device), ``"df32"`` (compensated float32
+    arithmetic on a float32 DIA operator, ``ops/dfloat.py``) or
+    ``"auto"``, which is float64 here (the card has native float64, as the
+    JAX package's choice off a TPU). ``batch`` (A.11) and ``recovery``
+    (A.13) are accepted only off. ``device=None`` means CUDA and
+    ``device_setup=None`` builds the stencil levels on the device when it
+    is CUDA (see :class:`AMG`)."""
 
-    def __init__(self, A, precond: AMGParams = None, solver: Any = None,
-                 refine: int = 0, device=None, device_setup=None):
+    def __init__(self, A, precond: Any = None, solver: Any = None,
+                 solver_dtype=None, matrix_format: str = "auto",
+                 refine: int = 0, refine_dtype: str = "auto",
+                 batch: Any = None, recovery: Any = None, device=None,
+                 device_setup=None):
+        if batch:
+            raise NotImplementedError(
+                "batch (the stacked multi-rhs bucket of the serving layer)"
+                " is not ported yet (ROADMAP A.11)")
+        if recovery:
+            raise NotImplementedError(
+                "recovery (the fault-tolerance ladder) is not ported yet "
+                "(ROADMAP A.13)")
         if not isinstance(A, CSR):
             A = CSR.from_scipy(A)
         self.A_host = A
         precond = precond if precond is not None else AMGParams()
-        if not isinstance(precond, AMGParams):
-            raise TypeError("precond must be AMGParams, got %r"
-                            % type(precond))
-        self.precond = AMG(A, precond, device, device_setup)
-        self.device = self.precond.device
-        self.dtype = self.precond.dtype
+        if isinstance(precond, AMGParams):
+            self.precond = AMG(A, precond, device, device_setup)
+            self.precond_dtype = precond.dtype
+            self._built_from_A = True
+        elif hasattr(precond, "hierarchy"):
+            # prebuilt preconditioner (AMG, AsPreconditioner, Schur, ...)
+            self.precond = precond
+            self.precond_dtype = getattr(precond, "dtype", None) \
+                or precond.prm.dtype
+            self._built_from_A = False
+            own = resolve_device(device)
+            if torch.device(precond.device) != own:
+                raise ValueError(
+                    "the prebuilt preconditioner lives on %s but this "
+                    "solver runs on %s" % (precond.device, own))
+        else:
+            raise TypeError(
+                "precond must be AMGParams or an object with .hierarchy, "
+                "got %r" % type(precond))
+        self.device = torch.device(self.precond.device)
+        self.solver_dtype = check_dtype(solver_dtype or self.precond_dtype)
         self.solver = solver or CG()
         self.refine = int(refine)
-        self.A_dev = self.precond.hierarchy.system_matrix
-        self.A_dev64 = dev.to_device(A, "auto", torch.float64, self.device) \
-            if self.refine > 0 else None
+        self.matrix_format = matrix_format
+        if refine_dtype not in ("auto", "float64", "df32"):
+            raise ValueError("refine_dtype must be 'auto', 'float64' or "
+                             "'df32', got %r" % (refine_dtype,))
+        self._set_operator(A)
+        self.refine_mode = None
+        self.A_dev64 = None
+        self._df32_drift = None
+        self._df32_checked = False
+        if self.refine > 0:
+            df32 = refine_dtype == "df32"
+            if df32 and not (isinstance(self.A_dev, dev.DiaMatrix)
+                             and self.solver_dtype == torch.float32):
+                raise ValueError(
+                    "refine_dtype='df32' needs a float32 DIA system "
+                    "matrix; use refine_dtype='float64'")
+            self.refine_mode = "df32" if df32 else "float64"
+            self._set_wide_operator(A)
+            if df32 and not self._df32_selfcheck(A):
+                # the error-free transforms assume every float32 operation
+                # rounds once; one check on the device against a host
+                # float64 reference catches a backend that does not
+                warnings.warn(
+                    "df32 compensated residual failed its on-device "
+                    "accuracy self-check; falling back to "
+                    "refine_dtype='float64'")
+                self.refine_mode = "float64"
+                self._set_wide_operator(A)
+
+    def _set_operator(self, A):
+        """The Krylov operator: the hierarchy's finest one when it is A
+        in this dtype and format, else A converted, drawing on the
+        hierarchy's dense-window budget where it has one."""
+        hier_A = getattr(self.precond.hierarchy, "system_matrix", None) \
+            if self._built_from_A else None
+        if (hier_A is not None and self.solver_dtype == self.precond_dtype
+                and self.matrix_format == "auto"):
+            self.A_dev = hier_A
+        else:
+            self.A_dev = dev.to_device(
+                A, self.matrix_format, self.solver_dtype, self.device,
+                getattr(self.precond, "_dwin_budget", None))
+
+    def _set_wide_operator(self, A):
+        """The refinement's operator: the float32 remainders for df32,
+        a float64 copy of A otherwise."""
+        if self.refine_mode == "df32":
+            self.A_dev64 = dev.csr_to_dia_remainder(A, self.A_dev)
+        else:
+            self.A_dev64 = dev.to_device(A, self.matrix_format,
+                                         torch.float64, self.device)
+
+    def _df32_selfcheck(self, A) -> bool:
+        """One-shot device-against-host check of the compensated
+        residual: ‖r_df − r64‖ must sit well below the plain float32
+        evaluation's error on a probe where b = f32(A x), i.e. total
+        cancellation (amgcl_tpu/models/make_solver.py:204-233)."""
+        rng = np.random.RandomState(23)
+        n = A.nrows
+        x32 = rng.rand(n).astype(np.float32)
+        ax64 = A.spmv(x32.astype(np.float64))
+        b32 = ax64.astype(np.float32)
+        r64 = b32.astype(np.float64) - ax64
+        b = torch.as_tensor(b32, device=self.device)
+        x = torch.as_tensor(x32, device=self.device)
+        zeros = torch.zeros_like(b)
+        r_df = dia_residual_df(self.A_dev.offsets, self.A_dev.data,
+                               self.A_dev64.data, b, zeros, x, zeros)
+        r_f32 = dev.residual(b, self.A_dev, x)
+        err_df = float(np.linalg.norm(
+            r_df.double().cpu().numpy() - r64))
+        err_f32 = float(np.linalg.norm(
+            r_f32.double().cpu().numpy() - r64))
+        return err_df < 1e-2 * err_f32 + 1e-12 * n
+
+    def rebuild(self, A):
+        """Fast path for time-dependent problems: rebuild the
+        preconditioner (reusing what its rebuild contract keeps) and
+        refresh the solver-side operators — the Krylov operator, and the
+        float64 or df32 refinement operator — so later calls solve the
+        new system (amgcl_tpu/models/make_solver.py:235-288)."""
+        if not isinstance(A, CSR):
+            A = CSR.from_scipy(A)
+        if not hasattr(self.precond, "rebuild"):
+            raise TypeError("preconditioner %r does not support rebuild"
+                            % type(self.precond).__name__)
+        self.precond.rebuild(A)
+        self.A_host = A
+        self._set_operator(A)
+        if self.refine > 0:
+            if self.refine_mode == "df32" \
+                    and not isinstance(self.A_dev, dev.DiaMatrix):
+                raise ValueError(
+                    "rebuilt matrix is no longer DIA-eligible; df32 "
+                    "refinement needs a DIA system matrix — construct a "
+                    "new solver with refine_dtype='float64'")
+            self._set_wide_operator(A)
 
     def _vector(self, v, what):
         n = self.A_host.nrows * self.A_host.block_size[0]
-        t = torch.as_tensor(v).to(device=self.device, dtype=self.dtype)
+        t = torch.as_tensor(v).to(device=self.device,
+                                  dtype=self.solver_dtype)
         if tuple(t.shape) != (n,):
             raise ValueError("%s has shape %s but the system has %d "
                              "unknowns" % (what, tuple(t.shape), n))
@@ -62,41 +202,74 @@ class make_solver:
         x0 = torch.zeros_like(rhs) if x0 is None else self._vector(x0, "x0")
         t0 = time.perf_counter()
         hier = self.precond.hierarchy
+        pdtype = self.precond_dtype
 
         def apply_precond(r):
-            return hier.apply(r.to(self.dtype)).to(rhs.dtype)
+            return hier.apply(r.to(pdtype)).to(r.dtype)
 
         got = self.solver.solve(self.A_dev, apply_precond, rhs, x0)
         x, iters, resid, hs = got[:4]
         # the history covers the initial solve only, as in the reference
         hist = got[4][:iters] if len(got) > 4 else None
         if self.refine > 0:
-            x, iters, resid = self._refine_loop(apply_precond, rhs, x,
-                                                iters, hs)
+            x, iters, resid = self._refine(apply_precond, rhs, x, iters, hs)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+        if self.refine_mode == "df32" and not self._df32_checked:
+            self._df32_checked = True
+            self._check_df32_runtime(rhs, x, float(resid))
+        stats = getattr(self.precond, "hierarchy_stats", None)
         report = SolveReport(
-            int(iters), float(resid), wall_time_s=time.perf_counter() - t0,
-            hierarchy=self.precond.hierarchy_stats(),
-            health=None if hs is None else hs.names(), history=hist)
+            int(iters), float(resid), wall_time_s=wall,
+            hierarchy=stats() if callable(stats) else None,
+            health=None if hs is None else hs.names(), history=hist,
+            # sticky once the first df32 solve drifted
+            extra={"df32_drift": self._df32_drift}
+            if self._df32_drift else None)
         return x, report
 
-    def _refine_loop(self, apply_precond, rhs, x, iters, hs):
-        """While the float64 relative residual exceeds tol (up to
-        ``refine`` restarts), solve the correction in working precision
-        and accumulate it in float64. A solver that takes ``abstol`` (CG)
-        stops each correction solve at the global absolute target; one
-        that does not (BiCGStab) stops at its relative tol, as in the
-        reference. A correction solve's guard flags merge into ``hs`` so
-        a breakdown inside it reaches the report."""
+    def _refine(self, apply_precond, rhs, x, iters, hs):
+        """The refinement's two residual evaluators over one loop
+        (amgcl_tpu/models/make_solver.py:352-418): float64, on the wide
+        operator; df32, the compensated float32 residual on the (hi, lo)
+        operator pair with the float32 rhs taken as exact and the iterate
+        carried as a (hi, lo) pair, combined in float64 at the end."""
+        if self.refine_mode == "df32":
+            A_hi, A_lo = self.A_dev, self.A_dev64
+            zeros = torch.zeros_like(rhs)
+
+            def true_res(st):
+                return dia_residual_df(A_hi.offsets, A_hi.data, A_lo.data,
+                                       rhs, zeros, st[0], st[1])
+
+            state, iters, rt = self._refine_loop(
+                apply_precond, rhs, (x, zeros), iters, rhs, true_res,
+                lambda st, dx: df_add_vec(st[0], st[1], dx), hs)
+            return (state[0].to(torch.float64)
+                    + state[1].to(torch.float64)), iters, rt
         rhs64 = rhs.to(torch.float64)
-        nb = float(dev.norm(rhs64))
+        return self._refine_loop(
+            apply_precond, rhs, x.to(torch.float64), iters, rhs64,
+            lambda st: dev.residual(rhs64, self.A_dev64, st),
+            lambda st, dx: st + dx.to(torch.float64), hs)
+
+    def _refine_loop(self, apply_precond, rhs, state, iters, norm_src,
+                     true_res, accumulate, hs):
+        """While the scaled residual norm of ``true_res(state)`` exceeds
+        tol (up to ``refine`` restarts), solve the correction in working
+        precision and ``accumulate`` it into the state. A solver that
+        takes ``abstol`` (CG) stops each correction solve at the global
+        absolute target; one that does not (BiCGStab) stops at its
+        relative tol, as in the reference. A correction solve's guard
+        flags merge into ``hs`` so a breakdown inside it reaches the
+        report."""
+        nb = float(dev.norm(norm_src))
         scale = nb if nb > 0 else 1.0
         tol = self.solver.tol
         kw = {"abstol": tol * scale} if "abstol" in inspect.signature(
             self.solver.solve).parameters else {}
-        state = x.to(torch.float64)
-        r = dev.residual(rhs64, self.A_dev64, state)
+        r = true_res(state)
         rt = float(dev.norm(r)) / scale
         k = 0
         while rt > tol and k < self.refine:
@@ -107,12 +280,35 @@ class make_solver:
                 hs.flags |= ch.flags
                 hs.first_it = [a if a >= 0 else b
                                for a, b in zip(hs.first_it, ch.first_it)]
-            state = state + dx.to(torch.float64)
-            r = dev.residual(rhs64, self.A_dev64, state)
+            state = accumulate(state, dx)
+            r = true_res(state)
             rt = float(dev.norm(r)) / scale
             iters += it2
             k += 1
         return state, iters, rt
+
+    def _check_df32_runtime(self, rhs, x, reported):
+        """One-shot check of the first df32 solve: the reported relative
+        residual must agree with the host float64 residual of the
+        returned x (amgcl_tpu/models/make_solver.py:849-877). On drift it
+        warns and records ``df32_drift``, which every later report
+        carries in ``extra``; returns the host residual."""
+        b64 = rhs.double().cpu().numpy()
+        x64 = x.double().cpu().numpy()
+        nb = float(np.linalg.norm(b64))
+        if nb == 0 or not np.all(np.isfinite(x64)):
+            return None
+        actual = float(np.linalg.norm(b64 - self.A_host.spmv(x64)) / nb)
+        tol = float(self.solver.tol)
+        if actual > max(10.0 * reported, 2.0 * tol) \
+                and actual > 1e-12 * len(b64):
+            self._df32_drift = {"reported": reported, "actual": actual}
+            warnings.warn(
+                "df32 refinement drift: the solve reports a relative "
+                "residual of %.3e but the host float64 residual of the "
+                "returned solution is %.3e; use refine_dtype='float64'"
+                % (reported, actual))
+        return actual
 
     def __repr__(self):
         return ("make_solver\n===========\nSolver: %s\n\nPreconditioner:\n%r"

@@ -185,6 +185,31 @@ def csr_to_dia(A: CSR, dtype=torch.float32, device="cpu") -> DiaMatrix:
         flat.reshape(len(offsets), A.nrows), device=device), A.shape)
 
 
+def csr_to_dia_remainder(A: CSR, hi: DiaMatrix) -> DiaMatrix:
+    """float32 DIA matrix of the rounding remainders A − f32(A), laid out
+    along ``hi``'s offsets on ``hi``'s device: the low half of the
+    double-float operator pair of the df32 refinement residual
+    (``ops/dfloat.py``; amgcl_tpu/ops/device.py:310)."""
+    assert not A.is_block
+    offs = np.asarray(hi.offsets, np.int64)
+    order = np.argsort(offs)
+    rows = A.expanded_rows()
+    d = A.col.astype(np.int64) - rows
+    idx_sorted = np.clip(np.searchsorted(offs[order], d), 0, len(offs) - 1)
+    k = order[idx_sorted]
+    if not np.array_equal(offs[k], d):
+        raise ValueError(
+            "system matrix has entries outside the device operator's "
+            "diagonal set — cannot build the df32 low operator")
+    val64 = np.asarray(A.val, np.float64)
+    lo_val = (val64 - val64.astype(np.float32).astype(np.float64)) \
+        .astype(np.float32)
+    data = np.zeros((len(offs), A.nrows), np.float32)
+    data[k, rows] = lo_val
+    return DiaMatrix(hi.offsets, torch.as_tensor(data, device=hi.data.device),
+                     A.shape)
+
+
 def dia_efficiency(A: CSR):
     """(ndiags, fill_ratio) of the DIA packing; fill = stored / nnz."""
     nd = len(dia_offsets(A))

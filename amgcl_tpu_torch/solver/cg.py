@@ -9,6 +9,7 @@ convergence check and the health guards.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -24,6 +25,9 @@ class CG(HistoryMixin):
     maxiter: int = 100
     tol: float = 1e-8
     abstol: float = 0.0
+    ns_search: bool = False  # keep iterating on a zero rhs to find
+    #                          null-space vectors (cg.hpp:90-94,163-168)
+    verbose: bool = False   # print residual every 5 iterations (cg.hpp:199)
     record_history: bool = False  # per-iteration relative residuals
     guard: bool = True      # in-loop health guards (telemetry/health.py)
 
@@ -47,6 +51,10 @@ class CG(HistoryMixin):
         eps = max(self.tol * norm_scale,
                   self.abstol if abstol is None else abstol)
         tiny = torch.finfo(rhs.dtype).tiny
+        # ns_search drives the iterates into the null space, where the
+        # breakdown denominators legitimately vanish: guards off there but
+        # the NaN check
+        guard_trips = self.guard and not self.ns_search
         hs = self._guard_init(res / norm_scale)
         hist = self._hist_init()
         p = torch.zeros_like(r)
@@ -62,7 +70,7 @@ class CG(HistoryMixin):
             # guarded: the safe division only protects a candidate the
             # breakdown trip below discards anyway
             alpha = rho / (torch.where(qp == 0, torch.ones_like(qp), qp)
-                           if self.guard else qp)
+                           if guard_trips else qp)
             # fused tail: x += alpha p, r -= alpha q and <r,r> in one pass
             x_n, r_n, rr = fv.xr_update(alpha, p_n, q, x, r)
             res_n, rho_h, qp_h = torch.stack(
@@ -70,15 +78,26 @@ class CG(HistoryMixin):
             # rho: residual orthogonal to the preconditioned residual;
             # qp ≈ 0: singular direction; qp < 0: not positive definite
             # (informational — CG may still proceed)
-            ok = self._guard_step(
-                hs, it, res_n / norm_scale,
-                ((H.BREAKDOWN_RHO, H.bad_denom(rho_h, tiny)),
-                 (H.BREAKDOWN_ALPHA, H.bad_denom(qp_h, tiny)),
-                 (H.INDEFINITE, qp_h < 0, False)))
+            if guard_trips:
+                ok = self._guard_step(
+                    hs, it, res_n / norm_scale,
+                    ((H.BREAKDOWN_RHO, H.bad_denom(rho_h, tiny)),
+                     (H.BREAKDOWN_ALPHA, H.bad_denom(qp_h, tiny)),
+                     (H.INDEFINITE, qp_h < 0, False)))
+            elif self.guard:
+                # a NaN residual is still a failure under ns_search
+                ok = math.isfinite(res_n)
+                hs.trip(it, H.NAN, not ok)
+            else:
+                ok = True
             x, r, p, rho_prev, res = self._guard_commit(
                 ok, (x_n, r_n, p_n, rho, res_n), (x, r, p, rho_prev, res))
             self._hist_put(hist, it, res_n / norm_scale, keep=ok)
+            if self.verbose and (it + 1) % 5 == 0:
+                print("iter %d: resid %.6e" % (it + 1, res / norm_scale))
             it += int(ok)
-        if norm_rhs == 0:
+        if norm_rhs == 0 and not self.ns_search:
+            # with ns_search the iterates from a nonzero x0 approach a
+            # null-space vector instead (reference cg.hpp:163-168)
             x = torch.zeros_like(x)
         return self._hist_result(x, it, res / norm_scale, hs, hist)

@@ -21,6 +21,8 @@ from amgcl_tpu_torch.telemetry.history import HistoryMixin
 
 @dataclass
 class PreOnly(HistoryMixin):
+    maxiter: int = 1   # unused; the runtime config may set it, as for
+    #                    the JAX package's
     tol: float = 0.0   # iterative refinement's target (make_solver)
     record_history: bool = False
     guard: bool = True      # NaN detection only (no loop to guard)

@@ -1,5 +1,6 @@
 """Deterministic test fixtures: the 3-D Poisson problem, scalar and
-block-valued, and 2-D Q1 elasticity with its node coordinates.
+block-valued, 2-D Q1 elasticity with its node coordinates, and the
+coupled systems of the Schur and CPR preconditioners.
 
 Counterpart of ``amgcl_tpu/utils/sample_problem.py::poisson3d``, itself
 modelled on the reference's tests/sample_problem.hpp:11-84.
@@ -95,3 +96,45 @@ def q1_elasticity2d(nx: int = 48, E: float = 1.0, nu: float = 0.3,
                        np.arange(nn1, dtype=float), indexing="ij")
     coords = np.stack([X.ravel(), Y.ravel()], axis=1)[keep[::2] // 2]
     return CSR.from_scipy(K), np.ones(K.shape[0]), coords
+
+
+def stokes_like(n: int):
+    """Stabilized Stokes-type saddle point [A Bᵀ; B −εM] on an n×n grid
+    (``amgcl_tpu/utils/sample_problem.py::stokes_like``): A the 2-D vector
+    Laplacian (two velocity components of n² rows each), B a discrete
+    divergence, ε = 1e-2 — the coupled-system fixture of the Schur
+    pressure correction. Returns ``(A: CSR, pmask)`` with the n² pressure
+    rows last."""
+    T = sp.diags([-np.ones(n - 1), 2 * np.ones(n), -np.ones(n - 1)],
+                 [-1, 0, 1])
+    L = (sp.kron(sp.identity(n), T) + sp.kron(T, sp.identity(n))).tocsr()
+    nu = L.shape[0]
+    A = sp.block_diag([L, L]).tocsr()            # two velocity components
+    D = sp.diags([-np.ones(nu - 1), np.ones(nu)], [-1, 0],
+                 shape=(nu, nu))
+    B = sp.hstack([D, 0.5 * D]).tocsr()          # (np_, 2nu)
+    M = sp.identity(nu) * 1e-2
+    K = sp.bmat([[A, B.T], [B, -M]]).tocsr()
+    pmask = np.zeros(K.shape[0], dtype=bool)
+    pmask[2 * nu:] = True
+    return CSR.from_scipy(K), pmask
+
+
+def reservoir_like(n: int, b: int = 3):
+    """Reservoir-type block system (the CPR fixture of the JAX package's
+    ``tests/test_coupled.py::reservoir_like``): poisson3d(n) pressure
+    coupling kron the b×b identity, each cell's b − 1 saturation
+    equations coupled to its pressure by 0.3 and made strongly diagonal
+    (n³ on the diagonal). Returns ``(A: CSR as b×b blocks, rhs)`` with
+    ``rhs`` all ones over the n³·b unknowns."""
+    Ap, _ = poisson3d(n)
+    m = Ap.to_scipy()
+    nc = m.shape[0]
+    K = sp.kron(m, np.eye(b)).tocsr()
+    rows = np.concatenate([np.arange(nc) * b + k for k in range(1, b)])
+    extra = sp.csr_matrix(
+        (np.full(len(rows), 0.3), (rows, (rows // b) * b)), shape=K.shape)
+    diag = sp.csr_matrix(
+        (np.full(len(rows), float(nc)), (rows, rows)), shape=K.shape)
+    M = (K + extra + diag).tocsr()
+    return CSR.from_scipy(M).to_block(b), np.ones(nc * b)

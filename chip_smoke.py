@@ -126,11 +126,25 @@ Run from the root of a checkout, with no arguments:
    halos real) and a boundary shard, beside the base mode on the same
    slab and the least time for its bytes.
 
+10. Every smoother and coarsening of the JAX package (``A8_PATHS``), each
+   through make_solver at full size (``--phase10`` runs it alone).
+11. The compositions and configuration (``A9_PATHS``, ``--phase11`` runs
+   it alone): MX1 (a float64 Krylov loop over the main path's float32
+   hierarchy), DF1 (df32 refinement), RB1 and RB1h (three rebuilds of a
+   drifting poisson3d(128), device-built and host-built), DL1
+   (deflation), NS1, DM1 and AP1 (runtime configurations: nested,
+   dummy, ILU(0) alone), SC1 (Schur pressure correction on
+   stokes_like(512)), CP1 (CPR on reservoir_like(96, 3) and its rebuild)
+   and BK1 (B1's system through make_block_solver). Each is held to its
+   iteration window, its true residual, its structure (``a9_reach``), its
+   kernels and zero plain-version calls.
+
 Prints one JSON line of kernel records, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
 no CUDA device is present or any phase fails.
 """
 
+import contextlib
 import gc
 import json
 import statistics
@@ -342,6 +356,19 @@ def reset_counts():
 def read_counts():
     return ({k: kern.launches for k, (kern, _) in wrappers().items()},
             {k: plain.calls for k, (_, plain) in wrappers().items()})
+
+
+@contextlib.contextmanager
+def counts_paused():
+    """Launches and plain calls inside the block are not counted: on
+    leaving, every count is what it was on entering (a comparison run
+    inside a path's counting window)."""
+    launches, calls = read_counts()
+    try:
+        yield
+    finally:
+        for k, (kern, plain) in wrappers().items():
+            kern.launches, plain.calls = launches[k], calls[k]
 
 
 # -- phase 2: the main path and the earlier path ------------------------------
@@ -2535,6 +2562,427 @@ def a8_family(failures, only=None):
     return counts, summary
 
 
+# -- phase 11: compositions and configuration (A.9) ---------------------------
+
+#: the paths of phase 11: label -> (system, configuration, refine).
+#: Systems: "poisson" poisson3d(128); "fe" U1's (fe_like_problem(),
+#: identity order); "stokes" stokes_like(512) (two 262,144-row velocity
+#: blocks, 262,144 pressure rows); "reservoir" reservoir_like(96, 3)
+#: (884,736 cells of 3 unknowns); "block_scalar" B1's poisson3d_block(48,
+#: 3) as a scalar CSR. Every hierarchy is float32. No full-size count of
+#: the JAX package is at hand (it would take a full-size run on the CPU),
+#: so each path's iterations, summed over its 1 + refine solves, are held
+#: below (1 + refine) times its maxiter and the CPU tests
+#: (tests/test_torch_compose.py, tests/test_torch_runtime.py) hold the
+#: same configurations' small-size counts to the JAX package's exactly;
+#: DF1 is held to the main path's 12 ± 1, BK1 to B1's 7, and RB1, RB1h
+#: and CP1's rebuilt solves to a fresh build's count on the same system
+A9_PATHS = {
+    "MX1": ("poisson", "AMGParams(), CG(maxiter=100, tol=1e-6), "
+            "solver_dtype=float64", 0),
+    "DF1": ("poisson", "main path, refine_dtype='df32'", 3),
+    "RB1": ("poisson", "main path, then rebuild(A·(1 + 0.05·step)) for 3 "
+            "steps from the last x", 3),
+    "RB1h": ("poisson", "RB1 with device_setup=False", 3),
+    "DL1": ("poisson", "deflated_solver(A, Z = [1, x, y, z], AMGParams(), "
+            "CG(maxiter=100, tol=1e-6))", 3),
+    "NS1": ("poisson", "config: nested (cg, maxiter 4, tol 1e-2, over "
+            "amg), fgmres(maxiter=100, tol=1e-6)", 3),
+    "DM1": ("poisson", "config: dummy, cg(maxiter=1000, tol=1e-6)", 3),
+    "AP1": ("fe", "config: relaxation ilu0, bicgstab(maxiter=500, "
+            "tol=1e-6)", 3),
+    "SC1": ("stokes", "SchurPressureCorrection(A, pmask, adjust_p=2), "
+            "FGMRES(maxiter=500, tol=1e-6)", 3),
+    "CP1": ("reservoir", "CPR(A), BiCGStab(maxiter=200, tol=1e-6), then "
+            "rebuild(2A)", 3),
+    "BK1": ("block_scalar", "make_block_solver(A, 3, AMGParams(), "
+            "BiCGStab(maxiter=200, tol=1e-6))", 0),
+}
+#: paths whose busy share is read over a window of this many iterations
+#: of their (outer) solver without refinement, not over a whole solve
+#: (SC1: two whole FGMRES(30) restart cycles)
+A9_PROFILE_WINDOW = {"SC1": 60}
+#: kernels each phase-11 path must launch (its rows of PERF.md §6)
+A9_KERNELS = {
+    "MX1": ("dia_spmv_dots", "dia_residual_dot", "xr_update",
+            "fused_down_sweep", "fused_up_sweep"),
+    "DM1": ("dia_spmv_dots", "dia_residual_dot", "xr_update",
+            "dia_residual"),
+    "AP1": ("windowed_ell_spmv", "windowed_ell_spmv_dots", "bicgstab_tail"),
+    "SC1": ("dia_spmv", "dia_residual"),
+    "CP1": ("windowed_ell_block_spmv_dots", "bicgstab_tail",
+            "fused_down_sweep", "fused_up_sweep"),
+    "BK1": BLOCK,
+}
+for _p in ("DF1", "RB1", "RB1h", "DL1", "NS1"):
+    A9_KERNELS[_p] = A9_KERNELS["MX1"]
+
+
+def a9_deflation_vectors(n):
+    """The constant and the three coordinate functions of poisson3d(n)'s
+    grid, scaled to [0, 1]: (n³, 4)."""
+    i = np.arange(n ** 3)
+    return np.stack([np.ones(n ** 3), i % n, (i // n) % n, i // n ** 2],
+                    axis=1) / np.array([1.0, n - 1, n - 1, n - 1])
+
+
+def a9_make(label, A, extra, **dev):
+    """Build phase 11's bundle ``label`` on ``A`` (``extra``: the pressure
+    mask of SC1, the deflation vectors of DL1) through the entry points a
+    user calls; ``dev`` holds ``device`` and ``device_setup``."""
+    import amgcl_tpu_torch as T
+    cg = T.CG(maxiter=100, tol=1e-6)
+    if label == "MX1":
+        return T.make_solver(A, T.AMGParams(), cg,
+                             solver_dtype=torch.float64, **dev)
+    if label == "DF1":
+        return T.make_solver(A, T.AMGParams(), cg, refine=3,
+                             refine_dtype="df32", **dev)
+    if label in ("RB1", "RB1h"):
+        if label == "RB1h":
+            dev = dict(dev, device_setup=False)
+        return T.make_solver(A, T.AMGParams(), cg, refine=3, **dev)
+    if label == "DL1":
+        return T.deflated_solver(A, extra, T.AMGParams(), cg, refine=3,
+                                 **dev)
+    if label == "NS1":
+        return T.make_solver_from_config(A, {
+            "precond.class": "nested", "precond.solver.type": "cg",
+            "precond.solver.maxiter": 4, "precond.solver.tol": 1e-2,
+            "precond.precond.class": "amg", "solver.type": "fgmres",
+            "solver.tol": 1e-6, "solver.maxiter": 100}, refine=3, **dev)
+    if label == "DM1":
+        return T.make_solver_from_config(A, {
+            "precond.class": "dummy", "solver.type": "cg",
+            "solver.maxiter": 1000, "solver.tol": 1e-6}, refine=3, **dev)
+    if label == "AP1":
+        return T.make_solver_from_config(A, {
+            "precond.class": "relaxation", "precond.relax.type": "ilu0",
+            "solver.type": "bicgstab", "solver.maxiter": 500,
+            "solver.tol": 1e-6}, refine=3, **dev)
+    if label == "SC1":
+        return T.make_solver(
+            A, T.SchurPressureCorrection(A, extra, adjust_p=2, **dev),
+            T.FGMRES(maxiter=500, tol=1e-6), refine=3,
+            device=dev.get("device"))
+    if label == "CP1":
+        return T.make_solver(A, T.CPR(A, **dev),
+                             T.BiCGStab(maxiter=200, tol=1e-6), refine=3,
+                             device=dev.get("device"))
+    return T.make_block_solver(A, 3, T.AMGParams(),
+                               T.BiCGStab(maxiter=200, tol=1e-6), **dev)
+
+
+def a9_reach(label, solve):
+    """What a phase-11 bundle puts where, and the structural reasons it
+    reaches its kernels; returns (report lines, faults). Run on the card
+    by phase 11 and on the CPU at small sizes by
+    tests/test_torch_compose.py."""
+    import amgcl_tpu_torch as T
+    from amgcl_tpu_torch.ops.device import DiaMatrix
+    from amgcl_tpu_torch.ops.unstructured import WindowedEllMatrix
+    from amgcl_tpu_torch.relaxation.ilu0 import ILU0State
+    bundle = getattr(solve, "inner", solve)
+    pre = bundle.precond
+    hier = pre.hierarchy
+    lines, faults = [], []
+    # a Schur hierarchy moves its full system to the device only when
+    # asked, and make_solver converts A itself for it
+    own = not isinstance(pre, T.SchurPressureCorrection) \
+        and bundle.A_dev is getattr(hier, "system_matrix", None)
+    lines.append("Krylov operator %s %s (the hierarchy's own: %s), "
+                 "preconditioner %s, refinement %s" % (
+                     type(bundle.A_dev).__name__, bundle.A_dev.dtype, own,
+                     type(pre).__name__, bundle.refine_mode))
+    amgs = [("", pre)] if isinstance(pre, T.AMG) else []
+    if isinstance(pre, T.SchurPressureCorrection):
+        amgs = [("u ", pre.u_amg), ("p ", pre.p_amg)]
+    elif isinstance(pre, T.CPR):
+        amgs = [("p ", pre.p_amg)]
+    elif isinstance(pre, T.NestedPreconditioner):
+        amgs = [("inner ", pre.inner)]
+    for name, amg in amgs:
+        for i, lv in enumerate(amg.hierarchy.levels):
+            lines.append("%slevel %d: %d rows, A %s%s, fused down %s, up %s"
+                         % (name, i, lv.A.shape[0], type(lv.A).__name__,
+                            " %dx%d" % lv.A.block
+                            if getattr(lv.A, "block", (1, 1)) != (1, 1)
+                            else "", lv.down is not None,
+                            lv.up is not None))
+        lines.append("%sdevice build: %s" % (name, amg.device_built))
+    if label == "MX1":
+        if not (isinstance(bundle.A_dev, DiaMatrix)
+                and bundle.A_dev.dtype == torch.float64
+                and bundle.A_dev is not hier.system_matrix):
+            faults.append("the Krylov operator is not a float64 DIA apart "
+                          "from the hierarchy's")
+    elif label == "DF1" and bundle.refine_mode != "df32":
+        faults.append("refinement mode %s" % bundle.refine_mode)
+    if label in ("RB1", "RB1h") and pre.device_built != (label == "RB1"):
+        faults.append("device build taken: %s" % pre.device_built)
+    if label == "DL1" and tuple(hier.Z.shape[1:]) != (4,):
+        faults.append("deflation space %s" % (tuple(hier.Z.shape),))
+    if label == "NS1" and not isinstance(pre, T.NestedPreconditioner):
+        faults.append("not a nested preconditioner")
+    if label == "AP1" and not isinstance(getattr(hier, "state", None),
+                                         ILU0State):
+        faults.append("the single level does not hold ILU(0)")
+    if label == "DM1" and not isinstance(pre, T.DummyPreconditioner):
+        faults.append("not the identity preconditioner")
+    if label == "SC1" and len(pre.p_amg.hierarchy.levels) < 2:
+        faults.append("the pressure hierarchy has one level")
+    if label == "CP1":
+        if not pre.p_amg.device_built:
+            faults.append("the pressure AMG did not take the device build")
+        if not (isinstance(bundle.A_dev, WindowedEllMatrix)
+                and bundle.A_dev.block == (3, 3)):
+            faults.append("the Krylov operator is not a 3x3 block "
+                          "windowed ELL")
+    if label == "BK1" and getattr(hier.levels[0].A, "block",
+                                  None) != (3, 3):
+        faults.append("level 0 is not a 3x3 block windowed ELL")
+    return lines, faults
+
+
+def a9_problem(system):
+    """(A, rhs, extra) of a phase-11 system at full size."""
+    import amgcl_tpu_torch as T
+    if system == "poisson":
+        A, rhs = T.poisson3d(128)
+        return A, rhs, a9_deflation_vectors(128)
+    if system == "fe":
+        A, rhs = T.fe_like_problem()
+        return A, rhs, None
+    if system == "stokes":
+        A, pmask = T.stokes_like(512)
+        return A, np.ones(A.nrows), pmask
+    if system == "reservoir":
+        A, rhs = T.reservoir_like(96, 3)
+        return A, rhs, None
+    A, rhs = T.poisson3d_block(48, 3)
+    return A.unblock(), rhs, None
+
+
+def a9_limit(A, rhs, x, refine):
+    """The true-residual limit: 1e-6, plus B1's 2u·‖|A||x|‖/‖b‖ for a
+    float32 x without refinement."""
+    if refine or x.dtype == torch.float64:
+        return 1e-6
+    S = A.to_scipy()
+    x64 = x.double().cpu().numpy()
+    return 1e-6 + 2 * 2.0 ** -24 * float(
+        np.linalg.norm(abs(S) @ np.abs(x64)) / np.linalg.norm(rhs))
+
+
+def a9_timed_build(build):
+    """(result, seconds, peak device MB above the allocation before) of
+    ``build()``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = build()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            (torch.cuda.max_memory_allocated() - base) / 2**20)
+
+
+def a9_fresh(label, A, rhs, extra, x0=None):
+    """A fresh build of ``label`` on a copy of ``A`` that holds none of
+    its pattern caches, as a new matrix from an application would, and
+    its solve, outside the path's counts. Returns (info, seconds, peak
+    MB)."""
+    from amgcl_tpu_torch import CSR
+    with counts_paused():
+        fresh, t_fresh, mb = a9_timed_build(lambda: a9_make(
+            label, CSR(A.ptr, A.col, A.val, A.ncols), extra))
+        _, info = fresh(rhs, x0=x0)
+    del fresh
+    gc.collect()
+    return info, t_fresh, mb
+
+
+def a9_rebuild_steps(label, solve, A, rhs, x, extra, failures):
+    """RB1/RB1h: three drift steps of examples/time_dependent.py, each
+    rebuilt, solved from the last x and held to a fresh build's count on
+    the same system from the same x; RB1h also to its device transfers
+    being kept. Returns the steps' summaries."""
+    from amgcl_tpu_torch import CSR
+    steps = []
+    for step in range(1, 4):
+        A_t = CSR(A.ptr, A.col, A.val * (1 + 0.05 * step), A.ncols)
+        kept = [(lv.P, lv.R) for lv in solve.precond.hierarchy.levels[:-1]]
+        _, t_rebuild, mb = a9_timed_build(lambda: solve.rebuild(A_t))
+        x_new, info = solve(rhs, x0=x)
+        true_res = true_residual(A_t, rhs, x_new)
+        info_f, t_fresh, mb_f = a9_fresh(label, A_t, rhs, extra, x0=x)
+        reused = all(lv.P is P and lv.R is R for lv, (P, R) in zip(
+            solve.precond.hierarchy.levels, kept))
+        print("[%s] step %d: rebuild %.3f s, peak %.1f MB (fresh build "
+              "%.3f s, peak %.1f MB), %d iterations (fresh %d), reported "
+              "%.3e, true %.3e, %.4f s; device transfers kept: %s" % (
+                  label, step, t_rebuild, mb, t_fresh, mb_f, info.iters,
+                  info_f.iters, info.resid, true_res, info.wall_time_s,
+                  reused))
+        if info.iters != info_f.iters or true_res > 1e-6 \
+                or info.resid > 1e-6:
+            failures.append("%s step %d: %d iterations (fresh build %d), "
+                            "true residual %.3e" % (
+                                label, step, info.iters, info_f.iters,
+                                true_res))
+        if label == "RB1h" and not reused:
+            failures.append("RB1h step %d: device transfers converted "
+                            "again" % step)
+        steps.append({"rebuild_s": t_rebuild, "fresh_setup_s": t_fresh,
+                      "rebuild_peak_mb": mb, "fresh_peak_mb": mb_f,
+                      "iters": info.iters, "fresh_iters": info_f.iters,
+                      "true_resid": true_res,
+                      "solve_s": info.wall_time_s})
+        x = x_new
+    return steps
+
+
+def a9_cpr_rebuild(solve, A, rhs, failures):
+    """CP1's rebuild: the values doubled, through make_solver.rebuild
+    (CPR.partial_update), held to a fresh CPR's count on the same
+    system."""
+    from amgcl_tpu_torch import CSR
+    A2 = CSR(A.ptr, A.col, A.val * 2.0, A.ncols)
+    _, t_rebuild, mb = a9_timed_build(lambda: solve.rebuild(A2))
+    x, info = solve(rhs)
+    true_res = true_residual(A2, rhs, x)
+    info_f, t_fresh, mb_f = a9_fresh("CP1", A2, rhs, None)
+    print("[CP1] rebuild(2A): %.3f s, peak %.1f MB (fresh build %.3f s, "
+          "peak %.1f MB), %d iterations (fresh build %d), reported %.3e, "
+          "true %.3e" % (t_rebuild, mb, t_fresh, mb_f, info.iters,
+                         info_f.iters, info.resid, true_res))
+    if info.iters != info_f.iters or true_res > 1e-6:
+        failures.append("CP1 rebuild: %d iterations (fresh build %d), true "
+                        "residual %.3e" % (info.iters, info_f.iters,
+                                           true_res))
+    return {"rebuild_s": t_rebuild, "fresh_setup_s": t_fresh,
+            "rebuild_peak_mb": mb, "fresh_peak_mb": mb_f,
+            "iters": info.iters, "fresh_iters": info_f.iters,
+            "true_resid": true_res}
+
+
+def a9_path(label, A, rhs, extra, failures):
+    """One phase-11 path: set-up, a cold and a warm solve with the counts
+    set to 0 just before the setup and read just after (the rebuilds of
+    RB1, RB1h and CP1 and their solves included, the fresh builds they
+    are compared with not), then one more warm solve profiled. Returns
+    (counts, summary)."""
+    import warnings
+    system, _, refine = A9_PATHS[label]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        solve = a9_make(label, A, extra)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        maxiter = getattr(solve, "inner", solve).solver.maxiter
+        lines, faults = a9_reach(label, solve)
+        for line in lines:
+            print("[%s] %s" % (label, line))
+        x, info = solve(rhs)
+        cold = info.wall_time_s
+        x, info = solve(rhs)
+    print("[%s] %s: setup %.3f s, peak device memory %.1f MB above %.1f MB"
+          % (label, A9_PATHS[label][1], t_setup,
+             (torch.cuda.max_memory_allocated() - base) / 2**20,
+             base / 2**20))
+    true_res = true_residual(A, rhs, x)
+    limit = a9_limit(A, rhs, x, refine)
+    print("[%s] %d iterations (maxiter %d, refine %d), reported resid "
+          "%.3e, true %.3e (limit %.3e), health %s; cold %.4f s, warm %.4f "
+          "s" % (label, info.iters, maxiter, refine, info.resid, true_res,
+                 limit, info.health, cold, info.wall_time_s))
+    for w in caught:
+        print("[%s] warning: %s" % (label, w.message))
+        if label == "DF1":
+            faults.append("warning: %s" % w.message)
+    if info.iters >= (1 + refine) * maxiter or info.resid > 1e-6 \
+            or true_res > limit:
+        faults.append("%d iterations (maxiter %d, refine %d), reported "
+                      "%.3e, true residual %.3e (limit %.3e)" % (
+                          info.iters, maxiter, refine, info.resid, true_res,
+                          limit))
+    if label in ("DF1", "RB1", "RB1h") \
+            and abs(info.iters - ITERS_EXPECTED) > 1:
+        faults.append("%d iterations, expected %d ± 1"
+                      % (info.iters, ITERS_EXPECTED))
+    if label == "BK1" and info.iters != B_ITERS:
+        faults.append("%d iterations, B1 takes %d" % (info.iters, B_ITERS))
+    summary = {"setup_s": t_setup, "cold_solve_s": cold,
+               "warm_solve_s": info.wall_time_s, "iters": info.iters,
+               "resid": info.resid, "true_resid": true_res}
+    if label in ("RB1", "RB1h"):
+        summary["steps"] = a9_rebuild_steps(label, solve, A, rhs, x, extra,
+                                            failures)
+    elif label == "CP1":
+        summary["rebuild"] = a9_cpr_rebuild(solve, A, rhs, failures)
+    counts, plain_calls = read_counts()
+    print("[%s] kernels launched: %s" % (
+        label, json.dumps({k: v for k, v in counts.items() if v})))
+    for f in faults:
+        failures.append("%s: %s" % (label, f))
+    if any(plain_calls.values()):
+        failures.append("%s: plain versions ran: %s" % (label, plain_calls))
+    for k in A9_KERNELS[label]:
+        if counts[k] == 0:
+            failures.append("%s: kernel %s never launched" % (label, k))
+    window = A9_PROFILE_WINDOW.get(label)
+    if window is None:
+        summary["busy"] = profile_solve(solve, rhs,
+                                        info.wall_time_s * 1e3)
+    else:
+        # a window of the same iteration, not the whole solve: the
+        # profiler's own processing of a whole solve's events takes
+        # minutes here
+        bundle = getattr(solve, "inner", solve)
+        kept = bundle.solver.maxiter, bundle.refine
+        bundle.solver.maxiter, bundle.refine = window, 0
+        _, w_info = solve(rhs)
+        print("[%s] profile window: %d iterations, refine 0, %.4f s "
+              "unprofiled" % (label, w_info.iters, w_info.wall_time_s))
+        summary["busy"] = profile_solve(solve, rhs,
+                                        w_info.wall_time_s * 1e3)
+        bundle.solver.maxiter, bundle.refine = kept
+    del solve
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def a9_family(failures, only=None):
+    """Phase 11: the paths of A9_PATHS, each system made once. Returns
+    ({label: counts}, {label: summary})."""
+    t_phase = time.perf_counter()
+    counts, summary = {}, {}
+    for system in ("poisson", "fe", "stokes", "reservoir", "block_scalar"):
+        labels = [p for p, v in A9_PATHS.items() if v[0] == system
+                  and (only is None or p in only)]
+        if not labels:
+            continue
+        t0 = time.perf_counter()
+        A, rhs, extra = a9_problem(system)
+        print("problem %s: %d rows, %d stored entries, made in %.3f s"
+              % (system, A.nrows, A.nnz, time.perf_counter() - t0))
+        for label in labels:
+            t0 = time.perf_counter()
+            counts[label], summary[label] = a9_path(label, A, rhs, extra,
+                                                    failures)
+            summary[label]["path_s"] = time.perf_counter() - t0
+            print("[%s] path: %.1f s" % (label, summary[label]["path_s"]))
+        del A
+        gc.collect()
+    print("phase 11: %.1f s" % (time.perf_counter() - t_phase))
+    return counts, summary
+
+
 def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2548,11 +2996,12 @@ def main(argv=()):
     print("kernel build: %.2f s (nvcc, %s)"
           % (time.perf_counter() - t0, " + ".join(cuda_lib.SOURCES)))
     failures = []
-    if argv and argv[0] == "--phase10":
-        # phase 10 alone, for the paths named (all without names); no
-        # result line
-        _, summary = a8_family(failures, set(argv[1:]) or None)
-        print("phase 10 paths: %s" % json.dumps(summary))
+    if argv and argv[0] in ("--phase10", "--phase11"):
+        # phase 10 or 11 alone, for the paths named (all without names);
+        # no result line
+        family = a8_family if argv[0] == "--phase10" else a9_family
+        _, summary = family(failures, set(argv[1:]) or None)
+        print("%s paths: %s" % (argv[0][2:], json.dumps(summary)))
         for f in failures:
             print("FAIL: %s" % f, file=sys.stderr)
         return 1 if failures else 0
@@ -2602,13 +3051,16 @@ def main(argv=()):
     print("sharded stencil path: %s" % json.dumps(s_summary))
     a_counts, a_summary = a8_family(failures)
     print("phase 10 paths: %s" % json.dumps(a_summary))
+    n_counts, n_summary = a9_family(failures)
+    print("phase 11 paths: %s" % json.dumps(n_summary))
     kernels = []
     for name in REPLACES:
         rec = records[name]
         later = {"D2": d_counts[name], "K1": k_counts[name],
                  **{p: c[name] for p, c in g_counts.items()},
                  "S1": s_counts[name],
-                 **{p: c[name] for p, c in a_counts.items()}}
+                 **{p: c[name] for p, c in a_counts.items()},
+                 **{p: c[name] for p, c in n_counts.items()}}
         if name in FRAMED:
             by_path = {"S1": s_counts[name], "S1j": a_counts["S1j"][name]}
         elif name in UNSTRUCTURED:

@@ -1,7 +1,9 @@
-"""BiCGStab iteration counts of the JAX package and of the port on the
-CPU for the ILU smoothers on a scaled-down U1 system.
+"""Iteration counts of the JAX package and of the port on the CPU at
+reduced sizes: the ILU smoothers on a scaled-down U1 system, and the
+compositions of chip_smoke.py's phase 11.
 
     JAX_PLATFORMS=cpu python reference_counts.py [ROWS]
+    JAX_PLATFORMS=cpu python reference_counts.py --a9
 
 ``fe_like_problem(ROWS)`` (12,000 rows by default, U1's nonzeros a row)
 with each of ILU(0), ILU(k=1) and ILU(p=1) under
@@ -11,6 +13,14 @@ hierarchy: one line per case with both packages' iterations (summed over
 the refinement's restarts) and reported residuals. A full-size run (U1's
 85,623 rows) is a chip-sized job this script is not meant for. It is the
 source of chip_smoke.py's choice of float64 hierarchies for ILK and ILP.
+
+``--a9`` runs each phase-11 configuration (``chip_smoke.A9_PATHS``) with
+float32 hierarchies as the smoke calls it, on its system cut to a size
+this CPU takes in seconds (poisson3d(32), fe_like_problem(12000) with
+U1's nonzeros a row, stokes_like(128), reservoir_like(24, 3),
+poisson3d_block(16, 3)), in both packages: one line per path with both
+iteration counts (summed over refinement) and reported residuals. RB1's
+rebuild steps and CP1's rebuild are left out.
 """
 
 import sys
@@ -28,6 +38,89 @@ from amgcl_tpu.solver.bicgstab import BiCGStab as RefBiCGStab
 import amgcl_tpu_torch as T
 
 U1_NNZ_PER_ROW = 2634905 / 85623
+
+
+def a9_pair(label, A, rhs, extra):
+    """(JAX bundle, port bundle) of phase-11 path ``label``."""
+    import numpy as np
+    from amgcl_tpu.models import runtime as ref_rt
+    from amgcl_tpu.models.block_solver import make_block_solver
+    from amgcl_tpu.models.cpr import CPR
+    from amgcl_tpu.models.deflated import deflated_solver
+    from amgcl_tpu.models.schur import SchurPressureCorrection
+    from amgcl_tpu.solver.cg import CG
+    from amgcl_tpu.solver.gmres import FGMRES
+    import chip_smoke
+    Ar = RefCSR(A.ptr, A.col, A.val, A.ncols)
+    port = chip_smoke.a9_make(label, A, extra, device="cpu")
+    cg = CG(maxiter=100, tol=1e-6)
+    if label == "MX1":
+        ref = ref_make_solver(Ar, RefParams(), cg, solver_dtype=jnp.float64)
+    elif label in ("DF1", "RB1"):
+        ref = ref_make_solver(Ar, RefParams(), cg, refine=3,
+                              refine_dtype="df32" if label == "DF1"
+                              else "float64")
+    elif label == "DL1":
+        # the JAX package's deflated_solver takes no refine: its deflated
+        # preconditioner goes to make_solver with refine=3
+        ref = ref_make_solver(Ar, deflated_solver(
+            Ar, extra, RefParams(), cg).inner.precond, cg, refine=3)
+    elif label in ("NS1", "DM1", "AP1"):
+        cfg = {"NS1": {"precond.class": "nested", "precond.solver.type": "cg",
+                       "precond.solver.maxiter": 4,
+                       "precond.solver.tol": 1e-2,
+                       "precond.precond.class": "amg",
+                       "solver.type": "fgmres", "solver.tol": 1e-6,
+                       "solver.maxiter": 100},
+               "DM1": {"precond.class": "dummy", "solver.type": "cg",
+                       "solver.maxiter": 1000, "solver.tol": 1e-6},
+               "AP1": {"precond.class": "relaxation",
+                       "precond.relax.type": "ilu0",
+                       "solver.type": "bicgstab", "solver.maxiter": 500,
+                       "solver.tol": 1e-6}}[label]
+        # likewise for the JAX package's make_solver_from_config
+        inner = ref_rt.make_solver_from_config(Ar, cfg)
+        ref = ref_make_solver(Ar, inner.precond, inner.solver, refine=3)
+    elif label == "SC1":
+        ref = ref_make_solver(Ar, SchurPressureCorrection(Ar, extra,
+                                                          adjust_p=2),
+                              FGMRES(maxiter=500, tol=1e-6), refine=3)
+    elif label == "CP1":
+        ref = ref_make_solver(Ar, CPR(Ar), RefBiCGStab(maxiter=200,
+                                                       tol=1e-6), refine=3)
+    else:
+        ref = make_block_solver(Ar, 3, RefParams(),
+                                RefBiCGStab(maxiter=200, tol=1e-6))
+    return ref, port
+
+
+def a9():
+    """The phase-11 lines (module docstring)."""
+    import numpy as np
+    import chip_smoke
+    problems = {
+        "poisson": lambda: T.poisson3d(32) + (
+            chip_smoke.a9_deflation_vectors(32),),
+        "fe": lambda: T.fe_like_problem(
+            12000, nnz_target=int(U1_NNZ_PER_ROW * 12000)) + (None,),
+        "stokes": lambda: (lambda A, pm: (A, np.ones(A.nrows), pm))(
+            *T.stokes_like(128)),
+        "reservoir": lambda: T.reservoir_like(24, 3) + (None,),
+        "block_scalar": lambda: (lambda A, b: (A.unblock(), b, None))(
+            *T.poisson3d_block(16, 3)),
+    }
+    for label, (system, config, refine) in chip_smoke.A9_PATHS.items():
+        if label == "RB1h":
+            continue
+        A, rhs, extra = problems[system]()
+        ref, port = a9_pair(label, A, rhs, extra)
+        _, info_r = ref(rhs)
+        _, info = port(rhs)
+        print("%-5s %s, refine %d, %d rows: JAX %d iterations (resid "
+              "%.2e), port %d (resid %.2e)" % (
+                  label, config, refine, len(rhs), info_r.iters,
+                  info_r.resid, info.iters, info.resid), flush=True)
+    return 0
 
 
 def main(rows=12000):
@@ -54,4 +147,7 @@ def main(rows=12000):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--a9"]:
+        jax.config.update("jax_enable_x64", True)
+        sys.exit(a9())
     sys.exit(main(*(int(a) for a in sys.argv[1:])))
