@@ -5,7 +5,8 @@ The solver has no weights: its state is the hierarchy. Handing the arrays
 of a hierarchy built elsewhere (the JAX package's ``AMG``, read out with
 ``np.asarray``) to :func:`hierarchy_from_arrays` lets the cycle and the
 Krylov solve be held against that package on an identical hierarchy, so
-solve differences are separated from setup differences; each level gets
+solve differences are separated from setup differences (bfloat16 arrays
+too: they cross through float32, which holds them exactly); each level gets
 the port's own fused V-cycle handles where it is eligible, so the fused
 legs can be held against the reference's on the same operators.
 :func:`idrs_with_shadow` does the same for the one piece of solver state
@@ -41,9 +42,20 @@ from amgcl_tpu_torch.solver.direct import DenseDirectSolver
 from amgcl_tpu_torch.utils.devices import resolve_device
 
 
+def _tensor(a, dtype, device):
+    """A copy of the array ``a`` as a ``dtype`` tensor on ``device``. A
+    bfloat16 array (``np.asarray`` of a JAX bfloat16 array has
+    ``ml_dtypes``' bfloat16 dtype, which torch does not take) goes through
+    float32, which holds each bfloat16 value exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
 def _dia(pair, dtype, device):
     offsets, data = pair
-    data = torch.tensor(np.asarray(data), dtype=dtype, device=device)
+    data = _tensor(data, dtype, device)
     n = data.shape[1]
     return DiaMatrix([int(o) for o in offsets], data, (n, n))
 
@@ -58,23 +70,19 @@ def _operator(spec, dtype, device):
                                      device=device)
         if "blocks" in spec:
             return DenseWindowMatrix(
-                idx("window_starts"),
-                torch.tensor(np.asarray(spec["blocks"]), dtype=dtype,
-                             device=device), spec["shape"], spec["win"])
+                idx("window_starts"), _tensor(spec["blocks"], dtype, device),
+                spec["shape"], spec["win"])
         return WindowedEllMatrix(
             idx("window_starts"), idx("cols_local"),
-            torch.tensor(np.asarray(spec["vals"]), dtype=dtype,
-                         device=device), spec["shape"], spec["win"],
-            spec.get("block", (1, 1)))
-    return DenseMatrix(torch.tensor(np.asarray(spec), dtype=dtype,
-                                    device=device))
+            _tensor(spec["vals"], dtype, device), spec["shape"],
+            spec["win"], spec.get("block", (1, 1)))
+    return DenseMatrix(_tensor(spec, dtype, device))
 
 
 def _smoother(spec, dtype, device):
     """A smoother state from the arrays of a ``"relax"`` dict (see
     :func:`hierarchy_from_arrays`)."""
-    vec = lambda a: None if a is None else torch.tensor(
-        np.asarray(a), dtype=dtype, device=device)
+    vec = lambda a: None if a is None else _tensor(a, dtype, device)
     if "scale" in spec:
         return ScaledResidualSmoother(vec(spec["scale"]))
     if "chebyshev" in spec:
@@ -152,7 +160,7 @@ def hierarchy_from_arrays(levels, coarse_inv, params: AMGParams = None,
     dtype = prm.dtype
     out = [level_from_arrays(lv, dtype, device) for lv in levels[:-1]]
     out.append(Level(_operator(levels[-1]["A"], dtype, device), None))
-    inv = torch.tensor(np.asarray(coarse_inv), dtype=dtype, device=device)
+    inv = _tensor(coarse_inv, dtype, device)
     return Hierarchy(out, DenseDirectSolver(inv), prm.npre, prm.npost,
                      prm.ncycle, prm.pre_cycles)
 

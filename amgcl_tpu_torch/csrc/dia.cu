@@ -17,6 +17,10 @@
 // reads data[k, i] and x[i + off_k], both coalesced across a warp because
 // consecutive threads take consecutive rows. The x index is guarded
 // against [0, m) explicitly, which also covers rectangular operators.
+// Its bfloat16 mode loads bfloat16 and rounds each product and each sum
+// to bfloat16 in diagonal order (bf16.cuh), where the TPU kernel's
+// bfloat16 accumulator rounds (pallas_spmv.py:311, :367): bit for bit
+// with the plain version, which rounds each torch operation alike.
 //
 // dots_kernel / dots_kernel_batched (SPMV_DOTS, RESIDUAL_DOT; square
 // operators): one launch a call. Its results are bit for bit those of the first design (a
@@ -62,6 +66,7 @@
 // as the TPU kernels do (pallas_spmv.py:429-430).
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "reduce.cuh"
 
 namespace amgcl_port {
@@ -85,7 +90,23 @@ dia_kernel(long long n, long long m, int ndiag,
   constexpr bool from_f = MODE == RESIDUAL || MODE == CORRECTION;
   const long long i = static_cast<long long>(blockIdx.x) * kBlock +
                       threadIdx.x;
-  if (i < n) {
+  if (i >= n) return;
+  if constexpr (kIsBf16<T>) {
+    // bfloat16: each product and each sum rounded to bfloat16, in
+    // diagonal order, as the plain version and the TPU kernel round
+    float acc = from_f ? bf_load(f[i]) : 0.f;
+    for (int k = 0; k < ndiag; ++k) {
+      const long long j = i + s_off[k];
+      if (j >= 0 && j < m) {
+        const float v = bf_mul(bf_load(data[static_cast<size_t>(k) * n + i]),
+                               bf_load(x[j]));
+        acc = from_f ? bf_sub(acc, v) : bf_add(acc, v);
+      }
+    }
+    if constexpr (MODE == CORRECTION)
+      acc = bf_add(bf_load(x[i]), bf_mul(bf_load(w[i]), acc));
+    y[i] = bf_store(acc);
+  } else {
     T acc = from_f ? f[i] : T(0);
     for (int k = 0; k < ndiag; ++k) {
       const long long j = i + s_off[k];
@@ -333,7 +354,8 @@ cudaError_t run_dots(int mode, long long n, long long m, int ndiag,
 }  // namespace
 }  // namespace amgcl_port
 
-// dtype: 0 = float32, 1 = float64. Modes SPMV, RESIDUAL, CORRECTION: `f`
+// dtype: 0 = float32, 1 = float64, 2 = bfloat16 (every operation rounded
+// to bfloat16). Modes SPMV, RESIDUAL, CORRECTION: `f`
 // is read by the residual-shaped modes, `w` by CORRECTION (scale).
 // Returns the cudaError_t of the launch.
 extern "C" int amgcl_dia(int dtype, int mode, long long n, long long m,
@@ -357,6 +379,11 @@ extern "C" int amgcl_dia(int dtype, int mode, long long n, long long m,
                        static_cast<const double*>(f),
                        static_cast<const double*>(w),
                        static_cast<double*>(y), nblocks, s);
+  if (dtype == 2)
+    return run<bf16>(mode, n, m, ndiag, off, static_cast<const bf16*>(data),
+                     static_cast<const bf16*>(x), static_cast<const bf16*>(f),
+                     static_cast<const bf16*>(w), static_cast<bf16*>(y),
+                     nblocks, s);
   return cudaErrorInvalidValue;
 }
 

@@ -83,8 +83,25 @@
 // time: with the frame as runtime arguments the base up leg took 16%
 // longer at the 128³ main path's L0 on an H100 (0.2942 against 0.2541 ms;
 // NVIDIA H100 80GB HBM3 at 700 W).
+//
+// bfloat16 mode (base and zero-guess down legs, base up leg; a bfloat16
+// hierarchy's levels). The same tiles, boxes and order, in kernels
+// templated over the element type: the boxes stage bfloat16, half the
+// bytes of float32's (vcycle_kernels.down_tile / up_tile plan them in
+// bytes), and each operation rounds to bfloat16 where the TPU kernel's
+// bfloat16 dtype rounds (bf16.cuh): the stencil sums run from 0 in offset
+// order, each product and sum rounded (pallas_vcycle.py:238, :468), and
+// then r = f − Σ a·u, t = r − Σ mᵀ·r, u' = (u + T uc) − Σ m·T uc and
+// u' + w ∘ (f − Σ a·u'), each step rounded; the restriction adds a cell's
+// z pairs in bfloat16 and then its y pairs and x pair in float, as the
+// TPU kernel's float32 pair-sum dots do (:250-263), and rounds once. The
+// plain versions (ops/vcycle_kernels.py) compute the same operations in
+// the same order, so the two agree bit for bit. The float32 modes are
+// those described above, unchanged.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "bf16.cuh"
 
 namespace amgcl_port {
 namespace {
@@ -230,19 +247,53 @@ __device__ __forceinline__ float row_sum(float acc, int q, int i,
   return acc;
 }
 
+// The bfloat16 row sum: Σ data[k][i] · nb(k) from 0 over the n diagonals
+// in order, each product and each sum rounded to bfloat16 (bf16.cuh), as
+// the TPU kernel's bfloat16 accumulator sums a stencil
+// (pallas_vcycle.py:238, :468); loads and frame tests as row_sum's.
+template <bool CHECK, class Nb>
+__device__ __forceinline__ float row_dot_bf16(int q, int i, size_t ld,
+                                              int n, const int* off,
+                                              size_t L,
+                                              const bf16* __restrict__ data,
+                                              Nb nb) {
+  float acc = 0.f;
+  for (int k0 = 0; k0 < n; k0 += kBatch) {
+    float v[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+      v[b] = (CHECK ? in_frame(k0 + b, n, q, off, L) : k0 + b < n)
+                 ? bf_load(data[(k0 + b) * ld + i]) : 0.f;
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+      if (CHECK ? in_frame(k0 + b, n, q, off, L) : k0 + b < n)
+        acc = bf_add(acc, bf_mul(v[b], nb(k0 + b)));
+  }
+  return acc;
+}
+
+// A staged value of T as a float (a bfloat16 widened), and a float as T.
+__device__ __forceinline__ float as_f(float v) { return v; }
+__device__ __forceinline__ float as_f(bf16 v) { return bf_load(v); }
+template <typename T>
+__device__ __forceinline__ T from_f(float v) {
+  if constexpr (kIsBf16<T>) return bf_store(v); else return v;
+}
+
 // h, len: the frame (tile row i is frame row H + i of L); a, mt, f and u
 // are frames, u_out and rc the tile's own. Without FRAMED the frame is the
 // tile (H = 0, L = n), known at compile time. Cluster c of cz × cy blocks
 // takes the tiles (c / nsy, c % nsy) of ceil(f1 / (cy·ty)) cluster tiles a
 // band of cz·tz planes; its block of rank iz·cy + iy the tile (iz, iy).
-template <bool ZERO, bool FRAMED>
+template <typename T, bool ZERO, bool FRAMED>
 __global__ void __launch_bounds__(kThreads, 1)
 down_kernel(Grid g, int h, int len, DownTile t, int na, int nm,
-            const int* __restrict__ a_off, const float* __restrict__ a,
-            const int* __restrict__ m_off, const float* __restrict__ mt,
-            const float* __restrict__ f, const float* __restrict__ u,
-            float* __restrict__ u_out, float* __restrict__ rc) {
-  extern __shared__ float s_box[];
+            const int* __restrict__ a_off, const T* __restrict__ a,
+            const int* __restrict__ m_off, const T* __restrict__ mt,
+            const T* __restrict__ f, const T* __restrict__ u,
+            T* __restrict__ u_out, T* __restrict__ rc) {
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  T* s_box = reinterpret_cast<T*>(s_dyn);
   __shared__ int s_a[kMaxDiag], s_ad[kMaxDiag];   // A: offset, U distance
   __shared__ int s_m[kMaxDiag], s_md[kMaxDiag];   // Mᵀ: offset, R distance
   const int s = g.f1 * g.f0;
@@ -258,8 +309,8 @@ down_kernel(Grid g, int h, int len, DownTile t, int na, int nm,
   const int OY = oy1 - oy0;
   const int UY = OY + t.a.y_lo + t.a.y_hi;        // U: UZ planes × UY rows
   const int UZ = oz1 - oz0 + t.a.z_lo + t.a.z_hi;
-  float* s_r = s_box;
-  float* s_u = s_box + RZ * RY * g.f0;            // U, then the tile's t
+  T* s_r = s_box;
+  T* s_u = s_box + RZ * RY * g.f0;                // U, then the tile's t
   for (int k = threadIdx.x; k < na; k += kThreads) {
     s_a[k] = a_off[k];
     s_ad[k] = box_step(s_a[k], s, g.f0, UY);
@@ -283,10 +334,16 @@ down_kernel(Grid g, int h, int len, DownTile t, int na, int nm,
   const int uz0 = rz0 + oz0 - t.a.z_lo, uy0 = ry0 + oy0 - t.a.y_lo;
   for (int r = warp; r < UZ * UY; r += nwarps) {
     const int q0 = H + ((uz0 + r / UY) * g.f1 + uy0 + r % UY) * g.f0;
-    float* row = s_u + r * g.f0;
+    T* row = s_u + r * g.f0;
     for (int x = lane; x < g.f0; x += 32) {
       const int q = q0 + x;
-      row[x] = q >= 0 && q < L ? (ZERO ? u[q] * f[q] : u[q]) : 0.f;
+      if constexpr (kIsBf16<T>)
+        row[x] = from_f<T>(q >= 0 && q < L ? (ZERO ? bf_mul(as_f(u[q]),
+                                                            as_f(f[q]))
+                                                   : as_f(u[q]))
+                                           : 0.f);
+      else
+        row[x] = q >= 0 && q < L ? (ZERO ? u[q] * f[q] : u[q]) : 0.f;
     }
   }
   __syncthreads();
@@ -297,8 +354,8 @@ down_kernel(Grid g, int h, int len, DownTile t, int na, int nm,
   for (int r = warp; r < (oz1 - oz0) * OY; r += nwarps) {
     const int bz = oz0 + r / OY, by = oy0 + r % OY;
     const int q0 = H + ((rz0 + bz) * g.f1 + ry0 + by) * g.f0;
-    float* row = s_r + (bz * RY + by) * g.f0;
-    const float* urow =
+    T* row = s_r + (bz * RY + by) * g.f0;
+    const T* urow =
         s_u + ((bz - oz0 + t.a.z_lo) * UY + by - oy0 + t.a.y_lo) * g.f0;
     const int lz = bz - t.m.z_lo, ly = by - t.m.y_lo;
     const bool own = ZERO && lz >= 0 && lz < t.tz && ly >= 0 &&
@@ -307,12 +364,20 @@ down_kernel(Grid g, int h, int len, DownTile t, int na, int nm,
     for (int x = lane; x < g.f0; x += 32) {
       const int q = q0 + x;
       if (!inside && (q < 0 || q >= L)) {
-        row[x] = 0.f;
+        row[x] = from_f<T>(0.f);
         continue;
       }
-      auto nb = [&](int k) { return urow[x + s_ad[k]]; };
-      row[x] = inside ? row_sum<false>(f[q], q, q, L, na, s_a, L, a, nb)
-                      : row_sum<true>(f[q], q, q, L, na, s_a, L, a, nb);
+      auto nb = [&](int k) { return as_f(urow[x + s_ad[k]]); };
+      if constexpr (kIsBf16<T>) {
+        // the TPU kernel's r = f − Σ a·u, the sum from 0
+        const float ax =
+            inside ? row_dot_bf16<false>(q, q, L, na, s_a, L, a, nb)
+                   : row_dot_bf16<true>(q, q, L, na, s_a, L, a, nb);
+        row[x] = bf_store(bf_sub(as_f(f[q]), ax));
+      } else {
+        row[x] = inside ? row_sum<false>(f[q], q, q, L, na, s_a, L, a, nb)
+                        : row_sum<true>(f[q], q, q, L, na, s_a, L, a, nb);
+      }
       if (own) u_out[q - H] = urow[x];
     }
   }
@@ -330,10 +395,10 @@ down_kernel(Grid g, int h, int len, DownTile t, int na, int nm,
       const int Z = bz - t.m.z_lo + iz * t.tz, Y = by - t.m.y_lo + iy * t.ty;
       const int jz = min(max(floor_div(Z, t.tz), 0), t.cz - 1);
       const int jy = min(max(floor_div(Y, t.ty), 0), t.cy - 1);
-      const float* src = cluster.map_shared_rank(s_r, jz * t.cy + jy) +
-                         ((Z - jz * t.tz + t.m.z_lo) * RY + Y - jy * t.ty +
-                          t.m.y_lo) * g.f0;
-      float* row = s_r + r * g.f0;
+      const T* src = cluster.map_shared_rank(s_r, jz * t.cy + jy) +
+                     ((Z - jz * t.tz + t.m.z_lo) * RY + Y - jy * t.ty +
+                      t.m.y_lo) * g.f0;
+      T* row = s_r + r * g.f0;
       for (int x = lane; x < g.f0; x += 32) row[x] = src[x];
     }
     cluster.sync();        // no block leaves while another reads its box
@@ -341,23 +406,32 @@ down_kernel(Grid g, int h, int len, DownTile t, int na, int nm,
 
   // 2. t = r − Mᵀ r at each tile row into U's space, Mᵀ's sum in offset
   // order, skipping neighbours outside the frame; 0 past the grid's end
-  float* s_t = s_u;
+  T* s_t = s_u;
   for (int r = warp; r < t.tz * t.ty; r += nwarps) {
     const int lz = r / t.ty, ly = r % t.ty;
     const int z = z0 + lz, y = y0 + ly;
-    float* trow = s_t + r * g.f0;
+    T* trow = s_t + r * g.f0;
     if (z >= g.f2 || y >= g.f1) {
-      for (int x = lane; x < g.f0; x += 32) trow[x] = 0.f;
+      for (int x = lane; x < g.f0; x += 32) trow[x] = from_f<T>(0.f);
       continue;
     }
-    const float* rrow = s_r + ((lz + t.m.z_lo) * RY + ly + t.m.y_lo) * g.f0;
+    const T* rrow = s_r + ((lz + t.m.z_lo) * RY + ly + t.m.y_lo) * g.f0;
     const int q0 = H + (z * g.f1 + y) * g.f0;
     const bool inside = q0 + t.m_min >= 0 && q0 + g.f0 - 1 + t.m_max < L;
     for (int x = lane; x < g.f0; x += 32) {
-      auto nb = [&](int k) { return rrow[x + s_md[k]]; };
+      auto nb = [&](int k) { return as_f(rrow[x + s_md[k]]); };
       const int q = q0 + x;
-      trow[x] = inside ? row_sum<false>(rrow[x], q, q, L, nm, s_m, L, mt, nb)
-                       : row_sum<true>(rrow[x], q, q, L, nm, s_m, L, mt, nb);
+      if constexpr (kIsBf16<T>) {
+        // the TPU kernel's t = r − Σ mᵀ·r, the sum from 0
+        const float mr =
+            inside ? row_dot_bf16<false>(q, q, L, nm, s_m, L, mt, nb)
+                   : row_dot_bf16<true>(q, q, L, nm, s_m, L, mt, nb);
+        trow[x] = bf_store(bf_sub(as_f(rrow[x]), mr));
+      } else {
+        trow[x] = inside
+                      ? row_sum<false>(rrow[x], q, q, L, nm, s_m, L, mt, nb)
+                      : row_sum<true>(rrow[x], q, q, L, nm, s_m, L, mt, nb);
+      }
     }
   }
   __syncthreads();
@@ -371,13 +445,32 @@ down_kernel(Grid g, int h, int len, DownTile t, int na, int nm,
     const int lcy = lc % ncy, lcz = lc / ncy;
     const int cz = z0 / 2 + lcz, cy = y0 / 2 + lcy;
     if (cz >= c2 || cy >= g.c1) continue;
-    float sum = 0.f;
-    for (int p = 0; p < 4; ++p) {
-      const float* trow =
-          s_t + ((2 * lcz + (p >> 1)) * t.ty + 2 * lcy + (p & 1)) * g.f0;
-      sum += trow[2 * cx] + (2 * cx + 1 < g.f0 ? trow[2 * cx + 1] : 0.f);
+    if constexpr (kIsBf16<T>) {
+      // the TPU kernel's Tᵀ: the z pair added in bfloat16, then the y
+      // pairs and the x pair in float (its float32 HIGHEST dots,
+      // pallas_vcycle.py:250-263), then rounded; a child past the grid's
+      // end adds 0
+      float p2[2][2];
+      for (int py = 0; py < 2; ++py) {
+        const T* lo = s_t + ((2 * lcz) * t.ty + 2 * lcy + py) * g.f0;
+        const T* hi = lo + t.ty * g.f0;
+        for (int px = 0; px < 2; ++px) {
+          const int x = 2 * cx + px;
+          p2[py][px] = x < g.f0 ? bf_add(as_f(lo[x]), as_f(hi[x])) : 0.f;
+        }
+      }
+      rc[(cz * g.c1 + cy) * g.c0 + cx] =
+          bf_store(__fadd_rn(__fadd_rn(p2[0][0], p2[1][0]),
+                             __fadd_rn(p2[0][1], p2[1][1])));
+    } else {
+      float sum = 0.f;
+      for (int p = 0; p < 4; ++p) {
+        const float* trow =
+            s_t + ((2 * lcz + (p >> 1)) * t.ty + 2 * lcy + (p & 1)) * g.f0;
+        sum += trow[2 * cx] + (2 * cx + 1 < g.f0 ? trow[2 * cx + 1] : 0.f);
+      }
+      rc[(cz * g.c1 + cy) * g.c0 + cx] = sum;
     }
-    rc[(cz * g.c1 + cy) * g.c0 + cx] = sum;
   }
 }
 
@@ -386,15 +479,16 @@ down_kernel(Grid g, int h, int len, DownTile t, int na, int nm,
 // frame is the tile (zoff = 0, fz = f2), known at compile time. Block b
 // takes tile (b / nty, b % nty) of ceil(f1 / ty) tiles a plane band; each
 // phase walks whole grid rows, a warp a row and a lane an x.
-template <bool FRAMED>
+template <typename T, bool FRAMED>
 __global__ void __launch_bounds__(kThreads, 1)
 up_kernel(Grid g, int z_off, int f_z, UpTile t, int na, int nm,
-          const int* __restrict__ a_off, const float* __restrict__ a,
-          const int* __restrict__ m_off, const float* __restrict__ m,
-          const float* __restrict__ w, const float* __restrict__ f,
-          const float* __restrict__ u, const float* __restrict__ uc,
-          float* __restrict__ out) {
-  extern __shared__ float s_box[];
+          const int* __restrict__ a_off, const T* __restrict__ a,
+          const int* __restrict__ m_off, const T* __restrict__ m,
+          const T* __restrict__ w, const T* __restrict__ f,
+          const T* __restrict__ u, const T* __restrict__ uc,
+          T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char s_dyn[];
+  T* s_box = reinterpret_cast<T*>(s_dyn);
   __shared__ int s_a[kMaxDiag], s_ad[kMaxDiag];   // A: offset, U distance
   __shared__ int s_m[kMaxDiag], s_md[kMaxDiag];   // M: offset, T distance
   const int s = g.f1 * g.f0;
@@ -402,8 +496,8 @@ up_kernel(Grid g, int z_off, int f_z, UpTile t, int na, int nm,
   const int BZ = t.tz + t.a.z_lo + t.a.z_hi;
   const int TY = BY + t.m.y_lo + t.m.y_hi;        // T: TZ planes × TY rows
   const int TZ = BZ + t.m.z_lo + t.m.z_hi;
-  float* s_u = s_box;
-  float* s_t = s_box + BZ * BY * g.f0;
+  T* s_u = s_box;
+  T* s_t = s_box + BZ * BY * g.f0;
   for (int k = threadIdx.x; k < na; k += kThreads) {
     s_a[k] = a_off[k];
     s_ad[k] = box_step(s_a[k], s, g.f0, BY);
@@ -430,15 +524,14 @@ up_kernel(Grid g, int z_off, int f_z, UpTile t, int na, int nm,
   // fine row (z, y, x) takes the coarse cell (z/2, y/2, x/2)
   for (int r = warp; r < TZ * TY; r += nwarps) {
     const int R = (bz0 - t.m.z_lo + r / TY) * g.f1 + by0 - t.m.y_lo + r % TY;
-    float* row = s_t + r * g.f0;
+    T* row = s_t + r * g.f0;
     if (R >= 0 && R < frame_rows) {
       const int qz = R / g.f1;
-      const float* cu = uc + ((qz >> 1) * g.c1 + ((R - qz * g.f1) >> 1)) *
-                                 g.c0;
+      const T* cu = uc + ((qz >> 1) * g.c1 + ((R - qz * g.f1) >> 1)) * g.c0;
 #pragma unroll 4
       for (int x = lane; x < g.f0; x += 32) row[x] = cu[x >> 1];
     } else {
-      for (int x = lane; x < g.f0; x += 32) row[x] = 0.f;
+      for (int x = lane; x < g.f0; x += 32) row[x] = from_f<T>(0.f);
     }
   }
   __syncthreads();
@@ -448,24 +541,35 @@ up_kernel(Grid g, int z_off, int f_z, UpTile t, int na, int nm,
   for (int r = warp; r < BZ * BY; r += nwarps) {
     const int bz = r / BY, by = r % BY;
     const int R = (bz0 + bz) * g.f1 + by0 + by;
-    float* row = s_u + r * g.f0;
+    T* row = s_u + r * g.f0;
     if (R < 0 || R >= frame_rows) {
-      for (int x = lane; x < g.f0; x += 32) row[x] = 0.f;
+      for (int x = lane; x < g.f0; x += 32) row[x] = from_f<T>(0.f);
       continue;
     }
-    const float* trow = s_t + ((bz + t.m.z_lo) * TY + by + t.m.y_lo) * g.f0;
+    const T* trow = s_t + ((bz + t.m.z_lo) * TY + by + t.m.y_lo) * g.f0;
     const int q0 = R * g.f0;
     const bool inside = q0 + t.m_min >= 0 &&
                         static_cast<size_t>(q0 + g.f0 - 1 + t.m_max) < Lm;
     for (int x = lane; x < g.f0; x += 32) {
-      auto nb = [&](int k) { return trow[x + s_md[k]]; };
-      const float uq = u[q0 + x];
-      const float p =
-          inside ? row_sum<false>(trow[x], q0 + x, q0 + x, Lm, nm, s_m, Lm,
-                                  m, nb)
-                 : row_sum<true>(trow[x], q0 + x, q0 + x, Lm, nm, s_m, Lm,
-                                 m, nb);
-      row[x] = uq + p;
+      auto nb = [&](int k) { return as_f(trow[x + s_md[k]]); };
+      if constexpr (kIsBf16<T>) {
+        // the TPU kernel's u' = (u + T uc) − Σ m·(T uc), the sum from 0
+        const float mt =
+            inside ? row_dot_bf16<false>(q0 + x, q0 + x, Lm, nm, s_m, Lm, m,
+                                         nb)
+                   : row_dot_bf16<true>(q0 + x, q0 + x, Lm, nm, s_m, Lm, m,
+                                        nb);
+        row[x] = bf_store(
+            bf_sub(bf_add(as_f(u[q0 + x]), as_f(trow[x])), mt));
+      } else {
+        const float uq = u[q0 + x];
+        const float p =
+            inside ? row_sum<false>(trow[x], q0 + x, q0 + x, Lm, nm, s_m, Lm,
+                                    m, nb)
+                   : row_sum<true>(trow[x], q0 + x, q0 + x, Lm, nm, s_m, Lm,
+                                   m, nb);
+        row[x] = uq + p;
+      }
     }
   }
   __syncthreads();
@@ -476,20 +580,32 @@ up_kernel(Grid g, int z_off, int f_z, UpTile t, int na, int nm,
     const int lz = r / t.ty, ly = r % t.ty;
     const int z = z0 + lz, y = y0 + ly;
     if (z >= g.f2 || y >= g.f1) continue;
-    const float* urow = s_u + ((lz + t.a.z_lo) * BY + ly + t.a.y_lo) * g.f0;
+    const T* urow = s_u + ((lz + t.a.z_lo) * BY + ly + t.a.y_lo) * g.f0;
     const int i0 = (z * g.f1 + y) * g.f0;
     const int q0 = i0 + zoff * s;              // the frame row of x = 0
     const bool inside = q0 + t.a_min >= 0 &&
                         static_cast<size_t>(q0 + g.f0 - 1 + t.a_max) < Lm;
     for (int x = lane; x < g.f0; x += 32) {
-      auto nb = [&](int k) { return urow[x + s_ad[k]]; };
-      const float wi = w[i0 + x];
-      const float acc =
-          inside ? row_sum<false>(f[i0 + x], q0 + x, i0 + x, g.n, na, s_a,
-                                  Lm, a, nb)
-                 : row_sum<true>(f[i0 + x], q0 + x, i0 + x, g.n, na, s_a,
-                                 Lm, a, nb);
-      out[i0 + x] = urow[x] + wi * acc;
+      auto nb = [&](int k) { return as_f(urow[x + s_ad[k]]); };
+      if constexpr (kIsBf16<T>) {
+        // the TPU kernel's u' + w ∘ (f − Σ a·u'), the sum from 0
+        const float au =
+            inside ? row_dot_bf16<false>(q0 + x, i0 + x, g.n, na, s_a, Lm,
+                                         a, nb)
+                   : row_dot_bf16<true>(q0 + x, i0 + x, g.n, na, s_a, Lm, a,
+                                        nb);
+        out[i0 + x] = bf_store(bf_add(
+            as_f(urow[x]),
+            bf_mul(as_f(w[i0 + x]), bf_sub(as_f(f[i0 + x]), au))));
+      } else {
+        const float wi = w[i0 + x];
+        const float acc =
+            inside ? row_sum<false>(f[i0 + x], q0 + x, i0 + x, g.n, na, s_a,
+                                    Lm, a, nb)
+                   : row_sum<true>(f[i0 + x], q0 + x, i0 + x, g.n, na, s_a,
+                                   Lm, a, nb);
+        out[i0 + x] = urow[x] + wi * acc;
+      }
     }
   }
 }
@@ -518,25 +634,92 @@ cudaError_t allow_box(Kernel kernel, bool (&raised)[kMaxDevices]) {
   return rc;
 }
 
+// The down leg's launch in element type T (the C entry below checks the
+// tile; box: the bytes of its two boxes).
+template <typename T>
+cudaError_t launch_down(int zero_guess, const Grid& g, int H, int L,
+                        const DownTile& t, int na, int nm, long long box,
+                        const void* a_off, const void* a, const void* m_off,
+                        const void* mt, const void* f, const void* u,
+                        void* u_out, void* rc, void* stream) {
+  const bool framed = H != 0 || L != g.n;
+  const int which = (zero_guess ? 2 : 0) + (framed ? 1 : 0);
+  using DownFn = void (*)(Grid, int, int, DownTile, int, int, const int*,
+                          const T*, const int*, const T*, const T*,
+                          const T*, T*, T*);
+  // down_kernel<T, ZERO, FRAMED> at ZERO·2 + FRAMED
+  static const DownFn kernels[4] = {
+      down_kernel<T, false, false>, down_kernel<T, false, true>,
+      down_kernel<T, true, false>, down_kernel<T, true, true>};
+  static bool raised[4][kMaxDevices] = {};
+  cudaError_t err = allow_box(kernels[which], raised[which]);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(((g.f2 + t.cz * t.tz - 1) / (t.cz * t.tz)) *
+                        ((g.f1 + t.cy * t.ty - 1) / (t.cy * t.ty)) * t.cz *
+                        t.cy);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(box);
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = t.cz * t.cy;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = t.cz * t.cy > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(
+      &config, kernels[which], g, H, L, t, na, nm,
+      static_cast<const int*>(a_off), static_cast<const T*>(a),
+      static_cast<const int*>(m_off), static_cast<const T*>(mt),
+      static_cast<const T*>(f), static_cast<const T*>(u),
+      static_cast<T*>(u_out), static_cast<T*>(rc));
+}
+
+// The up leg's launch in element type T, as launch_down.
+template <typename T>
+cudaError_t launch_up(const Grid& g, int zoff, int fz, const UpTile& t,
+                      int na, int nm, long long box, const void* a_off,
+                      const void* a, const void* m_off, const void* m,
+                      const void* w, const void* f, const void* u,
+                      const void* uc, void* out, void* stream) {
+  const bool framed = zoff != 0 || fz != g.f2;
+  auto kernel = framed ? up_kernel<T, true> : up_kernel<T, false>;
+  static bool raised[2][kMaxDevices] = {};
+  cudaError_t rc = allow_box(kernel, raised[framed]);
+  if (rc != cudaSuccess) return rc;
+  const int blocks = ((g.f2 + t.tz - 1) / t.tz) * ((g.f1 + t.ty - 1) / t.ty);
+  kernel<<<blocks, kThreads, static_cast<size_t>(box),
+           static_cast<cudaStream_t>(stream)>>>(
+      g, zoff, fz, t, na, nm, static_cast<const int*>(a_off),
+      static_cast<const T*>(a), static_cast<const int*>(m_off),
+      static_cast<const T*>(m), static_cast<const T*>(w),
+      static_cast<const T*>(f), static_cast<const T*>(u),
+      static_cast<const T*>(uc), static_cast<T*>(out));
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace amgcl_port
 
-// Down leg on the tile of fine dims (f2, f1, f0), n rows, inside a frame of
-// L rows at offset H (base mode: H = 0, L = n). a/mt: (na, L) and (nm, L)
-// float32 DIA data with int32 offsets a_off and m_off on the device, and
-// a_host and m_host the same offsets on the host; f, u: (L,); with
-// zero_guess != 0, u is the smoother scale w and u_out (n,) receives
-// w ∘ f. rc: (nc,) with nc = ceil(f2/2)·ceil(f1/2)·ceil(f0/2). Blocks of
-// kThreads threads take tiles of tz planes × ty rows (both even), in
-// clusters of cz × cy tiles (at most 8; 1 × 1 launches no cluster);
-// `halos` holds Mᵀ's halo and then A's (planes below, above, rows before,
-// after: DownTile). The call is refused if tz or ty is odd, an Mᵀ offset
-// reaches outside R, an A offset outside U, or the boxes pass kMaxBox
-// bytes. The caller guarantees
-// L < 2^30, na, nm ≤ 512 and, in a frame, H at least the reach of A plus
-// that of Mᵀ. Returns the launch's cudaError_t.
-extern "C" int amgcl_fused_down(int zero_guess, int f2, int f1, int f0,
-                                int H, int L, int na, int nm,
+// dtype: 0 = float32, 2 = bfloat16 (the base and zero-guess modes, each
+// operation rounded to bfloat16 where the TPU kernel's dtype rounds; not
+// framed). Down leg on the tile of fine dims (f2, f1, f0), n rows, inside
+// a frame of L rows at offset H (base mode: H = 0, L = n). a/mt: (na, L)
+// and (nm, L) DIA data of the dtype with int32 offsets a_off and m_off
+// on the device, and a_host and m_host the same offsets on the host; f,
+// u: (L,); with zero_guess != 0, u is the smoother scale w and u_out (n,)
+// receives w ∘ f. rc: (nc,) with nc = ceil(f2/2)·ceil(f1/2)·ceil(f0/2).
+// Blocks of kThreads threads take tiles of tz planes × ty rows (both
+// even), in clusters of cz × cy tiles (at most 8; 1 × 1 launches no
+// cluster); `halos` holds Mᵀ's halo and then A's (planes below, above,
+// rows before, after: DownTile). The call is refused if tz or ty is odd,
+// an Mᵀ offset reaches outside R, an A offset outside U, or the boxes
+// (their rows of f0 elements of the dtype) pass kMaxBox bytes. The caller
+// guarantees L < 2^30, na, nm ≤ 512 and, in a frame, H at least the
+// reach of A plus that of Mᵀ. Returns the launch's cudaError_t.
+extern "C" int amgcl_fused_down(int dtype, int zero_guess, int f2, int f1,
+                                int f0, int H, int L, int na, int nm,
                                 const int* a_host, const int* m_host,
                                 int tz, int ty, int cz, int cy,
                                 const int* halos, const void* a_off,
@@ -545,10 +728,12 @@ extern "C" int amgcl_fused_down(int zero_guess, int f2, int f1, int f0,
                                 const void* u, void* u_out, void* rc,
                                 void* stream) {
   using namespace amgcl_port;
-  if (na < 1 || na > kMaxDiag || nm < 1 || nm > kMaxDiag || tz < 2 ||
-      ty < 2 || tz % 2 || ty % 2 || cz < 1 || cy < 1 || cz * cy > 8)
-    return cudaErrorInvalidValue;
   const Grid g = make_grid(f2, f1, f0);
+  const bool framed = H != 0 || L != g.n;
+  if (na < 1 || na > kMaxDiag || nm < 1 || nm > kMaxDiag || tz < 2 ||
+      ty < 2 || tz % 2 || ty % 2 || cz < 1 || cy < 1 || cz * cy > 8 ||
+      !(dtype == 0 || (dtype == 2 && !framed)))
+    return cudaErrorInvalidValue;
   DownTile t{tz, ty, {halos[0], halos[1], halos[2], halos[3]},
              {halos[4], halos[5], halos[6], halos[7]}, cz, cy, 0, 0, 0, 0};
   const int s = f1 * f0;
@@ -565,55 +750,31 @@ extern "C" int amgcl_fused_down(int zero_guess, int f2, int f1, int f0,
       cy == 1 ? ry : ty + (t.m.y_lo > t.m.y_hi ? t.m.y_lo : t.m.y_hi);
   const long long box =
       (rz * ry + (oz + t.a.z_lo + t.a.z_hi) * (oy + t.a.y_lo + t.a.y_hi)) *
-      f0 * static_cast<long long>(sizeof(float));
+      f0 * (dtype == 2 ? 2LL : 4LL);
   if (box > kMaxBox) return cudaErrorInvalidValue;
-  const bool framed = H != 0 || L != g.n;
-  const int which = (zero_guess ? 2 : 0) + (framed ? 1 : 0);
-  using DownFn = void (*)(Grid, int, int, DownTile, int, int, const int*,
-                          const float*, const int*, const float*,
-                          const float*, const float*, float*, float*);
-  // down_kernel<ZERO, FRAMED> at ZERO·2 + FRAMED
-  static const DownFn kernels[4] = {
-      down_kernel<false, false>, down_kernel<false, true>,
-      down_kernel<true, false>, down_kernel<true, true>};
-  static bool raised[4][kMaxDevices] = {};
-  cudaError_t err = allow_box(kernels[which], raised[which]);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(((f2 + cz * tz - 1) / (cz * tz)) *
-                        ((f1 + cy * ty - 1) / (cy * ty)) * cz * cy);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = static_cast<size_t>(box);
-  config.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = cz * cy;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = 1;
-  config.attrs = cluster;
-  config.numAttrs = cz * cy > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(
-      &config, kernels[which], g, H, L, t, na, nm,
-      static_cast<const int*>(a_off), static_cast<const float*>(a),
-      static_cast<const int*>(m_off), static_cast<const float*>(mt),
-      static_cast<const float*>(f), static_cast<const float*>(u),
-      static_cast<float*>(u_out), static_cast<float*>(rc));
+  if (dtype == 2)
+    return launch_down<bf16>(zero_guess, g, H, L, t, na, nm, box, a_off, a,
+                             m_off, mt, f, u, u_out, rc, stream);
+  return launch_down<float>(zero_guess, g, H, L, t, na, nm, box, a_off, a,
+                            m_off, mt, f, u, u_out, rc, stream);
 }
 
+// dtype: 0 = float32, 2 = bfloat16 (the base mode, as amgcl_fused_down).
 // Up leg on the tile of fine dims (f2, f1, f0), n rows, inside a frame of
 // fz fine planes at plane offset zoff (base mode: zoff = 0, fz = f2).
-// a: (na, n) and m: (nm, fz·f1·f0) float32 DIA data with int32 offsets
-// a_off and m_off on the device, and a_host and m_host the same offsets
-// on the host; w, f, out: (n,); u: (fz·f1·f0,); uc: the coarse vector of
-// the frame, ceil(fz/2) coarse planes. Blocks of kThreads threads take
-// tiles of tz planes × ty rows; `halos` holds A's halo
+// a: (na, n) and m: (nm, fz·f1·f0) DIA data of the dtype with int32
+// offsets a_off and m_off on the device, and a_host and m_host the same
+// offsets on the host; w, f, out: (n,); u: (fz·f1·f0,); uc: the coarse
+// vector of the frame, ceil(fz/2) coarse planes. Blocks of kThreads
+// threads take tiles of tz planes × ty rows; `halos` holds A's halo
 // and then M's (planes below, above, rows before, after: UpTile). The
 // call is refused if an A offset reaches outside U, an M offset outside
-// T, or the two boxes pass kMaxBox bytes. The caller guarantees
-// fz·f1·f0 < 2^30, na, nm ≤ 512 and, in a frame, an even zoff and f2 and
-// zoff · f1 · f0 at least the reach of A plus that of M.
-extern "C" int amgcl_fused_up(int f2, int f1, int f0, int zoff, int fz,
-                              int na, int nm, const int* a_host,
+// T, or the two boxes (rows of f0 elements of the dtype) pass kMaxBox
+// bytes. The caller guarantees fz·f1·f0 < 2^30, na, nm ≤ 512 and, in a
+// frame, an even zoff and f2 and zoff · f1 · f0 at least the reach of A
+// plus that of M.
+extern "C" int amgcl_fused_up(int dtype, int f2, int f1, int f0, int zoff,
+                              int fz, int na, int nm, const int* a_host,
                               const int* m_host, int tz, int ty,
                               const int* halos,
                               const void* a_off, const void* a,
@@ -621,8 +782,9 @@ extern "C" int amgcl_fused_up(int f2, int f1, int f0, int zoff, int fz,
                               const void* w, const void* f, const void* u,
                               const void* uc, void* out, void* stream) {
   using namespace amgcl_port;
+  const bool framed = zoff != 0 || fz != f2;
   if (na < 1 || na > kMaxDiag || nm < 1 || nm > kMaxDiag || tz < 1 ||
-      ty < 1)
+      ty < 1 || !(dtype == 0 || (dtype == 2 && !framed)))
     return cudaErrorInvalidValue;
   const Grid g = make_grid(f2, f1, f0);
   UpTile t{tz, ty, {halos[0], halos[1], halos[2], halos[3]},
@@ -634,20 +796,11 @@ extern "C" int amgcl_fused_up(int f2, int f1, int f0, int zoff, int fz,
   const long long bz = tz + t.a.z_lo + t.a.z_hi, by = ty + t.a.y_lo + t.a.y_hi;
   const long long box =
       (bz * by + (bz + t.m.z_lo + t.m.z_hi) * (by + t.m.y_lo + t.m.y_hi)) *
-      f0 * static_cast<long long>(sizeof(float));
+      f0 * (dtype == 2 ? 2LL : 4LL);
   if (box > kMaxBox) return cudaErrorInvalidValue;
-  const bool framed = zoff != 0 || fz != f2;
-  auto kernel = framed ? up_kernel<true> : up_kernel<false>;
-  static bool raised[2][kMaxDevices] = {};
-  cudaError_t rc = allow_box(kernel, raised[framed]);
-  if (rc != cudaSuccess) return rc;
-  const int blocks = ((f2 + tz - 1) / tz) * ((f1 + ty - 1) / ty);
-  kernel<<<blocks, kThreads, static_cast<size_t>(box),
-           static_cast<cudaStream_t>(stream)>>>(
-      g, zoff, fz, t, na, nm, static_cast<const int*>(a_off),
-      static_cast<const float*>(a), static_cast<const int*>(m_off),
-      static_cast<const float*>(m), static_cast<const float*>(w),
-      static_cast<const float*>(f), static_cast<const float*>(u),
-      static_cast<const float*>(uc), static_cast<float*>(out));
-  return cudaGetLastError();
+  if (dtype == 2)
+    return launch_up<bf16>(g, zoff, fz, t, na, nm, box, a_off, a, m_off, m,
+                           w, f, u, uc, out, stream);
+  return launch_up<float>(g, zoff, fz, t, na, nm, box, a_off, a, m_off, m,
+                          w, f, u, uc, out, stream);
 }

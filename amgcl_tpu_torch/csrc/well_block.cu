@@ -83,6 +83,15 @@
 // design's. The grid is ceil(n_out / (256/G)) blocks; the C entry point
 // refuses a grid that does not cover n_out.
 //
+// The scalar kernel's bfloat16 mode (SPMV, RESIDUAL, CORRECTION; a
+// bfloat16 hierarchy's levels) loads a 4-slot vector of values as 8
+// bytes and x a bfloat16 at a time, rounds each product to bfloat16 and
+// sums a row's products in float in slot order (__fadd_rn), then rounds
+// the sum, f − A x, w ∘ r and x + w ∘ r each to bfloat16 (bf16.cuh): the
+// TPU kernel's bfloat16 products, its float32 `jnp.sum` and its bfloat16
+// epilogue (unstructured.py:334-336, :389-395), in the plain version's
+// slot order. The float32 and float64 modes are those above, unchanged.
+//
 // Both: the correction reads x both as the gather source and as x[i]; the
 // output is a separate buffer, so no thread sees another's update. The
 // dots sum each node's b components in a fixed order, then go through the
@@ -90,6 +99,7 @@
 // accumulates (float32 for float32, float64 for float64).
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "reduce.cuh"
 
 namespace amgcl_port {
@@ -239,6 +249,25 @@ __device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
   const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
+// bfloat16: one 8-byte vector (K a multiple of 4 puts every row's
+// vectors on 8-byte boundaries), widened to float
+__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
+  const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&a.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&a.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ double load1(const double* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const bf16* p) {
+  return bf_load(__ldg(p));
+}
+
+// The type a thread holds a value of T in: T, and float for bfloat16.
+template <typename T> struct Reg { using type = T; };
+template <> struct Reg<bf16> { using type = float; };
 
 template <typename T, int G, int MODE>
 __global__ void __launch_bounds__(kBlock)
@@ -247,10 +276,11 @@ well_scalar_kernel(long long n_out, long long ncols, int tile, int K,
                    const int* __restrict__ cols, const T* __restrict__ vals,
                    const T* __restrict__ x, const T* __restrict__ f,
                    const T* __restrict__ w, T* __restrict__ y) {
+  using S = typename Reg<T>::type;
   constexpr int kRows = kBlock / G;          // rows per block
   // each thread's four (value, x) pairs of the current step
-  __shared__ __align__(16) T sv[kBlock * 4];
-  __shared__ __align__(16) T sx[kBlock * 4];
+  __shared__ __align__(16) S sv[kBlock * 4];
+  __shared__ __align__(16) S sx[kBlock * 4];
   const int sub = threadIdx.x % G;           // the lane's place in its row
   const long long i = static_cast<long long>(blockIdx.x) * kRows +
                       threadIdx.x / G;
@@ -259,12 +289,12 @@ well_scalar_kernel(long long n_out, long long ncols, int tile, int K,
   const int4* c4 = reinterpret_cast<const int4*>(cols + (live ? i * K : 0));
   const T* v = vals + (live ? i * K : 0);
   const int nq = K >> 2;
-  T acc = T(0);
+  S acc = S(0);
   // the trip count is K's, the same for every lane of the block
   for (int q0 = 0; q0 < nq; q0 += G) {
     const int q = q0 + sub;
-    T vv[4] = {T(0), T(0), T(0), T(0)};
-    T xv[4] = {T(0), T(0), T(0), T(0)};
+    S vv[4] = {S(0), S(0), S(0), S(0)};
+    S xv[4] = {S(0), S(0), S(0), S(0)};
     if (live && q < nq) {
       const int4 c = __ldg(c4 + q);
       load4(v + 4 * q, vv);
@@ -272,8 +302,8 @@ well_scalar_kernel(long long n_out, long long ncols, int tile, int K,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         // a slot past ncols leaves a zero pair, whose product adds nothing
-        if (j[e] < ncols) xv[e] = __ldg(x + j[e]);
-        else vv[e] = T(0);
+        if (j[e] < ncols) xv[e] = load1(x + j[e]);
+        else vv[e] = S(0);
       }
     }
 #pragma unroll
@@ -286,15 +316,34 @@ well_scalar_kernel(long long n_out, long long ncols, int tile, int K,
       // the row's first lane sums the step's slots in slot order
       const int nl = min(G, nq - q0);
       for (int l = 0; l < nl; ++l) {
-        const T* pv = sv + (threadIdx.x + l) * 4;
-        const T* px = sx + (threadIdx.x + l) * 4;
+        const S* pv = sv + (threadIdx.x + l) * 4;
+        const S* px = sx + (threadIdx.x + l) * 4;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc += pv[e] * px[e];
+        for (int e = 0; e < 4; ++e) {
+          // bfloat16: each product rounded, the row sum in float
+          if constexpr (kIsBf16<T>)
+            acc = __fadd_rn(acc, bf_mul(pv[e], px[e]));
+          else
+            acc += pv[e] * px[e];
+        }
       }
     }
     __syncwarp();
   }
-  if (live && sub == 0) {
+  if constexpr (kIsBf16<T>) {
+    // the row sum rounded to bfloat16, then each operation of the
+    // epilogue rounded, as the TPU kernel's bfloat16 dtype rounds
+    if (live && sub == 0) {
+      float out = bf_round(acc);
+      if constexpr (MODE == RESIDUAL) {
+        out = bf_sub(bf_load(f[i]), out);
+      } else if constexpr (MODE == CORRECTION) {
+        out = bf_add(bf_load(x[i]),
+                     bf_mul(bf_load(w[i]), bf_sub(bf_load(f[i]), out)));
+      }
+      y[i] = bf_store(out);
+    }
+  } else if (live && sub == 0) {
     if constexpr (MODE == SPMV || MODE == SPMV_DOTS) {
       y[i] = acc;
     } else if constexpr (MODE == RESIDUAL) {
@@ -423,6 +472,57 @@ cudaError_t launch(int mode, int lanes, long long n_out, long long ncols,
   }
 }
 
+// The bfloat16 modes: SPMV, RESIDUAL and CORRECTION of the scalar kernel
+// (a bfloat16 hierarchy's levels; SPMV_DOTS runs in the Krylov dtype).
+template <int G>
+cudaError_t launch_scalar_bf16(int mode, long long n_out, long long ncols,
+                               int tile, int K, const int* starts,
+                               const int* cols, const bf16* vals,
+                               const bf16* x, const bf16* f, const bf16* w,
+                               bf16* y, int nblocks, cudaStream_t s) {
+  switch (mode) {
+    case SPMV:
+      well_scalar_kernel<bf16, G, SPMV><<<nblocks, kBlock, 0, s>>>(
+          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
+      break;
+    case RESIDUAL:
+      well_scalar_kernel<bf16, G, RESIDUAL><<<nblocks, kBlock, 0, s>>>(
+          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
+      break;
+    case CORRECTION:
+      well_scalar_kernel<bf16, G, CORRECTION><<<nblocks, kBlock, 0, s>>>(
+          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t run_scalar_bf16(int mode, int lanes, long long n_out,
+                            long long ncols, int tile, int K,
+                            const int* starts, const int* cols,
+                            const bf16* vals, const bf16* x, const bf16* f,
+                            const bf16* w, bf16* y, int nblocks,
+                            cudaStream_t s) {
+  if (tile <= 0 || K <= 0 || lanes <= 0 || kBlock % lanes ||
+      static_cast<long long>(nblocks) * (kBlock / lanes) < n_out || K % 4)
+    return cudaErrorInvalidValue;
+  switch (lanes) {
+    case 1:
+      return launch_scalar_bf16<1>(mode, n_out, ncols, tile, K, starts, cols,
+                                   vals, x, f, w, y, nblocks, s);
+    case 2:
+      return launch_scalar_bf16<2>(mode, n_out, ncols, tile, K, starts, cols,
+                                   vals, x, f, w, y, nblocks, s);
+    case 4:
+      return launch_scalar_bf16<4>(mode, n_out, ncols, tile, K, starts, cols,
+                                   vals, x, f, w, y, nblocks, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t run(int mode, int b, int lanes, long long n_out, long long ncols,
                 int tile, int K, const int* starts, const int* cols,
@@ -468,7 +568,8 @@ cudaError_t run(int mode, int b, int lanes, long long n_out, long long ncols,
 }  // namespace
 }  // namespace amgcl_port
 
-// dtype: 0 = float32, 1 = float64; b: the block size (1, 2, 3 or 4);
+// dtype: 0 = float32, 1 = float64, 2 = bfloat16 (b = 1 and SPMV,
+// RESIDUAL or CORRECTION only); b: the block size (1, 2, 3 or 4);
 // lanes: threads per row, 1, 2 or 4 for b = 1, and per node, 4 or 8 for
 // b > 1; K a multiple of 4 and cols and vals on 16-byte boundaries (the
 // wrapper checks the bases). n_out nodes are
@@ -508,5 +609,15 @@ extern "C" int amgcl_well_block(int dtype, int mode, int b, int lanes,
                        static_cast<double*>(y),
                        static_cast<double*>(partials),
                        static_cast<double*>(dots), nblocks, s);
+  if (dtype == 2) {
+    // bfloat16: the scalar SPMV, RESIDUAL and CORRECTION
+    if (b != 1 || mode == SPMV_DOTS) return cudaErrorInvalidValue;
+    return run_scalar_bf16(mode, lanes, n_out, ncols, tile, K, st, cl,
+                           static_cast<const bf16*>(vals),
+                           static_cast<const bf16*>(x),
+                           static_cast<const bf16*>(f),
+                           static_cast<const bf16*>(w),
+                           static_cast<bf16*>(y), nblocks, s);
+  }
   return cudaErrorInvalidValue;
 }

@@ -200,15 +200,22 @@ def make_solver_from_config(A, prm=None, block_size: int = 1,
     **{"solver.tol": 1e-10})``. ``block_size > 1`` routes through
     make_block_solver (scalar rhs and x over a block-valued engine).
     ``refine`` goes to ``make_solver`` (the JAX package's entry point has
-    no such argument)."""
+    no such argument), and so does ``solver.dtype``, as ``solver_dtype``:
+    the Krylov loop's dtype where it differs from the preconditioner's,
+    as a bfloat16 hierarchy needs (``precond.dtype = "bfloat16"``,
+    ``solver.dtype = "float32"``; the JAX package's configuration has no
+    such key and runs the loop in the preconditioner's dtype)."""
     cfg = _as_dict(prm)
     if flat_overrides:
         cfg = _deep_merge(cfg, _nest(flat_overrides))
     pcfg = cfg.get("precond", {})
-    scfg = cfg.get("solver", {})
+    scfg = dict(cfg.get("solver", {}))
     pclass = str(pcfg.get("class", "amg"))
+    sdtype = scfg.pop("dtype", None)
     solver = solver_from_params(scfg)
     kw = dict(device=device, device_setup=device_setup)
+    skw = dict(refine=refine, solver_dtype=None if sdtype is None
+               else _parse_dtype(sdtype))
     if block_size > 1:
         from amgcl_tpu_torch.models.block_solver import make_block_solver
         if pclass != "amg":
@@ -216,12 +223,12 @@ def make_solver_from_config(A, prm=None, block_size: int = 1,
                 "block_size > 1 supports precond.class=amg only")
         return make_block_solver(A, block_size,
                                  precond_params_from_dict(pcfg), solver,
-                                 refine=refine, **kw)
+                                 **skw, **kw)
     if pclass == "amg":
         return make_solver(A, precond_params_from_dict(pcfg), solver,
-                           refine=refine, **kw)
+                           **skw, **kw)
     return make_solver(A, precond_from_config(A, pcfg, **kw), solver,
-                       refine=refine, device=device)
+                       device=device, **skw)
 
 
 def precond_from_config(A, pcfg: Dict[str, Any], device=None,

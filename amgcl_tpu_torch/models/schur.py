@@ -37,7 +37,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from amgcl_tpu_torch.models.amg import AMG, AMGParams, check_dtype
+from amgcl_tpu_torch.models.amg import (AMG, AMGParams, check_dtype,
+                                        check_krylov_dtype)
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.solver.preonly import PreOnly
@@ -228,6 +229,10 @@ class SchurPressureCorrection:
         self.p_amg = AMG(P_build, pprm, device, device_setup)
         usol = usolver or PreOnly()
         psol = psolver or PreOnly()
+        for sol, hier_dtype in ((usol, self.u_amg.dtype), (psol, dtype)):
+            if not isinstance(sol, PreOnly):
+                # an inner Krylov loop runs in its hierarchy's dtype
+                check_krylov_dtype(hier_dtype)
 
         def put(a):
             return torch.as_tensor(a, device=device).to(dtype)
@@ -235,9 +240,11 @@ class SchurPressureCorrection:
         Kup_dev = dev.to_device(Kup, "ell", dtype, device)
         Kpu_dev = dev.to_device(Kpu, "ell", dtype, device)
         Kpp_base.sort_indices()
+        S_base = dev.to_device(CSR.from_scipy(Kpp_base), "auto", dtype,
+                               device)
+        dev.check_bf16_products(S_base)
         S_op = SchurOperator(
-            dev.to_device(CSR.from_scipy(Kpp_base), "auto", dtype, device),
-            None if Ldv is None else put(Ldv), Kup_dev, Kpu_dev, put(dinv),
+            S_base, None if Ldv is None else put(Ldv), Kup_dev, Kpu_dev, put(dinv),
             self.u_amg.hierarchy, usol, approx_schur)
         self.hierarchy = SchurHierarchy(
             A, dtype, device, Kup_dev, Kpu_dev, S_op,

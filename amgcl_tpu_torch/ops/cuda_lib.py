@@ -26,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("dia.cu", "vec.cu", "vcycle.cu", "well_block.cu", "densewin.cu",
            "gather.cu")
-HEADERS = ("reduce.cuh",)
+HEADERS = ("reduce.cuh", "bf16.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -107,10 +107,10 @@ def _bind(lib) -> None:
     lib.amgcl_gather_spmv.argtypes = [i32, i32, i32, i64, i64, i32] \
         + [vp] * 5 + [i32, vp]
     lib.amgcl_gather_spmv.restype = i32
-    lib.amgcl_fused_down.argtypes = [i32] * 8 + [ip, ip] + [i32] * 4 \
+    lib.amgcl_fused_down.argtypes = [i32] * 9 + [ip, ip] + [i32] * 4 \
         + [ip] + [vp] * 8 + [vp]
     lib.amgcl_fused_down.restype = i32
-    lib.amgcl_fused_up.argtypes = [i32] * 7 + [ip, ip, i32, i32, ip] \
+    lib.amgcl_fused_up.argtypes = [i32] * 8 + [ip, ip, i32, i32, ip] \
         + [vp] * 9 + [vp]
     lib.amgcl_fused_up.restype = i32
     lib.amgcl_error_string.argtypes = [i32]

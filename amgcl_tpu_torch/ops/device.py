@@ -36,7 +36,8 @@ from amgcl_tpu_torch.ops.densewin import (DenseWindowMatrix,
 from amgcl_tpu_torch.ops.unstructured import (WindowedEllMatrix,
                                               csr_to_windowed_ell)
 from amgcl_tpu_torch.telemetry.ledger import DWIN_MAX_BYTES
-from amgcl_tpu_torch.utils.devices import resolve_device
+from amgcl_tpu_torch.utils.devices import (host_tensor, np_dtype,
+                                           resolve_device)
 
 #: ELL row widths are padded up to a multiple of this
 _ELL_PAD = 4
@@ -126,10 +127,6 @@ class DenseMatrix:
 
 # -- conversion -------------------------------------------------------------
 
-def _np_dtype(dtype):
-    return torch.empty((), dtype=dtype).numpy().dtype
-
-
 def dia_offsets(A: CSR) -> np.ndarray:
     """Distinct diagonals of A (cached on the matrix)."""
     off = getattr(A, "_dia_offsets_cache", None)
@@ -159,7 +156,7 @@ def csr_to_ell(A: CSR, dtype=torch.float32, device="cpu") -> EllMatrix:
     vals[flat_idx] = A.val
     return EllMatrix(
         torch.as_tensor(cols.reshape(n, K), device=device),
-        torch.as_tensor(vals.reshape((n, K) + blk), device=device).to(dtype),
+        host_tensor(vals.reshape((n, K) + blk), dtype, device),
         A.shape, A.block_size)
 
 
@@ -170,19 +167,18 @@ def csr_to_dia(A: CSR, dtype=torch.float32, device="cpu") -> DiaMatrix:
         # stencil-setup levels are born in DIA layout (ops/stencil.py):
         # the move is a cast + transfer
         offs, data = pre
-        return DiaMatrix(list(offs), torch.as_tensor(
-            np.ascontiguousarray(data, _np_dtype(dtype)), device=device),
-            A.shape)
+        return DiaMatrix(list(offs), host_tensor(data, dtype, device),
+                         A.shape)
     offsets = dia_offsets(A)
     rows = A.expanded_rows()
     d = A.col.astype(np.int64) - rows
     base = A.nrows - 1
     lut = np.zeros(base + A.ncols, dtype=np.int64)
     lut[offsets + base] = np.arange(len(offsets))
-    flat = np.zeros(len(offsets) * A.nrows, dtype=_np_dtype(dtype))
+    flat = np.zeros(len(offsets) * A.nrows, dtype=np_dtype(dtype))
     flat[lut[d + base] * A.nrows + rows] = A.val
-    return DiaMatrix(offsets.tolist(), torch.as_tensor(
-        flat.reshape(len(offsets), A.nrows), device=device), A.shape)
+    return DiaMatrix(offsets.tolist(), host_tensor(
+        flat.reshape(len(offsets), A.nrows), dtype, device), A.shape)
 
 
 def csr_to_dia_remainder(A: CSR, hi: DiaMatrix) -> DiaMatrix:
@@ -231,26 +227,71 @@ def to_device(A, fmt: str = "auto", dtype=torch.float32, device=None,
     WELL_MAX_WIN_BYTES, ELL otherwise. That is the JAX package's order off
     a TPU; its dense-window format, which it tries only on a TPU, is
     never picked here. A block matrix (BCSR) is never made dense or DIA by
-    auto (amgcl_tpu/ops/device.py:472, 510): windowed ELL, else ELL."""
+    auto (amgcl_tpu/ops/device.py:472, 510): windowed ELL, else ELL. In
+    bfloat16, dense window and block windowed ELL raise
+    NotImplementedError (ROADMAP B.20, B.19)."""
+    # a bfloat16 format whose kernels have no bfloat16 mode is refused
+    # when it is built, not when a wrapper meets it
+    if dtype == torch.bfloat16 and fmt == "dwin":
+        _refuse_bf16(DenseWindowMatrix, "dense-window kernels B.14/B.15 "
+                     "(ROADMAP B.20)")
+    M = _to_device(A, fmt, dtype, device, budget)
+    if M.dtype == torch.bfloat16 and isinstance(M, WindowedEllMatrix) \
+            and M.block != (1, 1):
+        _refuse_bf16(WindowedEllMatrix, "block windowed-ELL kernels "
+                     "B.11-B.13 (ROADMAP B.19)")
+    return M
+
+
+def _refuse_bf16(kind, what):
+    raise NotImplementedError(
+        "a bfloat16 %s operator needs the bfloat16 mode of the %s, which "
+        "is not ported yet" % (kind.__name__, what))
+
+
+def check_bf16_products(*ops):
+    """Refuse a bfloat16 scalar windowed-ELL operator of K up to
+    ``AUTO_MAX_K`` among ``ops``, the operators whose products (``mv``)
+    a hierarchy takes: its products go to the gather kernel, whose
+    bfloat16 mode is ROADMAP B.21. (Residual-shaped uses, such as the
+    smoothed transfers' M and Mᵀ, run the windowed-ELL kernels, which
+    have one.)"""
+    from amgcl_tpu_torch.ops.gather_kernels import AUTO_MAX_K
+    for M in ops:
+        if isinstance(M, WindowedEllMatrix) and M.block == (1, 1) \
+                and M.dtype == torch.bfloat16 and M.K <= AUTO_MAX_K:
+            _refuse_bf16(WindowedEllMatrix, "gather SpMV B.16, which takes "
+                         "the products of a windowed-ELL operator of K <= "
+                         "%d (ROADMAP B.21)" % AUTO_MAX_K)
+
+
+def smoother_products(A, relax):
+    """The operators whose products a smoother state takes on the level
+    operator ``A``: none for a diagonal-scaling smoother (residual-shaped
+    passes only), else ``A`` and the state's own device matrices."""
+    from amgcl_tpu_torch.relaxation.base import ScaledResidualSmoother
+    if relax is None or isinstance(relax, ScaledResidualSmoother):
+        return []
+    return [A] + [v for v in vars(relax).values()
+                  if isinstance(v, WindowedEllMatrix)]
+
+
+def _to_device(A, fmt, dtype, device, budget):
     from amgcl_tpu_torch.ops.stencil import HostDia
     device = resolve_device(device)
     if isinstance(A, HostDia):
         # stencil-setup smoother operators live in DIA layout already
         flat = A.flat_offsets()
         order = np.argsort(flat)
-        return DiaMatrix(
-            [flat[k] for k in order],
-            torch.as_tensor(np.ascontiguousarray(
-                A.data[order], _np_dtype(dtype)), device=device),
-            A.shape)
+        return DiaMatrix([flat[k] for k in order],
+                         host_tensor(A.data[order], dtype, device), A.shape)
     if fmt not in ("auto", "dia", "well", "dwin", "ell", "dense"):
         raise ValueError("unknown device format %r" % (fmt,))
     auto = fmt == "auto"
     if fmt == "dense" or (auto and not A.is_block
                           and max(A.shape) <= DENSE_CUTOFF
                           and A.nnz > 0.02 * A.shape[0] * A.shape[1]):
-        return DenseMatrix(torch.as_tensor(A.to_dense(),
-                                           device=device).to(dtype))
+        return DenseMatrix(host_tensor(A.to_dense(), dtype, device))
     if fmt == "dia":
         if A.is_block:
             raise ValueError("DIA format takes scalar matrices, got %r" % A)

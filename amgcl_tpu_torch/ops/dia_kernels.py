@@ -8,11 +8,17 @@ holds ``A[i, i + offsets[k]]``; ``offsets`` is an int32 tensor on the
 data's device. Entries whose column ``i + offsets[k]`` falls outside
 ``[0, m)`` contribute nothing.
 
+``dia_spmv``, ``dia_residual`` and ``dia_scaled_correction`` also take
+bfloat16 operands (a bfloat16 hierarchy's levels): each product and each
+sum rounded to bfloat16 in diagonal order, as the plain versions' torch
+operations and the TPU kernel's bfloat16 accumulator round. The dot
+kernels run in the Krylov dtype and take float32 or float64.
+
 Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it checks device, dtype, shape and contiguity and launches
-the kernel, or raises. ``<wrapper>.launches`` counts kernel launches and
-``<plain>.calls`` counts plain-version calls, so a run can show which
-path it took.
+the kernel, or raises. ``<wrapper>.launches`` counts kernel launches
+(``<wrapper>.bf16_launches`` those in bfloat16) and ``<plain>.calls``
+counts plain-version calls, so a run can show which path it took.
 
 The dot kernels (``dia_spmv_dots``, ``dia_residual_dot``) take their
 offsets as kernel parameters: pass them as host ints (a tuple, as
@@ -38,6 +44,10 @@ _BLOCK = 256
 #: rows of one partial of the dot kernels, and of one block's step
 GROUP = 256
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+#: the C entries' code of bfloat16, which the kernels of a bfloat16
+#: hierarchy take (SPMV, RESIDUAL, CORRECTION here; not the dot kernels,
+#: which run in the Krylov dtype)
+BF16_CODE = 2
 
 
 # -- plain versions -----------------------------------------------------------
@@ -169,14 +179,28 @@ def _check_vec(name, v, n, ref):
                        v.dtype, v.device))
 
 
-def _check_operands(data, x, f, w):
-    """Validate data, x and the optional f and w; returns (ndiag, n, m)."""
+def dtype_code(dtype, what, bf16=True, item=None):
+    """The C entries' code of ``dtype``; bfloat16 only where ``bf16``
+    (a kernel with a bfloat16 mode), else a ValueError naming ``what``
+    and, for bfloat16, the ROADMAP ``item`` of its bfloat16 mode."""
+    if dtype in _DTYPE_CODE:
+        return _DTYPE_CODE[dtype]
+    if dtype == torch.bfloat16 and bf16:
+        return BF16_CODE
+    raise ValueError("%s take float32 or float64%s, got %s" % (
+        what, " or bfloat16" if bf16 else
+        " (their bfloat16 mode is ROADMAP %s)" % item
+        if item and dtype == torch.bfloat16 else "", dtype))
+
+
+def _check_operands(data, x, f, w, bf16=True):
+    """Validate data, x and the optional f and w (bfloat16 data only
+    where ``bf16``); returns (ndiag, n, m)."""
     if data.device.type != "cuda":
         raise ValueError("DIA kernels run on CUDA tensors, got data on %s"
                          % data.device)
-    if data.dtype not in _DTYPE_CODE:
-        raise ValueError("DIA kernels take float32 or float64, got %s"
-                         % data.dtype)
+    dtype_code(data.dtype, "DIA kernels" if bf16 else "the DIA dot kernels",
+               bf16, "B.17")
     if data.dim() != 2 or not data.is_contiguous():
         raise ValueError("data must be a contiguous (ndiag, n) tensor")
     ndiag, n = data.shape
@@ -213,8 +237,9 @@ def _launch(mode, offsets, data, x, f=None, w=None):
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = cuda_lib.lib().amgcl_dia(
-            _DTYPE_CODE[data.dtype], mode, n, m, ndiag, offsets.data_ptr(),
-            data.data_ptr(), x.data_ptr(), ptr(f), ptr(w), y.data_ptr(),
+            dtype_code(data.dtype, "DIA kernels"), mode, n, m, ndiag,
+            offsets.data_ptr(), data.data_ptr(), x.data_ptr(), ptr(f),
+            ptr(w), y.data_ptr(),
             -(-n // _BLOCK), stream)
     cuda_lib.check(rc, "dia mode %d" % mode)
     return y
@@ -264,7 +289,7 @@ def _launch_dots(mode, offsets, data, x, f=None, w=None):
     """Validate the operands and launch dia.cu's dots_kernel (SPMV_DOTS,
     RESIDUAL_DOT) once; returns (y, dots), dots an (ndots,) tensor of its
     own allocation (3 with w, 2 without, 1 for RESIDUAL_DOT)."""
-    ndiag, n, m = _check_operands(data, x, f, w)
+    ndiag, n, m = _check_operands(data, x, f, w, bf16=False)
     offs = host_offsets(offsets)
     if len(offs) != ndiag:
         raise ValueError("%d offsets for %d diagonals" % (len(offs), ndiag))
@@ -325,12 +350,21 @@ def ordered_dot(a, b):
 
 # -- wrappers -----------------------------------------------------------------
 
+def count_launch(fn, dtype):
+    """One launch of wrapper ``fn`` on ``dtype`` operands: ``fn.launches``
+    counts every launch, ``fn.bf16_launches`` those of its bfloat16 mode
+    (a wrapper with one)."""
+    fn.launches += 1
+    if dtype == torch.bfloat16:
+        fn.bf16_launches += 1
+
+
 def dia_spmv(offsets, data, x):
     """y = A x (square or rectangular)."""
     if x.device.type == "cpu":
         return dia_spmv_plain(offsets, data, x)
     y = _launch(_SPMV, offsets, data, x)
-    dia_spmv.launches += 1
+    count_launch(dia_spmv, y.dtype)
     return y
 
 
@@ -339,7 +373,7 @@ def dia_residual(offsets, data, f, x):
     if x.device.type == "cpu":
         return dia_residual_plain(offsets, data, f, x)
     r = _launch(_RESIDUAL, offsets, data, x, f=f)
-    dia_residual.launches += 1
+    count_launch(dia_residual, r.dtype)
     return r
 
 
@@ -348,7 +382,7 @@ def dia_scaled_correction(offsets, data, w, f, x):
     if x.device.type == "cpu":
         return dia_scaled_correction_plain(offsets, data, w, f, x)
     y = _launch(_CORRECTION, offsets, data, x, f=f, w=w)
-    dia_scaled_correction.launches += 1
+    count_launch(dia_scaled_correction, y.dtype)
     return y
 
 
@@ -382,3 +416,5 @@ def dia_residual_dot(offsets, data, f, x):
 for _fn in (dia_spmv, dia_residual, dia_scaled_correction, dia_spmv_dots,
             dia_residual_dot):
     _fn.launches = 0
+for _fn in (dia_spmv, dia_residual, dia_scaled_correction):
+    _fn.bf16_launches = 0

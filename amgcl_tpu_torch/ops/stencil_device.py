@@ -325,9 +325,11 @@ def device_build(A: CSR, prm, device):
         return None
     if prm.matrix_format not in ("auto", "dia"):
         return None
-    # bfloat16 hierarchies are not ported yet
+    # float32 and bfloat16 levels (amgcl_tpu/ops/stencil_device.py:421-423):
+    # the setup algebra runs in float32 either way, and a bfloat16 level
+    # casts its A, M, Mᵀ and scale at the end (_to_dia_matrix)
     damping = smoother_damping(prm.relax)
-    if prm.dtype != torch.float32 or damping is False:
+    if prm.dtype not in (torch.float32, torch.bfloat16) or damping is False:
         return None
     grid = detect_grid_csr(A)
     if grid is None:

@@ -205,6 +205,11 @@ class GridTentative:
             y.reshape(1, f2, f1, f0),
             (0, c0 * b0 - f0, 0, c1 * b1 - f1, 0, c2 * b2 - f2))
         yp = yp.reshape(c2, b2, c1, b1, c0, b0)
+        if y.dtype == torch.bfloat16:
+            # summed in float32 and rounded once, as the JAX package's
+            # jnp.sum of bfloat16 accumulates
+            return yp.sum(dim=(1, 3, 5), dtype=torch.float32) \
+                .to(y.dtype).reshape(-1)
         return yp.sum(dim=(1, 3, 5)).reshape(-1)
 
     def bytes(self):

@@ -7,7 +7,8 @@ relative to the window start. The device arrays are::
 
     window_starts (n_tiles,)                  int32
     cols_local    (n_tiles, tile, K)           int32
-    vals          (n_tiles, tile, K[, br, bc]) float32 or float64
+    vals          (n_tiles, tile, K[, br, bc]) float32, float64 or
+                                               bfloat16
 
 with padding entries at local column 0 and value 0. Block matrices
 (BCSR) index block columns and carry ``(br, bc)`` blocks; their shape is
@@ -32,6 +33,7 @@ from amgcl_tpu_torch.ops import gather_kernels as gk
 from amgcl_tpu_torch.ops import well_block_kernels as wbk
 from amgcl_tpu_torch.ops import well_kernels as wk
 from amgcl_tpu_torch.ops.csr import CSR
+from amgcl_tpu_torch.utils.devices import host_tensor, np_dtype
 
 _TILE = 1024          # rows per tile
 _WIN_ALIGN = 1024     # window starts floored to, widths rounded up to this
@@ -138,14 +140,12 @@ def csr_to_windowed_ell(A: CSR, dtype=torch.float32,
     cols = np.zeros(n_tiles * _TILE * K, dtype=np.int32)
     cols[flat] = A.col - starts[tiles]
     blk = A.val.shape[1:]
-    vals = np.zeros((n_tiles * _TILE * K,) + blk,
-                    dtype=torch.empty((), dtype=dtype).numpy().dtype)
+    vals = np.zeros((n_tiles * _TILE * K,) + blk, dtype=np_dtype(dtype))
     vals[flat] = A.val
     return WindowedEllMatrix(
         torch.as_tensor(starts.astype(np.int32), device=device),
         torch.as_tensor(cols.reshape(n_tiles, _TILE, K), device=device),
-        torch.as_tensor(vals.reshape((n_tiles, _TILE, K) + blk),
-                        device=device),
+        host_tensor(vals.reshape((n_tiles, _TILE, K) + blk), dtype, device),
         A.shape, win, (br, bc))
 
 

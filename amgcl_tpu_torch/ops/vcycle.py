@@ -13,8 +13,9 @@ level operator, DIA M/Mᵀ, blocks (2, 2, 2), a ≤32-bit dtype (float64
 hierarchies keep the composed legs, as in the reference), non-empty
 offsets, and a tile whose boxes fit a block's shared memory: for the
 down leg boxes of r and u (``vk.down_tile``; one grid row of a 7-point
-level up to 1,218 points wide), for the up leg of T uc and u'
-(``vk.up_tile``; up to 1,648). The up leg and the zero-guess mode also
+level up to 1,218 points wide in float32), for the up leg of T uc and u'
+(``vk.up_tile``; up to 1,648 in float32). The boxes hold the level's
+dtype, so a bfloat16 level fits twice as wide a row. The up leg and the zero-guess mode also
 need a scalar ``ScaledResidualSmoother``, and the up leg an even fine z
 extent. The CUDA kernels guard every index, so they need none of the TPU
 kernel's frames or lane packing.
@@ -44,6 +45,8 @@ def up_geometry(offs_a, offs_m, dims):
 
 
 def _eligible_dtype(dtype, *others):
+    """float32 and bfloat16 (the kernels' dtypes; float16 hierarchies are
+    refused at construction), the operators of one dtype."""
     return (dtype.itemsize <= 4 and not dtype.is_complex
             and all(o == dtype for o in others))
 
@@ -120,7 +123,7 @@ def build_fused_down(A_dev, R_dev, relax=None):
             or not _grid_transfer(A_dev, R_dev.T, R_dev.Mt) \
             or not _eligible_dtype(A_dev.dtype, R_dev.Mt.dtype) \
             or vk.down_tile(A_dev.offsets, R_dev.Mt.offsets,
-                            R_dev.T.fine) is None:
+                            R_dev.T.fine, A_dev.dtype) is None:
         return None
     return FusedDownSweep(A_dev, R_dev.Mt, R_dev.T,
                           _scalar_scale(relax, A_dev.dtype))
@@ -134,7 +137,8 @@ def build_fused_up(A_dev, P_dev, relax):
         return None
     w = _scalar_scale(relax, A_dev.dtype)
     if w is None or P_dev.T.fine[0] % 2 or vk.up_tile(
-            A_dev.offsets, P_dev.M.offsets, P_dev.T.fine) is None:
+            A_dev.offsets, P_dev.M.offsets, P_dev.T.fine,
+            A_dev.dtype) is None:
         return None
     return FusedUpSweep(A_dev, P_dev.M, P_dev.T, w)
 

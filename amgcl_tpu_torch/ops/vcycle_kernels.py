@@ -32,10 +32,17 @@ tile from the offsets and dims once per level, and the kernel checks it
 against the offsets on the host, so the base legs take their offsets as
 Python ints too (a tensor's are copied to the host at each call).
 
+The base and zero-guess legs also run in bfloat16 (a bfloat16
+hierarchy's levels), rounding where the TPU legs' bfloat16 dtype rounds
+(see the plain versions); their boxes hold bfloat16, so the tiles are
+planned in bytes. The framed legs take float32.
+
 Each wrapper takes its plain version only for tensors on the CPU. For
-CUDA tensors it checks device, dtype (float32), shapes and contiguity and
-launches the kernel, or raises. ``<wrapper>.launches`` counts kernel
-launches and ``<plain>.calls`` plain-version calls.
+CUDA tensors it checks device, dtype (float32, or bfloat16 in the base
+legs), shapes and contiguity and launches the kernel, or raises.
+``<wrapper>.launches`` counts kernel launches
+(``<wrapper>.bf16_launches`` those in bfloat16) and ``<plain>.calls``
+plain-version calls.
 """
 
 from __future__ import annotations
@@ -79,14 +86,44 @@ def _tentative(dims):
 
 # -- plain versions -----------------------------------------------------------
 
+def _stencil_sum(offsets, data, x):
+    """Σ_k data[k] · x[· + offsets[k]] from 0 in offset order, each
+    operation in x's dtype: the TPU legs' stencil sum
+    (pallas_vcycle.py:238, :468), which in bfloat16 rounds each product
+    and each sum."""
+    return dk._dia_product(dk.host_offsets(offsets), data, x,
+                           torch.zeros_like(x), +1)
+
+
+def _restrict_bf16(t, dims):
+    """Tᵀ t for a bfloat16 t as the TPU down leg forms it: each coarse
+    cell's z pairs added in bfloat16, then its y pairs and its x pair in
+    float32 (pallas_vcycle.py:250-263: float32 pair-sum dots), rounded
+    once; a child past the grid's end adds 0."""
+    f2, f1, f0 = (int(d) for d in dims)
+    c2, c1, c0 = coarse_dims(dims)
+    tp = torch.nn.functional.pad(t.reshape(1, f2, f1, f0),
+                                 (0, 2 * c0 - f0, 0, 2 * c1 - f1,
+                                  0, 2 * c2 - f2))[0]
+    t2 = (tp[0::2] + tp[1::2]).to(torch.float32)
+    ty = t2[:, 0::2, :] + t2[:, 1::2, :]
+    return (ty[:, :, 0::2] + ty[:, :, 1::2]).to(t.dtype).reshape(-1)
+
+
 def fused_down_sweep_plain(a_offsets, a_data, mt_offsets, mt_data, f, u,
                            dims, zero_guess=False):
     """``Tᵀ (r − Mᵀ r)`` with ``r = f − A u``; ``(w ∘ f, rc)`` when
     ``zero_guess`` (``u`` is then the scale w); offsets as int32 tensors
-    or Python ints."""
+    or Python ints. In bfloat16 every operation rounds where the TPU
+    kernel's does: r = f − Σ a·u and t = r − Σ mᵀ·r, each sum from 0,
+    and the restriction of :func:`_restrict_bf16`."""
     fused_down_sweep_plain.calls += 1
     if zero_guess:
         u = u * f
+    if f.dtype == torch.bfloat16:
+        r = f - _stencil_sum(a_offsets, a_data, u)
+        rc = _restrict_bf16(r - _stencil_sum(mt_offsets, mt_data, r), dims)
+        return (u, rc) if zero_guess else rc
     r = dk.dia_residual_plain(_on(a_offsets, f.device), a_data, f, u)
     rc = _tentative(dims).rmv(dk.dia_residual_plain(
         _on(mt_offsets, f.device), mt_data, r, r))
@@ -96,9 +133,14 @@ def fused_down_sweep_plain(a_offsets, a_data, mt_offsets, mt_data, f, u,
 def fused_up_sweep_plain(a_offsets, a_data, m_offsets, m_data, w, f, u, uc,
                          dims):
     """``u' + w ∘ (f − A u')`` with ``u' = u + T uc − M (T uc)``;
-    offsets as int32 tensors or Python ints."""
+    offsets as int32 tensors or Python ints. In bfloat16 every operation
+    rounds where the TPU kernel's does: u' = (u + T uc) − Σ m·T uc and
+    u' + w ∘ (f − Σ a·u'), each sum from 0."""
     fused_up_sweep_plain.calls += 1
     tuc = _tentative(dims).mv(uc)
+    if f.dtype == torch.bfloat16:
+        u1 = (u + tuc) - _stencil_sum(m_offsets, m_data, tuc)
+        return u1 + w * (f - _stencil_sum(a_offsets, a_data, u1))
     u1 = u + dk.dia_residual_plain(_on(m_offsets, f.device), m_data, tuc,
                                    tuc)
     return dk.dia_scaled_correction_plain(_on(a_offsets, f.device), a_data,
@@ -214,20 +256,21 @@ def up_boxes(tz, ty, halo, mhalo):
     return bz * by, (bz + mhalo[0] + mhalo[1]) * (by + mhalo[2] + mhalo[3])
 
 
-def up_box(tz, ty, halo, mhalo, f0):
-    """Bytes of shared memory the two boxes of a tile take."""
-    return sum(up_boxes(tz, ty, halo, mhalo)) * f0 * 4
+def up_box(tz, ty, halo, mhalo, f0, itemsize=4):
+    """Bytes of shared memory the two boxes of a tile take, each entry
+    ``itemsize`` bytes (4 in float32, 2 in bfloat16)."""
+    return sum(up_boxes(tz, ty, halo, mhalo)) * f0 * itemsize
 
 
 @functools.lru_cache(maxsize=256)
-def _up_tile(a_offsets, m_offsets, dims):
+def _up_tile(a_offsets, m_offsets, dims, itemsize=4):
     f2, f1, f0 = dims
     halo, mhalo = up_halo(a_offsets, dims), up_halo(m_offsets, dims)
     na, nm = len(a_offsets), len(m_offsets)
     best = None
     for tz in _extents(f2):
         for ty in _extents(f1):
-            smem = up_box(tz, ty, halo, mhalo, f0)
+            smem = up_box(tz, ty, halo, mhalo, f0, itemsize)
             if smem > MAX_BOX_BYTES:
                 continue
             nblocks = -(-f2 // tz) * -(-f1 // ty)
@@ -243,15 +286,15 @@ def _up_tile(a_offsets, m_offsets, dims):
     return None if best is None else best[1]
 
 
-def up_tile(a_offsets, m_offsets, dims):
+def up_tile(a_offsets, m_offsets, dims, dtype=torch.float32):
     """The up leg's tile for A's and M's offsets (Python ints) on fine
-    dims (f2, f1, f0), or None where not even one plane by one row fits
-    the shared memory: of the tiles of 1–32 planes and rows whose boxes
-    fit, the one with the least loads on the busiest of 132 SMs.
-    Computed once per (offsets, dims)."""
+    dims (f2, f1, f0) in ``dtype`` (its boxes' bytes), or None where not
+    even one plane by one row fits the shared memory: of the tiles of
+    1–32 planes and rows whose boxes fit, the one with the least loads on
+    the busiest of 132 SMs. Computed once per (offsets, dims, dtype)."""
     return _up_tile(tuple(int(o) for o in a_offsets),
                     tuple(int(o) for o in m_offsets),
-                    tuple(int(d) for d in dims))
+                    tuple(int(d) for d in dims), dtype.itemsize)
 
 
 class DownTile(NamedTuple):
@@ -296,10 +339,10 @@ def down_boxes(tz, ty, halo, ahalo, cz=1, cy=1):
             (oz + ahalo[0] + ahalo[1]) * (oy + ahalo[2] + ahalo[3]))
 
 
-def down_box(tz, ty, halo, ahalo, f0, cz=1, cy=1):
+def down_box(tz, ty, halo, ahalo, f0, cz=1, cy=1, itemsize=4):
     """Bytes of shared memory the two boxes of a down tile take (box U
-    holds the tile's t after u)."""
-    return sum(down_boxes(tz, ty, halo, ahalo, cz, cy)) * f0 * 4
+    holds the tile's t after u), each entry ``itemsize`` bytes."""
+    return sum(down_boxes(tz, ty, halo, ahalo, cz, cy)) * f0 * itemsize
 
 
 def _even_extents(f):
@@ -309,14 +352,14 @@ def _even_extents(f):
 
 
 @functools.lru_cache(maxsize=256)
-def _down_tile(a_offsets, mt_offsets, dims):
+def _down_tile(a_offsets, mt_offsets, dims, itemsize=4):
     f2, f1, f0 = dims
     halo, ahalo = down_halo(a_offsets, mt_offsets, dims)
     na, nm = len(a_offsets), len(mt_offsets)
     best = None
     for (cz, cy), tz, ty in itertools.product(_CLUSTERS, _even_extents(f2),
                                               _even_extents(f1)):
-        smem = down_box(tz, ty, halo, ahalo, f0, cz, cy)
+        smem = down_box(tz, ty, halo, ahalo, f0, cz, cy, itemsize)
         if smem > MAX_BOX_BYTES or (cz > 1 and tz >= f2) \
                 or (cy > 1 and ty >= f1):
             continue
@@ -337,25 +380,26 @@ def _down_tile(a_offsets, mt_offsets, dims):
     return None if best is None else best[1]
 
 
-def down_tile(a_offsets, mt_offsets, dims):
+def down_tile(a_offsets, mt_offsets, dims, dtype=torch.float32):
     """The down leg's tile for A's and Mᵀ's offsets (Python ints) on fine
-    dims (f2, f1, f0), or None where not even two planes by two rows fit
-    the shared memory: of the tiles of 2–32 planes and rows (even) whose
-    boxes fit, alone or in pairs, the one with the least loads on the
-    busiest of 132 SMs. Computed once per (offsets, dims)."""
+    dims (f2, f1, f0) in ``dtype`` (its boxes' bytes), or None where not
+    even two planes by two rows fit the shared memory: of the tiles of
+    2–32 planes and rows (even) whose boxes fit, alone or in pairs, the
+    one with the least loads on the busiest of 132 SMs. Computed once per
+    (offsets, dims, dtype)."""
     return _down_tile(tuple(int(o) for o in a_offsets),
                       tuple(int(o) for o in mt_offsets),
-                      tuple(int(d) for d in dims))
+                      tuple(int(d) for d in dims), dtype.itemsize)
 
 
 def _check_dia(name, offsets, data, n, ref):
-    if data.device != ref.device or data.dtype != torch.float32 \
+    if data.device != ref.device or data.dtype != ref.dtype \
             or data.dim() != 2 or data.shape[1] != n \
             or not data.is_contiguous():
-        raise ValueError("%s data must be a contiguous (ndiag, %d) float32 "
+        raise ValueError("%s data must be a contiguous (ndiag, %d) %s "
                          "tensor on %s, got %s %s on %s"
-                         % (name, n, ref.device, tuple(data.shape),
-                            data.dtype, data.device))
+                         % (name, n, ref.dtype, ref.device,
+                            tuple(data.shape), data.dtype, data.device))
     ndiag = data.shape[0]
     if not 0 < ndiag <= dk.MAX_DIAG:
         raise ValueError("%s has %d diagonals; the kernels take 1 to %d"
@@ -366,15 +410,23 @@ def _check_dia(name, offsets, data, n, ref):
                          "tensor on %s" % (name, ndiag, ref.device))
 
 
-def _check_leg(dims, ref, operators, vectors, ncols=None):
+#: the C entries' dtype codes: float32, and bfloat16 in the base legs
+_LEG_CODE = {torch.float32: 0, torch.bfloat16: dk.BF16_CODE}
+
+
+def _check_leg(dims, ref, operators, vectors, ncols=None, framed=False):
     """Validate one leg's operands on the card (operators of ``ncols``
     columns, n by default); returns (n, nc)."""
     if ref.device.type != "cuda":
         raise ValueError("the fused V-cycle kernels run on CUDA tensors, "
                          "got %s" % ref.device)
-    if ref.dtype != torch.float32:
-        raise ValueError("the fused V-cycle kernels take float32, got %s"
-                         % ref.dtype)
+    if ref.dtype != torch.float32 and (framed
+                                       or ref.dtype != torch.bfloat16):
+        raise ValueError(
+            "the %s V-cycle kernels take float32%s, got %s"
+            % ("framed" if framed else "fused",
+               " (their bfloat16 mode is ROADMAP B.18)" if framed
+               else " or bfloat16", ref.dtype))
     dims = tuple(int(d) for d in dims)
     if len(dims) != 3 or min(dims) < 1:
         raise ValueError("dims must be three positive grid extents, got %s"
@@ -408,7 +460,7 @@ def _launch_down(oa_host, om_host, oa, a_data, om, mt_data, f, u, dims,
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream().cuda_stream
         rcode = cuda_lib.lib().amgcl_fused_down(
-            int(bool(zero_guess)), *dims, H, L, len(oa_host), len(om_host),
+            _LEG_CODE[f.dtype], int(bool(zero_guess)), *dims, H, L, len(oa_host), len(om_host),
             dk.c_ints(oa_host), dk.c_ints(om_host), tile.tz, tile.ty, tile.cz,
             tile.cy, dk.c_ints(tile.halo + tile.ahalo), oa.data_ptr(),
             a_data.data_ptr(), om.data_ptr(), mt_data.data_ptr(),
@@ -438,9 +490,10 @@ def fused_down_sweep(a_offsets, a_data, mt_offsets, mt_data, f, u, dims,
     dims = tuple(int(d) for d in dims)
     out = _launch_down(oa_host, om_host, oa, a_data, om, mt_data, f, u,
                        dims, 0, n, zero_guess,
-                       _down_tile(oa_host, om_host, dims),
+                       _down_tile(oa_host, om_host, dims,
+                                  f.element_size()),
                        "fused_down_sweep")
-    fused_down_sweep.launches += 1
+    dk.count_launch(fused_down_sweep, f.dtype)
     return out
 
 
@@ -455,7 +508,7 @@ def _launch_up(oa_host, om_host, oa, a_data, om, m_data, w, f, u, uc, dims,
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream().cuda_stream
         rcode = cuda_lib.lib().amgcl_fused_up(
-            *dims, zoff, fz, len(oa_host), len(om_host), dk.c_ints(oa_host),
+            _LEG_CODE[f.dtype], *dims, zoff, fz, len(oa_host), len(om_host), dk.c_ints(oa_host),
             dk.c_ints(om_host), tile.tz, tile.ty,
             dk.c_ints(tile.halo + tile.mhalo),
             oa.data_ptr(), a_data.data_ptr(), om.data_ptr(),
@@ -482,9 +535,10 @@ def fused_up_sweep(a_offsets, a_data, m_offsets, m_data, w, f, u, uc, dims):
                        ("uc", uc, c2 * c1 * c0)])
     dims = tuple(int(d) for d in dims)
     out = _launch_up(oa_host, om_host, oa, a_data, om, m_data, w, f, u, uc,
-                     dims, 0, dims[0], _up_tile(oa_host, om_host, dims),
+                     dims, 0, dims[0],
+                     _up_tile(oa_host, om_host, dims, f.element_size()),
                      "fused_up_sweep")
-    fused_up_sweep.launches += 1
+    dk.count_launch(fused_up_sweep, f.dtype)
     return out
 
 
@@ -525,7 +579,8 @@ def fused_down_sweep_framed(a_offsets, a_frame, mt_offsets, mt_frame, f, u,
     oa = dk.offsets_on(oa_host, f.device)
     om = dk.offsets_on(om_host, f.device)
     _check_leg(dims, f, [("A", oa, a_frame), ("Mt", om, mt_frame)],
-               [("f", f, L), ("w" if zero_guess else "u", u, L)], ncols=L)
+               [("f", f, L), ("w" if zero_guess else "u", u, L)], ncols=L,
+               framed=True)
     out = _launch_down(oa_host, om_host, oa, a_frame, om, mt_frame, f, u,
                        dims, H, L, zero_guess,
                        _down_tile(oa_host, om_host, dims),
@@ -560,7 +615,7 @@ def fused_up_sweep_framed(a_offsets, a_data, m_offsets, m_frame, w, f, u, uc,
     om = dk.offsets_on(om_host, f.device)
     _check_leg(dims, f, [("A", oa, a_data)],
                [("f", f, None), ("w", w, None), ("u", u, Lm),
-                ("uc", uc, (c2 + 2 * hp) * c1 * c0)])
+                ("uc", uc, (c2 + 2 * hp) * c1 * c0)], framed=True)
     _check_dia("M", om, m_frame, Lm, f)
     out = _launch_up(oa_host, om_host, oa, a_data, om, m_frame, w, f, u, uc,
                      dims, 2 * hp, dims[0] + 4 * hp,
@@ -573,3 +628,5 @@ def fused_up_sweep_framed(a_offsets, a_data, m_offsets, m_frame, w, f, u, uc,
 for _fn in (fused_down_sweep, fused_up_sweep, fused_down_sweep_framed,
             fused_up_sweep_framed):
     _fn.launches = 0
+for _fn in (fused_down_sweep, fused_up_sweep):
+    _fn.bf16_launches = 0

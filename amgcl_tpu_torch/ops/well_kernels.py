@@ -19,10 +19,18 @@ absolute column lies at or past the end of x contributes nothing (a tile
 without entries points its padding there), as the TPU kernel's
 zero-padded x gives.
 
+``windowed_ell_spmv``, ``windowed_ell_residual`` and
+``windowed_ell_scaled_correction`` also take bfloat16 values and vectors
+(a bfloat16 hierarchy's levels): each product rounded to bfloat16, a
+row summed in float32 in slot order and rounded to bfloat16, then the
+residual and correction rounded to bfloat16 at each operation, where the
+TPU kernel rounds. ``windowed_ell_spmv_dots`` runs in the Krylov dtype.
+
 Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it checks device, dtype, shape and contiguity and launches
-the kernel, or raises. ``<wrapper>.launches`` counts kernel launches and
-``<plain>.calls`` counts plain-version calls.
+the kernel, or raises. ``<wrapper>.launches`` counts kernel launches
+(``<wrapper>.bf16_launches`` those in bfloat16) and ``<plain>.calls``
+counts plain-version calls.
 """
 
 from __future__ import annotations
@@ -32,8 +40,9 @@ from typing import NamedTuple
 import torch
 
 from amgcl_tpu_torch.ops import cuda_lib
-from amgcl_tpu_torch.ops.dia_kernels import (_BLOCK, _DTYPE_CODE,
-                                             _acc_dtype, _check_vec)
+from amgcl_tpu_torch.ops.dia_kernels import (_BLOCK, _acc_dtype,
+                                             _check_vec, count_launch,
+                                             dtype_code)
 
 _SPMV, _RESIDUAL, _CORRECTION, _SPMV_DOTS = range(4)
 
@@ -47,14 +56,24 @@ BLOCK_SIZES = (2, 3, 4)
 def _product(window_starts, cols_local, vals, x, n_out):
     """(A x)[:n_out] in the reference's ``_mv_xla`` arithmetic: a gather
     of x at the absolute columns and a row sum over the K slots, in the
-    values' dtype."""
+    values' dtype. bfloat16 values round each product to bfloat16 and sum
+    a row in float32, slot by slot, then round the sum to bfloat16, as
+    the TPU kernel's ``jnp.sum`` accumulates (unstructured.py:334-336)
+    and in the kernel's slot order."""
     m = x.shape[0]
     cols = cols_local.to(torch.int64) \
         + window_starts.to(torch.int64)[:, None, None]
     inside = cols < m
     xg = torch.where(inside, x[cols.clamp(max=max(m - 1, 0))],
                      torch.zeros((), dtype=x.dtype, device=x.device))
-    y = (vals * xg.to(vals.dtype)).sum(dim=2)
+    p = vals * xg.to(vals.dtype)
+    if p.dtype == torch.bfloat16:
+        y = torch.zeros(p.shape[:2], dtype=torch.float32, device=p.device)
+        for k in range(p.shape[2]):
+            y += p[:, :, k]
+        y = y.to(torch.bfloat16)
+    else:
+        y = p.sum(dim=2)
     return y.reshape(-1)[:n_out].to(torch.promote_types(vals.dtype,
                                                         x.dtype))
 
@@ -106,19 +125,20 @@ for _fn in (windowed_ell_spmv_plain, windowed_ell_residual_plain,
 
 # -- kernel launch ------------------------------------------------------------
 
-def check_geometry(window_starts, cols_local, vals, n_out, block):
+def check_geometry(window_starts, cols_local, vals, n_out, block,
+                   bf16=False, item=None):
     """Validate the windowed-ELL storage a kernel is handed: CUDA float32
-    or float64 ``vals`` of shape (n_tiles, tile, K), with trailing
-    (b, b) dims when ``block``, and the int32 ``cols_local`` and
+    or float64 ``vals`` (or bfloat16 where ``bf16``: a kernel with a
+    bfloat16 mode) of shape (n_tiles, tile, K), with trailing (b, b)
+    dims when ``block``, and the int32 ``cols_local`` and
     ``window_starts`` beside it on the same device; ``n_out`` rows (or
-    nodes) in the last tile. Returns (n_tiles, tile, K, n_out)."""
+    nodes) in the last tile. Returns (n_tiles, tile, K, n_out); a
+    refused bfloat16 names the ROADMAP ``item`` of its mode."""
     what = "block windowed-ELL" if block else "windowed-ELL"
     if vals.device.type != "cuda":
         raise ValueError("%s kernels run on CUDA tensors, got vals on %s"
                          % (what, vals.device))
-    if vals.dtype not in _DTYPE_CODE:
-        raise ValueError("%s kernels take float32 or float64, got %s"
-                         % (what, vals.dtype))
+    dtype_code(vals.dtype, "these %s kernels" % what, bf16, item)
     if vals.dim() != (5 if block else 3) or not vals.is_contiguous():
         raise ValueError("vals must be a contiguous (n_tiles, tile, K%s) "
                          "tensor" % (", br, bc" if block else ""))
@@ -179,8 +199,11 @@ def _launch(mode, window_starts, cols_local, vals, x, n_out, f=None, w=None,
     scalar one for scalar values; returns (y, dots) with dots a (3,)
     tensor or None. For block values ``w`` is the (n_out, b, b) scale of
     the correction, and otherwise a vector."""
-    _, tile, K, n_out = check_geometry(window_starts, cols_local, vals,
-                                       n_out, block)
+    # the scalar SpMV, residual and correction have a bfloat16 mode
+    _, tile, K, n_out = check_geometry(
+        window_starts, cols_local, vals, n_out, block,
+        bf16=not block and mode != _SPMV_DOTS,
+        item="B.19" if block else "B.17")
     b = 1
     if block:
         br, bc = vals.shape[3:]
@@ -229,7 +252,8 @@ def _launch(mode, window_starts, cols_local, vals, x, n_out, f=None, w=None,
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = cuda_lib.lib().amgcl_well_block(
-            _DTYPE_CODE[vals.dtype], mode, b, geo.lanes, n_out, ncols, tile,
+            dtype_code(vals.dtype, "windowed-ELL kernels"), mode, b,
+            geo.lanes, n_out, ncols, tile,
             K, window_starts.data_ptr(), cols_local.data_ptr(),
             vals.data_ptr(), x.data_ptr(), ptr(f), ptr(w), y.data_ptr(),
             ptr(partials), ptr(dots), geo.nblocks, stream)
@@ -246,7 +270,7 @@ def windowed_ell_spmv(window_starts, cols_local, vals, x, n_out):
         return windowed_ell_spmv_plain(window_starts, cols_local, vals, x,
                                        n_out)
     y, _ = _launch(_SPMV, window_starts, cols_local, vals, x, n_out)
-    windowed_ell_spmv.launches += 1
+    count_launch(windowed_ell_spmv, y.dtype)
     return y
 
 
@@ -257,7 +281,7 @@ def windowed_ell_residual(window_starts, cols_local, vals, f, x, n_out):
                                            f, x, n_out)
     r, _ = _launch(_RESIDUAL, window_starts, cols_local, vals, x, n_out,
                    f=f)
-    windowed_ell_residual.launches += 1
+    count_launch(windowed_ell_residual, r.dtype)
     return r
 
 
@@ -269,7 +293,7 @@ def windowed_ell_scaled_correction(window_starts, cols_local, vals, w, f,
             window_starts, cols_local, vals, w, f, x, n_out)
     y, _ = _launch(_CORRECTION, window_starts, cols_local, vals, x, n_out,
                    f=f, w=w)
-    windowed_ell_scaled_correction.launches += 1
+    count_launch(windowed_ell_scaled_correction, y.dtype)
     return y
 
 
@@ -288,3 +312,6 @@ def windowed_ell_spmv_dots(window_starts, cols_local, vals, x, w, n_out):
 for _fn in (windowed_ell_spmv, windowed_ell_residual,
             windowed_ell_scaled_correction, windowed_ell_spmv_dots):
     _fn.launches = 0
+for _fn in (windowed_ell_spmv, windowed_ell_residual,
+            windowed_ell_scaled_correction):
+    _fn.bf16_launches = 0

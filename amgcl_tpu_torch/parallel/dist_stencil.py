@@ -387,13 +387,19 @@ def dist_stencil_build(A: CSR, mesh: Mesh, prm, rep_coarse_enough=3000):
     field the device builds decline (``stencil_device.sa_fields_allow``).
     A smoother other than SPAI-0 and damped Jacobi raises
     NotImplementedError: the JAX package sends those to its ``DistAMG``,
-    which is not ported yet (ROADMAP A.12)."""
+    which is not ported yet (ROADMAP A.12); so does a bfloat16 hierarchy
+    (its framed legs are ROADMAP B.18)."""
     from amgcl_tpu_torch.coarsening.smoothed_aggregation import \
         SmoothedAggregation
     from amgcl_tpu_torch.models.amg import AMG
     from amgcl_tpu_torch.ops.structured import detect_grid_csr
 
     c = prm.coarsening
+    if prm.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "a bfloat16 sharded hierarchy needs the bfloat16 mode of the "
+            "framed legs, which is not ported yet (ROADMAP B.18, with the "
+            "bfloat16 distributed hierarchy of A.12)")
     if type(c) is not SmoothedAggregation or not sa_fields_allow(c):
         return None
     if A.is_block or np.iscomplexobj(A.val) or prm.dtype != torch.float32:

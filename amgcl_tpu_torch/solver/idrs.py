@@ -71,6 +71,8 @@ class IDRs(HistoryMixin):
     s: int = 4
     maxiter: int = 100
     tol: float = 1e-8
+    replacement: bool = False   # unused: kept for interface parity, as
+    #                             the JAX package keeps it
     record_history: bool = False  # per-iteration relative residuals
     guard: bool = True      # in-loop health guards (telemetry/health.py)
     shadow: Any = None

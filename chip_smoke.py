@@ -138,6 +138,22 @@ Run from the root of a checkout, with no arguments:
    and BK1 (B1's system through make_block_solver). Each is held to its
    iteration window, its true residual, its structure (``a9_reach``), its
    kernels and zero plain-version calls.
+12. bfloat16 hierarchies under a float32 Krylov loop (``BF_PATHS``,
+   ``--phase12`` runs it alone): BF1 (the main path's call with
+   ``AMGParams(dtype=bfloat16)``, ``solver_dtype=float32``: L0/L1 built on
+   the device with both fused legs in bfloat16), BF1h (its host build,
+   legs composed), BF1s (SPAI-1, whose products are DIA SpMVs), BF2 (U1's
+   system, BiCGStab left-preconditioned) and BF2s (SPAI-1 there: the
+   windowed-ELL SpMV). Each is held to a true residual ≤ 1e-6, fewer
+   than (1 + refine)·maxiter iterations (BF1 and BF1h at most twice the
+   main path's 12, BF2 three times the float32 hierarchy's count under
+   the same call), its structure (``bf_reach``), its
+   bfloat16 modes launched and zero plain-version calls, and prints its
+   hierarchy's bytes and peak memory (BF1, BF1h and BF2 beside the
+   float32 hierarchy's of the same call). Then every bfloat16 mode (B.1, B.2, the fused legs,
+   B.8, B.9) is held against its plain version on BF1's L0/L1 and BF2's
+   L0 operators (within u·Σ|terms|, u = 2⁻⁸, with the largest difference
+   in bfloat16 ULPs) and timed, its bound in bfloat16 bytes.
 
 Prints one JSON line of kernel records, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, when
@@ -160,6 +176,8 @@ import torch
 #: float32 / float64 operations per second
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
+#: the bfloat16 modes load bfloat16 and compute in float registers
+PEAK_OPS[torch.bfloat16] = PEAK_OPS[torch.float32]
 
 LEVEL_ROWS = [2097152, 262144, 32768, 1331]
 ITERS_EXPECTED = 12
@@ -247,6 +265,14 @@ REPLACES = {
     "fused_down_sweep.framed": "amgcl_tpu/ops/pallas_vcycle.py:187",
     "fused_up_sweep.framed": "amgcl_tpu/ops/pallas_vcycle.py:477",
 }
+#: the kernels with a bfloat16 mode (phase 12): each wrapper's
+#: ``bf16_launches`` counts its bfloat16 launches, recorded as
+#: ``<name>.bf16``
+BF16_MODES = ("dia_spmv", "dia_residual", "dia_scaled_correction",
+              "fused_down_sweep", "fused_up_sweep", "windowed_ell_spmv",
+              "windowed_ell_residual", "windowed_ell_scaled_correction")
+for _k in BF16_MODES:
+    REPLACES[_k + ".bf16"] = REPLACES[_k]
 FUSED = ("fused_down_sweep", "fused_up_sweep")
 #: the framed modes of the fused legs, run by path S1 only
 FRAMED = ("fused_down_sweep.framed", "fused_up_sweep.framed")
@@ -273,6 +299,7 @@ ON_PATH = EARLIER + FUSED
 
 
 def source_of(name):
+    name = name.replace(".bf16", "")
     if name in ("xr_update", "bicgstab_tail", "axpby_dot"):
         return SOURCES["vec"]
     if name.startswith("windowed_ell"):
@@ -348,14 +375,23 @@ def wrappers():
 
 
 def reset_counts():
-    for kern, plain in wrappers().values():
+    W = wrappers()
+    for kern, plain in W.values():
         kern.launches = 0
         plain.calls = 0
+    for k in BF16_MODES:
+        W[k][0].bf16_launches = 0
 
 
 def read_counts():
-    return ({k: kern.launches for k, (kern, _) in wrappers().items()},
-            {k: plain.calls for k, (_, plain) in wrappers().items()})
+    """({kernel: launches}, {kernel: plain calls}); the launches also
+    hold ``<name>.bf16``, the bfloat16 launches of each BF16_MODES
+    kernel (its ``<name>`` count holds every dtype's)."""
+    W = wrappers()
+    launches = {k: kern.launches for k, (kern, _) in W.items()}
+    launches.update({k + ".bf16": W[k][0].bf16_launches
+                     for k in BF16_MODES})
+    return launches, {k: plain.calls for k, (_, plain) in W.items()}
 
 
 @contextlib.contextmanager
@@ -367,8 +403,11 @@ def counts_paused():
     try:
         yield
     finally:
-        for k, (kern, plain) in wrappers().items():
+        W = wrappers()
+        for k, (kern, plain) in W.items():
             kern.launches, plain.calls = launches[k], calls[k]
+        for k in BF16_MODES:
+            W[k][0].bf16_launches = launches[k + ".bf16"]
 
 
 # -- phase 2: the main path and the earlier path ------------------------------
@@ -2983,6 +3022,413 @@ def a9_family(failures, only=None):
     return counts, summary
 
 
+# -- phase 12: bfloat16 hierarchies under a float32 Krylov loop ---------------
+
+#: phase 12's paths: (system, call, refine). A bfloat16 hierarchy
+#: (``AMGParams(dtype=torch.bfloat16)``) under a float32 Krylov loop
+#: (``solver_dtype=torch.float32``) with float64 refinement, the JAX
+#: package's "TPU-lean mixed precision" configuration (tests/test_amg.py)
+BF_PATHS = {
+    "BF1": ("poisson", "CG(maxiter=100, tol=1e-6); L0/L1 built on the "
+            "device, fused legs", 3),
+    "BF1h": ("poisson", "BF1 with device_setup=False, legs composed", 3),
+    "BF1s": ("poisson", "BF1 with relax=Spai1() (host build)", 3),
+    "BF2": ("fe", "U1's system, BiCGStab(maxiter=100, tol=1e-6, "
+            "precond_side='left')", 3),
+    "BF2s": ("fe", "BF2 with relax=Spai1()", 3),
+}
+#: the bfloat16 modes each phase-12 path must launch
+BF_KERNELS = {
+    "BF1": ("fused_down_sweep.bf16", "fused_up_sweep.bf16"),
+    "BF1h": ("dia_residual.bf16", "dia_scaled_correction.bf16"),
+    "BF1s": ("dia_spmv.bf16", "dia_residual.bf16"),
+    "BF2": ("windowed_ell_residual.bf16",
+            "windowed_ell_scaled_correction.bf16"),
+    "BF2s": ("windowed_ell_spmv.bf16", "windowed_ell_residual.bf16"),
+}
+#: bfloat16's unit roundoff: the kernels' tolerance against their plain
+#: versions, relative to the sum of a result's |terms|
+BF16_U = 2.0 ** -8
+
+
+def bf_make(label, A, dtype=torch.bfloat16, **dev):
+    """Build phase 12's bundle ``label`` on ``A`` through make_solver, its
+    hierarchy in ``dtype`` (bfloat16; float32 for the comparison build)
+    under a float32 Krylov loop; ``dev`` holds ``device``."""
+    import amgcl_tpu_torch as T
+    prm = T.AMGParams(dtype=dtype)
+    if label.endswith("s"):
+        prm.relax = T.Spai1()
+    solver = T.CG(maxiter=100, tol=1e-6) if label.startswith("BF1") \
+        else T.BiCGStab(maxiter=100, tol=1e-6, precond_side="left")
+    solve = T.make_solver(A, prm, solver, solver_dtype=torch.float32,
+                          refine=BF_PATHS[label][2],
+                          device_setup=False if label == "BF1h" else None,
+                          **dev)
+    if label == "BF1h":
+        # the earlier path's cycle: every leg composed
+        for lv in solve.precond.hierarchy.levels:
+            lv.down = lv.up = None
+    return solve
+
+
+def bf_reach(label, solve):
+    """The structure phase 12 holds path ``label`` to: (lines, faults)."""
+    hier = solve.precond.hierarchy
+    lines, faults = [], []
+    for i, lv in enumerate(hier.levels):
+        lines.append("level %d: %d rows, %s %s, fused down %s, up %s%s" % (
+            i, lv.A.shape[0], type(lv.A).__name__,
+            str(lv.A.dtype).split(".")[-1], lv.down is not None,
+            lv.up is not None, ", K %d" % lv.A.K
+            if hasattr(lv.A, "K") else ""))
+    if any(lv.A.dtype != torch.bfloat16 for lv in hier.levels):
+        faults.append("a level operator is not bfloat16")
+    if solve.A_dev.dtype != torch.float32:
+        faults.append("the Krylov operator is %s" % solve.A_dev.dtype)
+    rows = [lv.A.shape[0] for lv in hier.levels]
+    if label.startswith("BF1") and label != "BF1s" and rows != LEVEL_ROWS:
+        faults.append("levels %s, expected %s" % (rows, LEVEL_ROWS))
+    if label == "BF1":
+        lv0 = hier.levels[0]
+        if not solve.precond.device_built or lv0.down is None \
+                or lv0.up is None or lv0.down.w is None:
+            faults.append("L0 was not built on the device with both fused "
+                          "legs (zero guess included)")
+    if label.startswith("BF2"):
+        fmts = [type(lv.A).__name__ for lv in hier.levels]
+        if rows != U_LEVELS["U1"] or fmts != U_FORMATS:
+            faults.append("levels %s %s, expected U1's %s %s"
+                          % (rows, fmts, U_LEVELS["U1"], U_FORMATS))
+    return lines, faults
+
+
+def by_dtype(counts):
+    """Launches with each BF16_MODES kernel's count split: ``<name>`` its
+    float32 and float64 launches, ``<name>.bf16`` its bfloat16 ones."""
+    out = dict(counts)
+    for k in BF16_MODES:
+        out[k] = counts[k] - counts[k + ".bf16"]
+    return out
+
+
+def bf_path(label, A, rhs, failures):
+    """One phase-12 path: set-up, a cold and a warm solve with the counts
+    set to 0 just before the setup and read just after, then (BF1, BF1h,
+    BF2) the float32 hierarchy of the same call built and solved (counts
+    paused) for its bytes, peak memory and iterations, and one more warm
+    solve profiled. Returns (counts by
+    dtype, summary, solve)."""
+    _, call, refine = BF_PATHS[label]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    solve = bf_make(label, A)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    lines, faults = bf_reach(label, solve)
+    for line in lines:
+        print("[%s] %s" % (label, line))
+    x, info = solve(rhs)
+    cold = info.wall_time_s
+    x, info = solve(rhs)
+    counts, plain_calls = read_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    nbytes = solve.precond.hierarchy.bytes()
+    maxiter = solve.solver.maxiter
+    true_res = true_residual(A, rhs, x)
+    print("[%s] %s, refine %d: setup %.3f s, %d iterations, reported "
+          "resid %.3e, true %.3e; cold %.4f s, warm %.4f s"
+          % (label, call, refine, t_setup, info.iters, info.resid, true_res,
+             cold, info.wall_time_s))
+    # the float32 hierarchy of the same call, for its bytes, peak and
+    # iterations (BF1, BF1h and BF2; BF1s and BF2s, which only add
+    # a launching path for B.1 and B.8, skip it)
+    iters32 = bytes32 = peak32 = None
+    if not label.endswith("s"):
+        with counts_paused():
+            torch.cuda.reset_peak_memory_stats()
+            base32 = torch.cuda.memory_allocated()
+            s32 = bf_make(label, A, torch.float32)
+            iters32 = s32(rhs)[1].iters
+            peak32 = torch.cuda.max_memory_allocated() - base32
+            bytes32 = s32.precond.hierarchy.bytes()
+            del s32
+            gc.collect()
+            torch.cuda.empty_cache()
+        print("[%s] hierarchy bytes (AMG.bytes) %d against %d in float32 "
+              "(%.3f); peak device memory over setup and both solves %.1f "
+              "MB against %.1f MB for the float32 hierarchy's setup and one "
+              "solve, which takes %d iterations"
+              % (label, nbytes, bytes32, nbytes / bytes32, peak / 2**20,
+                 peak32 / 2**20, iters32))
+    else:
+        print("[%s] hierarchy bytes (AMG.bytes) %d; peak device memory "
+              "over setup and both solves %.1f MB" % (label, nbytes,
+                                                     peak / 2**20))
+    split = by_dtype(counts)
+    print("[%s] launches by kernel and dtype (setup + 2 solves): %s"
+          % (label, json.dumps({k: v for k, v in split.items() if v})))
+    print("[%s] plain-version calls: %s" % (label, sum(plain_calls.values())))
+    if info.iters >= (1 + refine) * maxiter or not (
+            np.all(np.isfinite(x.double().cpu().numpy()))
+            and true_res <= 1e-6):
+        faults.append("%d iterations (maxiter %d, refine %d), true residual "
+                      "%.3e > 1e-6" % (info.iters, maxiter, refine,
+                                       true_res))
+    # BF1 and BF1h at most twice the main path's 12; BF2 at most three
+    # times the float32 hierarchy's count under the same call: its
+    # left-preconditioned solves stop at the preconditioned residual, and
+    # the refinement then takes up to 1 + refine of them where the float32
+    # hierarchy takes two (PERF.md §6)
+    if label in ("BF1", "BF1h") and info.iters > 2 * ITERS_EXPECTED:
+        faults.append("%d iterations, more than twice the main path's %d"
+                      % (info.iters, ITERS_EXPECTED))
+    if label == "BF2" and info.iters > 3 * iters32:
+        faults.append("%d iterations, more than three times the float32 "
+                      "hierarchy's %d" % (info.iters, iters32))
+    if any(plain_calls.values()):
+        faults.append("plain versions ran: %s" % plain_calls)
+    for k in BF_KERNELS[label]:
+        if counts[k] == 0:
+            faults.append("bfloat16 mode %s never launched" % k)
+    for f in faults:
+        failures.append("%s: %s" % (label, f))
+    busy = profile_solve(solve, rhs, info.wall_time_s * 1e3)
+    return split, {"setup_s": t_setup, "cold_solve_s": cold,
+                   "warm_solve_s": info.wall_time_s, "iters": info.iters,
+                   "resid": info.resid, "true_resid": true_res,
+                   "iters_float32": iters32,
+                   "bytes": nbytes, "bytes_float32": bytes32,
+                   "peak_mb": peak / 2**20, "peak_float32_mb":
+                   None if peak32 is None else peak32 / 2**20,
+                   "busy": busy}, solve
+
+
+def bf16_ulps(a, b):
+    """The largest distance between two bfloat16 tensors in units in the
+    last place: their bit patterns mapped to integers in value order."""
+    def key(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+    return int((key(a) - key(b)).abs().max()) if a.numel() else 0
+
+
+def check_bf16_kernels(bf1, bf2, failures):
+    """Each bfloat16 mode against its plain version on the paths' own
+    operators: B.1 and B.2 on BF1's L0 and L1 (A, M, Mᵀ), the fused legs
+    at BF1's L0 and L1, B.8 and B.9 on BF2's L0 (A, M, Mᵀ), random
+    bfloat16 vectors. |Δ| ≤ u · Σ|terms| per entry (u = 2⁻⁸; the modes
+    round as their plain versions, so the ULP report is expected to be
+    0), timed as in check_kernels with the bound in bfloat16 bytes.
+    Returns the records, keyed ``<name>.bf16``."""
+    from amgcl_tpu_torch.ops import device as dev
+    from amgcl_tpu_torch.ops import vcycle_kernels as vk
+    from amgcl_tpu_torch.ops import well_kernels as wk
+    W = wrappers()
+    rng = np.random.RandomState(20261019)
+    bf = torch.bfloat16
+    L, U = bf1.precond.hierarchy.levels, bf2.precond.hierarchy.levels
+
+    def vec(n):
+        return torch.as_tensor(rng.standard_normal(n)).to(device="cuda",
+                                                           dtype=bf)
+    cases = [("dia_spmv", "BF1 L0 A", L[0].A), ("dia_spmv", "BF1 L1 A",
+                                                L[1].A),
+             ("dia_residual", "BF1 L0 A", L[0].A),
+             ("dia_residual", "BF1 L1 A", L[1].A),
+             ("dia_residual", "BF1 L0 M", L[0].P.M),
+             ("dia_residual", "BF1 L0 Mt", L[0].R.Mt),
+             ("dia_scaled_correction", "BF1 L0 A", L[0].A),
+             ("dia_scaled_correction", "BF1 L1 A", L[1].A),
+             ("windowed_ell_spmv", "BF2 L0 A", U[0].A),
+             ("windowed_ell_residual", "BF2 L0 A", U[0].A),
+             ("windowed_ell_residual", "BF2 L0 M", U[0].P.M),
+             ("windowed_ell_residual", "BF2 L0 Mt", U[0].R.Mt),
+             ("windowed_ell_scaled_correction", "BF2 L0 A", U[0].A)]
+    weights = {"BF1 L0 A": L[0].relax.scale, "BF1 L1 A": L[1].relax.scale,
+               "BF2 L0 A": U[0].relax.scale}
+    records = {}
+
+    def record(key, label, r, ulps, shape):
+        print("%-36s %-10s err %.3e (tol %.3e)  ulps %d  ms %.4f  plain "
+              "%.4f  library %s  bound %.4f (%s)  %s"
+              % (key, label, r["max_abs_err"], r["tol"], ulps, r["ms"],
+                 r["plain_ms"], "%.4f" % r["library_ms"]
+                 if r["library_ms"] is not None else "none", r["bound_ms"],
+                 r["bound_by"], "ok" if r["ok"] else "FAIL"))
+        if not r["ok"]:
+            failures.append("%s %s disagrees with its plain version"
+                            % (key, label))
+        if key not in records:       # the first case: the path's L0
+            records[key] = {k: r[k] for k in RECORD_KEYS}
+            records[key].update(ulps=ulps, shape=shape)
+        else:
+            records[key].setdefault("more", {})[label] = {
+                "ms": r["ms"], "ulps": ulps, "bound_ms": r["bound_ms"]}
+
+    for name, label, M in cases:
+        kern, plain = W[name]
+        n, m = M.shape
+        x, f = vec(m), vec(n)
+        w = weights.get(label)
+        lib = None
+        if hasattr(M, "window_starts"):
+            geo = (M.window_starts, M.cols_local, M.vals)
+            fmt_bytes = n * M.K * (2 + 4) + M.window_starts.numel() * 4
+            nnz = int((M.vals != 0).sum())
+            terms = wk.windowed_ell_spmv_plain(
+                M.window_starts, M.cols_local, M.vals.abs().float(),
+                x.abs().float(), n)
+            args = {"windowed_ell_spmv": geo + (x, n),
+                    "windowed_ell_residual": geo + (f, x, n),
+                    "windowed_ell_scaled_correction":
+                        geo + (w, f, x, n)}[name]
+            shape = "%s %dx%d, K %d, window %d, bfloat16" % (
+                label, n, m, M.K, M.win)
+        else:
+            off = M.offsets_t
+            fmt_bytes = M.data.numel() * 2
+            nnz = live_entries(M)
+            terms = dev.DiaMatrix(M.offsets, M.data.abs().float(),
+                                  M.shape).mv(x.abs().float())
+            args = {"dia_spmv": (off, M.data, x),
+                    "dia_residual": (off, M.data, f, x),
+                    "dia_scaled_correction": (off, M.data, w, f, x)}[name]
+            shape = "%s %dx%d, %d diagonals, bfloat16" % (
+                label, n, m, len(M.offsets))
+        # Σ|terms| of each entry, in float32
+        if name.endswith("spmv"):
+            scale = terms
+            nbytes, ops = fmt_bytes + (m + n) * 2, 2 * nnz
+            C = library_csr(M)
+            lib = lambda: torch.mv(C, x)
+        elif name.endswith("residual"):
+            scale = terms + f.abs().float()
+            nbytes, ops = fmt_bytes + (m + 2 * n) * 2, 2 * nnz + n
+            C = library_csr(M)
+            lib = lambda: torch.addmv(f, C, x, alpha=-1.0)
+        else:
+            scale = w.abs().float() * (terms + f.abs().float()) \
+                + x.abs().float()
+            nbytes, ops = fmt_bytes + (m + 3 * n) * 2, 2 * nnz + 3 * n
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        ok = bool(((got.float() - want.float()).abs()
+                   <= BF16_U * scale).all())
+        r = {"max_abs_err": err, "ok": ok, "tol": BF16_U * float(scale.max()),
+             "ms": time_ms(lambda: kern(*args)),
+             "plain_ms": time_ms(lambda: plain(*args)), "library_ms": None}
+        if lib is not None:
+            try:
+                r["library_ms"] = time_ms(lib)
+            except RuntimeError as e:      # a yardstick, not the port
+                print("library call for %s.bf16 unavailable: %s"
+                      % (name, str(e).splitlines()[0]))
+        r["bound_ms"], r["bound_by"] = bound(nbytes, ops, bf)
+        record(name + ".bf16", label, r, bf16_ulps(got, want), shape)
+
+    # the fused legs at BF1's L0 and L1: zero guess (the path's mode),
+    # base and up
+    for i in (0, 1):
+        lv = L[i]
+        A, M, Mt, w, T = lv.A, lv.P.M, lv.R.Mt, lv.relax.scale, lv.R.T
+        if lv.down is None or lv.up is None:
+            failures.append("BF1 L%d: no fused legs to check" % i)
+            continue
+        dims, (n, nc) = T.fine, T.shape
+        f, u, uc = vec(n), vec(n), vec(nc)
+        f32 = lambda t: t.abs().float()
+        for mode in ("zero", "base", "up"):
+            if mode == "up":
+                name = "fused_up_sweep"
+                args = (A.offsets, A.data, M.offsets, M.data, w, f, u, uc,
+                        dims)
+                terms = vk.fused_up_sweep_plain(
+                    A.offsets_t, -f32(A.data), M.offsets_t, -f32(M.data),
+                    f32(w), f32(f), f32(u), f32(uc), dims)
+                nbytes = (A.data.numel() + M.data.numel() + 4 * n + nc) * 2
+                ops = 2 * (live_entries(A) + live_entries(M)) + 4 * n
+                nops = len(M.offsets)
+            else:
+                name = "fused_down_sweep"
+                zero = mode == "zero"
+                xw = w if zero else u
+                args = (A.offsets, A.data, Mt.offsets, Mt.data, f, xw, dims,
+                        zero)
+                terms = vk.fused_down_sweep_plain(
+                    A.offsets_t, -f32(A.data), Mt.offsets_t, -f32(Mt.data),
+                    f32(f), f32(xw), dims, zero)
+                nbytes = (A.data.numel() + Mt.data.numel() + 2 * n + nc
+                          + (n if zero else 0)) * 2
+                ops = 2 * (live_entries(A) + live_entries(Mt)) + n \
+                    + (n if zero else 0)
+                nops = len(Mt.offsets)
+            kern, plain = W[name]
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            trip = list(zip(*(v if isinstance(v, tuple) else (v,)
+                              for v in (got, want, terms))))
+            err = max(float((g.float() - p_.float()).abs().max())
+                      for g, p_, _ in trip)
+            ok = all(bool(((g.float() - p_.float()).abs()
+                           <= BF16_U * t).all()) for g, p_, t in trip)
+            r = {"max_abs_err": err, "ok": ok,
+                 "tol": max(BF16_U * float(t.max()) for _, _, t in trip),
+                 "ms": time_ms(lambda: kern(*args)),
+                 "plain_ms": time_ms(lambda: plain(*args)),
+                 "library_ms": None}
+            r["bound_ms"], r["bound_by"] = bound(nbytes, ops, bf)
+            ulps = max(bf16_ulps(g, p_) for g, p_, _ in trip)
+            label = "BF1 L%d %s" % (i, mode)
+            record(name + ".bf16", label, r, ulps,
+                   "%s, fine %s, %d + %d diagonals, bfloat16, tile %s" % (
+                       label, "x".join(map(str, dims)), len(A.offsets), nops,
+                       (vk.up_tile(A.offsets, M.offsets, dims, bf)
+                        if mode == "up" else
+                        vk.down_tile(A.offsets, Mt.offsets, dims, bf)),))
+    return records
+
+
+def bf16_family(failures, only=None):
+    """Phase 12: the paths of BF_PATHS, each system made once, then every
+    bfloat16 mode held against its plain version on BF1's and BF2's
+    operators. Returns ({label: counts}, {label: summary}, records)."""
+    from amgcl_tpu_torch import fe_like_problem, poisson3d
+    t_phase = time.perf_counter()
+    counts, summary, keep = {}, {}, {}
+    for system, make in (("poisson", lambda: poisson3d(128)),
+                         ("fe", fe_like_problem)):
+        labels = [p for p, v in BF_PATHS.items() if v[0] == system
+                  and (only is None or p in only)]
+        if not labels:
+            continue
+        A, rhs = make()
+        for label in labels:
+            t0 = time.perf_counter()
+            counts[label], summary[label], solve = bf_path(label, A, rhs,
+                                                           failures)
+            summary[label]["path_s"] = time.perf_counter() - t0
+            print("[%s] path: %.1f s" % (label, summary[label]["path_s"]))
+            if label in ("BF1", "BF2"):
+                keep[label] = solve
+            del solve
+            gc.collect()
+            torch.cuda.empty_cache()
+        del A
+        gc.collect()
+    records = {}
+    if "BF1" in keep and "BF2" in keep:
+        records = check_bf16_kernels(keep["BF1"], keep["BF2"], failures)
+    del keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 12: %.1f s" % (time.perf_counter() - t_phase))
+    return counts, summary, records
+
+
 def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2996,11 +3442,12 @@ def main(argv=()):
     print("kernel build: %.2f s (nvcc, %s)"
           % (time.perf_counter() - t0, " + ".join(cuda_lib.SOURCES)))
     failures = []
-    if argv and argv[0] in ("--phase10", "--phase11"):
-        # phase 10 or 11 alone, for the paths named (all without names);
-        # no result line
-        family = a8_family if argv[0] == "--phase10" else a9_family
-        _, summary = family(failures, set(argv[1:]) or None)
+    if argv and argv[0] in ("--phase10", "--phase11", "--phase12"):
+        # phase 10, 11 or 12 alone, for the paths named (all without
+        # names); no result line
+        family = {"--phase10": a8_family, "--phase11": a9_family,
+                  "--phase12": bf16_family}[argv[0]]
+        summary = family(failures, set(argv[1:]) or None)[1]
         print("%s paths: %s" % (argv[0][2:], json.dumps(summary)))
         for f in failures:
             print("FAIL: %s" % f, file=sys.stderr)
@@ -3053,15 +3500,26 @@ def main(argv=()):
     print("phase 10 paths: %s" % json.dumps(a_summary))
     n_counts, n_summary = a9_family(failures)
     print("phase 11 paths: %s" % json.dumps(n_summary))
+    bf_counts, bf_summary, bf_records = bf16_family(failures)
+    records.update(bf_records)
+    print("phase 12 paths: %s" % json.dumps(bf_summary))
     kernels = []
     for name in REPLACES:
-        rec = records[name]
+        rec = records.get(name)
+        if rec is None:
+            failures.append("kernel %s has no record" % name)
+            continue
+        # phase 12's counts split by dtype (by_dtype): a kernel's float32
+        # and float64 launches there, or its bfloat16 ones
+        phase12 = {p: c[name] for p, c in bf_counts.items()}
         later = {"D2": d_counts[name], "K1": k_counts[name],
                  **{p: c[name] for p, c in g_counts.items()},
                  "S1": s_counts[name],
                  **{p: c[name] for p, c in a_counts.items()},
-                 **{p: c[name] for p, c in n_counts.items()}}
-        if name in FRAMED:
+                 **{p: c[name] for p, c in n_counts.items()}, **phase12}
+        if name.endswith(".bf16"):
+            by_path = phase12
+        elif name in FRAMED:
             by_path = {"S1": s_counts[name], "S1j": a_counts["S1j"][name]}
         elif name in UNSTRUCTURED:
             by_path = {"U1": u_counts["U1"][name],

@@ -12,7 +12,8 @@ one line ``AB {json}``: the median device time in ms (chip_smoke.py's
 ``time_ms``: CUDA events, L2 flushed before each of 20 calls) of
 ``windowed_ell_spmv`` at U2's and U1's L0, ``windowed_ell_residual``,
 ``windowed_ell_scaled_correction`` and ``windowed_ell_spmv_dots`` (with
-w) at U1's L0, and ``dense_window_spmv``, ``dense_window_residual`` and
+w) at U1's L0 (each with its output's digest, and digested again on U1's
+L0 in float64), and ``dense_window_spmv``, ``dense_window_residual`` and
 ``dense_window_scaled_correction`` at D2's L0, with ``torch.bmm`` over
 the gathered x windows beside them; every mode of the block windowed ELL
 at B1's L0 A, L0 R and L1 A in float32 and L0 A in float64 (the
@@ -444,19 +445,24 @@ def other_cases(out):
 
     def vec():
         return torch.as_tensor(rng.standard_normal(n)).float().cuda()
-    for name, C in (("U2 L0", Ap), ("U1 L0", A)):
-        M = csr_to_windowed_ell(C, torch.float32, device="cuda")
+    for name, C, dt in (("U2 L0", Ap, torch.float32),
+                        ("U1 L0", A, torch.float32),
+                        ("U1 L0 f64", A, torch.float64)):
+        M = csr_to_windowed_ell(C, dt, device="cuda")
         g = (M.window_starts, M.cols_local, M.vals)
-        x, f, w = vec(), vec(), vec()
-        out[name + " spmv"] = time_ms(
-            lambda: wk.windowed_ell_spmv(*g, x, n))
-        if name == "U1 L0":
-            out[name + " residual"] = time_ms(
-                lambda: wk.windowed_ell_residual(*g, f, x, n))
-            out[name + " correction"] = time_ms(
-                lambda: wk.windowed_ell_scaled_correction(*g, w, f, x, n))
-            out[name + " spmv_dots w"] = time_ms(
-                lambda: wk.windowed_ell_spmv_dots(*g, x, w, n))
+        x, f, w = (v.to(dt) for v in (vec(), vec(), vec()))
+        calls = {"spmv": lambda: wk.windowed_ell_spmv(*g, x, n)}
+        if name != "U2 L0":
+            calls.update({
+                "residual": lambda: wk.windowed_ell_residual(*g, f, x, n),
+                "correction": lambda: wk.windowed_ell_scaled_correction(
+                    *g, w, f, x, n),
+                "spmv_dots w": lambda: wk.windowed_ell_spmv_dots(*g, x, w,
+                                                                 n)})
+        for mode, fn in calls.items():
+            if dt == torch.float32:
+                out["%s %s" % (name, mode)] = time_ms(fn)
+            out["%s %s digest" % (name, mode)] = digest(fn())
         del M, g
     D = csr_to_dense_window(Ap, torch.float32, device="cuda")
     st, B = D.window_starts, D.blocks

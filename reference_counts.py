@@ -4,6 +4,8 @@ compositions of chip_smoke.py's phase 11.
 
     JAX_PLATFORMS=cpu python reference_counts.py [ROWS]
     JAX_PLATFORMS=cpu python reference_counts.py --a9
+    JAX_PLATFORMS=cpu python reference_counts.py --a14
+    JAX_PLATFORMS=cpu python reference_counts.py --a14-sides
 
 ``fe_like_problem(ROWS)`` (12,000 rows by default, U1's nonzeros a row)
 with each of ILU(0), ILU(k=1) and ILU(p=1) under
@@ -21,6 +23,21 @@ U1's nonzeros a row, stokes_like(128), reservoir_like(24, 3),
 poisson3d_block(16, 3)), in both packages: one line per path with both
 iteration counts (summed over refinement) and reported residuals. RB1's
 rebuild steps and CP1's rebuild are left out.
+
+``--a14`` runs bfloat16 hierarchies under a float32 Krylov loop
+(``AMGParams(dtype=bfloat16)``, ``solver_dtype=float32``) in both
+packages at reduced sizes: chip_smoke.py's BF1 configuration on
+poisson3d(32) and poisson3d(48), the JAX package's own bfloat16 test
+(tests/test_amg.py, poisson3d(12)), fe_like_problem(12000) under
+right-preconditioned ``BiCGStab(maxiter=200, tol=1e-6)`` without
+refinement, and BF2's own call (left side, refine=3) on U1's system cut
+to 12,000 rows: one line per case with both iteration counts and
+reported residuals. ``--a14-sides`` runs that bfloat16 hierarchy on
+fe_like_problem(12000) (the default nonzeros a row, and U1's) under
+BiCGStab right- and left-preconditioned, without and with refine=3, on
+the rhs and five rhs perturbed by 1e-6 relative: one line of both
+packages' counts per case (the spread of a count under such a
+perturbation).
 """
 
 import sys
@@ -123,6 +140,101 @@ def a9():
     return 0
 
 
+def a14_cases():
+    """(label, system, JAX bundle maker, port bundle maker, rhs) of the
+    bfloat16 hierarchies at reduced sizes (module docstring)."""
+    from amgcl_tpu.solver.cg import CG as RefCG
+    bf = dict(solver_dtype=jnp.float32)
+    cases = []
+    for n in (32, 48):
+        A, rhs = T.poisson3d(n)
+        cases.append((
+            "BF1", "poisson3d(%d), CG(maxiter=100, tol=1e-6), refine=3" % n,
+            A, rhs,
+            lambda Ar: ref_make_solver(Ar, RefParams(dtype=jnp.bfloat16),
+                                       RefCG(maxiter=100, tol=1e-6),
+                                       refine=3, **bf),
+            lambda A: T.make_solver(A, T.AMGParams(dtype=torch.bfloat16),
+                                    T.CG(maxiter=100, tol=1e-6), refine=3,
+                                    solver_dtype=torch.float32,
+                                    device="cpu")))
+    A, rhs = T.poisson3d(12)
+    cases.append((
+        "amg", "poisson3d(12), CG(maxiter=200, tol=1e-5)", A, rhs,
+        lambda Ar: ref_make_solver(Ar, RefParams(dtype=jnp.bfloat16),
+                                   RefCG(maxiter=200, tol=1e-5), **bf),
+        lambda A: T.make_solver(A, T.AMGParams(dtype=torch.bfloat16),
+                                T.CG(maxiter=200, tol=1e-5),
+                                solver_dtype=torch.float32, device="cpu")))
+    A, rhs = T.fe_like_problem(12000)
+    cases.append((
+        "BF2", "fe_like_problem(12000), BiCGStab(maxiter=200, tol=1e-6)",
+        A, rhs,
+        lambda Ar: ref_make_solver(Ar, RefParams(dtype=jnp.bfloat16),
+                                   RefBiCGStab(maxiter=200, tol=1e-6), **bf),
+        lambda A: T.make_solver(A, T.AMGParams(dtype=torch.bfloat16),
+                                T.BiCGStab(maxiter=200, tol=1e-6),
+                                solver_dtype=torch.float32, device="cpu")))
+    # BF2's own call (left side, refine=3) on U1's system cut to 12,000
+    # rows with U1's nonzeros a row
+    A, rhs = T.fe_like_problem(12000, nnz_target=int(U1_NNZ_PER_ROW * 12000))
+    kw = dict(maxiter=100, tol=1e-6, precond_side="left")
+    cases.append((
+        "BF2", "U1's system cut to 12,000 rows, BiCGStab(maxiter=100, "
+        "tol=1e-6, precond_side='left'), refine=3", A, rhs,
+        lambda Ar: ref_make_solver(Ar, RefParams(dtype=jnp.bfloat16),
+                                   RefBiCGStab(**kw), refine=3, **bf),
+        lambda A: T.make_solver(A, T.AMGParams(dtype=torch.bfloat16),
+                                T.BiCGStab(**kw), refine=3,
+                                solver_dtype=torch.float32, device="cpu")))
+    return cases
+
+
+def a14():
+    """The bfloat16 lines (module docstring)."""
+    for label, config, A, rhs, ref, port in a14_cases():
+        _, info_r = ref(RefCSR(A.ptr, A.col, A.val, A.ncols))(rhs)
+        _, info = port(A)(rhs)
+        print("%-4s %s, bfloat16 hierarchy under float32: JAX %d iterations "
+              "(resid %.2e), port %d (resid %.2e)" % (
+                  label, config, info_r.iters, info_r.resid, info.iters,
+                  info.resid), flush=True)
+    return 0
+
+
+def a14_sides():
+    """The bfloat16 hierarchy under BiCGStab on fe_like_problem(12000)
+    (the default nonzeros a row and U1's), right- and left-preconditioned,
+    without and with refinement: both packages' counts on the system's
+    rhs and on five rhs perturbed by 1e-6 relative (module docstring)."""
+    import numpy as np
+    for label, (A, rhs) in (
+            ("fe_like_problem(12000)", T.fe_like_problem(12000)),
+            ("U1's nonzeros a row", T.fe_like_problem(
+                12000, nnz_target=int(U1_NNZ_PER_ROW * 12000)))):
+        Ar = RefCSR(A.ptr, A.col, A.val, A.ncols)
+        for side in ("right", "left"):
+            for refine in (0, 3):
+                kw = dict(maxiter=100, tol=1e-6, precond_side=side)
+                ref = ref_make_solver(Ar, RefParams(dtype=jnp.bfloat16),
+                                      RefBiCGStab(**kw), refine=refine,
+                                      solver_dtype=jnp.float32)
+                port = T.make_solver(A, T.AMGParams(dtype=torch.bfloat16),
+                                     T.BiCGStab(**kw), refine=refine,
+                                     solver_dtype=torch.float32,
+                                     device="cpu")
+                rng = np.random.RandomState(0)
+                counts = []
+                for k in range(6):
+                    b = rhs * (1 + (1e-6 * rng.standard_normal(len(rhs))
+                                    if k else 0))
+                    counts.append((ref(b)[1].iters, port(b)[1].iters))
+                print("%s, %s side, refine %d: JAX %s, port %s" % (
+                    label, side, refine, [c[0] for c in counts],
+                    [c[1] for c in counts]), flush=True)
+    return 0
+
+
 def main(rows=12000):
     jax.config.update("jax_enable_x64", True)
     A, rhs = T.fe_like_problem(rows, nnz_target=int(U1_NNZ_PER_ROW * rows))
@@ -150,4 +262,10 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--a9"]:
         jax.config.update("jax_enable_x64", True)
         sys.exit(a9())
+    if sys.argv[1:] == ["--a14"]:
+        jax.config.update("jax_enable_x64", True)
+        sys.exit(a14())
+    if sys.argv[1:] == ["--a14-sides"]:
+        jax.config.update("jax_enable_x64", True)
+        sys.exit(a14_sides())
     sys.exit(main(*(int(a) for a in sys.argv[1:])))

@@ -37,7 +37,11 @@ npost = 0 on a hierarchy built on the card. The framed fused legs on
 frames whose halos hold values on both sides, a halo wider than the
 operators reach, a halo of two coarse planes and one-sided offsets,
 bit-identical to the base legs on a zero frame, their refusals, and a
-solve over four shards of one card against the same on the CPU.
+solve over four shards of one card against the same on the CPU. The
+bfloat16 modes of the DIA, fused-leg and scalar windowed-ELL kernels bit
+for bit with their plain versions at the same edges, the leg tiles
+planned in bfloat16 bytes, the refusals of the kernels without one, and
+a bfloat16 hierarchy's solve on the card against the CPU.
 
 Every test needs an NVIDIA card and skips without one. On the card, from
 the repo root (the suite's conftest imports JAX, which the port's machine
@@ -2396,3 +2400,156 @@ def test_smoother_and_coarsening_on_card_match_cpu(cuda, name):
     assert runs["cpu"][0] == runs["cuda"][0]
     x, x_cpu = runs["cuda"][1], runs["cpu"][1]
     assert np.linalg.norm(x - x_cpu) <= 1e-8 * np.linalg.norm(x_cpu)
+
+
+# -- the bfloat16 modes (B.1, B.2, the fused legs, B.8, B.9) ------------------
+
+_BF = torch.bfloat16
+
+
+def _to_bf16(*ts):
+    return [t.to(_BF) if t.is_floating_point() else t for t in ts]
+
+
+def _equal_bf16(kern, plain, args):
+    """The bfloat16 mode of ``kern`` equal, bit for bit, to its plain
+    version (each rounds every operation alike), one bfloat16 launch."""
+    launches = kern.bf16_launches
+    got, want = kern(*args), plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, p in zip(got, want):
+        assert g.dtype == _BF and g.device.type == "cuda"
+        assert torch.equal(g, p), float((g.float() - p.float()).abs().max())
+    assert kern.bf16_launches == launches + 1
+
+
+@pytest.mark.parametrize("n,m,offsets", [(n, n, o) for n, o in _SQUARE]
+                         + [(4096, 1000, (-40, -8, -1, 0, 3, 40, 900)),
+                            (1000, 4096, (-40, -8, -1, 0, 3, 40, 900))])
+def test_bf16_dia_modes_equal_plain(cuda, n, m, offsets):
+    off, data, x, f, w = _to_bf16(*_dia(n, m, offsets, torch.float32, cuda))
+    _equal_bf16(dk.dia_spmv, dk.dia_spmv_plain, (off, data, x))
+    _equal_bf16(dk.dia_residual, dk.dia_residual_plain, (off, data, f, x))
+    if n == m:
+        _equal_bf16(dk.dia_scaled_correction, dk.dia_scaled_correction_plain,
+                    (off, data, w, f, x))
+
+
+@pytest.mark.parametrize("name", sorted(_LEG_CASES))
+def test_bf16_fused_legs_equal_plain(cuda, name):
+    dims, leg = _case(name, cuda)
+    oa, a, om, m, w, f, u, uc = _to_bf16(*leg)
+    oa_h, om_h = tuple(oa.tolist()), tuple(om.tolist())
+    for zero in (False, True):
+        _equal_bf16(vk.fused_down_sweep, vk.fused_down_sweep_plain,
+                    (oa_h, a, om_h, m, f, w if zero else u, dims, zero))
+    if dims[0] % 2 == 0:
+        _equal_bf16(vk.fused_up_sweep, vk.fused_up_sweep_plain,
+                    (oa_h, a, om_h, m, w, f, u, uc, dims))
+
+
+def test_bf16_leg_tiles_are_planned_in_bytes(cuda):
+    """A 7-point level too wide for the float32 up leg's boxes (a grid row
+    of 1,700 points) fits in bfloat16, whose boxes take half the bytes,
+    and the kernel agrees with its plain version there."""
+    dims = (2, 4, 1700)
+    offs = _plane_offsets(dims)
+    assert vk.up_tile(offs, offs, dims) is None
+    assert vk.up_tile(offs, offs, dims, _BF) is not None
+    oa, a, om, m, w, f, u, uc = _to_bf16(*_leg(dims, offs, offs, cuda))
+    _equal_bf16(vk.fused_up_sweep, vk.fused_up_sweep_plain,
+                (offs, a, offs, m, w, f, u, uc, dims))
+
+
+@pytest.mark.parametrize("n,m,K,empty", _WELL_CASES
+                         + [(n, n, K, None) for n, K in _WELL_EDGE_CASES])
+def test_bf16_well_modes_equal_plain(cuda, n, m, K, empty):
+    st, cl, v, x, f, w = _well(n, m, K, _BF, cuda, seed=K, empty=empty)
+    _equal_bf16(wk.windowed_ell_spmv, wk.windowed_ell_spmv_plain,
+                (st, cl, v, x, n))
+    _equal_bf16(wk.windowed_ell_residual, wk.windowed_ell_residual_plain,
+                (st, cl, v, f, x, n))
+    _equal_bf16(wk.windowed_ell_scaled_correction,
+                wk.windowed_ell_scaled_correction_plain,
+                (st, cl, v, w, f, x, n))
+
+
+@pytest.mark.parametrize("which", ["dia_dots", "well_dots", "well_block",
+                                   "gather", "dwin", "framed_down",
+                                   "framed_up"])
+def test_bf16_kernels_without_a_mode_refuse(cuda, which):
+    """A kernel with no bfloat16 mode raises on bfloat16 operands: it
+    neither launches nor runs its plain version."""
+    with pytest.raises(ValueError, match="float32"):
+        if which == "dia_dots":
+            off, data, x, _, _ = _to_bf16(*_dia(300, 300, (-1, 0, 1),
+                                                torch.float32, cuda))
+            dk.dia_spmv_dots((-1, 0, 1), data, x)
+        elif which in ("well_dots", "gather"):
+            st, cl, v, x, _, _ = _well(3000, 3000, 8, _BF, cuda)
+            if which == "gather":
+                gk.gather_spmv(st, cl, v, x, 3000)
+            else:
+                wk.windowed_ell_spmv_dots(st, cl, v, x, None, 3000)
+        elif which == "well_block":
+            st, cl, v, _, _, _ = _well(300, 300, 4, _BF, cuda)
+            vb = v[..., None, None].expand(*v.shape, 2, 2).contiguous()
+            wbk.windowed_ell_block_spmv(st, cl, vb, torch.zeros(
+                600, dtype=_BF, device=cuda), 300)
+        elif which == "dwin":
+            blocks = torch.zeros((1, 64, 1024), dtype=_BF, device=cuda)
+            dwk.dense_window_spmv(torch.zeros(1, dtype=torch.int32,
+                                              device=cuda), blocks,
+                                  torch.zeros(1024, dtype=_BF, device=cuda),
+                                  64)
+        else:
+            dims = (4, 4, 8)
+            offs = _plane_offsets(dims)
+            n, H = 128, 64
+            fr = torch.zeros((len(offs), n + 2 * H), dtype=_BF, device=cuda)
+            v = torch.zeros(n + 2 * H, dtype=_BF, device=cuda)
+            if which == "framed_down":
+                vk.fused_down_sweep_framed(offs, fr, offs, fr, v, v, dims, H)
+            else:
+                hp = 2
+                Lm = n + 2 * hp * 2 * 32
+                a = torch.zeros((len(offs), n), dtype=_BF, device=cuda)
+                mf = torch.zeros((len(offs), Lm), dtype=_BF, device=cuda)
+                vn = torch.zeros(n, dtype=_BF, device=cuda)
+                vk.fused_up_sweep_framed(
+                    offs, a, offs, mf, vn, vn,
+                    torch.zeros(Lm, dtype=_BF, device=cuda),
+                    torch.zeros((2 + 2 * hp) * 2 * 4, dtype=_BF,
+                                device=cuda), dims, hp)
+
+
+def test_bf16_solve_on_card_matches_cpu(cuda):
+    """poisson3d(24) with a bfloat16 hierarchy under a float32 CG, built
+    on the card and on the CPU (the device build on both): the V-cycle's
+    bfloat16 modes round as their plain versions, the float32 Krylov
+    kernels sum in their own order, so the iterations agree within one;
+    both meet the tolerance, and no plain version runs on the card."""
+    from amgcl_tpu_torch import AMGParams, CG, make_solver, poisson3d
+    A, rhs = poisson3d(24)
+    runs = {}
+    for device in ("cpu", cuda):
+        solve = make_solver(A, AMGParams(dtype=_BF),
+                            CG(maxiter=100, tol=1e-6), refine=3,
+                            solver_dtype=torch.float32, device=device,
+                            device_setup=True)
+        lv = solve.precond.hierarchy.levels[0]
+        assert lv.A.dtype == _BF and lv.down is not None
+        calls = [p.calls for p in (dk.dia_residual_plain,
+                                   vk.fused_down_sweep_plain,
+                                   vk.fused_up_sweep_plain)]
+        x, info = solve(rhs)
+        if device != "cpu":
+            assert [p.calls for p in (dk.dia_residual_plain,
+                                      vk.fused_down_sweep_plain,
+                                      vk.fused_up_sweep_plain)] == calls
+        runs[torch.device(device).type] = (info.iters,
+                                           x.double().cpu().numpy())
+    assert abs(runs["cuda"][0] - runs["cpu"][0]) <= 1
+    x = runs["cuda"][1]
+    assert np.linalg.norm(rhs - A.spmv(x)) / np.linalg.norm(rhs) <= 1e-6

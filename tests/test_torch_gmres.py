@@ -202,6 +202,28 @@ def test_float32_matches_jax(name, solver):
     assert max(resid, info_r.resid) <= kw["tol"]
 
 
+def test_idrs_replacement_field_as_in_jax():
+    """IDR(s)'s ``replacement`` field, kept unused for interface parity as
+    the JAX package keeps it (amgcl_tpu/solver/idrs.py:54): the same
+    field list in the same order (the port's shadow last), and
+    ``IDRs(replacement=True)`` solves as the JAX package's does on an
+    identical float64 hierarchy and shadow block."""
+    import dataclasses
+    ref_fields = [f.name for f in dataclasses.fields(ref_idrs.IDRs)]
+    port_fields = [f.name for f in dataclasses.fields(T.IDRs)]
+    assert port_fields == ref_fields + ["shadow"]
+    A, A_ref, rhs, ref, hier = _cached("poisson", "float64")
+    kw = dict(tol=1e-8, replacement=True)
+    ref_solver, port = _pair("IDRs", kw, A.nrows)
+    assert port.replacement is True
+    x_r, info_r = ref_make_solver(A_ref, ref, ref_solver)(rhs)
+    x, iters, resid, hs = port.solve(hier.system_matrix, hier.apply,
+                                     torch.as_tensor(rhs))
+    x_r = np.asarray(x_r, np.float64)
+    assert iters == info_r.iters and hs.flags == 0
+    assert np.linalg.norm(x.numpy() - x_r) <= 1e-10 * np.linalg.norm(x_r)
+
+
 def test_maxiter_cap_mid_cycle_matches_jax():
     """maxiter is tested between restart cycles only: GMRES(5) with
     maxiter 12 starts a third cycle at 10 and ends at 15, as the JAX

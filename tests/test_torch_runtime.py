@@ -120,6 +120,23 @@ def test_unknown_keys_warn_and_unknown_types_raise_as_in_jax():
     assert sorted(P.DTYPES) == sorted(R.DTYPES)
 
 
+def test_idrs_replacement_key_is_kept_as_in_jax():
+    """``{"type": "idrs", "replacement": true}`` through the runtime
+    configuration: no "unknown parameter" warning, the key kept on the
+    solver, as the JAX package keeps it."""
+    import warnings
+    A, _ = T.poisson3d(6)
+    cfg = {"solver": {"type": "idrs", "replacement": True}}
+    ref = R.make_solver_from_config(_ref(A), cfg)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = P.make_solver_from_config(A, cfg, device="cpu")
+    assert got.solver.replacement is True
+    assert ref.solver.replacement is True
+    assert P.solver_from_params({"type": "idrs", "replacement": "true"}) \
+        .replacement is True
+
+
 @pytest.mark.parametrize("pattern,expected", [("%3:4", [3, 7]),
                                               (">5", [5, 6, 7]),
                                               ("<2", [0, 1])])
@@ -136,14 +153,17 @@ def test_what_is_not_ported_raises(what):
     naming its ROADMAP item; it does not run in another dtype or
     solver."""
     A, _ = T.poisson3d(6)
-    item = {"blockcg": "A.11", "bfloat16": "A.14", "AMG bfloat16": "A.14"} \
+    # "bfloat16": a bfloat16 hierarchy with its default, bfloat16, Krylov
+    # loop (B.17); "AMG bfloat16": one on block values (B.19)
+    item = {"blockcg": "A.11", "bfloat16": "B.17", "AMG bfloat16": "B.19"} \
         .get(what, "complex")
     with pytest.raises(NotImplementedError, match=item):
         if what == "blockcg":
             P.make_solver_from_config(A, {"solver.type": "blockcg"},
                                       device="cpu")
         elif what == "AMG bfloat16":
-            T.AMG(A, T.AMGParams(dtype=torch.bfloat16), device="cpu")
+            T.AMG(T.poisson3d_block(6, 3)[0],
+                  T.AMGParams(dtype=torch.bfloat16), device="cpu")
         else:
             P.make_solver_from_config(A, {"precond.dtype": what},
                                       device="cpu")
