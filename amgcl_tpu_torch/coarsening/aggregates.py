@@ -1,5 +1,10 @@
-"""Aggregates over the strength graph (counterpart of the host path of
+"""Aggregates over the strength graph (counterpart of
 ``amgcl_tpu/coarsening/aggregates.py``).
+
+A build whose setup runs on the device aggregates with the distance-2
+MIS rounds of :mod:`~amgcl_tpu_torch.coarsening.device_mis`, as the JAX
+package does on an accelerator; a host build takes the greedy pass
+below.
 
 The JAX package's host route aggregates with a greedy distance-2 pass —
 the reference's own algorithm (amgcl/coarsening/plain_aggregates.hpp:
@@ -169,20 +174,29 @@ def mis_aggregates(S: sp.csr_matrix, max_rounds: int = 1000):
     return agg, len(root_nodes)
 
 
-def plain_aggregates(A: CSR, eps_strong: float = 0.08):
+def plain_aggregates(A: CSR, eps_strong: float = 0.08, device=None):
     """Aggregates over the scalar strength graph of A (reference default
-    eps_strong = 0.08)."""
+    eps_strong = 0.08): the distance-2 MIS rounds of
+    :mod:`~amgcl_tpu_torch.coarsening.device_mis` on ``device`` when the
+    build's setup runs there (the JAX package's default on an
+    accelerator, amgcl_tpu/coarsening/aggregates.py:160-182), else the
+    greedy pass on the host (``device=None``)."""
+    if device is not None:
+        from amgcl_tpu_torch.coarsening.device_mis import \
+            aggregates_on_device
+        return aggregates_on_device(A, eps_strong, device)
     return greedy_aggregates(strength_graph(A, eps_strong))
 
 
 def pointwise_aggregates(A: CSR, eps_strong: float = 0.08,
-                         block_size: int = 1):
+                         block_size: int = 1, device=None):
     """Aggregates of a block system over its pointwise matrix, one value
     per block (amgcl/coarsening/pointwise_aggregates.hpp:54-197;
     counterpart of ``amgcl_tpu/coarsening/aggregates.py::
     pointwise_aggregates``): a BCSR, or a scalar matrix with
-    ``block_size``² blocks. ``agg`` indexes block rows."""
+    ``block_size``² blocks. ``agg`` indexes block rows; ``device`` as
+    :func:`plain_aggregates`."""
     if block_size == 1 and not A.is_block:
-        return plain_aggregates(A, eps_strong)
+        return plain_aggregates(A, eps_strong, device)
     b = A.block_size[0] if A.is_block else block_size
-    return plain_aggregates(pointwise_matrix(A, b), eps_strong)
+    return plain_aggregates(pointwise_matrix(A, b), eps_strong, device)

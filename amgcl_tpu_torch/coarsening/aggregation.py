@@ -41,6 +41,7 @@ class Aggregation:
         eps_strong = ctx.get("eps_strong", self.eps_strong)
         nullspace = ctx.get("nullspace", self.nullspace)
         setup_dtype = ctx.get("setup_dtype", self.setup_dtype)
+        setup_device = ctx.get("setup_device")
         if A.is_block and nullspace is not None:
             raise NotImplementedError(
                 "near-nullspace with block value types is not supported; "
@@ -61,13 +62,14 @@ class Aggregation:
                 if got is not None:
                     return got
         if bs > 1:
-            agg, n_agg = pointwise_aggregates(A, eps_strong, bs)
+            agg, n_agg = pointwise_aggregates(A, eps_strong, bs,
+                                              setup_device)
             n_pt = A.nrows if A.is_block else A.nrows // bs
         elif self.aggregator is not None:
             agg, n_agg = self.aggregator(scalar, eps_strong)
             n_pt = scalar.nrows
         else:
-            agg, n_agg = plain_aggregates(scalar, eps_strong)
+            agg, n_agg = plain_aggregates(scalar, eps_strong, setup_device)
             n_pt = scalar.nrows
         if n_agg == 0:
             raise CoarseningStall("empty coarse level (all rows isolated)")
@@ -84,4 +86,5 @@ class Aggregation:
                                                  stencil_coarse_operator)
         if isinstance(P, StencilTransfer):
             return stencil_coarse_operator(A, P, 1.0 / self.over_interp)
-        return scaled_galerkin(A, P, R, 1.0 / self.over_interp)
+        return scaled_galerkin(A, P, R, 1.0 / self.over_interp,
+                               ctx.get("setup_device"))

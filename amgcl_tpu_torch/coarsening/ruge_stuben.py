@@ -295,4 +295,4 @@ class RugeStuben:
         return Pc, Pc.transpose()
 
     def coarse_operator(self, A: CSR, P: CSR, R: CSR, ctx: dict) -> CSR:
-        return galerkin(A, P, R)
+        return galerkin(A, P, R, ctx.get("setup_device"))

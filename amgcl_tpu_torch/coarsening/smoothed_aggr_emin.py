@@ -41,10 +41,12 @@ class SmoothedAggrEMin:
         bs = A.block_size[0] if A.is_block else self.block_size
         ctx["eps_strong"] = eps_strong * 0.5
         if bs > 1:
-            agg, n_agg = pointwise_aggregates(A, eps_strong, bs)
+            agg, n_agg = pointwise_aggregates(A, eps_strong, bs,
+                                              ctx.get("setup_device"))
             n_pt = A.nrows if A.is_block else A.nrows // bs
         else:
-            agg, n_agg = plain_aggregates(scalar, eps_strong)
+            agg, n_agg = plain_aggregates(scalar, eps_strong,
+                                          ctx.get("setup_device"))
             n_pt = scalar.nrows
         if n_agg == 0:
             raise CoarseningStall("empty coarse level (all rows isolated)")
@@ -70,4 +72,4 @@ class SmoothedAggrEMin:
         return Pc, R
 
     def coarse_operator(self, A: CSR, P, R, ctx: dict) -> CSR:
-        return galerkin(A, P, R)
+        return galerkin(A, P, R, ctx.get("setup_device"))

@@ -19,8 +19,12 @@ filters and smooths in scalars, aggregates its pointwise matrix, and
 returns P and R as BCSR: the device stores them as block operators.
 ``nullspace`` (with :func:`~amgcl_tpu_torch.coarsening.rigid_body_modes.
 rigid_body_modes`) orthonormalizes the near-nullspace over each
-aggregate (``coarsening/tentative.py``). The JAX package's on-device
-smoothing plan is not ported; the host route gives the same P.
+aggregate (``coarsening/tentative.py``). A build whose setup runs on
+the device (``ctx["setup_device"]``) aggregates with the device MIS and,
+on a scalar level without a nullspace, smooths P through a segment-sum
+plan (``ops/segment_spgemm.py``, amgcl_tpu/coarsening/
+smoothed_aggregation.py:120-133) whose pattern keeps the identity's and
+A_f's entries where their values cancel.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from amgcl_tpu_torch.coarsening.aggregates import (plain_aggregates,
 from amgcl_tpu_torch.coarsening.tentative import tentative_prolongation
 from amgcl_tpu_torch.coarsening.galerkin import galerkin
 from amgcl_tpu_torch.coarsening.stall import CoarseningStall
+from amgcl_tpu_torch.ops.segment_spgemm import SmoothPlan
 
 
 @dataclass
@@ -61,6 +66,7 @@ class SmoothedAggregation:
         eps_strong = ctx.get("eps_strong", self.eps_strong)
         nullspace = ctx.get("nullspace", self.nullspace)
         setup_dtype = ctx.get("setup_dtype", self.setup_dtype)
+        setup_device = ctx.get("setup_device")
         if A.is_block and nullspace is not None:
             raise NotImplementedError(
                 "near-nullspace with block value types is not supported; "
@@ -104,22 +110,33 @@ class SmoothedAggregation:
             n_pt = scalar.nrows
             ctx["next_grid"] = coarse_dims
         elif bs > 1:
-            agg, n_agg = pointwise_aggregates(A, eps_strong, bs)
+            agg, n_agg = pointwise_aggregates(A, eps_strong, bs,
+                                              setup_device)
             n_pt = A.nrows if A.is_block else A.nrows // bs
         elif self.aggregator is not None:
             agg, n_agg = self.aggregator(scalar, eps_strong)
             n_pt = scalar.nrows
         else:
-            agg, n_agg = plain_aggregates(scalar, eps_strong)
+            agg, n_agg = plain_aggregates(scalar, eps_strong, setup_device)
             n_pt = scalar.nrows
         if n_agg == 0:
             raise CoarseningStall("empty coarse level (all rows isolated)")
 
         rho = spectral_radius(Af, self.power_iters, scale=True)
         omega = self.relax * (4.0 / 3.0) / max(rho, 1e-30)
-        P_tent, Bc = tentative_prolongation(n_pt, agg, n_agg, nullspace, bs)
-        Pt = P_tent.unblock() if P_tent.is_block else P_tent
-        P = _p_smooth(Pt, Af.scale_rows(Df_inv), omega)
+        if setup_device is not None and nullspace is None and bs == 1 \
+                and not A.is_block:
+            # the tentative P is a selection over ``agg``: the smoothing
+            # product is one segment pass over A_f keyed by
+            # (row, agg[col])
+            P = SmoothPlan(Af, agg, n_agg).prolongation(
+                Af, Df_inv, omega, setup_device)
+            Bc = None
+        else:
+            P_tent, Bc = tentative_prolongation(n_pt, agg, n_agg,
+                                                nullspace, bs)
+            Pt = P_tent.unblock() if P_tent.is_block else P_tent
+            P = _p_smooth(Pt, Af.scale_rows(Df_inv), omega)
         R = P.transpose()
         if A.is_block:
             P = P.to_block(bs)
@@ -143,7 +160,7 @@ class SmoothedAggregation:
                                                  stencil_coarse_operator)
         if isinstance(P, StencilTransfer):
             return stencil_coarse_operator(A, P)
-        Ac = galerkin(A, P, R)
+        Ac = galerkin(A, P, R, ctx.get("setup_device"))
         g = ctx.pop("next_grid", None)
         if g is not None:
             # detect_grid_csr validates prod(dims) == nrows on read

@@ -27,12 +27,15 @@ from amgcl_tpu_torch.coarsening.stall import CoarseningStall
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.ops.densewin import DenseWindowMatrix
+from amgcl_tpu_torch.ops.segment_spgemm import ensure_plan
 from amgcl_tpu_torch.ops.structured import build_implicit_transfers
 from amgcl_tpu_torch.ops.unstructured import WindowedEllMatrix
 from amgcl_tpu_torch.ops.vcycle import build_fused_down, build_fused_up
 from amgcl_tpu_torch.relaxation.spai0 import Spai0
 from amgcl_tpu_torch.solver.direct import DenseDirectSolver
 from amgcl_tpu_torch.telemetry.ledger import dense_window_budget
+from amgcl_tpu_torch.telemetry.structure import fingerprint, reorder_plan
+from amgcl_tpu_torch.utils.adapters import permute
 from amgcl_tpu_torch.utils.devices import resolve_device
 
 
@@ -181,6 +184,36 @@ def check_krylov_dtype(dtype):
     return dtype
 
 
+def check_reorder(mode):
+    """Refuse a ``reorder`` other than "auto", "rcm", "cm" or "off"."""
+    if mode not in ("auto", "rcm", "cm", "off"):
+        raise ValueError("reorder must be 'auto', 'rcm', 'cm' or 'off', "
+                         "got %r" % (mode,))
+    return mode
+
+
+def device_mis_declined(prm):
+    """Why the device MIS cannot aggregate this configuration, or None.
+    Its rounds leave single-node aggregates wherever a node's strong
+    neighbours were taken by other roots: the nullspace QR of a
+    near-nullspace of several vectors refuses those, so the hierarchy
+    would stop at one level, and the coarse levels, numbered by root
+    priority, spread the band past the dense window's width rule. Such
+    configurations build their host loop with the host setup: the
+    greedy pass and the host plans."""
+    if prm.matrix_format == "dwin":
+        return "matrix_format='dwin': coarse levels numbered by root " \
+            "priority outgrow the dense window's width rule"
+    coarsening = prm.coarsening
+    while coarsening is not None:
+        ns = getattr(coarsening, "nullspace", None)
+        if ns is not None and np.ndim(ns) == 2 and np.shape(ns)[1] > 1:
+            return "a near-nullspace of %d vectors: the QR refuses the " \
+                "MIS's single-node aggregates" % np.shape(ns)[1]
+        coarsening = getattr(coarsening, "base", None)
+    return None
+
+
 def check_coarse_size(n, prm):
     """Refuse to densify a coarsest level of ``n`` scalar unknowns far
     above the direct-solve regime (coarsening stalled): an error beats
@@ -198,22 +231,39 @@ class AMG:
 
     ``device=None`` means CUDA; without a card that raises unless the
     caller asks for ``device="cpu"``. ``device_setup`` chooses where the
-    stencil levels are built: None builds them on the device when it is
-    CUDA and on the host otherwise; True or False force either (a
-    configuration outside the device build's gates takes the host route
-    all the same). Usage::
+    setup runs — the JAX package's ``AMGCL_TPU_DEVICE_SETUP``: None runs
+    it on the device when that is CUDA and on the host otherwise; True
+    or False force either. On the device, the stencil levels are built
+    there, plain aggregates come from the device MIS, and the Galerkin
+    products and the smoothed prolongation run as segment sums against
+    cached plans (``ops/segment_spgemm.py``); a configuration outside
+    those gates takes the host route all the same, and one the device
+    MIS cannot serve (``device_mis_declined``, the reason kept as
+    ``mis_declined``) builds its host loop with the host setup.
+    ``reorder`` is the JAX package's ``AMGCL_TPU_REORDER``, whose default
+    there is ``"auto"``; here it is ``"off"`` (the order is kept), since
+    no workload of the port has yet shown a gain from it. ``"auto"``
+    permutes a scalar fine operator that the stencil build declined when
+    the structure advisor predicts at least a 1.15× byte gain
+    (``telemetry/structure.reorder_plan``), ``"rcm"``/``"cm"`` force that
+    variant; the hierarchy then lives in the permuted frame
+    (``make_solver`` permutes in and out). ``device_inv``
+    (``AMGCL_TPU_DEVICE_INV``) inverts a float32 or bfloat16 coarsest
+    level on the device (``solver/direct.py``). Usage::
 
         P = AMG(A, AMGParams(...), device="cuda")
         z = P.hierarchy.apply(r)
     """
 
     def __init__(self, A, prm: Optional[AMGParams] = None, device=None,
-                 device_setup=None):
+                 device_setup=None, reorder="off", device_inv=False):
         self.prm = prm or AMGParams()
         check_dtype(self.prm.dtype)
         self.device = resolve_device(device)
         self.device_setup = self.device.type == "cuda" \
             if device_setup is None else bool(device_setup)
+        self.reorder = check_reorder(reorder)
+        self.device_inv = bool(device_inv)
         if not isinstance(A, CSR):
             A = CSR.from_scipy(A)
         self._build(A)
@@ -226,16 +276,22 @@ class AMG:
         self.device_built = False
         self._dev_prefix = []
         self._level_ctx = []
+        self._reorder = None
         meta_prefix = []
-        # per-build state (eps_strong decay, grid dims, setup dtype) lives
-        # in this dict, not on the policy object
-        ctx = {}
+        # per-build state (eps_strong decay, grid dims, setup dtype, the
+        # setup's device) lives in this dict, not on the policy object
+        # a configuration the device MIS cannot serve builds its host
+        # loop with the host setup (greedy pass, host plans)
+        self.mis_declined = device_mis_declined(prm) \
+            if self.device_setup else None
+        ctx = {"setup_device": self.device if self.device_setup
+               and self.mis_declined is None else None}
         t_dev = 0.0            # seconds of the device build that was kept
         # the device build takes scalar stencils; block systems build on
         # the host
         if self.device_setup and not A.is_block:
             from amgcl_tpu_torch.ops import stencil_device as sdev
-            got = sdev.device_build(A, prm, self.device)
+            got = sdev.device_build(A, prm, self.device, self.device_inv)
             if got is not None:
                 self.device_built = True
                 t_dev = time.perf_counter() - t0
@@ -256,6 +312,13 @@ class AMG:
                 meta_prefix = meta_rows[:-1]
                 A = got["leftover"]
                 ctx["eps_strong"] = got["eps_next"]
+        if not self.device_built and not A.is_block:
+            # the executed reorder (amgcl_tpu/models/amg.py:268-295): the
+            # whole hierarchy is built in the permuted frame
+            plan = reorder_plan(A, self.reorder, prm.dtype.itemsize)
+            if plan is not None:
+                A = permute(A, plan["perm"])
+                self._reorder = plan
         coarsening = prm.coarsening
         if prm.dtype.itemsize <= 4 \
                 and getattr(coarsening, "setup_dtype", False) is None:
@@ -301,12 +364,19 @@ class AMG:
         Galerkin products on the kept transfer operators, rebuilds the
         smoother states and keeps the device transfer operators."""
         old0 = self.host_levels[0][0]
+        # a reordered hierarchy holds the permuted operator, while a
+        # caller hands back values in the original order: val_perm maps
+        # them into the hierarchy's frame (amgcl_tpu/models/amg.py:355-392)
+        plan = self._reorder
         if isinstance(A, np.ndarray):
             if A.shape != old0.val.shape:
                 raise ValueError(
                     "rebuild(new_vals): value array shape %r does not "
                     "match the operator's %r" % (A.shape, old0.val.shape))
-            A = CSR(old0.ptr, old0.col, np.asarray(A), old0.ncols)
+            vals = np.asarray(A)
+            if plan is not None:
+                vals = vals[plan["val_perm"]]
+            A = CSR(old0.ptr, old0.col, vals, old0.ncols)
             same_pattern = True
         else:
             if not isinstance(A, CSR):
@@ -314,6 +384,12 @@ class AMG:
             if A.shape != old0.shape:
                 raise ValueError(
                     "rebuild requires the same matrix dimensions")
+            if plan is not None and A.nnz == old0.nnz \
+                    and not (A.ptr is old0.ptr and A.col is old0.col) \
+                    and fingerprint(A) == plan["fingerprint"]:
+                # an original-order CSR: its values into the frame
+                A = CSR(old0.ptr, old0.col,
+                        np.asarray(A.val)[plan["val_perm"]], old0.ncols)
             same_pattern = A.nnz == old0.nnz and (
                 (A.ptr is old0.ptr and A.col is old0.col)
                 or (np.array_equal(A.ptr, old0.ptr)
@@ -337,7 +413,13 @@ class AMG:
         coarse_operator = self.prm.coarsening.coarse_operator
         host = []
         Acur = A
-        for (_, P, R), ctx in zip(self.host_levels[:-1], self._level_ctx):
+        for (Ai, P, R), ctx in zip(self.host_levels[:-1], self._level_ctx):
+            if isinstance(P, CSR):
+                # a first rebuild pays each level's symbolic pass once
+                # where the setup runs on the device (amgcl_tpu/models/
+                # amg.py:421-445): every later one is numeric
+                ensure_plan(Ai, P, R, force=ctx["setup_device"] is not None,
+                            device=ctx["setup_device"])
             host.append((Acur, P, R))
             Acur = coarse_operator(Acur, P, R, dict(ctx))
         host.append((Acur, None, None))
@@ -372,8 +454,7 @@ class AMG:
                 # operators take windowed ELL, as the level operators do
                 P_dev = dev.to_device(P, "auto", dtype, device)
                 R_dev = dev.to_device(R, "auto", dtype, device)
-            A_dev = dev.to_device(Ai, prm.matrix_format, dtype, device,
-                                  budget)
+            A_dev = self._level_operator(Ai, i, reuse_transfers, budget)
             relax = prm.relax.build(Ai, dtype, device)
             dev.check_bf16_products(
                 P_dev, R_dev, *dev.smoother_products(A_dev, relax))
@@ -382,10 +463,11 @@ class AMG:
                                 build_fused_up(A_dev, P_dev, relax)))
         Alast = host[-1][0]
         check_coarse_size(Alast.nrows * Alast.block_size[0], prm)
-        A_last = dev.to_device(Alast, prm.matrix_format, dtype, device,
-                               budget)
+        A_last = self._level_operator(Alast, len(host) - 1,
+                                      reuse_transfers, budget)
         if prm.direct_coarse:
-            coarse = DenseDirectSolver.build(Alast, dtype, device)
+            coarse = DenseDirectSolver.build(Alast, dtype, device,
+                                             self.device_inv)
             levels.append(Level(A_last, None))
         else:
             coarse = None
@@ -394,6 +476,25 @@ class AMG:
             levels.append(Level(A_last, relax))
         self.hierarchy = Hierarchy(levels, coarse, prm.npre, prm.npost,
                                    prm.ncycle, prm.pre_cycles)
+
+    def _level_operator(self, Ai, i, reuse_transfers, budget):
+        """Level i's device operator: in a numeric rebuild, the previous
+        operator's structure with Ai's values where its format has a
+        value-only route (``ops/device.refresh_values``), else Ai
+        converted."""
+        prm = self.prm
+        if reuse_transfers is not None and i < len(reuse_transfers):
+            M = dev.refresh_values(reuse_transfers[i].A, Ai, prm.dtype)
+            if M is not None:
+                return M
+        return dev.to_device(Ai, prm.matrix_format, prm.dtype, self.device,
+                             budget)
+
+    @property
+    def reorder_plan(self):
+        """The executed reorder's plan (``perm``, ``iperm``, ``val_perm``,
+        ``variant``, ``fingerprint``, ``predicted_gain``), or None."""
+        return self._reorder
 
     @property
     def dtype(self):

@@ -24,6 +24,7 @@ from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.ops.dfloat import df_add_vec, dia_residual_df
 from amgcl_tpu_torch.solver.cg import CG
 from amgcl_tpu_torch.telemetry.report import SolveReport
+from amgcl_tpu_torch.telemetry.structure import fingerprint
 from amgcl_tpu_torch.utils.devices import resolve_device
 
 
@@ -48,15 +49,19 @@ ROADMAP B.17) on the hierarchy's own
     arithmetic on a float32 DIA operator, ``ops/dfloat.py``) or
     ``"auto"``, which is float64 here (the card has native float64, as the
     JAX package's choice off a TPU). ``batch`` (A.11) and ``recovery``
-    (A.13) are accepted only off. ``device=None`` means CUDA and
-    ``device_setup=None`` builds the stencil levels on the device when it
-    is CUDA (see :class:`AMG`)."""
+    (A.13) are accepted only off. ``device=None`` means CUDA;
+    ``device_setup``, ``reorder`` and ``device_inv`` go to the
+    :class:`AMG` built here. When that hierarchy was reordered (or a
+    prebuilt one was, for A's pattern; another pattern raises ValueError),
+    every solver-side operator lives in its permuted frame: rhs and x0 are
+    permuted in and x back out, so the caller never sees the permutation
+    (amgcl_tpu/models/make_solver.py:75-97)."""
 
     def __init__(self, A, precond: Any = None, solver: Any = None,
                  solver_dtype=None, matrix_format: str = "auto",
                  refine: int = 0, refine_dtype: str = "auto",
                  batch: Any = None, recovery: Any = None, device=None,
-                 device_setup=None):
+                 device_setup=None, reorder="off", device_inv=False):
         if batch:
             raise NotImplementedError(
                 "batch (the stacked multi-rhs bucket of the serving layer)"
@@ -70,7 +75,8 @@ ROADMAP B.17) on the hierarchy's own
         self.A_host = A
         precond = precond if precond is not None else AMGParams()
         if isinstance(precond, AMGParams):
-            self.precond = AMG(A, precond, device, device_setup)
+            self.precond = AMG(A, precond, device, device_setup, reorder,
+                               device_inv)
             self.precond_dtype = precond.dtype
             self._built_from_A = True
         elif hasattr(precond, "hierarchy"):
@@ -99,7 +105,8 @@ ROADMAP B.17) on the hierarchy's own
         if refine_dtype not in ("auto", "float64", "df32"):
             raise ValueError("refine_dtype must be 'auto', 'float64' or "
                              "'df32', got %r" % (refine_dtype,))
-        self._set_operator(A)
+        Ah = self._frame(A)
+        self._set_operator(Ah)
         self.refine_mode = None
         self.A_dev64 = None
         self._df32_drift = None
@@ -112,8 +119,8 @@ ROADMAP B.17) on the hierarchy's own
                     "refine_dtype='df32' needs a float32 DIA system "
                     "matrix; use refine_dtype='float64'")
             self.refine_mode = "df32" if df32 else "float64"
-            self._set_wide_operator(A)
-            if df32 and not self._df32_selfcheck(A):
+            self._set_wide_operator(Ah)
+            if df32 and not self._df32_selfcheck(Ah):
                 # the error-free transforms assume every float32 operation
                 # rounds once; one check on the device against a host
                 # float64 reference catches a backend that does not
@@ -122,7 +129,29 @@ ROADMAP B.17) on the hierarchy's own
                     "accuracy self-check; falling back to "
                     "refine_dtype='float64'")
                 self.refine_mode = "float64"
-                self._set_wide_operator(A)
+                self._set_wide_operator(Ah)
+
+    def _frame(self, A):
+        """A in the preconditioner's frame: the hierarchy's permuted fine
+        operator when the preconditioner was reordered (A's values taken
+        through ``val_perm`` for a prebuilt one), else A; sets the
+        permutation pair the solves use."""
+        plan = getattr(self.precond, "reorder_plan", None)
+        self._perm = None
+        if plan is None:
+            return A
+        if fingerprint(A) != plan["fingerprint"]:
+            raise ValueError(
+                "the prebuilt preconditioner was reordered for another "
+                "sparsity pattern than the system matrix's; build it from "
+                "this matrix or with reorder='off'")
+        self._perm = tuple(torch.as_tensor(p, device=self.device)
+                           for p in (plan["perm"], plan["iperm"]))
+        hl0 = self.precond.host_levels[0][0]
+        if self._built_from_A:
+            return hl0
+        return CSR(hl0.ptr, hl0.col, np.asarray(A.val)[plan["val_perm"]],
+                   A.ncols)
 
     def _set_operator(self, A):
         """The Krylov operator: the hierarchy's finest one when it is A
@@ -183,7 +212,8 @@ ROADMAP B.17) on the hierarchy's own
                             % type(self.precond).__name__)
         self.precond.rebuild(A)
         self.A_host = A
-        self._set_operator(A)
+        Ah = self._frame(A)
+        self._set_operator(Ah)
         if self.refine > 0:
             if self.refine_mode == "df32" \
                     and not isinstance(self.A_dev, dev.DiaMatrix):
@@ -191,7 +221,7 @@ ROADMAP B.17) on the hierarchy's own
                     "rebuilt matrix is no longer DIA-eligible; df32 "
                     "refinement needs a DIA system matrix — construct a "
                     "new solver with refine_dtype='float64'")
-            self._set_wide_operator(A)
+            self._set_wide_operator(Ah)
 
     def _vector(self, v, what):
         n = self.A_host.nrows * self.A_host.block_size[0]
@@ -212,12 +242,20 @@ ROADMAP B.17) on the hierarchy's own
         def apply_precond(r):
             return hier.apply(r.to(pdtype)).to(r.dtype)
 
-        got = self.solver.solve(self.A_dev, apply_precond, rhs, x0)
+        # the solve runs in the preconditioner's frame; ``rhs`` stays in
+        # the caller's for the df32 check against A_host below
+        rhs_d, x0_d = rhs, x0
+        if self._perm is not None:
+            rhs_d, x0_d = rhs[self._perm[0]], x0[self._perm[0]]
+        got = self.solver.solve(self.A_dev, apply_precond, rhs_d, x0_d)
         x, iters, resid, hs = got[:4]
         # the history covers the initial solve only, as in the reference
         hist = got[4][:iters] if len(got) > 4 else None
         if self.refine > 0:
-            x, iters, resid = self._refine(apply_precond, rhs, x, iters, hs)
+            x, iters, resid = self._refine(apply_precond, rhs_d, x, iters,
+                                           hs)
+        if self._perm is not None:
+            x = x[self._perm[1]]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0

@@ -221,13 +221,15 @@ def to_device(A, fmt: str = "auto", dtype=torch.float32, device=None,
     declines, drawing on ``budget`` (a hierarchy's shared
     :class:`~amgcl_tpu_torch.telemetry.ledger.DeviceMemoryBudget`) when
     one is given. Auto
-    picks dense for small dense-ish matrices, DIA when the matrix is banded
-    enough (at most MAX_DIAGS diagonals, fill at most MAX_FILL, data under
-    DIA_MAX_BYTES), windowed ELL when its widest window fits
-    WELL_MAX_WIN_BYTES, ELL otherwise. That is the JAX package's order off
-    a TPU; its dense-window format, which it tries only on a TPU, is
-    never picked here. A block matrix (BCSR) is never made dense or DIA by
-    auto (amgcl_tpu/ops/device.py:472, 510): windowed ELL, else ELL. In
+    picks dense for small dense-ish matrices; otherwise it tries DIA (at
+    most MAX_DIAGS diagonals, fill at most MAX_FILL, data under
+    DIA_MAX_BYTES) and windowed ELL (widest window within
+    WELL_MAX_WIN_BYTES) in the order of their predicted SpMV bytes
+    (:func:`ranked_formats`, the JAX package's ledger-ranked choice), and
+    takes ELL where both decline. The JAX package's dense-window format,
+    which it tries only on a TPU, is never picked here. A block matrix
+    (BCSR) is never made dense or DIA by auto (amgcl_tpu/ops/device.py:
+    472, 510): windowed ELL, else ELL. In
     bfloat16, dense window and block windowed ELL raise
     NotImplementedError (ROADMAP B.20, B.19)."""
     # a bfloat16 format whose kernels have no bfloat16 mode is refused
@@ -313,19 +315,88 @@ def _to_device(A, fmt, dtype, device, budget):
                     budget.total if budget is not None else DWIN_MAX_BYTES))
         return D
     if auto:
-        if not A.is_block:
-            nd, fill = dia_efficiency(A)
-            itemsize = torch.empty((), dtype=dtype).element_size()
-            if nd <= MAX_DIAGS and fill <= MAX_FILL \
-                    and nd * A.nrows * itemsize < DIA_MAX_BYTES:
-                return csr_to_dia(A, dtype, device)
-        if not dtype.is_complex:
-            W = csr_to_windowed_ell(A, dtype,
-                                    max_win_bytes=WELL_MAX_WIN_BYTES,
-                                    device=device)
-            if W is not None:
-                return W
+        # the structured candidates, cheapest predicted bytes first; each
+        # attempt keeps its own guards, and ELL is the last resort
+        # (amgcl_tpu/ops/device.py:498-560)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        for f in ranked_formats(_decision_candidates(A, itemsize, budget)):
+            if f == "dia" and not A.is_block:
+                nd, fill = dia_efficiency(A)
+                if nd <= MAX_DIAGS and fill <= MAX_FILL \
+                        and nd * A.nrows * itemsize < DIA_MAX_BYTES:
+                    return csr_to_dia(A, dtype, device)
+            elif f == "well" and not dtype.is_complex:
+                W = csr_to_windowed_ell(A, dtype,
+                                        max_win_bytes=WELL_MAX_WIN_BYTES,
+                                        device=device)
+                if W is not None:
+                    return W
     return csr_to_ell(A, dtype, device)
+
+
+def _decision_candidates(A, itemsize, budget):
+    """The structure advisor's predicted cost table of A's formats
+    (``telemetry/structure.candidate_table``) under this module's auto
+    thresholds; dense window is priced but never eligible here
+    (``on_tpu=False``)."""
+    from amgcl_tpu_torch.telemetry.structure import candidate_table
+    return candidate_table(
+        A, itemsize=itemsize, on_tpu=False, dense_cutoff=DENSE_CUTOFF,
+        max_diags=MAX_DIAGS, max_fill=MAX_FILL,
+        well_max_win_bytes=WELL_MAX_WIN_BYTES,
+        budget_remaining=budget.remaining() if budget is not None
+        else None,
+        budget_total=budget.total if budget is not None else None)
+
+
+def ranked_formats(cands):
+    """The order ``to_device('auto')`` tries its structured formats in
+    (amgcl_tpu/ops/device.py:402-422): the eligible candidates, cheapest
+    predicted SpMV bytes first, then the ineligible ones in the default
+    order ("dia", "dwin", "well")."""
+    default = ("dia", "dwin", "well")
+    priced = {c["format"]: c for c in cands}
+
+    def key(f):
+        c = priced.get(f)
+        if c is None or not c.get("eligible") \
+                or not (c.get("predicted") or {}).get("bytes"):
+            return (1, default.index(f))
+        return (0, c["predicted"]["bytes"])
+
+    return tuple(sorted(default, key=key))
+
+
+def refresh_values(M, A: CSR, dtype):
+    """M's format and structure with the values of the same-pattern host
+    CSR A, on M's device (the numeric rebuild's route, amgcl_tpu/ops/
+    device.py:564-620): DIA, dense, ELL and windowed ELL (scalar or
+    block) repack A's values into M's structure. Returns None where the
+    format has no value-only route (dense window) or where the structure
+    A gives differs from M's; the caller then converts A afresh."""
+    if isinstance(M, DiaMatrix) and not A.is_block:
+        new = csr_to_dia(A, dtype, M.data.device)
+        return new if new.offsets == M.offsets else None
+    if isinstance(M, DenseMatrix) and not A.is_block:
+        return DenseMatrix(host_tensor(A.to_dense(), dtype, M.a.device))
+    if isinstance(M, EllMatrix):
+        new = csr_to_ell(A, dtype, M.cols.device)
+        return new if new.cols.shape == M.cols.shape else None
+    if isinstance(M, WindowedEllMatrix):
+        n_tiles, tile, K = M.cols_local.shape[:3]
+        rows = A.expanded_rows()
+        flat = rows * K + (np.arange(A.nnz) - A.ptr[rows])
+        if A.nnz and (flat.max() >= n_tiles * tile * K
+                      or A.row_nnz().max() > K):
+            return None
+        vals = np.zeros((n_tiles * tile * K,) + A.val.shape[1:],
+                        dtype=np_dtype(dtype))
+        vals[flat] = A.val
+        return WindowedEllMatrix(
+            M.window_starts, M.cols_local,
+            host_tensor(vals.reshape((n_tiles, tile, K) + A.val.shape[1:]),
+                        dtype, M.vals.device), A.shape, M.win, M.block)
+    return None
 
 
 # -- backend primitives (reference: amgcl/backend/interface.hpp:253-443) ----

@@ -293,10 +293,10 @@ class _LevelMeta:
         self.nnz = int(nnz)
 
 
-def device_build(A: CSR, prm, device):
+def device_build(A: CSR, prm, device, device_inv=False):
     """Build the SA hierarchy on ``device`` as far as the diagonal-pair
-    Galerkin stays cheap. Returns None when the configuration falls
-    outside the gates, else a dict:
+    Galerkin stays cheap (``device_inv`` as for ``AMG``). Returns None
+    when the configuration falls outside the gates, else a dict:
 
     - ``levels``: the device ``Level`` list built so far, with their fused
       V-cycle handles,
@@ -413,7 +413,8 @@ def device_build(A: CSR, prm, device):
     A_last = _to_dia_matrix(adata, offs, dims, dtype)
     if prm.direct_coarse:
         Hl = HostDia(offs, adata.double().cpu().numpy(), dims)
-        coarse_solver = DenseDirectSolver.build(Hl.to_csr(), dtype, device)
+        coarse_solver = DenseDirectSolver.build(Hl.to_csr(), dtype, device,
+                                                device_inv)
         levels.append(Level(A_last, None))
     else:
         coarse_solver = None

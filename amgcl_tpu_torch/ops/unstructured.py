@@ -99,11 +99,16 @@ def tile_windows(A: CSR, tile: int = _TILE):
     n_tiles = -(-n // tile)
     rows = A.expanded_rows()
     tiles = rows // tile
-    starts = np.full(n_tiles, m, dtype=np.int64)
-    ends = np.zeros(n_tiles, dtype=np.int64)
-    if A.nnz:
-        np.minimum.at(starts, tiles, A.col)
-        np.maximum.at(ends, tiles, A.col + 1)
+    # each row's column range, then each tile's
+    row_min = np.full(n_tiles * tile, m, dtype=np.int64)
+    row_max = np.full(n_tiles * tile, -1, dtype=np.int64)
+    nz = np.flatnonzero(A.row_nnz())
+    if len(nz):
+        first = A.ptr[nz]
+        row_min[nz] = np.minimum.reduceat(A.col, first)
+        row_max[nz] = np.maximum.reduceat(A.col, first)
+    starts = row_min.reshape(n_tiles, tile).min(axis=1)
+    ends = row_max.reshape(n_tiles, tile).max(axis=1) + 1
     empty = ends <= starts
     starts[empty] = m
     ends[empty] = m + 1

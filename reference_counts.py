@@ -4,6 +4,8 @@ compositions of chip_smoke.py's phase 11.
 
     JAX_PLATFORMS=cpu python reference_counts.py [ROWS]
     JAX_PLATFORMS=cpu python reference_counts.py --a9
+    JAX_PLATFORMS=cpu python reference_counts.py --a10
+    JAX_PLATFORMS=cpu python reference_counts.py --a10-full [LABEL ...]
     JAX_PLATFORMS=cpu python reference_counts.py --a14
     JAX_PLATFORMS=cpu python reference_counts.py --a14-sides
 
@@ -23,6 +25,40 @@ U1's nonzeros a row, stokes_like(128), reservoir_like(24, 3),
 poisson3d_block(16, 3)), in both packages: one line per path with both
 iteration counts (summed over refinement) and reported residuals. RB1's
 rebuild steps and CP1's rebuild are left out.
+
+``--a10`` runs the paths whose hierarchies the device setup changes, in
+both packages with their setup on the device (``AMGCL_TPU_DEVICE_SETUP=1``
+for the JAX package, ``device_setup=True`` for the port) and, for the JAX
+package, with its host setup as well (``AMGCL_TPU_DEVICE_SETUP=0``), at
+reduced sizes with float32 hierarchies as chip_smoke.py calls them: the
+main path's call on poisson3d(64) (two device-built levels, the host
+loop's MIS at 16³ as at 32³ in poisson3d(128)), U1/U2/K1 on U1's
+system cut to 12,000 rows (RCM order and the left side for U2,
+BiCGStab(2) for K1), D2 (U2 on dense windows),
+G1/G1r on G1's system cut to 12,000 rows (GMRES; RCM and FGMRES) with
+LGMRES and Richardson, B1 on poisson3d_block(16, 3) without and with
+refine=3, and RO1: U1's cut system under chip_smoke.py's random
+symmetric permutation, reordered by RCM (``AMGCL_TPU_REORDER=rcm``,
+``reorder="rcm"``). One line per path: the JAX package's count under
+the host setup, then both packages' counts (summed over the refinement)
+and reported residuals under the device setup, and the coarse rows.
+
+``--a10-full [LABEL ...]`` runs the JAX package alone, under
+``AMGCL_TPU_DEVICE_SETUP=1`` and ``AMGCL_TPU_REORDER=off`` (``rcm`` for
+RO1), on each moved path of chip_smoke.py at its full size and with its
+call: main (poisson3d(128), CG, refine=3), DF1 (the same with
+``refine_dtype="df32"``), G2 (GMRES there), S1 (DistStencilSolver over a
+four-device mesh: set ``XLA_FLAGS=--xla_force_host_platform_device_count=4``),
+U1, U2, K1 and RO1 (``fe_like_problem()``), G1, G1r, LGMRES, IDRs and
+Richardson (G1's system), B1 and B1 refine=3 (``poisson3d_block(48, 3)``)
+and BK1 (its scalar form through make_block_solver). One line per path:
+the iterations (summed over refinement), the reported residual, the
+level rows and the seconds. chip_smoke.py's windows for these paths cite
+these lines. With ``--port`` before the labels, the port runs each path
+too (but S1), on the CPU with ``device_setup=True``; with ``--spread``,
+each solve also runs on five rhs perturbed by 1e-6 relative, as
+``--a14-sides`` does, and the line lists the six counts. Each path runs in seconds to a few minutes on an 8-core CPU;
+poisson3d(128) takes a few GiB.
 
 ``--a14`` runs bfloat16 hierarchies under a float32 Krylov loop
 (``AMGParams(dtype=bfloat16)``, ``solver_dtype=float32``) in both
@@ -138,6 +174,252 @@ def a9():
                   label, config, refine, len(rhs), info_r.iters,
                   info_r.resid, info.iters, info.resid), flush=True)
     return 0
+
+
+def a10_cases():
+    """(label, call, A, rhs, {AMGParams field: (JAX value, port value)},
+    JAX solver, port solver, refine, reorder) of the ``--a10`` paths
+    (module docstring)."""
+    import numpy as np
+    from amgcl_tpu.solver.bicgstabl import BiCGStabL as RefBiCGStabL
+    from amgcl_tpu.solver.cg import CG as RefCG
+    from amgcl_tpu.solver.gmres import FGMRES as RefFGMRES
+    from amgcl_tpu.solver.gmres import GMRES as RefGMRES
+    from amgcl_tpu.solver.lgmres import LGMRES as RefLGMRES
+    from amgcl_tpu.solver.richardson import Richardson as RefRichardson
+    import chip_smoke
+    from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
+    kw = dict(maxiter=100, tol=1e-6)
+    u, u_rhs = T.fe_like_problem(12000,
+                                 nnz_target=int(U1_NNZ_PER_ROW * 12000))
+    up = cuthill_mckee(u)
+    g, g_rhs = T.fe_like_problem(12000, nnz_target=6 * 12000)
+    gp = cuthill_mckee(g)
+    ro = np.random.RandomState(chip_smoke.RO1_SEED).permutation(u.nrows)
+    p64, p64_rhs = T.poisson3d(64)
+    b16, b16_rhs = T.poisson3d_block(16, 3)
+    right = dict(precond_side="right")
+    left = dict(precond_side="left")
+    dwin = {"matrix_format": ("dwin", "dwin")}
+    few = {"coarse_enough": (300, 300)}
+    return [
+        ("main", "poisson3d(64), CG, refine=3", p64, p64_rhs, {},
+         RefCG(**kw), T.CG(**kw), 3, None),
+        ("U1", "U1's system, 12,000 rows, BiCGStab right, refine=3", u,
+         u_rhs, {}, RefBiCGStab(**kw, **right), T.BiCGStab(**kw, **right),
+         3, None),
+        ("U2", "the same in RCM order, left side", permute(u, up),
+         u_rhs[up], {}, RefBiCGStab(**kw, **left),
+         T.BiCGStab(**kw, **left), 3, None),
+        ("K1", "U1's system, BiCGStab(2), refine=3", u, u_rhs, {},
+         RefBiCGStabL(L=2, **kw), T.BiCGStabL(L=2, **kw), 3, None),
+        ("D2", "U2's system and call on dense windows", permute(u, up),
+         u_rhs[up], dwin, RefBiCGStab(**kw, **left),
+         T.BiCGStab(**kw, **left), 3, None),
+        ("G1", "G1's system, 12,000 rows, GMRES, refine=3", g, g_rhs, {},
+         RefGMRES(**kw), T.GMRES(**kw), 3, None),
+        ("G1r", "the same in RCM order, FGMRES", permute(g, gp),
+         g_rhs[gp], {}, RefFGMRES(**kw), T.FGMRES(**kw), 3, None),
+        ("LGMRES", "G1's system, LGMRES, refine=3", g, g_rhs, {},
+         RefLGMRES(**kw), T.LGMRES(**kw), 3, None),
+        ("Richardson", "G1's system, Richardson, refine=3", g, g_rhs, {},
+         RefRichardson(**kw), T.Richardson(**kw), 3, None),
+        ("B1", "poisson3d_block(16, 3), BiCGStab(maxiter=200)", b16,
+         b16_rhs, few, RefBiCGStab(maxiter=200, tol=1e-6),
+         T.BiCGStab(maxiter=200, tol=1e-6), 0, None),
+        ("B1 refine=3", "the same, refine=3", b16, b16_rhs, few,
+         RefBiCGStab(maxiter=200, tol=1e-6),
+         T.BiCGStab(maxiter=200, tol=1e-6), 3, None),
+        ("RO1", "U1's system, 12,000 rows, under RO1's permutation, "
+         "reordered by RCM, U1's call", permute(u, ro), u_rhs[ro], {},
+         RefBiCGStab(**kw, **right), T.BiCGStab(**kw, **right), 3, "rcm"),
+    ]
+
+
+def a10():
+    """The device-setup lines (module docstring)."""
+    import os
+    for (label, call, A, rhs, fields, ref_solver, solver, refine,
+         reorder) in a10_cases():
+        Ar = RefCSR(A.ptr, A.col, A.val, A.ncols)
+        os.environ["AMGCL_TPU_REORDER"] = reorder or "auto"
+        ref_kw = {k: v[0] for k, v in fields.items()}
+        counts = []
+        for knob in ("0", "1"):
+            os.environ["AMGCL_TPU_DEVICE_SETUP"] = knob
+            ref = ref_make_solver(Ar, RefParams(dtype=jnp.float32,
+                                                **ref_kw),
+                                  ref_solver, refine=refine)
+            counts.append((ref(rhs)[1], [h[0].nrows for h in
+                                         ref.precond.host_levels]))
+        os.environ.pop("AMGCL_TPU_DEVICE_SETUP")
+        os.environ.pop("AMGCL_TPU_REORDER")
+        port = T.make_solver(A, T.AMGParams(dtype=torch.float32, **{
+            k: v[1] for k, v in fields.items()}), solver, refine=refine,
+            device="cpu", device_setup=True, reorder=reorder or "auto")
+        info = port(rhs)[1]
+        rows = [h[0].nrows for h in port.precond.host_levels]
+        print("%-11s %s: JAX host setup %d iterations, levels %s; device "
+              "setup: JAX %d (resid %.2e), port %d (resid %.2e), levels "
+              "%s / %s" % (label, call, counts[0][0].iters, counts[0][1],
+                           counts[1][0].iters, counts[1][0].resid,
+                           info.iters, info.resid, counts[1][1], rows),
+              flush=True)
+    return 0
+
+
+def a10_full_cases():
+    """{label: (system, JAX solver maker, make_solver keywords, reorder)}
+    of the ``--a10-full`` paths (module docstring); the system is a
+    chip_smoke.py problem name."""
+    from amgcl_tpu.solver.bicgstabl import BiCGStabL as RefBiCGStabL
+    from amgcl_tpu.solver.cg import CG as RefCG
+    from amgcl_tpu.solver.gmres import FGMRES as RefFGMRES
+    from amgcl_tpu.solver.gmres import GMRES as RefGMRES
+    from amgcl_tpu.solver.idrs import IDRs as RefIDRs
+    from amgcl_tpu.solver.lgmres import LGMRES as RefLGMRES
+    from amgcl_tpu.solver.richardson import Richardson as RefRichardson
+    kw = dict(maxiter=100, tol=1e-6)
+    return {
+        "main": ("poisson", lambda: RefCG(**kw), dict(refine=3), None),
+        "DF1": ("poisson", lambda: RefCG(**kw),
+                dict(refine=3, refine_dtype="df32"), None),
+        "G2": ("poisson", lambda: RefGMRES(**kw), dict(refine=3), None),
+        "S1": ("poisson", lambda: RefCG(**kw), None, None),
+        "U1": ("fe", lambda: RefBiCGStab(precond_side="right", **kw),
+               dict(refine=3), None),
+        "U2": ("fe_rcm", lambda: RefBiCGStab(precond_side="left", **kw),
+               dict(refine=3), None),
+        "K1": ("fe", lambda: RefBiCGStabL(L=2, **kw), dict(refine=3), None),
+        "RO1": ("fe_ro1", lambda: RefBiCGStab(precond_side="right", **kw),
+                dict(refine=3), "rcm"),
+        "G1": ("g1", lambda: RefGMRES(**kw), dict(refine=3), None),
+        "G1r": ("g1_rcm", lambda: RefFGMRES(**kw), dict(refine=3), None),
+        "LGMRES": ("g1", lambda: RefLGMRES(**kw), dict(refine=3), None),
+        "IDRs": ("g1", lambda: RefIDRs(**kw), dict(refine=3), None),
+        "Richardson": ("g1", lambda: RefRichardson(**kw), dict(refine=3),
+                       None),
+        "B1": ("block", lambda: RefBiCGStab(maxiter=200, tol=1e-6),
+               dict(refine=0), None),
+        "B1 refine=3": ("block", lambda: RefBiCGStab(maxiter=200, tol=1e-6),
+                        dict(refine=3), None),
+        "BK1": ("block_scalar", lambda: RefBiCGStab(maxiter=200, tol=1e-6),
+                None, None),
+    }
+
+
+def a10_full_system(name):
+    """(A, rhs) of an ``--a10-full`` system at full size."""
+    import numpy as np
+    import chip_smoke
+    from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
+    if name == "poisson":
+        return T.poisson3d(128)
+    if name == "block":
+        return T.poisson3d_block(48, 3)
+    if name == "block_scalar":
+        return chip_smoke.a9_problem("block_scalar")[:2]
+    A, rhs = (chip_smoke.g1_problem() if name.startswith("g1")
+              else T.fe_like_problem())
+    if name.endswith("_rcm"):
+        p = cuthill_mckee(A)
+    elif name == "fe_ro1":
+        p = np.random.RandomState(chip_smoke.RO1_SEED).permutation(A.nrows)
+    else:
+        return A, rhs
+    return permute(A, p), rhs[p]
+
+
+def a10_full(labels):
+    """The JAX package's full-size counts under its device setup, and
+    with ``--port`` the port's on the CPU (module docstring)."""
+    import os
+    import time
+    from amgcl_tpu.models.block_solver import make_block_solver
+    from amgcl_tpu.parallel.dist_stencil import DistStencilSolver
+    from amgcl_tpu.parallel.mesh import make_mesh
+    port, spread = "--port" in labels, "--spread" in labels
+    labels = [a for a in labels if a not in ("--port", "--spread")]
+    cases = a10_full_cases()
+    systems = {}
+    os.environ["AMGCL_TPU_DEVICE_SETUP"] = "1"
+    for label in labels or list(cases):
+        system, solver, make_kw, reorder = cases[label]
+        os.environ["AMGCL_TPU_REORDER"] = reorder or "off"
+        if system not in systems:
+            systems.clear()
+            systems[system] = a10_full_system(system)
+        A, rhs = systems[system]
+        Ar = RefCSR(A.ptr, A.col, A.val, A.ncols)
+        t0 = time.perf_counter()
+        if label == "S1":
+            ref = DistStencilSolver(Ar, make_mesh(4),
+                                    RefParams(dtype=jnp.float32), solver())
+            rows = "sharded"
+        elif label == "BK1":
+            ref = make_block_solver(Ar, 3, RefParams(), solver())
+            rows = [h[0].nrows for h in ref.inner.precond.host_levels]
+        else:
+            ref = ref_make_solver(Ar, RefParams(dtype=jnp.float32),
+                                  solver(), **make_kw)
+            rows = [h[0].nrows for h in ref.precond.host_levels]
+        info = ref(rhs)[1]
+        print("%-11s JAX, device setup, full size: %d iterations, resid "
+              "%.3e, levels %s, %.1f s" % (label, info.iters, info.resid,
+                                           rows, time.perf_counter() - t0),
+              flush=True)
+        if spread:
+            print("%-11s JAX on six rhs: %s" % (label, [
+                ref(b)[1].iters for b in perturbed(rhs)]), flush=True)
+        del ref
+        if port and label != "S1":
+            print("%-11s port on the CPU, device setup: %s"
+                  % (label, a10_full_port(label, A, rhs, spread)),
+                  flush=True)
+    return 0
+
+
+def perturbed(rhs, k=6):
+    """rhs, then k - 1 copies perturbed by 1e-6 relative (seed 0)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    return [rhs * (1 + (1e-6 * rng.standard_normal(len(rhs)) if i else 0))
+            for i in range(k)]
+
+
+def a10_full_port(label, A, rhs, spread=False):
+    """The port's count, reported residual and level rows for an
+    ``--a10-full`` path, on the CPU with ``device_setup=True`` (and its
+    counts on the six rhs of :func:`perturbed` with ``spread``)."""
+    import chip_smoke
+    kw = dict(maxiter=100, tol=1e-6)
+    solver = {"U1": lambda: T.BiCGStab(precond_side="right", **kw),
+              "RO1": lambda: T.BiCGStab(precond_side="right", **kw),
+              "U2": lambda: T.BiCGStab(precond_side="left", **kw),
+              "K1": lambda: T.BiCGStabL(L=2, **kw),
+              "G1r": lambda: T.FGMRES(**kw),
+              "main": lambda: T.CG(**kw), "DF1": lambda: T.CG(**kw),
+              "B1": lambda: T.BiCGStab(maxiter=200, tol=1e-6),
+              "B1 refine=3": lambda: T.BiCGStab(maxiter=200, tol=1e-6),
+              "BK1": lambda: T.BiCGStab(maxiter=200, tol=1e-6)}.get(
+                  label, lambda: getattr(T, {"G1": "GMRES", "G2": "GMRES"}
+                                         .get(label, label))(**kw))()
+    dev = dict(device="cpu", device_setup=True)
+    if label == "BK1":
+        solve = chip_smoke.a9_make("BK1", A, None, **dev)
+        amg = solve.inner.precond
+    else:
+        refine = 0 if label == "B1" else 3
+        solve = T.make_solver(
+            A, T.AMGParams(dtype=torch.float32), solver, refine=refine,
+            refine_dtype="df32" if label == "DF1" else "auto",
+            reorder="rcm" if label == "RO1" else "off", **dev)
+        amg = solve.precond
+    info = solve(rhs)[1]
+    six = "; on six rhs: %s" % [solve(b)[1].iters for b in perturbed(rhs)] \
+        if spread else ""
+    return "%d iterations, resid %.3e, levels %s%s" % (
+        info.iters, info.resid, [h[0].nrows for h in amg.host_levels], six)
 
 
 def a14_cases():
@@ -262,6 +544,12 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--a9"]:
         jax.config.update("jax_enable_x64", True)
         sys.exit(a9())
+    if sys.argv[1:] == ["--a10"]:
+        jax.config.update("jax_enable_x64", True)
+        sys.exit(a10())
+    if sys.argv[1:2] == ["--a10-full"]:
+        jax.config.update("jax_enable_x64", True)
+        sys.exit(a10_full(sys.argv[2:]))
     if sys.argv[1:] == ["--a14"]:
         jax.config.update("jax_enable_x64", True)
         sys.exit(a14())

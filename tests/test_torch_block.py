@@ -349,12 +349,17 @@ def block16():
     return A, A_r, rhs, ref
 
 
-def test_hierarchy_matches_reference(block16):
+def test_hierarchy_matches_reference(block16, monkeypatch):
     """Same level count and block shapes; every operator and transfer a
     block windowed ELL of 3×3 blocks with the reference's K and window;
     the transfers stored (no implicit spec, no fused legs); the smoother
-    scale per node; the coarse inverse over scalar unknowns."""
-    A, _, _, ref = block16
+    scale per node; the coarse inverse over scalar unknowns. The port's
+    device setup (block systems decline the stencil build, and aggregate
+    with the device MIS) against the JAX package's
+    (``AMGCL_TPU_DEVICE_SETUP=1``)."""
+    A, A_r, _, _ = block16
+    monkeypatch.setenv("AMGCL_TPU_DEVICE_SETUP", "1")
+    ref = RefAMG(A_r, RefParams(dtype=jnp.float64, coarse_enough=_COARSE))
     port = AMG(A, AMGParams(dtype=torch.float64, coarse_enough=_COARSE),
                device="cpu", device_setup=True)
     levels, levels_r = port.hierarchy.levels, ref.hierarchy.levels

@@ -388,7 +388,8 @@ def test_small_solve_on_card_matches_cpu(cuda, dtype):
     for device in ("cpu", cuda):
         solve = make_solver(A, AMGParams(dtype=dtype),
                             CG(maxiter=100, tol=1e-6), refine=3,
-                            device=device)
+                            device=device,
+                            device_setup=True)
         x, info = solve(rhs)
         assert x.device.type == torch.device(device).type
         runs[torch.device(device).type] = (info.iters,
@@ -1233,7 +1234,8 @@ def test_unstructured_solve_on_card_matches_cpu(cuda, order, side):
         solve = make_solver(A, AMGParams(dtype=torch.float64,
                                          coarse_enough=500),
                             BiCGStab(maxiter=100, tol=1e-8,
-                                     precond_side=side), device=device)
+                                     precond_side=side), device=device,
+                            device_setup=True)
         kernels = (wk.windowed_ell_spmv, wk.windowed_ell_residual,
                    wk.windowed_ell_scaled_correction,
                    wk.windowed_ell_spmv_dots, fv.bicgstab_tail)
@@ -1509,7 +1511,8 @@ def test_block_solve_on_card_matches_cpu(cuda):
     for device in ("cpu", cuda):
         solve = make_solver(A, AMGParams(dtype=torch.float64,
                                          coarse_enough=500),
-                            BiCGStab(maxiter=100, tol=1e-8), device=device)
+                            BiCGStab(maxiter=100, tol=1e-8), device=device,
+                            device_setup=True)
         before = [k.launches for k in kernels]
         calls = [p.calls for p in plains]
         x, info = solve(rhs)
@@ -1808,7 +1811,8 @@ def test_dense_window_solve_on_card_matches_cpu(cuda, side):
                                          matrix_format="dwin",
                                          coarse_enough=500),
                             BiCGStab(maxiter=100, tol=1e-8,
-                                     precond_side=side), device=device)
+                                     precond_side=side), device=device,
+                            device_setup=True)
         before = [k.launches for k in kernels]
         calls = [p.calls for p in plains]
         x, info = solve(rhs)
@@ -1844,7 +1848,8 @@ def test_bicgstabl_solve_on_card_matches_cpu(cuda):
         solve = make_solver(A, AMGParams(dtype=torch.float64,
                                          coarse_enough=500),
                             BiCGStabL(L=2, maxiter=100, tol=1e-8),
-                            device=device)
+                            device=device,
+                            device_setup=True)
         launches = fv.axpby_dot.launches
         calls = fv.axpby_dot_plain.calls
         x, info = solve(rhs)
@@ -2036,7 +2041,8 @@ def test_gmres_solve_on_card_matches_cpu(cuda, solver):
         solve = T.make_solver(A, T.AMGParams(dtype=torch.float64,
                                              coarse_enough=300),
                               getattr(T, solver)(maxiter=100, tol=1e-8),
-                              device=device)
+                              device=device,
+                              device_setup=True)
         launches = gk.gather_spmv.launches
         calls = gk.gather_spmv_plain.calls
         x, info = solve(rhs)
@@ -2370,7 +2376,9 @@ def test_smoother_and_coarsening_on_card_match_cpu(cuda, name):
     """Each smoother and coarsening on a small system in float64 (BiCGStab
     for the unstructured and block systems, CG otherwise): the same
     iterations on the card and the CPU, x within 1e-8, and no plain
-    version on the card."""
+    version on the card. Both build with the device setup (the
+    rigid-body nullspace takes the host setup's aggregates on both:
+    ``models/amg.device_mis_declined``)."""
     import amgcl_tpu_torch as T
     system, fields = _A8_CASES[name]
     if system == "poisson":
@@ -2389,7 +2397,8 @@ def test_smoother_and_coarsening_on_card_match_cpu(cuda, name):
         solve = T.make_solver(A, T.AMGParams(dtype=torch.float64,
                                              coarse_enough=500,
                                              **fields(T)),
-                              solver(maxiter=200, tol=1e-8), device=device)
+                              solver(maxiter=200, tol=1e-8), device=device,
+                              device_setup=True)
         calls = [p.calls for p in _PLAIN]
         x, info = solve(rhs)
         if device != "cpu":
@@ -2553,3 +2562,79 @@ def test_bf16_solve_on_card_matches_cpu(cuda):
     assert abs(runs["cuda"][0] - runs["cpu"][0]) <= 1
     x = runs["cuda"][1]
     assert np.linalg.norm(rhs - A.spmv(x)) / np.linalg.norm(rhs) <= 1e-6
+
+
+# -- the accelerator setup: device MIS, segment-sum plans, rebuild ------------
+
+def test_device_mis_on_card_matches_cpu(cuda):
+    """The distance-2 MIS rounds on the card twice and on the CPU, on a
+    small unstructured system: the same aggregates each time."""
+    from amgcl_tpu_torch import fe_like_problem
+    from amgcl_tpu_torch.coarsening.device_mis import aggregates_on_device
+    A, _ = fe_like_problem(n=6000, nnz_target=28 * 6000, seed=1)
+    got = [aggregates_on_device(A, 0.08, d) for d in (cuda, cuda, "cpu")]
+    for agg, n in got[1:]:
+        assert n == got[0][1] and np.array_equal(agg, got[0][0])
+
+
+def test_segment_plans_on_card_repeat_and_match_cpu(cuda):
+    """The smoothing and Galerkin plans' numeric pass on the card: bit
+    for bit from run to run, and equal to the CPU's in float64 (both sum
+    each segment in entry order)."""
+    from amgcl_tpu_torch import fe_like_problem
+    from amgcl_tpu_torch.coarsening.device_mis import aggregates_on_device
+    from amgcl_tpu_torch.coarsening.smoothed_aggregation import _filtered
+    from amgcl_tpu_torch.ops import segment_spgemm as seg
+    A, _ = fe_like_problem(n=6000, nnz_target=28 * 6000, seed=1)
+    agg, n_agg = aggregates_on_device(A, 0.08, "cpu")
+    Af, dinv = _filtered(A, 0.08)
+    plan = seg.SmoothPlan(Af, agg, n_agg)
+    P = [plan.prolongation(Af, dinv, 0.6, d) for d in (cuda, cuda, "cpu")]
+    assert np.array_equal(P[0].val, P[1].val)
+    assert np.array_equal(P[0].val, P[2].val)
+    g = seg.GalerkinPlan(A, P[2], P[2].transpose())
+    Ac = [g.coarse(A, 1.0, d).val for d in (cuda, cuda, "cpu")]
+    assert np.array_equal(Ac[0], Ac[1]) and np.array_equal(Ac[0], Ac[2])
+
+
+def test_rebuild_on_card_equals_a_fresh_build(cuda):
+    """A host-loop hierarchy built with the setup on the card, rebuilt
+    with doubled values through its plans: the host levels and the level
+    operators equal a fresh build's bit for bit, and so do two builds."""
+    from amgcl_tpu_torch import AMG, AMGParams, CSR, fe_like_problem
+    A, _ = fe_like_problem(n=6000, nnz_target=28 * 6000, seed=1)
+    prm = AMGParams(dtype=torch.float32, coarse_enough=500)
+    amg = AMG(A, prm, device=cuda)
+    twin = AMG(A, prm, device=cuda)
+    A2 = CSR(A.ptr, A.col, A.val * 2.0, A.ncols)
+    for other in (twin, None):
+        if other is None:
+            amg.rebuild(A2)
+            other = AMG(A2, prm, device=cuda)
+        for (Ai, _, _), (Bi, _, _) in zip(amg.host_levels,
+                                          other.host_levels):
+            assert np.array_equal(Ai.val, Bi.val)
+        for lv, lw in zip(amg.hierarchy.levels, other.hierarchy.levels):
+            ts = [v for v in vars(lv.A).values() if torch.is_tensor(v)]
+            us = [v for v in vars(lw.A).values() if torch.is_tensor(v)]
+            assert all(torch.equal(t, u) for t, u in zip(ts, us))
+        assert torch.equal(amg.hierarchy.coarse.inv,
+                           other.hierarchy.coarse.inv)
+
+
+def test_device_inverse_on_card(cuda):
+    """The float32 coarse inverse on the card with its Newton–Schulz
+    polish: kept for a well-conditioned level, and close to the host
+    float64 inverse."""
+    import scipy.sparse as sp
+    from amgcl_tpu_torch import CSR
+    from amgcl_tpu_torch.solver.direct import DenseDirectSolver
+    n = 300
+    L = sp.diags([-np.ones(n - 1), 2.1 * np.ones(n), -np.ones(n - 1)],
+                 [-1, 0, 1]).tocsr()
+    s = DenseDirectSolver.build(CSR.from_scipy(L), torch.float32, cuda,
+                                device_inv=True)
+    assert s.device_rnorm is not None and s.device_rnorm < 1e-3
+    ref = np.linalg.inv(L.toarray())
+    assert np.abs(s.inv.double().cpu().numpy() - ref).max() \
+        <= 1e-4 * np.abs(ref).max()
