@@ -121,7 +121,10 @@ class Hierarchy:
 
     def apply(self, r):
         """Preconditioner application (amg.hpp:288-297): pre_cycles
-        cycles."""
+        cycles. A stacked (n, B) residual runs column by column through
+        the 1-D cycle (:func:`apply_columns`), fused legs included."""
+        if r.dim() == 2:
+            return apply_columns(self.apply, r)
         x = self.cycle(0, r)
         for _ in range(self.pre_cycles - 1):
             rr = dev.residual(r, self.levels[0].A, x)
@@ -144,6 +147,33 @@ class Hierarchy:
         if self.coarse is not None:
             total += self.coarse.inv.numel() * self.coarse.inv.element_size()
         return total
+
+
+def apply_columns(apply, r):
+    """The 1-D preconditioner ``apply`` on a stacked (n, B) residual,
+    column by column: the port's counterpart of ``jax.vmap(apply)``,
+    which the JAX package gives every preconditioner (its stacked trace
+    takes XLA lowerings; the port's hand kernels take each column as a
+    contiguous vector, ``ops/device.py``). Returns the (n, B) view of
+    the (B, n) stack of the columns' results."""
+    return dev.stacked(dev.per_column(apply, r))
+
+
+def host_sync_reason(hier):
+    """Why ``hier.apply`` cannot be captured in a CUDA graph, or None: a
+    hierarchy that syncs with the host (a nested Krylov solve, the Schur
+    correction's inner solves) says so in ``host_sync``, and a wrapper
+    (deflation, CPR) inherits its inner hierarchy's reason."""
+    reason = getattr(hier, "host_sync", None)
+    if reason:
+        return "%s: %s" % (type(hier).__name__, reason)
+    for name in ("base", "p_hier", "inner"):
+        sub = getattr(hier, name, None)
+        if sub is not None and hasattr(sub, "apply"):
+            got = host_sync_reason(sub)
+            if got:
+                return got
+    return None
 
 
 def _human_bytes(n: float) -> str:

@@ -25,7 +25,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from amgcl_tpu_torch.models.amg import AMG, AMGParams, check_dtype
+from amgcl_tpu_torch.models.amg import (AMG, AMGParams, apply_columns,
+                                        check_dtype)
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.relaxation.spai0 import Spai0
@@ -45,6 +46,8 @@ class CPRHierarchy:
         self.np_cells = None if np_cells is None else int(np_cells)
 
     def apply(self, r):
+        if r.dim() == 2:
+            return apply_columns(self.apply, r)
         b = self.block
         rb = r.reshape(-1, b)
         npc = rb.shape[0] if self.np_cells is None else self.np_cells

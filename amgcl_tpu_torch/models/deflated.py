@@ -17,6 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from amgcl_tpu_torch.models.amg import apply_columns
 from amgcl_tpu_torch.models.make_solver import make_solver
 from amgcl_tpu_torch.ops.csr import CSR
 
@@ -31,6 +32,8 @@ class DeflatedHierarchy:
         self.Einv = Einv   # (k, k)
 
     def apply(self, r):
+        if r.dim() == 2:
+            return apply_columns(self.apply, r)
         w = self.Einv @ (self.Z.T @ r)
         z = self.base.apply(r - self.AZ @ w)
         return z + self.Z @ w

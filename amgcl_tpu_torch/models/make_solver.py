@@ -22,6 +22,9 @@ from amgcl_tpu_torch.models.amg import AMG, AMGParams, check_krylov_dtype
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.ops.dfloat import df_add_vec, dia_residual_df
+from amgcl_tpu_torch.serve.batched import (StackedPrecond,
+                                           decode_batched_health)
+from amgcl_tpu_torch.solver import stacked as S
 from amgcl_tpu_torch.solver.cg import CG
 from amgcl_tpu_torch.telemetry.report import SolveReport
 from amgcl_tpu_torch.telemetry.structure import fingerprint
@@ -48,24 +51,32 @@ ROADMAP B.17) on the hierarchy's own
     of the operator on the device), ``"df32"`` (compensated float32
     arithmetic on a float32 DIA operator, ``ops/dfloat.py``) or
     ``"auto"``, which is float64 here (the card has native float64, as the
-    JAX package's choice off a TPU). ``batch`` (A.11) and ``recovery``
-    (A.13) are accepted only off. ``device=None`` means CUDA;
+    JAX package's choice off a TPU). ``recovery`` (A.13) is accepted only
+    off. ``device=None`` means CUDA;
     ``device_setup``, ``reorder`` and ``device_inv`` go to the
     :class:`AMG` built here. When that hierarchy was reordered (or a
     prebuilt one was, for A's pattern; another pattern raises ValueError),
     every solver-side operator lives in its permuted frame: rhs and x0 are
     permuted in and x back out, so the caller never sees the permutation
-    (amgcl_tpu/models/make_solver.py:75-97)."""
+    (amgcl_tpu/models/make_solver.py:75-97).
+
+    A stacked (n, B) rhs solves its B columns together (A.11,
+    ``serve/batched.py``): the report's ``iters`` and ``resid`` are the
+    batch maxima and ``extra["per_rhs"]`` holds each column's; a stacked
+    call with ``refine > 0`` raises ValueError, as the JAX package's
+    does. ``batch`` is the declared bucket size B, which a
+    :class:`~amgcl_tpu_torch.serve.SolverService` over this bundle takes
+    by default."""
 
     def __init__(self, A, precond: Any = None, solver: Any = None,
                  solver_dtype=None, matrix_format: str = "auto",
                  refine: int = 0, refine_dtype: str = "auto",
                  batch: Any = None, recovery: Any = None, device=None,
                  device_setup=None, reorder="off", device_inv=False):
-        if batch:
-            raise NotImplementedError(
-                "batch (the stacked multi-rhs bucket of the serving layer)"
-                " is not ported yet (ROADMAP A.11)")
+        self.batch = int(batch) if batch else None
+        if self.batch is not None and self.batch < 1:
+            raise ValueError("batch must be a positive bucket size, got %r"
+                             % (batch,))
         if recovery:
             raise NotImplementedError(
                 "recovery (the fault-tolerance ladder) is not ported yet "
@@ -107,6 +118,7 @@ ROADMAP B.17) on the hierarchy's own
                              "'df32', got %r" % (refine_dtype,))
         Ah = self._frame(A)
         self._set_operator(Ah)
+        self._stacked = None
         self.refine_mode = None
         self.A_dev64 = None
         self._df32_drift = None
@@ -211,7 +223,8 @@ ROADMAP B.17) on the hierarchy's own
             raise TypeError("preconditioner %r does not support rebuild"
                             % type(self.precond).__name__)
         self.precond.rebuild(A)
-        self.A_host = A
+        self._stacked = None            # the buckets' graphs hold the old
+        self.A_host = A                 # hierarchy's buffers
         Ah = self._frame(A)
         self._set_operator(Ah)
         if self.refine > 0:
@@ -223,16 +236,102 @@ ROADMAP B.17) on the hierarchy's own
                     "new solver with refine_dtype='float64'")
             self._set_wide_operator(Ah)
 
+    @property
+    def n(self):
+        """Unknowns of the system (scalar-expanded)."""
+        return self.A_host.nrows * self.A_host.block_size[0]
+
     def _vector(self, v, what):
-        n = self.A_host.nrows * self.A_host.block_size[0]
         t = torch.as_tensor(v).to(device=self.device,
                                   dtype=self.solver_dtype)
-        if tuple(t.shape) != (n,):
+        if tuple(t.shape) != (self.n,):
             raise ValueError("%s has shape %s but the system has %d "
-                             "unknowns" % (what, tuple(t.shape), n))
+                             "unknowns" % (what, tuple(t.shape), self.n))
         return t
 
+    def _block(self, v, what, cols=None):
+        """A stacked operand as the (n, B) view of a (B, n) block in the
+        solver dtype on the device."""
+        t = torch.as_tensor(v).to(device=self.device,
+                                  dtype=self.solver_dtype)
+        if t.dim() != 2 or t.shape[0] != self.n or t.shape[1] < 1 \
+                or (cols is not None and t.shape[1] != cols):
+            raise ValueError("%s has shape %s but the system has %d "
+                             "unknowns (a stacked operand is (n, B)%s)"
+                             % (what, tuple(t.shape), self.n,
+                                "" if cols is None else ", B = %d" % cols))
+        return S.block(t)
+
+    def stacked_precond(self):
+        """The preconditioner of stacked solves (its bucket graphs on the
+        card), made on first use and dropped by :meth:`rebuild`."""
+        if self._stacked is None:
+            hier = self.precond.hierarchy
+            pdtype = self.precond_dtype
+
+            def apply(r):
+                return hier.apply(r.to(pdtype)).to(r.dtype)
+
+            self._stacked = StackedPrecond(apply, hier, self.device)
+        return self._stacked
+
+    def solve_stacked(self, rhs, x0):
+        """One stacked solve of (n, B) device blocks ``rhs`` and ``x0``
+        in the caller's frame: ``(x, iters, resid, health, histories,
+        timing)`` with per-column lists, the solver's
+        :class:`StackedHealth` (None with guards off), the histories
+        (None unless recording) and ``timing`` = ``{t0, t_solved,
+        capture_s}`` (perf_counter seconds: the start, the device done;
+        the bucket-capture seconds inside)."""
+        if self.refine > 0:
+            raise ValueError(
+                "stacked multi-RHS solves do not support iterative "
+                "refinement; build the bundle with refine=0")
+        pre = self.stacked_precond()
+        c0 = pre.capture_total_s
+        t0 = time.perf_counter()
+        if self._perm is not None:
+            rhs = rhs.T[:, self._perm[0]].T
+            x0 = x0.T[:, self._perm[0]].T
+        got = self.solver.solve(self.A_dev, pre, rhs, x0)
+        x, iters, resid, hs = got[:4]
+        hists = got[4] if len(got) > 4 else None
+        if self._perm is not None:
+            x = x.T[:, self._perm[1]].T
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        timing = {"t0": t0, "t_solved": time.perf_counter(),
+                  "capture_s": pre.capture_total_s - c0}
+        return x, iters, resid, hs, hists, timing
+
+    def _call_stacked(self, rhs, x0):
+        rhs = self._block(rhs, "rhs")
+        x0 = torch.zeros_like(rhs) if x0 is None \
+            else self._block(x0, "x0", rhs.shape[1])
+        x, iters, resid, hs, hists, timing = self.solve_stacked(rhs, x0)
+        wall = time.perf_counter() - timing["t0"]
+        B = rhs.shape[1]
+        per_rhs = {"iters": [int(v) for v in iters],
+                   "resid": [float(v) for v in resid]}
+        hist = None
+        if hists is not None:
+            per_rhs["history"] = [h[:k] for h, k in zip(hists, iters)]
+            hist = per_rhs["history"][int(np.argmax(iters))]
+        stats = getattr(self.precond, "hierarchy_stats", None)
+        report = SolveReport(
+            max(per_rhs["iters"]), max(per_rhs["resid"]), wall_time_s=wall,
+            hierarchy=stats() if callable(stats) else None,
+            health=None if hs is None
+            else decode_batched_health(hs.flags, hs.first_it),
+            history=hist, solver=type(self.solver).__name__,
+            extra={"batch": B, "per_rhs": per_rhs,
+                   "lowering": self.stacked_precond().lowering},
+            solves_per_sec=round(B / wall, 3) if wall > 0 else None)
+        return x, report
+
     def __call__(self, rhs, x0=None):
+        if np.ndim(rhs) == 2:
+            return self._call_stacked(rhs, x0)
         rhs = self._vector(rhs, "rhs")
         x0 = torch.zeros_like(rhs) if x0 is None else self._vector(x0, "x0")
         t0 = time.perf_counter()

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from amgcl_tpu_torch.models.amg import check_dtype, check_krylov_dtype
+from amgcl_tpu_torch.models.amg import (apply_columns, check_dtype,
+                                        check_krylov_dtype)
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.utils.devices import resolve_device
@@ -30,6 +31,8 @@ class SingleLevelHierarchy:
     def apply(self, r):
         if self.state is None:
             return r
+        if r.dim() == 2:
+            return apply_columns(self.apply, r)
         return self.state.apply(self.A, r)
 
     @property
@@ -80,6 +83,9 @@ class NestedHierarchy:
     with a flexible outer solver (FGMRES) when the inner solve is
     iterative: it is a nonstationary operator."""
 
+    #: the inner Krylov loop fetches its scalars every iteration
+    host_sync = "the inner Krylov solve syncs with the host each iteration"
+
     def __init__(self, A, inner, solver, inner_dtype):
         self.A = A                    # device matrix of the inner solve
         self.inner = inner            # inner preconditioner hierarchy
@@ -87,6 +93,9 @@ class NestedHierarchy:
         self.inner_dtype = inner_dtype
 
     def apply(self, r):
+        if r.dim() == 2:
+            return apply_columns(self.apply, r)
+
         def prec(v):
             return self.inner.apply(
                 v.to(self.inner_dtype)).to(v.dtype)

@@ -34,15 +34,15 @@ from amgcl_tpu_torch.models.preconditioner import (AsPreconditioner,
 from amgcl_tpu_torch.relaxation import (ILU0, ILUK, ILUP, ILUT, AsBlock,
                                         Chebyshev, DampedJacobi, GaussSeidel,
                                         Spai0, Spai1)
+from amgcl_tpu_torch.serve.batched import BlockCG
 from amgcl_tpu_torch.solver import (CG, FGMRES, GMRES, IDRs, LGMRES,
                                     BiCGStab, BiCGStabL, PreOnly, Richardson)
 
-#: solver names; ``blockcg`` (the serving layer's block CG) is known but
-#: not ported (ROADMAP A.11)
+#: solver names (``blockcg``: the serving layer's block CG)
 SOLVERS = {
     "cg": CG, "bicgstab": BiCGStab, "bicgstabl": BiCGStabL,
     "gmres": GMRES, "fgmres": FGMRES, "lgmres": LGMRES, "idrs": IDRs,
-    "richardson": Richardson, "preonly": PreOnly, "blockcg": None,
+    "richardson": Richardson, "preonly": PreOnly, "blockcg": BlockCG,
 }
 
 RELAXATION = {
@@ -132,10 +132,6 @@ def solver_from_params(prm: Dict[str, Any]):
     if kind not in SOLVERS:
         raise ValueError("unknown solver %r (have: %s)"
                          % (kind, sorted(SOLVERS)))
-    if SOLVERS[kind] is None:
-        raise NotImplementedError(
-            "solver %r (block CG over stacked right-hand sides) is not "
-            "ported yet (ROADMAP A.11)" % kind)
     return _build_dataclass(SOLVERS[kind], prm, "solver")
 
 

@@ -37,8 +37,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from amgcl_tpu_torch.models.amg import (AMG, AMGParams, check_dtype,
-                                        check_krylov_dtype)
+from amgcl_tpu_torch.models.amg import (AMG, AMGParams, apply_columns,
+                                        check_dtype, check_krylov_dtype)
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.solver.preonly import PreOnly
@@ -153,7 +153,13 @@ class SchurHierarchy:
     def _psolve(self, f):
         return self.psolver.solve(self.S, _in_dtype(self.p_hier), f)[0]
 
+    #: the velocity and pressure solves are Krylov loops
+    host_sync = "the inner velocity and pressure solves sync with the " \
+        "host each iteration"
+
     def apply(self, r):
+        if r.dim() == 2:
+            return apply_columns(self.apply, r)
         fu = r[self.u_idx]
         fp = r[self.p_idx]
         u1 = self._usolve(fu)

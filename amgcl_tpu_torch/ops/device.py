@@ -399,16 +399,63 @@ def refresh_values(M, A: CSR, dtype):
     return None
 
 
+# -- stacked (n, B) operands ---------------------------------------------------
+#
+# The JAX package batches its products natively or under a vmap
+# (amgcl_tpu/ops/device.py:620-658). The port's hand kernels carry exact
+# 1-D shapes, so a stacked operand goes through them column by column: a
+# block is stored (B, n), its (n, B) view hands each column out as a
+# contiguous vector the kernels take as it is.
+
+def columns(X):
+    """The B columns of a stacked (n, B) operand as the rows of a
+    contiguous (B, n) tensor: ``X.T`` itself. A stacked operand is the
+    (n, B) view of a (B, n) block, laid out once where it enters a
+    solve (``solver/stacked.block``); any other layout here is a fault
+    of the caller, not a copy to make on the hot path."""
+    S = X.T
+    if not S.is_contiguous():
+        raise AssertionError("a stacked (n, B) operand is not the view of a "
+                             "contiguous (B, n) block")
+    return S
+
+
+def stacked(cols):
+    """The (n, B) view of the (B, n) stack of B 1-D results."""
+    return torch.stack(list(cols)).T
+
+
+def per_column(fn, *blocks):
+    """``[fn(*column b of each block) for b]`` over stacked (n, B) blocks
+    (None passes through as None): the 1-D path once a column, each
+    column handed over as a contiguous vector."""
+    cols = [None if b is None else columns(b) for b in blocks]
+    nb = next(c for c in cols if c is not None).shape[0]
+    return [fn(*(None if c is None else c[j] for c in cols))
+            for j in range(nb)]
+
+
+def is_stacked(*vecs) -> bool:
+    """True when any operand is a stacked (n, B) block."""
+    return any(v is not None and v.dim() == 2 for v in vecs)
+
+
 # -- backend primitives (reference: amgcl/backend/interface.hpp:253-443) ----
 
 def spmv(A, x):
-    """y = A x."""
+    """y = A x; a stacked (n, B) x column by column through the 1-D
+    product."""
+    if x.dim() == 2:
+        return stacked(per_column(A.mv, x))
     return A.mv(x)
 
 
 def residual(f, A, x):
     """r = f − A x; one kernel pass for DIA, windowed-ELL (scalar or block)
-    and dense-window operators."""
+    and dense-window operators (a stacked (n, B) pair column by
+    column)."""
+    if is_stacked(f, x):
+        return stacked(per_column(lambda fc, xc: residual(fc, A, xc), f, x))
     if isinstance(A, DiaMatrix):
         return dk.dia_residual(A.offsets_t, A.data, f, x)
     if isinstance(A, WindowedEllMatrix):
@@ -456,7 +503,14 @@ def spmv_dots(A, x, w=None):
     """(y, ⟨y,y⟩, ⟨y,x⟩, ⟨y,w⟩) with y = A x; one kernel pass for square
     DIA and windowed-ELL operators, block ones with square blocks (⟨y,w⟩
     is None without w). Other formats, dense window among them, compose
-    ``mv`` and the dots, as the JAX package does."""
+    ``mv`` and the dots, as the JAX package does. A stacked (n, B) x (and
+    w) runs column by column, the dots then (B,) tensors."""
+    if x.dim() == 2:
+        got = per_column(lambda xc, wc: spmv_dots(A, xc, wc), x, w)
+        return (stacked(g[0] for g in got),
+                torch.stack([g[1] for g in got]),
+                torch.stack([g[2] for g in got]),
+                None if w is None else torch.stack([g[3] for g in got]))
     if A.shape[0] == A.shape[1]:
         if isinstance(A, DiaMatrix):
             return dk.dia_spmv_dots(A.offsets, A.data, x, w)

@@ -274,12 +274,28 @@ def _ticket(device, stream):
     """The dot kernels' ticket for launches on ``stream``: one zeroed
     counter per (device, stream), made once on that stream and left at 0
     by every launch, so two launches in flight on two streams never share
-    one."""
-    key = (device, stream)
+    one. A ticket is never made while the stream captures a CUDA graph:
+    it would come from the graph's private pool and its zeroing would be
+    a node of the graph, so a capture needs :func:`ensure_ticket` first."""
+    key = (torch.device(device), stream)
     t = _TICKETS.get(key)
     if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "no dot-kernel ticket for stream %#x on %s: make it with "
+                "ensure_ticket before capturing a CUDA graph on that stream"
+                % (stream, device))
         t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
     return t
+
+
+def ensure_ticket(stream):
+    """Make, outside any capture, the ticket of the dot and tail kernels
+    for launches on ``stream`` (a ``torch.cuda.Stream``), zeroed on that
+    stream; returns it. Launches on the stream, captured or not, then
+    reuse it."""
+    with torch.cuda.stream(stream):
+        return _ticket(stream.device, stream.cuda_stream)
 
 
 _TICKETS = {}

@@ -23,6 +23,15 @@ need it:
 * :func:`residual_dot` — ``r = f − A x`` and ``⟨r, r⟩`` in one operator
   pass (the DIA kernel for DIA operators, composed otherwise).
 
+Each also takes stacked (n, B) operands (the stacked solves of
+``serve/batched.py``), with per-column scalars of shape (B,) and (B,)
+dots in the scalar slots: the counterpart of the JAX package's stacked
+tier (amgcl_tpu/ops/fused_vec.py:122-160). The JAX package composes that
+tier in XLA; here each column goes through the 1-D function (its kernel
+on the card, its plain version on the CPU), as do :func:`col_dots`'
+per-column dots, so a column of a stacked solve rounds as its 1-D solve
+does, bit for bit.
+
 The three tails sum their dots in one fixed order over the grid of
 :func:`tail_blocks`: XR in a second launch, the other two in the grid's
 last block (an atomic ticket per (device, stream), as the DIA dot
@@ -157,10 +166,42 @@ def _launch_tail(what, entry, scalars, vecs, nout, ndots, ticket):
     return outs, dots
 
 
+# -- stacked (n, B) tier ------------------------------------------------------
+
+is_stacked = dev.is_stacked
+
+
+def col_dots(x, y):
+    """``(B,)`` tensor of the per-column dots ``⟨x[:, b], y[:, b]⟩`` of
+    stacked (n, B) operands, each the 1-D inner product of its column."""
+    return torch.stack(dev.per_column(dev.inner_product, x, y))
+
+
+def _per_column_tail(fn, scalars, vecs, nvec):
+    """``fn`` column by column over stacked operands: column b takes the
+    b-th entry of each (B,) scalar (a 0-d scalar or a number as it is)
+    and column b of each vector; returns the ``nvec`` stacked vectors
+    and the stacked (B,) dots."""
+    cols = [dev.columns(v) for v in vecs]
+    got = []
+    for j in range(cols[0].shape[0]):
+        sc = [v[j] if torch.is_tensor(v) and v.dim() == 1 else v
+              for v in scalars]
+        got.append(fn(*sc, *(c[j] for c in cols)))
+    return tuple(dev.stacked(g[i] for g in got) for i in range(nvec)) + \
+        tuple(torch.stack([g[i] for g in got])
+              for i in range(nvec, len(got[0])))
+
+
 def xr_update(alpha, p, q, x, r):
     """The CG iteration tail in one pass: ``(x + α·p, r − α·q, ⟨r', r'⟩)``
     with the dot a 0-d tensor on the device. ``alpha`` is a 0-d tensor of
-    the vectors' dtype on their device (or a Python number)."""
+    the vectors' dtype on their device (or a Python number). Stacked
+    (n, B) operands take a (B,) ``alpha`` and return a (B,) dot."""
+    if is_stacked(p, q, x, r):
+        return _per_column_tail(
+            lambda a, pc, qc, xc, rc: xr_update(a, pc, qc, xc, rc),
+            (alpha,), (p, q, x, r), 2)
     if x.device.type == "cpu":
         return xr_update_plain(alpha, p, q, x, r)
     (xn, rn), dots = _launch_tail("xr_update", "amgcl_xr",
@@ -179,7 +220,12 @@ def bicgstab_tail(alpha, phat, omega, shat, s, t, x, rhat):
     s − ω·t, ⟨r', r'⟩, ⟨r̂, r'⟩)`` with r' = s − ω·t; the second dot is the
     next iteration's ρ. ``alpha`` and ``omega`` are 0-d tensors of the
     vectors' dtype on their device (or Python numbers); the dots are 0-d
-    tensors on the device."""
+    tensors on the device. Stacked (n, B) operands take (B,) scalars and
+    return (B,) dots."""
+    if is_stacked(phat, shat, s, t, x, rhat):
+        return _per_column_tail(
+            lambda a, w, *cols: bicgstab_tail(a, cols[0], w, *cols[1:]),
+            (alpha, omega), (phat, shat, s, t, x, rhat), 2)
     if x.device.type == "cpu":
         return bicgstab_tail_plain(alpha, phat, omega, shat, s, t, x, rhat)
     (xn, rn), dots = _launch_tail(
@@ -198,7 +244,12 @@ def axpby_dot(a, x, b, y):
     """``(z, ⟨z, z⟩)`` with ``z = a·x + b·y`` in one pass; the dot is a 0-d
     tensor on the device. ``a`` and ``b`` are 0-d tensors of the vectors'
     dtype on their device (or Python numbers, which a CUDA launch copies
-    to the device)."""
+    to the device). Stacked (n, B) operands take (B,) or scalar
+    coefficients and return a (B,) dot."""
+    if is_stacked(x, y):
+        return _per_column_tail(
+            lambda ac, bc, xc, yc: axpby_dot(ac, xc, bc, yc), (a, b),
+            (x, y), 1)
     if x.device.type == "cpu":
         return axpby_dot_plain(a, x, b, y)
     (z,), dots = _launch_tail("axpby_dot", "amgcl_axpby_dot",
@@ -215,19 +266,31 @@ def stack_dots(V, w):
     """``(len(V),)`` vector of ``⟨V_i, w⟩`` — the Arnoldi and shadow-space
     products of GMRES and IDR(s) — as one matrix-vector product (one read
     of V; the JAX package computes it outside any Pallas kernel too,
-    amgcl_tpu/ops/fused_vec.py:387-402)."""
+    amgcl_tpu/ops/fused_vec.py:387-402). Stacked: V (k, n, B) and w
+    (n, B) give the (k, B) per-column products."""
+    if w.dim() == 2:
+        return torch.einsum("knb,nb->kb", V, w)
     return torch.mv(V, w)
 
 
 def block_dots(X, Y):
     """``(len(X), len(Y))`` matrix of ``⟨X_i, Y_j⟩`` — the Gram products of
-    BiCGStab(L)'s minimal-residual step — as one matrix product."""
+    BiCGStab(L)'s minimal-residual step — as one matrix product. Stacked:
+    X (k, n, B) and Y (l, n, B) give the (B, k, l) per-column Gram
+    matrices."""
+    if X.dim() == 3:
+        return torch.einsum("inb,jnb->bij", X, Y)
     return torch.matmul(X, Y.T)
 
 
 def residual_dot(f, A, x):
     """``(r, ⟨r, r⟩)`` with ``r = f − A x``: one kernel pass for square DIA
-    operators, the residual seam plus a dot elsewhere."""
+    operators, the residual seam plus a dot elsewhere. A stacked (n, B)
+    pair runs column by column and returns a (B,) dot."""
+    if is_stacked(f, x):
+        got = dev.per_column(lambda fc, xc: residual_dot(fc, A, xc), f, x)
+        return dev.stacked(g[0] for g in got), torch.stack(
+            [g[1] for g in got])
     if isinstance(A, dev.DiaMatrix) and A.shape[0] == A.shape[1]:
         return dia_residual_dot(A.offsets, A.data, f, x)
     r = dev.residual(f, A, x)

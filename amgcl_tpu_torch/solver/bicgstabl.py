@@ -16,7 +16,10 @@ vectors) and ρ, α, ω stay on the device. Each BiCG step fetches the
 scalars its commit decision and its guards need (ζ, ρ₁, γ) in one host
 sync; the last step's sync also carries the minimal-residual step's
 residual, which is computed before the decision and dropped when the
-step ends the solve, so a cycle of L steps costs L syncs.
+step ends the solve, so a cycle of L steps costs L syncs. A stacked
+(n, B) rhs runs the cycle on the block, a column leaving the cycle (and
+skipping its minimal-residual step) where its own 1-D loop would, with
+one host sync a step for the B columns (``solver/stacked.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops import fused_vec as fv
+from amgcl_tpu_torch.solver import stacked as S
 from amgcl_tpu_torch.telemetry import health as H
 from amgcl_tpu_torch.telemetry.history import HistoryMixin
 
@@ -58,17 +62,16 @@ class BiCGStabL(HistoryMixin):
         """Returns ``(x, iters, relative_residual, health_state)``, with
         the residual history appended when ``record_history``.
         ``precond`` maps a vector r to an approximate solution of
-        A z = r. Each committed BiCG step counts one iteration."""
-        if rhs.dim() != 1:
-            raise NotImplementedError(
-                "a stacked (n, B) rhs (the JAX package's serving entry) is "
-                "not ported; solve one right-hand side at a time")
+        A z = r. Each committed BiCG step counts one iteration. A stacked
+        (n, B) rhs returns per-column lists, as :meth:`CG.solve` does."""
         if self.pside not in ("left", "right"):
             raise ValueError("pside must be 'left' or 'right', got %r"
                              % (self.pside,))
         Lp = int(self.L)
         if Lp < 1:
             raise ValueError("L must be at least 1, got %r" % (self.L,))
+        if rhs.dim() == 2:
+            return self._solve_stacked(A, precond, rhs, x0)
         right = self.pside == "right"
         dot = dev.inner_product
         x_init = torch.zeros_like(rhs) if x0 is None else x0
@@ -223,3 +226,176 @@ class BiCGStabL(HistoryMixin):
         U_new = [Us[0] - gam @ Us[1:]] + list(U[1:])
         res = torch.sqrt(torch.abs(dev.inner_product(R_new[0], R_new[0])))
         return x + gam @ Rs[:Lp], R_new, U_new, gam[Lp - 1], res
+
+    def _solve_stacked(self, A, precond, rhs, x0):
+        """The 1-D cycle on a (n, B) block: per column its steps' commits,
+        its early exit from the cycle, its minimal-residual step and its
+        reliable updates."""
+        Lp = int(self.L)
+        right = self.pside == "right"
+        rhs, x_init = S.entry(rhs, x0)
+        if right:
+            def op(v):
+                return dev.spmv(A, precond(v))
+
+            def op_dot_rhat(v, rhat):
+                y, _, _, yr = dev.spmv_dots(A, precond(v), rhat)
+                return y, yr
+
+            b_p = rhs
+            r0, zz0 = fv.residual_dot(rhs, A, x_init)
+            x = torch.zeros_like(rhs)
+        else:
+            def op(v):
+                return precond(dev.spmv(A, v))
+
+            def op_dot_rhat(v, rhat):
+                y = op(v)
+                return y, fv.col_dots(rhat, y)
+
+            b_p = precond(rhs)
+            r0 = b_p - op(x_init)
+            zz0 = fv.col_dots(r0, r0)
+            x = x_init
+        norm_rhs, zeta0 = S.fetch(torch.sqrt(torch.abs(fv.col_dots(b_p,
+                                                                     b_p))),
+                                  torch.sqrt(torch.abs(zz0)))
+        cols = S.Columns(self, norm_rhs, zeta0)
+        nb = cols.B
+        use_delta = self.delta > 0
+        if use_delta and not right:
+            x = torch.zeros_like(rhs)
+        tiny = torch.finfo(rhs.dtype).tiny
+        guard = bool(self.guard)
+        rhat = r0
+        zeros = torch.zeros_like(rhs)
+        R = [r0] + [zeros] * Lp
+        U = [zeros] * (Lp + 1)
+        one = torch.ones_like(zz0)
+        rho, alpha, omega = one, torch.zeros_like(one), one
+        tiny_eye = 1e-300 * torch.eye(Lp, dtype=rhs.dtype, device=rhs.device)
+        xbase, Bv = x_init, r0
+        rnc, rnt = list(zeta0), list(zeta0)
+        while True:
+            act = cols.actives()
+            if not any(act):
+                break
+            live = list(act)
+            took = [0] * nb
+            trip_rho, trip_gamma, nan_seen = ([False] * nb for _ in range(3))
+            rho = torch.where(cols.mask(act, rho), -omega * rho, rho)
+            for j in range(Lp):
+                if not any(live):
+                    break
+                rho1 = fv.col_dots(rhat, R[j])
+                beta = alpha * rho1 / _safe(rho)
+                Uc = list(U)
+                for i in range(j + 1):
+                    Uc[i] = R[i] - beta * Uc[i]
+                Uc[j + 1], gamma = op_dot_rhat(Uc[j], rhat)
+                alpha_c = rho1 / _safe(gamma)
+                r0c, zz = fv.axpby_dot(-alpha_c, Uc[1], one, R[0])
+                Rc = list(R)
+                Rc[0] = r0c
+                for i in range(1, j + 1):
+                    Rc[i] = Rc[i] - alpha_c * Uc[i + 1]
+                Rc[j + 1] = op(Rc[j])
+                xc = x + alpha_c * Uc[0]
+                vals = [torch.sqrt(torch.abs(zz)), rho1, gamma]
+                if j == Lp - 1:
+                    mr = self._minimal_residual_stacked(xc, Rc, Uc, tiny_eye)
+                    vals.append(mr[4])
+                got = S.fetch(*vals)
+                oks = []
+                for b in range(nb):
+                    if not live[b]:
+                        oks.append(False)
+                        continue
+                    zeta = got[0][b]
+                    if guard:
+                        trip_rho[b] |= H.bad_denom(got[1][b], tiny)
+                        trip_gamma[b] |= H.bad_denom(got[2][b], tiny)
+                        nan_seen[b] |= not math.isfinite(zeta)
+                    step_ok = not guard or math.isfinite(zeta)
+                    self._hist_put(cols.hist[b], cols.its[b] + took[b],
+                                   zeta / cols.scale[b], keep=step_ok)
+                    if step_ok:
+                        took[b] += 1
+                        cols.res[b] = zeta
+                        rnc[b], rnt[b] = max(rnc[b], zeta), max(rnt[b], zeta)
+                    live[b] = step_ok and zeta > cols.eps[b]
+                    oks.append(step_ok)
+                m = cols.mask(oks, rho)
+                x = torch.where(m, xc, x)
+                R = [torch.where(m, a, c) for a, c in zip(Rc, R)]
+                U = [torch.where(m, a, c) for a, c in zip(Uc, U)]
+                rho, alpha = S.commit(m, (rho1, alpha_c), (rho, alpha))
+            # -- MR part, for the columns still live after their L steps
+            mr_ok = [False] * nb
+            for b in range(nb):
+                if live[b]:
+                    res_c = got[3][b]
+                    if guard:
+                        nan_seen[b] |= not math.isfinite(res_c)
+                    if not guard or math.isfinite(res_c):
+                        mr_ok[b] = True
+                        cols.res[b] = res_c
+            if any(mr_ok):
+                m = cols.mask(mr_ok, rho)
+                x = torch.where(m, mr[0], x)
+                R[0] = torch.where(m, mr[1], R[0])
+                U[0] = torch.where(m, mr[2], U[0])
+                omega = torch.where(m, mr[3], omega)
+            recomp, update = [False] * nb, [False] * nb
+            for b in range(nb):
+                if not act[b]:
+                    continue
+                res, sc = cols.res[b], cols.scale[b]
+                self._hist_put(cols.hist[b], cols.its[b] + took[b] - 1,
+                               res / sc, keep=took[b] > 0)
+                self._guard_step(cols.hs[b], cols.its[b] + max(took[b] - 1, 0),
+                                 res / sc,
+                                 ((H.BREAKDOWN_RHO, trip_rho[b]),
+                                  (H.BREAKDOWN_ALPHA, trip_gamma[b]),
+                                  (H.NAN, nan_seen[b])))
+                cols.its[b] += took[b]
+                if not use_delta:
+                    continue
+                # -- reliable updates (bicgstabl.hpp:386-409)
+                rnc[b], rnt[b] = max(res, rnc[b]), max(res, rnt[b])
+                update[b] = res < self.delta * zeta0[b] \
+                    and zeta0[b] <= rnc[b] and live[b]
+                recomp[b] = ((res < self.delta * rnt[b] and res <= rnt[b])
+                             or update[b]) and live[b]
+                if recomp[b]:
+                    if update[b]:
+                        rnc[b] = res
+                    rnt[b] = res
+            if any(recomp):
+                Mx = precond(x) if right else x
+                r_true = Bv - (dev.spmv(A, Mx) if right else op(x))
+                R[0] = torch.where(cols.mask(recomp, rho), r_true, R[0])
+                if any(update):
+                    mu = cols.mask(update, rho)
+                    x = torch.where(mu, torch.zeros_like(x), x)
+                    xbase = torch.where(mu, xbase + Mx, xbase)
+                    Bv = torch.where(mu, r_true, Bv)
+        if use_delta:
+            x = xbase + (precond(x) if right else x)
+        elif right:
+            x = x_init + precond(x)
+        return cols.result(x)
+
+    @staticmethod
+    def _minimal_residual_stacked(x, R, U, tiny_eye):
+        """:meth:`_minimal_residual` a column of (n, B) blocks: the
+        (B, L, L) Gram systems solved at once."""
+        Lp = len(R) - 1
+        Rs, Us = S.stack(R), S.stack(U)
+        gram = fv.block_dots(Rs[1:], Rs)          # (B, L, L+1)
+        gam = torch.linalg.solve_ex(gram[:, :, 1:] + tiny_eye,
+                                    gram[:, :, 0])[0]
+        r0 = Rs[0] - S.combine(gam, Rs[1:])
+        u0 = Us[0] - S.combine(gam, Us[1:])
+        res = torch.sqrt(torch.abs(fv.col_dots(r0, r0)))
+        return x + S.combine(gam, Rs[:Lp]), r0, u0, gam[:, Lp - 1], res

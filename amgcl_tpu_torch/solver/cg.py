@@ -4,7 +4,9 @@
 The recurrences are the JAX package's, written as a Python loop: every
 vector operation is enqueued on the device, and each iteration fetches
 its three scalars (residual norm, ρ, ⟨q, p⟩) in one host sync for the
-convergence check and the health guards.
+convergence check and the health guards. A stacked (n, B) rhs runs the
+same recurrences on the block, one host sync an iteration for the B
+columns (``solver/stacked.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops import fused_vec as fv
+from amgcl_tpu_torch.solver import stacked as S
 from amgcl_tpu_torch.telemetry import health as H
 from amgcl_tpu_torch.telemetry.history import HistoryMixin
 
@@ -36,11 +39,11 @@ class CG(HistoryMixin):
         the residual history appended when ``record_history``.
         ``precond`` maps a residual r to an approximate solution of
         A z = r. ``abstol`` overrides the field (iterative refinement stops
-        correction solves exactly at the global target)."""
-        if rhs.dim() != 1:
-            raise NotImplementedError(
-                "a stacked (n, B) rhs (the JAX package's serving entry) is "
-                "not ported; solve one right-hand side at a time")
+        correction solves exactly at the global target). A stacked
+        (n, B) rhs returns x (n, B) with per-column lists of iterations
+        and residuals and a :class:`StackedHealth`."""
+        if rhs.dim() == 2:
+            return self._solve_stacked(A, precond, rhs, x0, abstol)
         x = torch.zeros_like(rhs) if x0 is None else x0
         # fused residual + <r,r>: one operator pass
         r, rr0 = fv.residual_dot(rhs, A, x)
@@ -101,3 +104,65 @@ class CG(HistoryMixin):
             # null-space vector instead (reference cg.hpp:163-168)
             x = torch.zeros_like(x)
         return self._hist_result(x, it, res / norm_scale, hs, hist)
+
+    def _solve_stacked(self, A, precond, rhs, x0, abstol):
+        """The 1-D recurrences on a (n, B) block, columns frozen once
+        their own loop condition fails."""
+        rhs, x = S.entry(rhs, x0)
+        r, rr0 = fv.residual_dot(rhs, A, x)
+        norm_rhs, res = S.fetch(torch.sqrt(torch.abs(fv.col_dots(rhs, rhs))),
+                                torch.sqrt(torch.abs(rr0)))
+        ab = self.abstol if abstol is None else abstol
+        cols = S.Columns(self, norm_rhs, res,
+                         [max(self.tol * (v if v > 0 else 1.0), ab)
+                          for v in norm_rhs])
+        tiny = torch.finfo(rhs.dtype).tiny
+        guard_trips = self.guard and not self.ns_search
+        p = torch.zeros_like(r)
+        rho_prev = torch.zeros_like(rr0)
+        zero = torch.zeros_like(rho_prev)
+        while True:
+            act = cols.actives()
+            if not any(act):
+                break
+            s = precond(r)
+            rho = fv.col_dots(r, s)
+            beta = torch.where(rho_prev == 0, zero, rho / rho_prev)
+            p_n = dev.axpby(1.0, s, beta, p)
+            q, _, qp, _ = dev.spmv_dots(A, p_n)
+            alpha = rho / (torch.where(qp == 0, torch.ones_like(qp), qp)
+                           if guard_trips else qp)
+            x_n, r_n, rr = fv.xr_update(alpha, p_n, q, x, r)
+            res_n, rho_h, qp_h = S.fetch(torch.sqrt(torch.abs(rr)), rho, qp)
+            oks = []
+            for b in range(cols.B):
+                if not act[b]:
+                    oks.append(False)
+                    continue
+                it, sc, hs = cols.its[b], cols.scale[b], cols.hs[b]
+                if guard_trips:
+                    ok = self._guard_step(
+                        hs, it, res_n[b] / sc,
+                        ((H.BREAKDOWN_RHO, H.bad_denom(rho_h[b], tiny)),
+                         (H.BREAKDOWN_ALPHA, H.bad_denom(qp_h[b], tiny)),
+                         (H.INDEFINITE, qp_h[b] < 0, False)))
+                elif self.guard:
+                    ok = math.isfinite(res_n[b])
+                    hs.trip(it, H.NAN, not ok)
+                else:
+                    ok = True
+                self._hist_put(cols.hist[b], it, res_n[b] / sc, keep=ok)
+                if ok:
+                    cols.res[b] = res_n[b]
+                    cols.its[b] += 1
+                    if self.verbose and cols.its[b] % 5 == 0:
+                        print("rhs %d iter %d: resid %.6e"
+                              % (b, cols.its[b], res_n[b] / sc))
+                oks.append(ok)
+            m = cols.mask(oks, r)
+            x, r, p, rho_prev = S.commit(m, (x_n, r_n, p_n, rho),
+                                         (x, r, p, rho_prev))
+        if not self.ns_search:
+            x = torch.where(cols.mask([v > 0 for v in norm_rhs], x), x,
+                        torch.zeros_like(x))
+        return cols.result(x)

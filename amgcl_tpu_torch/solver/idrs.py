@@ -16,7 +16,9 @@ G, U, M, f and ω stay on the device. Each of the s biorthogonalization
 sub-steps and the closing dimension-reduction step counts one iteration,
 and with guards on (or history recorded) fetches its guard scalars and
 residual in one host sync; as in the reference, the convergence test
-runs only after all s + 1 of them.
+runs only after all s + 1 of them. A stacked (n, B) rhs runs the same
+steps on the block, every column on the same shadow space, with one host
+sync a step for the B columns (``solver/stacked.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops import fused_vec as fv
+from amgcl_tpu_torch.solver import stacked as S
 from amgcl_tpu_torch.telemetry import health as H
 from amgcl_tpu_torch.telemetry.history import HistoryMixin
 
@@ -79,11 +82,8 @@ class IDRs(HistoryMixin):
 
     def solve(self, A, precond, rhs, x0=None):
         """Returns ``(x, iters, relative_residual, health_state)``, with
-        the residual history appended when ``record_history``."""
-        if rhs.dim() != 1:
-            raise NotImplementedError(
-                "a stacked (n, B) rhs (the JAX package's serving entry) is "
-                "not ported; solve one right-hand side at a time")
+        the residual history appended when ``record_history``. A stacked
+        (n, B) rhs returns per-column lists, as :meth:`CG.solve` does."""
         s = int(self.s)
         if s < 1:
             raise ValueError("s must be at least 1, got %r" % (self.s,))
@@ -95,6 +95,8 @@ class IDRs(HistoryMixin):
             if tuple(P.shape) != (s, n):
                 raise ValueError("shadow has shape %s, expected (%d, %d)"
                                  % (tuple(P.shape), s, n))
+        if rhs.dim() == 2:
+            return self._solve_stacked(A, precond, rhs, x0, P)
         x = torch.zeros_like(rhs) if x0 is None else x0
         r, rr0 = fv.residual_dot(rhs, A, x)
         norm_rhs, res = torch.stack(
@@ -187,3 +189,115 @@ class IDRs(HistoryMixin):
                                   (H.NAN, nan_seen)))
             it += took
         return self._hist_result(x, it, res / scale, hs, hist)
+
+    def _solve_stacked(self, A, precond, rhs, x0, P):
+        """The 1-D steps on a (n, B) block over the shadow space P; the
+        per-column state G, U (s, n, B), M (B, s, s), f (B, s), ω (B,)."""
+        s = int(self.s)
+        rhs, x = S.entry(rhs, x0)
+        nb = rhs.shape[1]
+        dtype, device = rhs.dtype, rhs.device
+        r, rr0 = fv.residual_dot(rhs, A, x)
+        norm_rhs, res = S.fetch(torch.sqrt(torch.abs(fv.col_dots(rhs, rhs))),
+                                torch.sqrt(torch.abs(rr0)))
+        cols = S.Columns(self, norm_rhs, res)
+        tiny = torch.finfo(dtype).tiny
+        guard = bool(self.guard)
+        fetch_steps = guard or self.record_history
+        G = S.stack([torch.zeros_like(rhs)] * s)
+        U = S.stack([torch.zeros_like(rhs)] * s)
+        eye = torch.eye(s, dtype=dtype, device=device)
+        M = eye.repeat(nb, 1, 1)
+        om = torch.ones_like(rr0)
+        idx = torch.arange(s, device=device)
+        while True:
+            act = cols.actives()
+            if not any(act):
+                break
+            ma = cols.mask(act, om)
+            f = (P @ r).T                               # (B, s)
+            alive = list(act)
+            trip_rho, trip_om, nan_seen = ([False] * nb for _ in range(3))
+            took = [0] * nb
+            for k in range(s):
+                mask = idx >= k
+                Mk = torch.where(mask[:, None] & mask[None, :], M, eye)
+                fk = torch.where(mask, f, torch.zeros_like(f))
+                c = torch.linalg.solve_ex(Mk, fk)[0]   # zeros for i < k
+                v = precond(r - S.combine(c, G))
+                u = om * v + S.combine(c, U)
+                g = dev.spmv(A, u)
+                for i in range(k):
+                    al = (P[i] @ g) / M[:, i, i]
+                    g = g - al * G[i]
+                    u = u - al * U[i]
+                G[k] = torch.where(ma, g, G[k])
+                U[k] = torch.where(ma, u, U[k])
+                M[:, :, k] = S.where_rows(ma, (P @ g).T, M[:, :, k])
+                beta = f[:, k] / _safe(M[:, k, k])
+                x_n, r_n, rr_k = fv.xr_update(beta, U[k], G[k], x, r)
+                f_n = f - beta[:, None] * M[:, :, k]
+                if not fetch_steps:
+                    x, r = S.commit(ma, (x_n, r_n), (x, r))
+                    f = S.where_rows(ma, f_n, f)
+                    took = [t + int(a) for t, a in zip(took, act)]
+                    continue
+                mkk, res_k = S.fetch(M[:, k, k], torch.sqrt(torch.abs(rr_k)))
+                oks = []
+                for b in range(nb):
+                    if not act[b]:
+                        oks.append(False)
+                        continue
+                    if guard:
+                        bad = H.bad_denom(mkk[b], tiny)
+                        trip_rho[b] |= alive[b] and bad
+                        nan_seen[b] |= alive[b] and not math.isfinite(res_k[b])
+                        step_ok = alive[b] and not bad \
+                            and math.isfinite(res_k[b])
+                    else:
+                        step_ok = True
+                    if step_ok:
+                        cols.res[b] = res_k[b]
+                    self._hist_put(cols.hist[b], cols.its[b] + k,
+                                   res_k[b] / cols.scale[b], keep=step_ok)
+                    took[b] += int(step_ok)
+                    alive[b] = step_ok
+                    oks.append(step_ok)
+                m = cols.mask(oks, om)
+                x, r = S.commit(m, (x_n, r_n), (x, r))
+                f = S.where_rows(m, f_n, f)
+            # dimension-reduction step into the next Sonneveld space
+            v = precond(r)
+            t, tt, _, tr = dev.spmv_dots(A, v, r)
+            om_n = tr / _safe(tt)
+            x_n, r_n, rr_n = fv.xr_update(om_n, v, t, x, r)
+            tt_h, res_n = S.fetch(tt, torch.sqrt(torch.abs(rr_n)))
+            oks = []
+            for b in range(nb):
+                if not act[b]:
+                    oks.append(False)
+                    continue
+                if guard:
+                    bad = H.bad_denom(tt_h[b], tiny)
+                    trip_om[b] |= alive[b] and bad
+                    nan_seen[b] |= alive[b] and not math.isfinite(res_n[b])
+                    fin_ok = alive[b] and not bad and math.isfinite(res_n[b])
+                else:
+                    fin_ok = True
+                if fin_ok:
+                    cols.res[b] = res_n[b]
+                self._hist_put(cols.hist[b], cols.its[b] + s,
+                               res_n[b] / cols.scale[b], keep=fin_ok)
+                took[b] += int(fin_ok)
+                if guard:
+                    self._guard_step(cols.hs[b],
+                                     cols.its[b] + max(took[b] - 1, 0),
+                                     cols.res[b] / cols.scale[b],
+                                     ((H.BREAKDOWN_RHO, trip_rho[b]),
+                                      (H.BREAKDOWN_OMEGA, trip_om[b]),
+                                      (H.NAN, nan_seen[b])))
+                cols.its[b] += took[b]
+                oks.append(fin_ok)
+            m = cols.mask(oks, om)
+            x, r, om = S.commit(m, (x_n, r_n, om_n), (x, r, om))
+        return cols.result(x)

@@ -17,7 +17,9 @@ from dataclasses import dataclass
 import torch
 
 from amgcl_tpu_torch.ops import device as dev
-from amgcl_tpu_torch.solver.gmres import _arnoldi_cycle, _Run
+from amgcl_tpu_torch.solver import stacked as S
+from amgcl_tpu_torch.solver.gmres import (_arnoldi_cycle, _restarted_stacked,
+                                          _Run)
 from amgcl_tpu_torch.telemetry.history import HistoryMixin
 
 
@@ -38,11 +40,8 @@ class LGMRES(HistoryMixin):
 
     def solve(self, A, precond, rhs, x0=None):
         """Returns ``(x, iters, relative_residual, health_state)``, with
-        the residual history appended when ``record_history``."""
-        if rhs.dim() != 1:
-            raise NotImplementedError(
-                "a stacked (n, B) rhs (the JAX package's serving entry) is "
-                "not ported; solve one right-hand side at a time")
+        the residual history appended when ``record_history``. A stacked
+        (n, B) rhs returns per-column lists, as :meth:`CG.solve` does."""
         if self.pside not in ("left", "right"):
             raise ValueError("pside must be 'left' or 'right', got %r"
                              % (self.pside,))
@@ -52,7 +51,10 @@ class LGMRES(HistoryMixin):
                              % (self.K, self.M))
         mk = m - K
         left = self.pside == "left"
-        x = torch.zeros_like(rhs) if x0 is None else x0
+        if rhs.dim() == 2:
+            rhs, x = S.entry(rhs, x0)
+        else:
+            x = torch.zeros_like(rhs) if x0 is None else x0
         if left:
             def apply_op(v):
                 return precond(dev.spmv(A, v)), v
@@ -68,6 +70,9 @@ class LGMRES(HistoryMixin):
             def presid(x):
                 return dev.residual(rhs, A, x)
 
+        if rhs.dim() == 2:
+            return _restarted_stacked(self, apply_op, presid, rhs, x, m, K,
+                                      None if left else precond)
         aug = []                # stored corrections, newest first
 
         def direction(j, V):

@@ -4,7 +4,8 @@ reference: amgcl/solver/preonly.hpp).
 
 The solve reports one iteration and the true relative residual of the
 result, fetched in one host sync; the guard trips only on a non-finite
-residual.
+residual. A stacked (n, B) rhs applies the preconditioner to the block and
+fetches the B residuals in one sync.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from dataclasses import dataclass
 import torch
 
 from amgcl_tpu_torch.ops import device as dev
+from amgcl_tpu_torch.ops import fused_vec as fv
+from amgcl_tpu_torch.solver import stacked as S
 from amgcl_tpu_torch.telemetry import health as H
 from amgcl_tpu_torch.telemetry.history import HistoryMixin
 
@@ -30,11 +33,21 @@ class PreOnly(HistoryMixin):
     def solve(self, A, precond, rhs, x0=None):
         """Returns ``(x, 1, relative_residual, health_state)``, with the
         one-entry history appended when ``record_history``; ``x0`` is
-        ignored."""
-        if rhs.dim() != 1:
-            raise NotImplementedError(
-                "a stacked (n, B) rhs (the JAX package's serving entry) is "
-                "not ported; solve one right-hand side at a time")
+        ignored. A stacked (n, B) rhs returns per-column lists, as
+        :meth:`CG.solve` does."""
+        if rhs.dim() == 2:
+            rhs = S.block(rhs)
+            x = precond(rhs)
+            r = dev.residual(rhs, A, x)
+            nr, nb = S.fetch(torch.sqrt(torch.abs(fv.col_dots(r, r))),
+                             torch.sqrt(torch.abs(fv.col_dots(rhs, rhs))))
+            cols = S.Columns(self, nb, nr)
+            for b in range(cols.B):
+                rel = nr[b] / cols.scale[b]
+                cols.its[b] = 1
+                self._hist_put(cols.hist[b], 0, rel)
+                cols.hs[b].trip(0, H.NAN, not math.isfinite(rel))
+            return cols.result(x)
         x = precond(rhs)
         r = dev.residual(rhs, A, x)
         nr, nb = torch.stack([dev.norm(r), dev.norm(rhs)]).tolist()

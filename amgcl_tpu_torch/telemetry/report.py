@@ -14,7 +14,11 @@ class SolveReport:
     ``record_history=True``) lists the relative residual of each
     iteration: ``len(history) == iters`` for a plain solve, and under
     iterative refinement it covers the initial solve only while
-    ``iters`` also counts the correction solves."""
+    ``iters`` also counts the correction solves. A stacked (n, B) solve
+    reports the batch maxima of ``iters`` and ``resid``, the JAX
+    package's health dict with a decode a column (``health["per_rhs"]``),
+    the slowest column's history, and in ``extra["per_rhs"]`` each
+    column's iterations, residual and history."""
 
     iters: int
     resid: float
@@ -29,6 +33,10 @@ class SolveReport:
     #: own details (a sharded solve: the shard and device counts)
     solver: Optional[str] = None
     extra: Optional[Dict[str, Any]] = None
+    #: right-hand sides solved a second (a stacked solve, a service batch)
+    solves_per_sec: Optional[float] = None
+    #: a service request's spans (serve/service.py)
+    serve: Optional[Dict[str, Any]] = None
 
     def __iter__(self):
         yield self.iters

@@ -178,6 +178,22 @@ Run from the root of a checkout, with no arguments:
    with ``device_inv=True``: the device inverse kept, the count within
    one of the main path's) and MIS1 (the device MIS on U1's strength
    graph, twice on the card and once on the CPU, all equal).
+14. Serving (``--phase14`` runs it alone): SV1 (the main path's system,
+   float32 SA + SPAI-0 + CG(maxiter=100, tol=1e-6), refine 0, through
+   ``SolverService(batch=8)``: a ``solve_batch`` of 8 seeded columns,
+   column 0 the main path's rhs, cold (the bucket's CUDA graph captured)
+   and warm, then 13 ``submit``s, one full bucket and one of 5 padded
+   with zero columns), BC1 (``BlockCG`` on SV1's system and hierarchy,
+   B = 8) and SV2 (U1's system under BiCGStab(maxiter=100, tol=1e-6),
+   B = 4). Each column's reported residual must be ≤ 1e-6, its host
+   float64 true residual at most twice that of the same column's
+   single-rhs solve through the same bundle, and (but in BC1) its count
+   within ±1 of that solve's; BC1's count no more than SV1's worst CG
+   column's. Each bucket is captured once, and its replay must equal the
+   eager per-column apply bit for bit; no plain version may run. Prints
+   the kernels launched (by their wrappers, and inside graph replays),
+   captures and capture seconds, a warm batch's time and solves/s beside
+   the sequential single-rhs solves', its busy share and peak memory.
 
 With the device setup as the default, the windows of the paths whose
 host-loop levels it changes come from the JAX package's counts under its
@@ -3924,6 +3940,459 @@ def p13_family(failures, only=None):
     return counts, summary
 
 
+# -- phase 14: serving (A.11a) -------------------------------------------------
+
+#: SV1's and BC1's bucket, SV2's, and the requests SV1 submits: one full
+#: bucket and one of 5 padded with 3 zero columns
+SV_B = 8
+SV2_B = 4
+SV_SUBMITS = 13
+SV_SEED = 1811
+#: kernels each path must launch, by their wrappers (the Krylov side's
+#: per-column products and tails) or inside its graph replays (which
+#: launch the preconditioner's kernels without Python); a bucket's
+#: warm-up and capture are kept out of the wrapper counts
+SV_KERNELS = {
+    "SV1": ("fused_down_sweep", "fused_up_sweep", "dia_residual",
+            "dia_scaled_correction", "dia_spmv_dots", "dia_residual_dot",
+            "xr_update"),
+    "SV2": ("windowed_ell_residual", "windowed_ell_scaled_correction",
+            "windowed_ell_spmv_dots", "bicgstab_tail"),
+    "BC1": ("fused_down_sweep", "fused_up_sweep", "dia_spmv",
+            "dia_residual"),
+}
+
+
+def uncounted_captures(pre):
+    """Keep the bucket captures of StackedPrecond ``pre`` out of the
+    wrapper counts: a wrapper called while a graph is captured records
+    its kernel, which runs at each replay, and the one warm-up apply
+    before it is not the path's own work. Returns ``pre``."""
+    capture = pre._capture
+
+    def counted_apart(*args):
+        with counts_paused():
+            return capture(*args)
+
+    pre._capture = counted_apart
+    return pre
+
+
+def window_replays(pre, before):
+    """Replays of each bucket since the snapshot ``before`` (a copy of
+    ``pre.replays`` taken when the window opened)."""
+    return {B: v - before.get(B, 0) for B, v in pre.replays.items()
+            if v - before.get(B, 0)}
+
+
+def sv_columns(rhs, B, seed):
+    """B seeded right-hand sides (standard normal), column 0 the path's
+    own rhs."""
+    R = np.random.default_rng(seed).standard_normal((rhs.shape[0], B))
+    R[:, 0] = rhs
+    return R
+
+
+def sv_singles(bundle, R):
+    """Each column's single-rhs solve through ``bundle`` (counts paused,
+    one warm-up first): (iterations, x columns, seconds of the B
+    sequential solves)."""
+    with counts_paused():
+        bundle(R[:, 0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [bundle(R[:, b]) for b in range(R.shape[1])]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return [info.iters for _, info in got], [x for x, _ in got], secs
+
+
+def sv_hold(label, A, R, x, per, singles, tol, failures, counts=True):
+    """Each column: reported residual ≤ tol, host float64 true residual at
+    most twice its single-rhs solve's, iterations within ±1 of it (with
+    ``counts``). Returns the true residuals."""
+    s_iters, s_x, _ = singles
+    trues = []
+    for b in range(R.shape[1]):
+        t = true_residual(A, R[:, b], x[:, b])
+        ts = true_residual(A, R[:, b], s_x[b])
+        trues.append(t)
+        bad = []
+        if not per["resid"][b] <= tol:
+            bad.append("reported resid %.3e > %g" % (per["resid"][b], tol))
+        if not t <= 2 * ts:
+            bad.append("true resid %.3e > 2 x single %.3e" % (t, ts))
+        if counts and abs(per["iters"][b] - s_iters[b]) > 1:
+            bad.append("%d iterations, single %d" % (per["iters"][b],
+                                                     s_iters[b]))
+        print("[%s] column %d: %d iterations (single %d), reported %.3e, "
+              "true %.3e (single %.3e)%s" % (
+                  label, b, per["iters"][b], s_iters[b], per["resid"][b], t,
+                  ts, "" if not bad else " FAIL: " + "; ".join(bad)))
+        if bad:
+            failures.append("%s column %d: %s" % (label, b, "; ".join(bad)))
+    return trues
+
+
+def sv_graphs(label, pre, failures):
+    """Each captured bucket's replay against the eager per-column apply,
+    bit for bit, on a seeded block (counts paused); returns the
+    preconditioner kernels one replay launches, counted on the eager
+    apply of the same bucket."""
+    rng = np.random.default_rng(SV_SEED + 1)
+    per_replay = {}
+    with counts_paused():
+        for n, B, dtype in list(pre._buckets):
+            R = torch.as_tensor(rng.standard_normal((B, n)), dtype=dtype,
+                                device="cuda").T
+            got = pre(R)
+            reset_counts()
+            want = pre.eager(R)
+            launched, _ = read_counts()
+            per_replay[B] = {k: v for k, v in launched.items()
+                             if v and not k.endswith(".bf16")}
+            same = torch.equal(got, want)
+            print("[%s] bucket B=%d: replay equal to the eager per-column "
+                  "apply bit for bit: %s; one replay runs %s" % (
+                      label, B, same, json.dumps(per_replay[B])))
+            if not same:
+                failures.append("%s: bucket %d replay differs from the eager"
+                                " apply by %.3e" % (label, B, float(
+                                    (got - want).abs().max())))
+    return per_replay
+
+
+def sv_report(label, pre, replays, counts, plain_calls, per_replay,
+              failures):
+    """Print the path's launches, its buckets' captures and its window's
+    replays (``replays``), and check its kernels and plain calls; returns
+    the launches inside those replays by kernel, derived as the window's
+    replays of each bucket times the kernels one eager apply of that
+    bucket launches (a replay runs every kernel its capture recorded,
+    which is that apply's; sv_timing holds a graph batch's trace against
+    an uncaptured batch's)."""
+    launched = {k: v for k, v in counts.items() if v}
+    replayed = {}
+    for B, per in per_replay.items():
+        for k, v in per.items():
+            replayed[k] = replayed.get(k, 0) + v * replays.get(B, 0)
+    print("[%s] lowering %s; captures by bucket %s, capture seconds %s, "
+          "replays in the window %s" % (
+              label, pre.lowering, json.dumps(pre.captures),
+              json.dumps({b: round(v, 4) for b, v in pre.capture_s.items()}),
+              json.dumps(replays)))
+    print("[%s] kernels launched by their wrappers (the Krylov side; "
+          "captures not counted): %s" % (label, json.dumps(launched)))
+    print("[%s] kernel launches inside the window's graph replays (derived: "
+          "replays x one eager apply's launches): %s"
+          % (label, json.dumps(replayed)))
+    print("[%s] plain-version calls: %d" % (label, sum(plain_calls.values())))
+    if pre.lowering != "per-column-graph":
+        failures.append("%s: lowering %s" % (label, pre.lowering))
+    if any(plain_calls.values()):
+        failures.append("%s: plain versions ran: %s" % (label, plain_calls))
+    for k in SV_KERNELS[label]:
+        if not counts[k] + replayed.get(k, 0):
+            failures.append("%s: kernel %s never launched" % (label, k))
+    return replayed
+
+
+#: warm batches timed for each reading (the median is kept)
+SV_TIMED = 3
+
+
+def sv_profile(label, svc, R, pre):
+    """One warm batch under torch.profiler: the device's busy time and the
+    port's kernels the trace shows by symbol (measured; a graph replay's
+    kernels are in the trace as an eager launch's are). The profiler
+    takes one batch to warm up first, whose events it drops: a trace
+    begun with the batch missed its first kernels in some runs. Returns
+    (busy ms, profiled wall ms, {symbol: count}); busy and the symbols
+    None without device events."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        svc.solve_batch(R)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        svc.solve_batch(R)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    # the step's own span ("ProfilerStep*") carries device time too
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+    if not rows:
+        print("[%s] profiled warm batch (%s): no device time recorded (busy "
+              "share and kernels not measured)" % (label, pre.lowering))
+        return None, wall_ms, None
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    port = {e.key: e.count for e in rows if "amgcl_port::" in e.key}
+    print("[%s] profiled warm batch (%s): wall %.3f ms, device busy %.3f ms "
+          "(%.1f%%), the port's kernels in the trace %d" % (
+              label, pre.lowering, wall_ms, busy, 100 * busy / wall_ms,
+              sum(port.values())))
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        print("  %9.3f ms %5d x  %s" % (e.self_device_time_total / 1e3,
+                                        e.count, e.key[:90]))
+    return busy, wall_ms, port
+
+
+def sv_timing(label, svc, R, singles, pre, lowerings=None):
+    """Warm batches under each lowering of ``lowerings`` in turn (the
+    bucket's graph alone without; set on ``pre`` and restored): the
+    median wall of SV_TIMED batches and its solves/s beside the B
+    sequential single-rhs solves', then one profiled batch
+    (sv_profile), whose busy time over that median is the busy share.
+    With the graph and the uncaptured apply both read, their traces'
+    port kernels are compared symbol by symbol (the replays ran what the
+    wrappers launch eagerly). Counts paused. Returns the first reading's
+    figures with every reading under ``readings``."""
+    from amgcl_tpu_torch.serve import GRAPH, UNCAPTURED
+    kept = pre.lowering
+    B = R.shape[1]
+    readings, traced = [], {}
+    with counts_paused():
+        try:
+            for lowering in lowerings or (GRAPH,):
+                pre.lowering = lowering
+                svc.solve_batch(R)
+                walls = []
+                for _ in range(SV_TIMED):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    svc.solve_batch(R)
+                    walls.append(time.perf_counter() - t0)
+                warm = statistics.median(walls)
+                print("[%s] warm batch of %d (%s): %.2f ms (median of %s), "
+                      "%.2f solves/s; %d sequential single-rhs solves: "
+                      "%.2f ms, %.2f solves/s (x%.2f)" % (
+                          label, B, lowering, warm * 1e3,
+                          ", ".join("%.2f" % (w * 1e3) for w in walls),
+                          B / warm, B, singles[2] * 1e3, B / singles[2],
+                          singles[2] / warm))
+                busy, pwall, port = sv_profile(label, svc, R, pre)
+                if port is not None:
+                    traced.setdefault(lowering, port)
+                readings.append({
+                    "lowering": lowering, "warm_batch_ms": warm * 1e3,
+                    "batch_solves_per_s": B / warm,
+                    "busy_share": None if busy is None
+                    else busy / (warm * 1e3),
+                    "busy_share_profiled": None if busy is None
+                    else busy / pwall,
+                    "port_kernels_traced": None if port is None
+                    else sum(port.values())})
+        finally:
+            pre.lowering = kept
+    if len(readings) > 1:
+        print("[%s] busy shares by lowering: %s" % (label, json.dumps(
+            [(r["lowering"], r["busy_share"]) for r in readings])))
+    same = None
+    if GRAPH in traced and UNCAPTURED in traced:
+        same = traced[GRAPH] == traced[UNCAPTURED]
+        diff = {k: (traced[GRAPH].get(k, 0), traced[UNCAPTURED].get(k, 0))
+                for k in set(traced[GRAPH]) | set(traced[UNCAPTURED])
+                if traced[GRAPH].get(k, 0) != traced[UNCAPTURED].get(k, 0)}
+        print("[%s] the graph batch's trace shows the uncaptured batch's "
+              "port kernels symbol by symbol: %s%s" % (
+                  label, same, "" if same else " (graph, uncaptured): "
+                  + json.dumps({k[:60]: v for k, v in diff.items()})))
+    first = readings[0]
+    return {"warm_batch_ms": first["warm_batch_ms"],
+            "batch_solves_per_s": first["batch_solves_per_s"],
+            "single_ms": singles[2] * 1e3,
+            "single_solves_per_s": B / singles[2],
+            "busy_share": first["busy_share"], "readings": readings,
+            "traces_agree": same}
+
+
+def sv1_path(A, rhs, failures):
+    """SV1: the main path's system through SolverService(batch=8): a
+    solve_batch of 8 seeded columns, cold then warm, then 13 submits (one
+    full bucket and one of 5 padded with zero columns). Returns (bundle,
+    singles, counts, summary)."""
+    from amgcl_tpu_torch import AMGParams, CG, make_solver
+    from amgcl_tpu_torch.serve import SolverService
+    R = sv_columns(rhs, SV_B, SV_SEED)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = make_solver(A, AMGParams(dtype=torch.float32),
+                         CG(maxiter=100, tol=1e-6), refine=0, batch=SV_B)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    pre = uncounted_captures(bundle.stacked_precond())
+    before = dict(pre.replays)
+    svc = SolverService(bundle)
+    x, rep = svc.solve_batch(R)
+    print("[SV1] setup %.3f s; solve_batch of %d (cold, captures the bucket):"
+          " %.4f s, iterations %s" % (t_setup, SV_B, rep.wall_time_s,
+                                      rep.extra["per_rhs"]["iters"]))
+    x, rep = svc.solve_batch(R)
+    print("[SV1] solve_batch (warm): %.4f s, %.2f solves/s"
+          % (rep.wall_time_s, rep.solves_per_sec))
+    with svc:
+        futs = [svc.submit(R[:, k % SV_B]) for k in range(SV_SUBMITS)]
+        got = [f.result(timeout=300) for f in futs]
+        stats = svc.stats()
+    counts, plain_calls = read_counts()
+    replays = window_replays(pre, before)
+    peak = torch.cuda.max_memory_allocated()
+    singles = sv_singles(bundle, R)
+    sv_hold("SV1", A, R, x, rep.extra["per_rhs"], singles, 1e-6, failures)
+    sub_x = torch.stack([xk for xk, _ in got], dim=1)
+    sub_R = np.stack([R[:, k % SV_B] for k in range(SV_SUBMITS)], axis=1)
+    sub_s = tuple([s[k % SV_B] for k in range(SV_SUBMITS)]
+                  for s in singles[:2]) + (singles[2],)
+    sv_hold("SV1 submits", A, sub_R, sub_x,
+            {"iters": [r.iters for _, r in got],
+             "resid": [r.resid for _, r in got]}, sub_s, 1e-6, failures)
+    spans = got[-1][1].serve
+    print("[SV1] submits: batches %d, padded slots %d, buckets %s; last "
+          "request's spans %s; stats spans %s" % (
+              stats["batches"], stats["padded_slots"],
+              sorted({r.serve["bucket_B"] for _, r in got}),
+              json.dumps(spans), json.dumps(stats["spans_ms"])))
+    if stats["padded_slots"] == 0:
+        failures.append("SV1: the 13 submits made no padded bucket")
+    if pre.captures != {SV_B: 1}:
+        failures.append("SV1: captures %s, expected one of bucket %d"
+                        % (pre.captures, SV_B))
+    per_replay = sv_graphs("SV1", pre, failures)
+    replayed = sv_report("SV1", pre, replays, counts, plain_calls,
+                         per_replay, failures)
+    # the graph against the same bundle's uncaptured per-column apply,
+    # alternated: what the bucket's graph does to a warm batch
+    from amgcl_tpu_torch.serve import GRAPH, UNCAPTURED
+    timing = sv_timing("SV1", svc, R, singles, pre,
+                       (GRAPH, UNCAPTURED, GRAPH, UNCAPTURED))
+    print("[SV1] peak device memory over setup, batches and submits: %.1f MB"
+          % (peak / 2**20))
+    return bundle, singles, counts, {
+        "setup_s": t_setup, "iters": rep.extra["per_rhs"]["iters"],
+        "captures": pre.captures, "capture_s": pre.capture_s,
+        "replays": replays, "replayed_launches": replayed,
+        "padded_slots": stats["padded_slots"], "peak_mb": peak / 2**20,
+        **timing}
+
+
+def bc1_path(A, rhs, bundle, singles, failures):
+    """BC1: BlockCG on SV1's system and hierarchy, B = 8, with a stacked
+    preconditioner and bucket graph of its own (the bundle's copy drops
+    SV1's, so no replay of SV1's is counted here): each column's reported
+    residual ≤ tol, its true one at most twice its single-rhs BlockCG
+    solve's, and the block's count no more than SV1's worst CG column.
+    Returns (counts, summary)."""
+    import copy
+    from amgcl_tpu_torch.serve import BlockCG, SolverService
+    R = sv_columns(rhs, SV_B, SV_SEED)
+    bc = copy.copy(bundle)
+    bc.solver = BlockCG(maxiter=100, tol=1e-6)
+    bc._stacked = None
+    pre = uncounted_captures(bc.stacked_precond())
+    svc = SolverService(bc)
+    reset_counts()
+    before = dict(pre.replays)
+    torch.cuda.reset_peak_memory_stats()
+    x, rep = svc.solve_batch(R)
+    x, rep = svc.solve_batch(R)
+    counts, plain_calls = read_counts()
+    replays = window_replays(pre, before)
+    peak = torch.cuda.max_memory_allocated()
+    per = rep.extra["per_rhs"]
+    bc_singles = sv_singles(bc, R)
+    sv_hold("BC1", A, R, x, per, bc_singles, 1e-6, failures, counts=False)
+    worst = max(singles[0])
+    print("[BC1] BlockCG %d iterations (per column %s), worst CG column %d"
+          % (rep.iters, per["iters"], worst))
+    if rep.iters > worst:
+        failures.append("BC1: %d iterations > the worst CG column's %d"
+                        % (rep.iters, worst))
+    if pre is bundle.stacked_precond() or pre.captures != {SV_B: 1}:
+        failures.append("BC1: captures %s, expected one bucket of its own"
+                        % pre.captures)
+    per_replay = sv_graphs("BC1", pre, failures)
+    replayed = sv_report("BC1", pre, replays, counts, plain_calls,
+                         per_replay, failures)
+    timing = sv_timing("BC1", svc, R, singles, pre)
+    print("[BC1] peak device memory: %.1f MB" % (peak / 2**20))
+    return counts, {"iters": rep.iters, "per_rhs_iters": per["iters"],
+                    "worst_cg": worst, "replays": replays,
+                    "replayed_launches": replayed,
+                    "peak_mb": peak / 2**20, **timing}
+
+
+def sv2_path(failures):
+    """SV2: U1's system (fe_like_problem, identity order) under
+    BiCGStab(maxiter=100, tol=1e-6), refine 0, B = 4 through
+    solve_batch. Returns (counts, summary)."""
+    from amgcl_tpu_torch import AMGParams, BiCGStab, fe_like_problem, \
+        make_solver
+    from amgcl_tpu_torch.serve import SolverService
+    A, rhs = fe_like_problem()
+    R = sv_columns(rhs, SV2_B, SV_SEED + 2)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = make_solver(A, AMGParams(dtype=torch.float32),
+                         BiCGStab(maxiter=100, tol=1e-6), refine=0,
+                         batch=SV2_B)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    pre = uncounted_captures(bundle.stacked_precond())
+    before = dict(pre.replays)
+    svc = SolverService(bundle)
+    x, rep = svc.solve_batch(R)
+    x, rep = svc.solve_batch(R)
+    counts, plain_calls = read_counts()
+    replays = window_replays(pre, before)
+    peak = torch.cuda.max_memory_allocated()
+    print("[SV2] setup %.3f s; warm solve_batch of %d: iterations %s"
+          % (t_setup, SV2_B, rep.extra["per_rhs"]["iters"]))
+    singles = sv_singles(bundle, R)
+    sv_hold("SV2", A, R, x, rep.extra["per_rhs"], singles, 1e-6, failures)
+    per_replay = sv_graphs("SV2", pre, failures)
+    replayed = sv_report("SV2", pre, replays, counts, plain_calls,
+                         per_replay, failures)
+    timing = sv_timing("SV2", svc, R, singles, pre)
+    print("[SV2] peak device memory: %.1f MB" % (peak / 2**20))
+    return counts, {"setup_s": t_setup, "iters": rep.extra["per_rhs"]["iters"],
+                    "captures": pre.captures, "replays": replays,
+                    "replayed_launches": replayed,
+                    "peak_mb": peak / 2**20, **timing}
+
+
+def p14_family(failures, only=None):
+    """Phase 14: SV1, BC1 and SV2 (those in ``only``, all without; BC1
+    runs on SV1's bundle). Returns ({label: counts}, {label: summary})."""
+    from amgcl_tpu_torch import poisson3d
+    t_phase = time.perf_counter()
+    want = {"SV1", "BC1", "SV2"} if only is None else only
+    counts, summary = {}, {}
+    if want & {"SV1", "BC1"}:
+        A, rhs = poisson3d(128)
+        bundle, singles, c, sm = sv1_path(A, rhs, failures)
+        if "SV1" in want:
+            counts["SV1"], summary["SV1"] = c, sm
+        if "BC1" in want:
+            counts["BC1"], summary["BC1"] = bc1_path(A, rhs, bundle, singles,
+                                                     failures)
+        del bundle
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "SV2" in want:
+        counts["SV2"], summary["SV2"] = sv2_path(failures)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 14: %.1f s" % (time.perf_counter() - t_phase))
+    return counts, summary
+
+
 def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3938,12 +4407,12 @@ def main(argv=()):
           % (time.perf_counter() - t0, " + ".join(cuda_lib.SOURCES)))
     failures = []
     if argv and argv[0] in ("--phase10", "--phase11", "--phase12",
-                            "--phase13"):
-        # phase 10, 11, 12 or 13 alone, for the paths named (all without
-        # names); no result line
+                            "--phase13", "--phase14"):
+        # phase 10, 11, 12, 13 or 14 alone, for the paths named (all
+        # without names); no result line
         family = {"--phase10": a8_family, "--phase11": a9_family,
-                  "--phase12": bf16_family,
-                  "--phase13": p13_family}[argv[0]]
+                  "--phase12": bf16_family, "--phase13": p13_family,
+                  "--phase14": p14_family}[argv[0]]
         summary = family(failures, set(argv[1:]) or None)[1]
         print("%s paths: %s" % (argv[0][2:], json.dumps(summary)))
         for f in failures:
@@ -4002,6 +4471,8 @@ def main(argv=()):
     print("phase 12 paths: %s" % json.dumps(bf_summary))
     p13_counts, p13_summary = p13_family(failures)
     print("phase 13 paths: %s" % json.dumps(p13_summary))
+    p14_counts, p14_summary = p14_family(failures)
+    print("phase 14 paths: %s" % json.dumps(p14_summary))
     kernels = []
     for name in REPLACES:
         rec = records.get(name)
@@ -4016,7 +4487,8 @@ def main(argv=()):
                  "S1": s_counts[name],
                  **{p: c[name] for p, c in a_counts.items()},
                  **{p: c[name] for p, c in n_counts.items()}, **phase12,
-                 **{p: c[name] for p, c in p13_counts.items()}}
+                 **{p: c[name] for p, c in p13_counts.items()},
+                 **{p: c[name] for p, c in p14_counts.items()}}
         if name.endswith(".bf16"):
             by_path = phase12
         elif name in FRAMED:
@@ -4032,11 +4504,17 @@ def main(argv=()):
             by_path = {"main": counts[name], "B1": b_counts[name], **later}
         # launches on the main path, or over the paths a kernel serves
         launches = by_path.get("main") or sum(by_path.values())
+        # phase 14: launches inside each path's graph replays (derived:
+        # the window's replays x one eager apply's launches, sv_report)
+        replayed = {p: sm["replayed_launches"][name]
+                    for p, sm in p14_summary.items()
+                    if sm["replayed_launches"].get(name)}
         kernels.append({
             "name": name, "route": "cuda",
             "source": source_of(name),
             "replaces": REPLACES[name], "launches": launches,
-            "launches_by_path": by_path, **rec})
+            "launches_by_path": by_path,
+            **({"replayed_by_path": replayed} if replayed else {}), **rec})
     if failures:
         for f in failures:
             print("FAIL: %s" % f, file=sys.stderr)

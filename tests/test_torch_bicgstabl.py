@@ -237,9 +237,14 @@ def test_breakdown_gives_the_jax_guard_flags():
 def test_refusals():
     A, _, rhs, _, hier = _cached("poisson", "float64")
     b = torch.as_tensor(rhs)
-    with pytest.raises(NotImplementedError, match="stacked"):
-        BiCGStabL().solve(hier.system_matrix, hier.apply,
-                          torch.stack([b, b], dim=1))
+    # a stacked rhs (refused before the serving slice) solves each column
+    # as its 1-D solve does
+    x2, it2 = BiCGStabL().solve(hier.system_matrix, hier.apply,
+                                torch.stack([b, b], dim=1))[:2]
+    x1, it1 = BiCGStabL().solve(hier.system_matrix, hier.apply, b)[:2]
+    assert it2 == [it1, it1]
+    np.testing.assert_allclose(x2[:, 1].numpy(), x1.numpy(), rtol=1e-9,
+                               atol=1e-12)
     # the residual history is ported: one entry an iteration, the last
     # the returned residual
     _, iters, resid, _, hist = BiCGStabL(record_history=True).solve(

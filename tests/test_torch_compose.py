@@ -118,7 +118,7 @@ def test_prebuilt_amg_gives_the_same_count():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(batch=4), NotImplementedError, "A.11"),
+    (dict(batch=-1), ValueError, "batch"),
     (dict(recovery=True), NotImplementedError, "A.13"),
     (dict(refine_dtype="float16"), ValueError, "refine_dtype"),
     (dict(solver_dtype=torch.bfloat16), NotImplementedError, "B.17"),

@@ -41,7 +41,12 @@ solve over four shards of one card against the same on the CPU. The
 bfloat16 modes of the DIA, fused-leg and scalar windowed-ELL kernels bit
 for bit with their plain versions at the same edges, the leg tiles
 planned in bfloat16 bytes, the refusals of the kernels without one, and
-a bfloat16 hierarchy's solve on the card against the CPU.
+a bfloat16 hierarchy's solve on the card against the CPU. The serving
+slice: each bucket's CUDA graph replay equal bit for bit to the eager
+per-column apply, the dot kernels' ticket of the capture stream made once
+outside the capture and reused, a capture refused by name on a
+preconditioner that syncs with the host, and a stacked solve through the
+graphs against the same solve on the CPU.
 
 Every test needs an NVIDIA card and skips without one. On the card, from
 the repo root (the suite's conftest imports JAX, which the port's machine
@@ -2638,3 +2643,137 @@ def test_device_inverse_on_card(cuda):
     ref = np.linalg.inv(L.toarray())
     assert np.abs(s.inv.double().cpu().numpy() - ref).max() \
         <= 1e-4 * np.abs(ref).max()
+
+
+# -- the serving slice: stacked solves and the buckets' CUDA graphs ------------
+
+def _serve_bundle(cuda, m=24, solver=None, **kw):
+    from amgcl_tpu_torch import AMGParams, CG, make_solver, poisson3d
+    A, rhs = poisson3d(m)
+    return A, rhs, make_solver(A, AMGParams(dtype=torch.float32),
+                               solver or CG(maxiter=100, tol=1e-6),
+                               device=cuda, **kw)
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 8])
+def test_bucket_graph_replay_equals_eager_apply(cuda, B):
+    """Every bucket's replay gives the eager per-column apply's bits, on
+    fresh inputs each time (the static buffers are refilled); the
+    bucket is captured once; the hierarchy's fused legs launch inside
+    the graph only at capture."""
+    A, rhs, solve = _serve_bundle(cuda)
+    pre = solve.stacked_precond()
+    assert pre.lowering == "per-column-graph"
+    rng = np.random.RandomState(B)
+    for rep in range(3):
+        R = torch.as_tensor(rng.standard_normal((B, A.nrows)),
+                            dtype=torch.float32, device=cuda).T
+        got = pre(R)
+        want = pre.eager(R)
+        assert torch.equal(got, want), rep
+    assert pre.captures == {B: 1} and pre.replays == {B: 3}
+    launches = vk.fused_down_sweep.launches
+    pre(R)
+    assert vk.fused_down_sweep.launches == launches   # replayed, not launched
+
+
+def test_capture_stream_ticket_is_made_once_outside_capture(cuda):
+    """The capture stream's ticket exists before the bucket's capture and
+    is reused by every capture on that stream: a graph captured there
+    with the dot kernel and the BiCGStab tail (both ticketed) replays to
+    the eager results and leaves the ticket where it was, at 0; a ticket
+    missing during a capture is refused."""
+    A, rhs, solve = _serve_bundle(cuda)
+    pre = solve.stacked_precond()
+    pre(torch.rand(2, A.nrows, device=cuda).T)        # captures B = 2
+    side = pre._stream
+    key = (side.device, side.cuda_stream)
+    ticket = dk._TICKETS[key]
+    ptr = ticket.data_ptr()
+    pre(torch.rand(4, A.nrows, device=cuda).T)        # captures B = 4
+    assert pre.captures == {2: 1, 4: 1} and dk._TICKETS[key] is ticket
+    off, data = solve.A_dev.offsets, solve.A_dev.data
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, ph, sh, s_, t_, xx, rh = (
+        torch.rand(A.nrows, device=cuda, generator=gen) for _ in range(7))
+    alpha = torch.tensor(0.25, device=cuda)
+    omega = torch.tensor(0.75, device=cuda)
+
+    def body():
+        return dk.dia_spmv_dots(off, data, x)[:3] + fv.bicgstab_tail(
+            alpha, ph, omega, sh, s_, t_, xx, rh)
+
+    want = body()
+    graph = torch.cuda.CUDAGraph()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=side):
+        got = body()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert dk._TICKETS[key] is ticket and ticket.data_ptr() == ptr
+        assert int(ticket.item()) == 0
+    fresh = torch.cuda.Stream(cuda)
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="ensure_ticket"):
+        with torch.cuda.graph(g, stream=fresh):
+            dk.dia_spmv_dots(off, data, x)
+
+
+def test_capture_refused_by_name_on_a_syncing_preconditioner(cuda):
+    """A nested Krylov preconditioner syncs with the host: it runs
+    uncaptured under its own lowering tag and ``reason`` names why; a
+    hierarchy that syncs without saying so fails its capture with the
+    module and line of the sync."""
+    from amgcl_tpu_torch import AMGParams, poisson3d
+    from amgcl_tpu_torch.models import runtime as P
+    from amgcl_tpu_torch.serve import StackedPrecond
+    A, rhs = poisson3d(16)
+    nested = P.precond_from_config(
+        A, {"class": "nested", "solver.type": "cg", "solver.maxiter": 3,
+            "precond.class": "amg"}, device=cuda)
+    pre = StackedPrecond(nested.hierarchy.apply, nested.hierarchy, cuda)
+    assert pre.lowering == "per-column-uncaptured"
+    assert "NestedHierarchy" in pre.reason
+    R = torch.rand(2, A.nrows, device=cuda).T
+    assert torch.equal(pre(R), pre.eager(R)) and pre.captures == {}
+
+    class Syncing:
+        def apply(self, r):
+            return r * float(r.abs().max())
+
+    sync = StackedPrecond(Syncing().apply, Syncing(), cuda)
+    assert sync.lowering == "per-column-graph"
+    with pytest.raises(RuntimeError, match="Syncing.*test_torch_cuda"):
+        sync(R)
+
+
+@pytest.mark.parametrize("solver", ["CG", "BiCGStab", "GMRES", "BlockCG"])
+def test_stacked_solve_on_card_matches_cpu(cuda, solver):
+    """A float64 stacked solve of 4 columns through the graphs: the
+    per-column counts of the same solve on the CPU, x within 1e-9, no
+    plain version run on the card, and a service over the bundle gives
+    the same columns."""
+    import amgcl_tpu_torch as T
+    from amgcl_tpu_torch.serve import BlockCG, SolverService
+    A, rhs = T.poisson3d(16)
+    mk = (BlockCG if solver == "BlockCG" else getattr(T, solver))
+    R = np.random.RandomState(9).rand(A.nrows, 4)
+    out = {}
+    for dev in ("cpu", cuda):
+        solve = T.make_solver(A, T.AMGParams(dtype=torch.float64),
+                              mk(maxiter=100, tol=1e-8), device=dev)
+        calls = dk.dia_spmv_plain.calls
+        x, info = solve(R)
+        if dev != "cpu":
+            assert dk.dia_spmv_plain.calls == calls
+            assert info.extra["lowering"] == "per-column-graph"
+            with SolverService(solve, batch=4) as svc:
+                xs, rep = svc.solve_batch(R)
+            assert torch.equal(xs, x)
+        out[str(dev)] = (x.cpu().numpy(), info.extra["per_rhs"]["iters"])
+    assert out["cpu"][1] == out["cuda"][1]
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-9,
+                               atol=1e-12)

@@ -284,9 +284,14 @@ def test_zero_rhs_and_refusals():
     with pytest.raises(ValueError, match="shadow"):
         T.IDRs(shadow=np.zeros((4, 5))).solve(hier.system_matrix,
                                               hier.apply, b)
-    with pytest.raises(NotImplementedError, match="stacked"):
-        T.GMRES().solve(hier.system_matrix, hier.apply,
-                        torch.stack([b, b], dim=1))
+    # a stacked rhs (refused before the serving slice) solves each column
+    # as its 1-D solve does
+    x2, it2 = T.GMRES().solve(hier.system_matrix, hier.apply,
+                              torch.stack([b, b], dim=1))[:2]
+    x1, it1 = T.GMRES().solve(hier.system_matrix, hier.apply, b)[:2]
+    assert it2 == [it1, it1]
+    np.testing.assert_allclose(x2[:, 0].numpy(), x1.numpy(), rtol=1e-9,
+                               atol=1e-12)
 
 
 def test_port_shadow_space_is_orthonormal_and_seeded():

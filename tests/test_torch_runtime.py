@@ -146,8 +146,8 @@ def test_parse_pmask_patterns(pattern, expected):
     assert np.array_equal(m, R._parse_pmask({"pmask_pattern": pattern}, 8))
 
 
-@pytest.mark.parametrize("what", ["blockcg", "bfloat16", "complex64",
-                                  "complex128", "AMG bfloat16"])
+@pytest.mark.parametrize("what", ["bfloat16", "complex64", "complex128",
+                                  "AMG bfloat16"])
 def test_what_is_not_ported_raises(what):
     """A request the port has no kernels for raises NotImplementedError
     naming its ROADMAP item; it does not run in another dtype or
@@ -155,18 +155,29 @@ def test_what_is_not_ported_raises(what):
     A, _ = T.poisson3d(6)
     # "bfloat16": a bfloat16 hierarchy with its default, bfloat16, Krylov
     # loop (B.17); "AMG bfloat16": one on block values (B.19)
-    item = {"blockcg": "A.11", "bfloat16": "B.17", "AMG bfloat16": "B.19"} \
-        .get(what, "complex")
+    item = {"bfloat16": "B.17", "AMG bfloat16": "B.19"}.get(what, "complex")
     with pytest.raises(NotImplementedError, match=item):
-        if what == "blockcg":
-            P.make_solver_from_config(A, {"solver.type": "blockcg"},
-                                      device="cpu")
-        elif what == "AMG bfloat16":
+        if what == "AMG bfloat16":
             T.AMG(T.poisson3d_block(6, 3)[0],
                   T.AMGParams(dtype=torch.bfloat16), device="cpu")
         else:
             P.make_solver_from_config(A, {"precond.dtype": what},
                                       device="cpu")
+
+
+def test_blockcg_builds_from_config():
+    """solver.type=blockcg (refused before the serving slice) builds the
+    serving layer's block CG with the configured fields, as the JAX
+    package's registry does, and solves a stacked rhs."""
+    A, rhs = T.poisson3d(6)
+    solve = P.make_solver_from_config(
+        A, {"solver.type": "blockcg", "solver.maxiter": 60,
+            "solver.tol": 1e-8, "precond.dtype": "float64"}, device="cpu")
+    ref = R.solver_from_params({"type": "blockcg", "maxiter": 60,
+                                "tol": 1e-8})
+    assert _fields(solve.solver) == _fields(ref)
+    x, info = solve(np.stack([rhs, 2 * rhs + 1], axis=1))
+    assert info.solver == "BlockCG" and info.resid <= 1e-8
 
 
 def _poisson(n):

@@ -136,15 +136,23 @@ def test_cg_zero_rhs_returns_zero():
                                   "FGMRES", "LGMRES", "IDRs", "Richardson",
                                   "PreOnly"])
 def test_every_solver_refuses_a_stacked_rhs(name):
-    """The JAX package's CG and BiCGStab take a stacked (n, B) rhs; the
-    port does not yet, and every solver says so before its loop."""
+    """Every solver takes a stacked (n, B) rhs, as the JAX package's do
+    (it refused one before the serving slice): over an AMG hierarchy,
+    each column of a B = 2 solve gives its own 1-D solve's iterations and
+    x (tests/test_torch_serve.py holds the counts to the JAX
+    package's)."""
     A, rhs = poisson3d(8)
     hier = amgcl_tpu_torch.AMG(A, AMGParams(dtype=torch.float64),
                                device="cpu").hierarchy
     b = torch.as_tensor(rhs)
-    with pytest.raises(NotImplementedError, match="stacked"):
-        getattr(amgcl_tpu_torch, name)().solve(
-            hier.system_matrix, hier.apply, torch.stack([b, b], dim=1))
+    B = torch.stack([b, torch.flip(b, [0]) * 0.5 + 1.0])
+    solver = getattr(amgcl_tpu_torch, name)()
+    x, iters = solver.solve(hier.system_matrix, hier.apply, B.T)[:2]
+    for j in range(2):
+        one = solver.solve(hier.system_matrix, hier.apply, B[j])
+        assert iters[j] == one[1]
+        np.testing.assert_allclose(x[:, j].numpy(), one[0].numpy(),
+                                   rtol=1e-9, atol=1e-12)
 
 
 def test_package_imports_no_jax_in_a_fresh_process():
