@@ -36,7 +36,8 @@ from amgcl_tpu_torch.solver.direct import DenseDirectSolver
 from amgcl_tpu_torch.telemetry.ledger import dense_window_budget
 from amgcl_tpu_torch.telemetry.structure import fingerprint, reorder_plan
 from amgcl_tpu_torch.utils.adapters import permute
-from amgcl_tpu_torch.utils.devices import resolve_device
+from amgcl_tpu_torch.utils.devices import (held_tensors, resolve_device,
+                                           storage_bytes)
 
 
 @dataclass
@@ -453,7 +454,11 @@ class AMG:
             host.append((Acur, P, R))
             Acur = coarse_operator(Acur, P, R, dict(ctx))
         host.append((Acur, None, None))
-        old_levels = self.hierarchy.levels
+        # a released hierarchy (release_device) has no device levels to
+        # reuse: its transfers are converted again, the numeric pass on
+        # the kept plans is the same
+        old_levels = self.hierarchy.levels \
+            if self.hierarchy is not None else None
         self.host_levels = host
         self._to_device_levels(reuse_transfers=old_levels)
         self._setup_done(t0, 0.0)
@@ -519,6 +524,67 @@ class AMG:
                 return M
         return dev.to_device(Ai, prm.matrix_format, prm.dtype, self.device,
                              budget)
+
+    # -- eviction and readmission (serve/farm.py's admission) -------------
+
+    def _plan_segments(self):
+        """The segment-sum plans' :class:`_Segments` on the host levels'
+        transfers (each caches its index arrays on the device)."""
+        out = []
+        for _, P, _ in self.host_levels[:-1]:
+            plan = getattr(P, "_seg_plan", None)
+            if plan is not None:
+                out.extend(plan.segments())
+        return out
+
+    def _device_state(self):
+        """What :meth:`release_device` drops: the hierarchy (level
+        operators, transfers, smoother states, fused-leg states, the
+        coarse inverse), the device-built prefix and the plans' device
+        copies of their index arrays."""
+        return (self.hierarchy, self._dev_prefix,
+                [seg._dev for seg in self._plan_segments()])
+
+    def bytes(self) -> int:
+        """Device bytes that :meth:`release_device` frees: each distinct
+        storage under the hierarchy, the device-built prefix and the
+        plans' cached index arrays, counted once
+        (amgcl_tpu/models/amg.py:872-886 walks the hierarchy's leaves).
+        0 while released: the farm pool's unit of a charge."""
+        if self.hierarchy is None:
+            return 0
+        return storage_bytes(held_tensors(*self._device_state()),
+                             self.device)
+
+    def release_device(self):
+        """Eviction (amgcl_tpu/models/amg.py:595-640): drop every device
+        tensor this AMG holds — the hierarchy, the device-built prefix,
+        the plans' device copies — and keep the host CSR levels and the
+        plans, so that readmission is :meth:`rebuild`, never a fresh
+        setup. :meth:`bytes` is 0 while released."""
+        self.hierarchy = None
+        self._dev_prefix = []
+        self._dwin_budget = None
+        for seg in self._plan_segments():
+            seg.release_device()
+
+    @property
+    def device_resident(self) -> bool:
+        return self.hierarchy is not None
+
+    def readmit(self):
+        """The device hierarchy again after :meth:`release_device`, by a
+        rebuild with the kept fine operator's values (a no-op while
+        resident): a hierarchy built on the device or reordered takes
+        the CSR (the reordered one holds the permuted operator, which
+        passes through untouched), a host-built one its values alone."""
+        if self.device_resident:
+            return
+        A0 = self.host_levels[0][0]
+        if self.device_built or self._reorder is not None:
+            self.rebuild(A0)
+        else:
+            self.rebuild(A0.val)
 
     @property
     def reorder_plan(self):

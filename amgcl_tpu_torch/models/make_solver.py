@@ -22,7 +22,7 @@ from amgcl_tpu_torch.models.amg import AMG, AMGParams, check_krylov_dtype
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.ops.dfloat import df_add_vec, dia_residual_df
-from amgcl_tpu_torch.serve.batched import (StackedPrecond,
+from amgcl_tpu_torch.serve.batched import (CAPTURE_LOCK, StackedPrecond,
                                            decode_batched_health)
 from amgcl_tpu_torch.solver import stacked as S
 from amgcl_tpu_torch.solver.cg import CG
@@ -73,6 +73,16 @@ ROADMAP B.17) on the hierarchy's own
                  refine: int = 0, refine_dtype: str = "auto",
                  batch: Any = None, recovery: Any = None, device=None,
                  device_setup=None, reorder="off", device_inv=False):
+        # the setup moves host arrays to the device: never beside a
+        # bucket capture in another thread (serve/batched.CAPTURE_LOCK)
+        with CAPTURE_LOCK:
+            self._setup(A, precond, solver, solver_dtype, matrix_format,
+                        refine, refine_dtype, batch, recovery, device,
+                        device_setup, reorder, device_inv)
+
+    def _setup(self, A, precond, solver, solver_dtype, matrix_format, refine,
+               refine_dtype, batch, recovery, device, device_setup, reorder,
+               device_inv):
         self.batch = int(batch) if batch else None
         if self.batch is not None and self.batch < 1:
             raise ValueError("batch must be a positive bucket size, got %r"
@@ -216,7 +226,12 @@ ROADMAP B.17) on the hierarchy's own
         preconditioner (reusing what its rebuild contract keeps) and
         refresh the solver-side operators — the Krylov operator, and the
         float64 or df32 refinement operator — so later calls solve the
-        new system (amgcl_tpu/models/make_solver.py:235-288)."""
+        new system (amgcl_tpu/models/make_solver.py:235-288). Never
+        beside a bucket capture in another thread (as the constructor)."""
+        with CAPTURE_LOCK:
+            self._rebuild(A)
+
+    def _rebuild(self, A):
         if not isinstance(A, CSR):
             A = CSR.from_scipy(A)
         if not hasattr(self.precond, "rebuild"):
@@ -235,6 +250,30 @@ ROADMAP B.17) on the hierarchy's own
                     "refinement needs a DIA system matrix — construct a "
                     "new solver with refine_dtype='float64'")
             self._set_wide_operator(Ah)
+
+    # -- eviction and readmission (serve/farm.py's admission) -------------
+
+    def release_device(self):
+        """Eviction (amgcl_tpu/models/make_solver.py:289-312): drop the
+        bundle's device state — the Krylov and refinement operators, the
+        reorder's device pair, the stacked preconditioner with its bucket
+        graphs, their static buffers and private pools — and, through the
+        preconditioner's own ``release_device``, its hierarchy. The host
+        matrix, the parameters and the setup plans are kept, so that
+        :meth:`readmit` is a rebuild."""
+        self._stacked = None
+        self.A_dev = None
+        self.A_dev64 = None
+        self._perm = None
+        rel = getattr(self.precond, "release_device", None)
+        if callable(rel):
+            rel()
+
+    def readmit(self):
+        """The device state again after :meth:`release_device`: a
+        rebuild against the kept host matrix (a no-op while resident)."""
+        if self.A_dev is None:
+            self.rebuild(self.A_host)
 
     @property
     def n(self):

@@ -95,6 +95,11 @@ class _Segments:
             self._dev[key] = got
         return got
 
+    def release_device(self):
+        """Drop the device copies (a released hierarchy's plans keep
+        their host arrays; the next numeric pass copies them again)."""
+        self._dev = {}
+
     def device_sum(self, v_sorted, lengths):
         """Sum of each segment of ``v_sorted`` (the entries in segment
         order), in entry order: a two-dimensional operand keeps
@@ -290,6 +295,12 @@ class GalerkinPlan:
             self._rvals = R.val
             self.flops = self.plan_ap.flops + self.plan_r.flops
         self.tag = _pattern_tag(A)
+
+    def segments(self):
+        """The plan's :class:`_Segments`, whose device copies it caches."""
+        if self.kind == "selection":
+            return [self.triple._segs]
+        return [self.plan_ap._segs, self.plan_r._segs]
 
     def coarse(self, A: CSR, scale: float = 1.0, device=None) -> CSR:
         assert _pattern_tag(A) == self.tag, \

@@ -122,6 +122,29 @@ def _origin(exc):
     return None
 
 
+#: the side stream every StackedPrecond warms and captures its buckets on,
+#: one per device. A stream's first cuBLAS call (the coarse level's
+#: matmul) gives it a workspace (32 MiB on Hopper) that lives as long as
+#: the process: a side stream for each preconditioner would leave one
+#: behind at every readmission of a released bundle (serve/farm.py)
+_CAPTURE_STREAMS = {}
+#: held by every bucket capture, so that one capture at a time uses the
+#: stream, and by ``make_solver``'s construction and rebuild: torch
+#: refuses a pageable host-to-device copy in one thread while another
+#: captures, so a setup (a farm registration in the caller's thread)
+#: waits for a capture in the dispatch thread to end, and the reverse
+CAPTURE_LOCK = threading.RLock()
+
+
+def _capture_stream(device):
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    side = _CAPTURE_STREAMS.get(device)
+    if side is None:
+        side = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return side
+
+
 class _Bucket:
     """One captured bucket: the graph and its static (B, n) buffers."""
 
@@ -154,6 +177,8 @@ class StackedPrecond:
         self.replays = {}
         self.lock = threading.Lock()
         self._buckets = {}
+        #: the capture stream this preconditioner's buckets were captured
+        #: on (the device's, shared), set at the first capture
         self._stream = None
 
     def eager(self, r):
@@ -184,14 +209,18 @@ class StackedPrecond:
         return bk
 
     def _capture(self, n, B, dtype):
-        """Warm the per-column apply on a side stream (whatever a first
-        launch makes once, as the dot kernels' ticket of that stream, is
-        made there, outside the capture), then capture it from the
-        static input to the static output."""
+        """Warm the per-column apply on the device's capture stream
+        (whatever a first launch makes once, as the dot kernels' ticket
+        of that stream, is made there, outside the capture), then capture
+        it from the static input to the static output; one capture at a
+        time uses the stream."""
+        with CAPTURE_LOCK:
+            return self._capture_on(_capture_stream(self.device), n, B,
+                                    dtype)
+
+    def _capture_on(self, side, n, B, dtype):
         t0 = time.perf_counter()
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        side = self._stream
+        self._stream = side
         dk.ensure_ticket(side)
         inp = torch.zeros((B, n), dtype=dtype, device=self.device)
         out = torch.empty_like(inp)

@@ -44,8 +44,9 @@ defaults: ``batch`` (``AMGCL_TPU_SERVE_BATCH``, 8, or the bundle's
 (0.01), ``slo_unhealthy_rate`` (0.05), ``slo_window`` (256),
 ``retry_max`` (0), ``retry_backoff_ms`` (50), ``retry_jitter`` (0.1) and
 ``worker_restart_max`` (2). The fault-injection seams, the memory watch
-and the flight recorder of the JAX service are ROADMAP A.13, and
-``release_device``/``readmit`` (the farm's eviction) A.11b.
+and the flight recorder of the JAX service are ROADMAP A.13.
+:meth:`SolverService.release_device` and :meth:`SolverService.readmit`
+are the solver farm's eviction and readmission (``serve/farm.py``).
 """
 
 from __future__ import annotations
@@ -207,14 +208,30 @@ class SolverService:
         return x, self._batch_report(iters, resid, hstate, timing["wall_s"])
 
     def release_device(self):
-        raise NotImplementedError(
-            "release_device (the farm's eviction) is not ported yet "
-            "(ROADMAP A.11b)")
+        """Eviction (serve/farm.py; amgcl_tpu/serve/service.py:360-400):
+        drop the bucket models and the bundle's device state — its
+        stacked preconditioner with the buckets' CUDA graphs, their
+        static buffers and pools, the device operators and the hierarchy
+        (``make_solver.release_device``). The worker must not be
+        running. After :meth:`readmit` the next dispatch captures its
+        bucket's graph again; the hierarchy comes back through the
+        rebuild, never a fresh setup."""
+        if self._thread is not None and self._thread.is_alive():
+            raise RuntimeError(
+                "release_device() needs an idle service — close() the "
+                "worker first")
+        self._bucket_models.clear()
+        rel = getattr(self.solver, "release_device", None)
+        if callable(rel):
+            rel()
 
     def readmit(self):
-        raise NotImplementedError(
-            "readmit (the farm's readmission) is not ported yet "
-            "(ROADMAP A.11b)")
+        """The bundle's device state again after :meth:`release_device`
+        (a rebuild against the kept host matrix); the buckets' graphs
+        are captured again at their next dispatch."""
+        readm = getattr(self.solver, "readmit", None)
+        if callable(readm):
+            readm()
 
     def _dispatch(self, rhs, x0):
         """One stacked solve of device blocks; returns ``(x, iters,

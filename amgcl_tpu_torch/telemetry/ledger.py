@@ -1,16 +1,20 @@
-"""The dense-window device-memory budget and the Krylov iteration model
-(counterpart of :class:`DeviceMemoryBudget` and
+"""The device-memory budgets and the Krylov iteration model
+(counterpart of :class:`DeviceMemoryBudget`, :class:`LruMemoryPool` and
 ``krylov_iteration_model`` in ``amgcl_tpu/telemetry/ledger.py``).
 
 One hierarchy build threads one budget through every level conversion,
 so the storage-hungry dense-window blocks (``ops/densewin.py``) draw on
 one hierarchy-wide pool instead of each matrix consulting the per-matrix
-cap on its own. The iteration model prices one Krylov iteration in
-FLOPs and device bytes; the serving layer books the work of its
-zero-padded bucket columns with it.
+cap on its own. The solver farm's resident set is an
+:class:`LruMemoryPool` (``serve/farm.py``). The iteration model prices
+one Krylov iteration in FLOPs and device bytes; the serving layer books
+the work of its zero-padded bucket columns with it.
 """
 
 from __future__ import annotations
+
+from collections import deque
+from typing import Any, Dict, Optional
 
 #: dense-window storage cap: the JAX package's default
 #: (``AMGCL_TPU_DWIN_MAX_BYTES`` unset), a constant here as the port's
@@ -21,30 +25,122 @@ DWIN_MAX_BYTES = 6 << 30
 class DeviceMemoryBudget:
     """Byte budget shared across one hierarchy build: consumers ask
     ``remaining()`` before materializing a storage-hungry buffer and
-    ``try_charge(nbytes)`` when they commit one, which refuses instead of
-    overdrawing."""
+    ``try_charge(nbytes, tag)`` when they commit one, which refuses
+    instead of overdrawing; the charge log keeps each charge's tag."""
 
-    def __init__(self, total_bytes: int):
+    def __init__(self, total_bytes: int, name: str = "dense_window"):
         self.total = int(total_bytes)
+        self.name = name
         self.used = 0
+        self.charges = []           # [(tag, bytes), ...]
 
     def remaining(self) -> int:
         return self.total - self.used
 
-    def try_charge(self, nbytes: int) -> bool:
+    def try_charge(self, nbytes: int, tag: str = "") -> bool:
         nbytes = int(nbytes)
         if nbytes < 0 or self.used + nbytes > self.total:
             return False
         self.used += nbytes
+        self.charges.append((tag, nbytes))
         return True
 
+    def to_dict(self) -> Dict[str, Any]:
+        return {"name": self.name, "total_bytes": self.total,
+                "used_bytes": self.used,
+                "remaining_bytes": self.remaining(),
+                "charges": [{"tag": t, "bytes": b} for t, b in self.charges]}
+
     def __repr__(self):
-        return "DeviceMemoryBudget(%d/%d bytes)" % (self.used, self.total)
+        return "DeviceMemoryBudget(%s: %d/%d bytes)" % (
+            self.name, self.used, self.total)
 
 
 def dense_window_budget() -> DeviceMemoryBudget:
     """A fresh hierarchy-wide dense-window budget of DWIN_MAX_BYTES."""
     return DeviceMemoryBudget(DWIN_MAX_BYTES)
+
+
+class LruMemoryPool(DeviceMemoryBudget):
+    """A farm-wide resident set (amgcl_tpu/telemetry/ledger.py:112-210):
+    named charges that are released again (eviction returns the bytes)
+    and re-charged (readmission), in least-recently-used order kept by
+    :meth:`touch`, so the farm's admission loop can always name the
+    coldest resident operator to evict (``AMG.bytes()`` is the unit of
+    a charge).
+
+    ``total_bytes <= 0`` means unlimited: the pool still tracks residency
+    and LRU order, and never refuses a charge. The charge log is
+    append-only, a release adding a negative row, and bounded at the
+    last 256 rows (the totals stay exact)."""
+
+    def __init__(self, total_bytes: int = 0, name: str = "farm_hbm"):
+        total = int(total_bytes or 0)
+        self.unlimited = total <= 0
+        super().__init__(total if total > 0 else (1 << 62), name)
+        self.charges = deque(self.charges, maxlen=256)
+        #: key -> bytes; insertion order is the LRU order (coldest first)
+        self._resident: Dict[str, int] = {}
+
+    def charge(self, key: str, nbytes: int) -> bool:
+        """Admit ``key`` at ``nbytes``. Re-charging a resident key swaps
+        its charge atomically: on failure the old charge is restored,
+        never dropped (its buffers are still live). False when it does
+        not fit; the caller evicts ``coldest()`` and retries. Either way
+        the key moves to the warm end of the LRU order."""
+        nbytes = int(nbytes)
+        old = self._resident.pop(key, None)
+        if old is not None:
+            self.used -= old
+        if not self.try_charge(nbytes, tag=key):
+            if old is not None:
+                self.used += old
+                self._resident[key] = old
+            return False
+        if old is not None:
+            self.charges.append((key + ":released", -old))
+        self._resident[key] = nbytes
+        return True
+
+    def release(self, key: str) -> int:
+        """Evict ``key``: return its bytes to the pool (0 when it was not
+        resident)."""
+        nbytes = self._resident.pop(key, 0)
+        if nbytes:
+            self.used -= nbytes
+            self.charges.append((key + ":released", -nbytes))
+        return nbytes
+
+    def touch(self, key: str) -> None:
+        """Mark ``key`` most recently used."""
+        if key in self._resident:
+            self._resident[key] = self._resident.pop(key)
+
+    def coldest(self, exclude=()) -> Optional[str]:
+        """The least recently used resident key outside ``exclude`` (the
+        eviction victim); None when nothing is evictable."""
+        for key in self._resident:
+            if key not in exclude:
+                return key
+        return None
+
+    def resident(self) -> Dict[str, int]:
+        """Copy of the resident map in LRU order (coldest first)."""
+        return dict(self._resident)
+
+    def resize(self, total_bytes: int) -> None:
+        """Change the budget in place; the caller evicts down to it."""
+        total = int(total_bytes or 0)
+        self.unlimited = total <= 0
+        self.total = total if total > 0 else (1 << 62)
+
+    def to_dict(self) -> Dict[str, Any]:
+        out = super().to_dict()
+        if self.unlimited:
+            out["total_bytes"] = 0
+            out["remaining_bytes"] = None
+        out["resident"] = dict(self._resident)
+        return out
 
 
 # -- the Krylov iteration model -------------------------------------------------

@@ -1,7 +1,8 @@
 """Live metrics registry and scrape endpoint of the serving path
-(counterpart of ``amgcl_tpu/telemetry/live.py``; its gauges of the
-distributed solve, the operator X-ray, the memory observatory, the farm
-and the load generator belong to later slices).
+(counterpart of ``amgcl_tpu/telemetry/live.py``, with the serving
+path's, the solver farm's tenant-labelled and the load generator's
+metrics; its gauges of the distributed solve, the operator X-ray and the
+memory observatory belong to later slices).
 
 * :data:`METRICS` — the declared metric table. The registry accepts a
   name only from it (an unknown name raises), so every live metric is a
@@ -14,8 +15,9 @@ and the load generator belong to later slices).
   ``/metrics`` (Prometheus text) and ``/healthz`` (JSON) on 127.0.0.1;
   port 0 binds an ephemeral port (the bound one is ``.port``).
 
-A :class:`~amgcl_tpu_torch.serve.SolverService` starts a server when
-given ``metrics_port``.
+A :class:`~amgcl_tpu_torch.serve.SolverService` or
+:class:`~amgcl_tpu_torch.serve.SolverFarm` starts a server when given
+``metrics_port``.
 """
 
 from __future__ import annotations
@@ -72,12 +74,79 @@ METRICS: Dict[str, Tuple[str, str]] = {
                    "exception (futures failed, never stranded)"),
     "serve_worker_restarts_total": (
         "counter", "dispatch workers restarted by the supervisor"),
+    # -- the multi-tenant solver farm (serve/farm.py) ----------------------
+    "farm_tenants": (
+        "gauge", "tenants registered with the farm"),
+    "farm_resident_operators": (
+        "gauge", "operator hierarchies currently device-resident"),
+    "farm_hbm_used_bytes": (
+        "gauge", "bytes charged against the farm's device-memory pool"),
+    "farm_hbm_total_bytes": (
+        "gauge", "the farm pool's budget (0 = unlimited)"),
+    "farm_batches_total": (
+        "counter", "cross-tenant device batches dispatched by the farm"),
+    "farm_evictions_total": (
+        "counter", "resident hierarchies evicted under memory pressure"),
+    "farm_readmissions_total": (
+        "counter", "evicted hierarchies readmitted through rebuild()"),
+    "farm_registry_hits_total": (
+        "counter", "operator-registry fingerprint hits (shared as is)"),
+    "farm_registry_misses_total": (
+        "counter", "operator-registry misses (fresh hierarchy setup)"),
+    "farm_registry_rebuilds_total": (
+        "counter", "operator-registry numeric rebuilds (same sparsity, "
+                   "new values)"),
+    "farm_latency_ms": (
+        "histogram", "end-to-end per-request latency across all tenants"),
+    "farm_tenant_requests_total": (
+        "counter", "requests completed per tenant (label: tenant)"),
+    "farm_tenant_timeouts_total": (
+        "counter", "queue-expired requests per tenant (label: tenant)"),
+    "farm_tenant_unhealthy_total": (
+        "counter", "unhealthy or failed solves per tenant (label: tenant)"),
+    "farm_tenant_slo_trips_total": (
+        "counter", "per-tenant SLO watchdog trips (label: tenant)"),
+    "farm_tenant_queue_depth": (
+        "gauge", "requests waiting per tenant queue (label: tenant)"),
+    "farm_tenant_resident": (
+        "gauge", "1 when the tenant's hierarchy is device-resident "
+                 "(label: tenant)"),
+    "farm_tenant_bytes": (
+        "gauge", "charged bytes of the tenant's hierarchy (label: tenant)"),
+    "farm_tenant_p99_ms": (
+        "gauge", "rolling-window p99 latency per tenant (label: tenant)"),
+    "farm_load_shed_total": (
+        "counter", "load-shedding episodes per tenant under a sustained "
+                   "SLO breach (label: tenant)"),
+    # -- the open-loop load generator (serve/storm.py) ---------------------
+    "storm_offered_rps": (
+        "gauge", "offered arrival rate of the storm rung driving this "
+                 "target (open-loop schedule)"),
+    "storm_submitted_total": (
+        "counter", "storm requests submitted (every scheduled arrival, "
+                   "accepted or shed)"),
+    "storm_shed_total": (
+        "counter", "storm requests rejected at submit (queue.Full or "
+                   "load shed), excluded from goodput"),
+    "storm_sched_lag_ms": (
+        "histogram", "generator lag: actual submit minus scheduled "
+                     "arrival"),
 }
 
-#: the declared label keys: metric name -> allowed label keys
+#: the declared label keys: metric name -> allowed label keys (the
+#: values, tenant names among them, are free-form)
 METRIC_LABELS: Dict[str, Tuple[str, ...]] = {
     "serve_health_flags_total": ("flag",),
     "serve_bucket_solves_total": ("bucket",),
+    "farm_tenant_requests_total": ("tenant",),
+    "farm_tenant_timeouts_total": ("tenant",),
+    "farm_tenant_unhealthy_total": ("tenant",),
+    "farm_tenant_slo_trips_total": ("tenant",),
+    "farm_tenant_queue_depth": ("tenant",),
+    "farm_tenant_resident": ("tenant",),
+    "farm_tenant_bytes": ("tenant",),
+    "farm_tenant_p99_ms": ("tenant",),
+    "farm_load_shed_total": ("tenant",),
 }
 
 PREFIX = "amgcl_torch"

@@ -36,3 +36,43 @@ def host_tensor(a, dtype, device) -> torch.Tensor:
     :func:`np_dtype` and cast on the device."""
     return torch.as_tensor(np.ascontiguousarray(a, np_dtype(dtype)),
                            device=device).to(dtype)
+
+
+def held_tensors(*objs):
+    """Every tensor the port's objects ``objs`` hold, found through their
+    attributes, lists, tuples and dicts (objects of other packages, numpy
+    arrays and functions are not entered); each object is visited once."""
+    seen, out, stack = set(), [], list(objs)
+    while stack:
+        obj = stack.pop()
+        if obj is None or isinstance(obj, (str, bytes, int, float, bool,
+                                           np.ndarray)):
+            continue
+        if torch.is_tensor(obj):
+            out.append(obj)
+            continue
+        if id(obj) in seen:
+            continue
+        seen.add(id(obj))
+        if isinstance(obj, (list, tuple, set, frozenset)):
+            stack.extend(obj)
+        elif isinstance(obj, dict):
+            stack.extend(obj.values())
+        elif type(obj).__module__.startswith("amgcl_tpu_torch"):
+            stack.extend(getattr(obj, "__dict__", {}).values())
+    return out
+
+
+def storage_bytes(tensors, device) -> int:
+    """Bytes of the distinct storages under ``tensors`` on ``device``'s
+    type: a storage shared by several tensors (views, an operator held
+    twice) counts once, and a view counts its whole storage, which is
+    what freeing it returns."""
+    dev = torch.device(device)
+    seen = {}
+    for t in tensors:
+        if t.device.type != dev.type:
+            continue
+        st = t.untyped_storage()
+        seen[(t.device, st.data_ptr())] = st.nbytes()
+    return sum(seen.values())

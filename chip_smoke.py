@@ -194,6 +194,31 @@ Run from the root of a checkout, with no arguments:
    the kernels launched (by their wrappers, and inside graph replays),
    captures and capture seconds, a warm batch's time and solves/s beside
    the sequential single-rhs solves', its busy share and peak memory.
+15. The solver farm and the open-loop storm (``--phase15`` runs it
+   alone): FM1, ``SolverFarm(batch=8)`` with t-main (the main path's
+   system, float32 SA + SPAI-0 + CG(maxiter=100, tol=1e-6), refine 0: a
+   registry miss), t-share (the same CSR bit for bit: a hit, the pool's
+   bytes unchanged), t-u1 (U1's system under BiCGStab(maxiter=100,
+   tol=1e-6): a miss), t-step (the main system scaled by 1.05: a miss,
+   since its pattern's entry has live co-owners; then by 1.10: a rebuild
+   of its own entry); then 0.75 of the used bytes as the budget
+   and two round-robin rounds of one seeded rhs per tenant. Each answer's
+   reported residual ≤ 1e-6, its count equal to the same bundle's
+   single-rhs solve's and its true residual at most twice that one's;
+   round 2 equal to round 1 bit for bit; at least one eviction and one
+   readmission, 3 misses, rebuilds ≥ 1 + readmissions, the pool within
+   its budget after every batch, each readmitted bucket captured once
+   with its replay equal to the eager apply bit for bit; around every
+   eviction the allocated bytes fall by ≥ 90% of the charge released,
+   and t-main's operator evicted and readmitted comes back to within 10%
+   of them. ST1 on FM1's farm, the budget lifted, requests alternating
+   between t-main and t-u1: the closed-loop rate R of a warm round of
+   full buckets, ``run_storm`` of Poisson 0.5 R for 8 s and bursts over
+   0.25 R for 6 s (8 every 2 s), seed 19, and ``run_ladder`` at 0.25,
+   0.5, 1.0 and 1.5 R, 4 s a rung, with its knee: no ``error`` outcome,
+   every ok answer held to FM1's rule, /metrics scraped over loopback
+   with tenant labels and no scrape error. Within 120 s, no plain
+   version; the launches of both join the kernels line.
 
 With the device setup as the default, the windows of the paths whose
 host-loop levels it changes come from the JAX package's counts under its
@@ -212,6 +237,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import scipy.sparse as sp
@@ -3967,12 +3993,16 @@ def uncounted_captures(pre):
     """Keep the bucket captures of StackedPrecond ``pre`` out of the
     wrapper counts: a wrapper called while a graph is captured records
     its kernel, which runs at each replay, and the one warm-up apply
-    before it is not the path's own work. Returns ``pre``."""
-    capture = pre._capture
+    before it is not the path's own work. The wrapper holds ``pre``
+    weakly, so that it makes no reference cycle: a released bundle's
+    preconditioner, graphs and hierarchy are freed at once (phase 15
+    measures that). Returns ``pre``."""
+    ref = weakref.ref(pre)
+    capture = type(pre)._capture
 
     def counted_apart(*args):
         with counts_paused():
-            return capture(*args)
+            return capture(ref(), *args)
 
     pre._capture = counted_apart
     return pre
@@ -4393,6 +4423,619 @@ def p14_family(failures, only=None):
     return counts, summary
 
 
+# -- phase 15: the solver farm and the open-loop storm (A.11b) ---------------
+
+#: FM1's bucket, and the seeds of its requests and of ST1's schedule
+FM_B = 8
+FM_SEED = 1911
+ST_SEED = 19
+#: ST1's ladder in multiples of the closed-loop rate R, and a rung's length
+ST_LADDER = (0.25, 0.5, 1.0, 1.5)
+ST_RUNG_S = 4.0
+#: phase 15's time limit (s)
+P15_LIMIT_S = 120.0
+#: the entry each FM1 tenant maps onto (t-share shares t-main's)
+FM_ENTRY = {"t-main": "main", "t-share": "main", "t-u1": "u1",
+            "t-step": "step"}
+#: kernels each window must launch, by the wrappers or in graph replays:
+#: the main system's (SV1's) and U1's (SV2's)
+FM_KERNELS = tuple(dict.fromkeys(SV_KERNELS["SV1"] + SV_KERNELS["SV2"]))
+
+
+class FarmWatch:
+    """Phase 15's instrumentation of one SolverFarm, by wrapping methods
+    on the instance (the farm's code is unchanged): each entry's stacked
+    preconditioners by generation (a readmission makes a new one) with
+    their captures and replays after every batch, kept by value so that a
+    released generation is freed; the allocated bytes around every
+    eviction beside the charge the pool released; each readmission's
+    seconds and allocated bytes; the pool after every batch."""
+
+    def __init__(self, farm):
+        self.farm = farm
+        self.gens = []
+        self.evictions = []
+        self.readmissions = []
+        self.batches = []
+        self.names = {}
+        evict, readmit = farm._evict_uid_locked, farm._readmit_admitting_locked
+
+        def evict_uid(uid):
+            charge = farm.pool.resident().get(uid, 0)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            evict(uid)
+            torch.cuda.synchronize()
+            self.evictions.append({
+                "entry": self.names.get(uid, uid), "charge": charge,
+                "before": before, "after": torch.cuda.memory_allocated()})
+
+        def readmit_entry(entry):
+            n0 = farm._n_readmissions
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            readmit(entry)
+            torch.cuda.synchronize()
+            if farm._n_readmissions > n0:
+                self.readmissions.append({
+                    "entry": self.names.get(entry.uid, entry.uid),
+                    "wall_s": time.perf_counter() - t0,
+                    "rebuild_s": entry.rebuild_s, "before": before,
+                    "after": torch.cuda.memory_allocated(),
+                    "charge": farm.pool.resident().get(entry.uid, 0)})
+
+        farm._evict_uid_locked = evict_uid
+        farm._readmit_admitting_locked = readmit_entry
+
+    def watch(self, name, entry):
+        """Follow ``entry`` (once): its bundle's stacked preconditioners
+        (captures kept out of the wrapper counts) and its batches."""
+        if entry.uid in self.names:
+            return
+        self.names[entry.uid] = name
+        bundle, svc, farm, gens = (entry.obj, entry.payload["service"],
+                                   self.farm, self.gens)
+        make, run = bundle.stacked_precond, svc._run_batch
+
+        def stacked_precond():
+            fresh = bundle._stacked is None
+            pre = make()
+            if fresh:
+                uncounted_captures(pre)
+                pre.fm_gen = len(gens)
+                gens.append({"entry": name, "captures": {}, "replays": {}})
+            return pre
+
+        def run_batch(batch):
+            try:
+                return run(batch)
+            finally:
+                pre = bundle._stacked
+                if pre is not None and hasattr(pre, "fm_gen"):
+                    gens[pre.fm_gen].update(captures=dict(pre.captures),
+                                            replays=dict(pre.replays))
+                self.batches.append({
+                    "entry": name, "requests": len(batch),
+                    "used": farm.pool.used,
+                    "total": None if farm.pool.unlimited
+                    else farm.pool.total,
+                    "allocated": torch.cuda.memory_allocated()})
+
+        bundle.stacked_precond = stacked_precond
+        svc._run_batch = run_batch
+
+    def snapshot(self):
+        return [dict(g["replays"]) for g in self.gens]
+
+    def replays_since(self, snap):
+        """{entry: {B: replays}} since ``snap``."""
+        out = {}
+        for i, g in enumerate(self.gens):
+            was = snap[i] if i < len(snap) else {}
+            for B, v in g["replays"].items():
+                if v - was.get(B, 0):
+                    row = out.setdefault(g["entry"], {})
+                    row[B] = row.get(B, 0) + v - was.get(B, 0)
+        return out
+
+
+def fm_bytes_split(bundle):
+    """What an entry's charge (``AMG.bytes()``) holds: the distinct
+    storages of the hierarchy and the device-built prefix, those of the
+    plans' device index arrays, and beside them ``Hierarchy.bytes()``
+    (operators, transfers, smoother states and the coarse inverse summed
+    part by part, a shared tensor again in each part: the counterpart of
+    the JAX package's leaf walk)."""
+    from amgcl_tpu_torch.utils.devices import held_tensors, storage_bytes
+    amg = bundle.precond
+    hier = storage_bytes(held_tensors(amg.hierarchy, amg._dev_prefix),
+                         amg.device)
+    plans = storage_bytes(held_tensors(
+        [seg._dev for seg in amg._plan_segments()]), amg.device)
+    return {"charge": amg.bytes(), "hierarchy": hier, "plans": plans,
+            "leaf_walk": amg.hierarchy.bytes()}
+
+
+def fm_replayed(watch, replays, per_column):
+    """Kernel launches inside graph replays, derived: each entry's
+    replays of bucket B times B times the launches of one column's eager
+    apply on that entry (the bucket's graph replays the per-column apply
+    it captured; sv_graphs holds each replay to the eager apply)."""
+    out = {}
+    for name, rows in replays.items():
+        for B, n in rows.items():
+            for k, v in per_column.get(name, {}).items():
+                out[k] = out.get(k, 0) + int(round(v * B * n))
+    return out
+
+
+def fm_per_column(label, farm, watch, failures):
+    """Each resident entry's bucket graphs against the eager per-column
+    apply, bit for bit (sv_graphs), and the launches of one column's
+    eager apply, by entry."""
+    per_column = {}
+    for uid, name in watch.names.items():
+        entry = farm._entry_by_uid(uid)
+        pre = entry.obj._stacked if entry is not None else None
+        if pre is None or not pre._buckets:
+            continue
+        per_B = sv_graphs("%s %s" % (label, name), pre, failures)
+        B, row = next(iter(per_B.items()))
+        per_column[name] = {k: v / B for k, v in row.items()}
+    return per_column
+
+
+def fm_answers(label, A_of, answers, singles, failures):
+    """FM1's rule for each answer ``(tenant, k, x, rep)``: reported
+    residual ≤ 1e-6, the count equal to the same bundle's single-rhs
+    solve of that rhs, and the host float64 true residual at most twice
+    that solve's (checked on the host where x is not that solve's bit
+    for bit). Returns (answers, bit-for-bit equal to the single solve)."""
+    same = 0
+    bad = []
+    for tenant, k, x, rep in answers:
+        s_x, s_iters, s_true, rhs = singles[tenant][k]
+        why = []
+        if not rep.resid <= 1e-6:
+            why.append("reported %.3e" % rep.resid)
+        if rep.iters != s_iters:
+            why.append("%d iterations, single %d" % (rep.iters, s_iters))
+        if torch.equal(x, s_x):
+            same += 1
+        else:
+            t = true_residual(A_of[tenant], rhs, x)
+            if not t <= 2 * s_true:
+                why.append("true %.3e > 2 x single %.3e" % (t, s_true))
+        if why:
+            bad.append("%s rhs %d: %s" % (tenant, k, "; ".join(why)))
+    print("[%s] %d answers: %d bit for bit the single-rhs solve's, %d "
+          "failing the residual rule" % (label, len(answers), same, len(bad)))
+    for b in bad[:8]:
+        failures.append("%s: %s" % (label, b))
+    if len(bad) > 8:
+        failures.append("%s: %d more answers failing" % (label, len(bad) - 8))
+    return len(answers), same
+
+
+def fm_singles(farm, systems, rhs_sets):
+    """Each tenant's single-rhs solves through its own bundle (counts
+    paused, the entries resident): {tenant: [(x, iters, true residual,
+    rhs), ...]} in the order of ``rhs_sets[tenant]``."""
+    out = {}
+    with counts_paused():
+        for t, rows in rhs_sets.items():
+            bundle = farm.tenants[t].entry.obj
+            out[t] = []
+            for rhs in rows:
+                x, info = bundle(rhs)
+                out[t].append((x, info.iters,
+                               true_residual(systems[t], rhs, x), rhs))
+    return out
+
+
+def fm_round(farm, rhs_of):
+    """Submit one request per tenant of ``rhs_of`` at once; wait for all.
+    Returns {tenant: (x, report)}."""
+    futs = [(t, farm.submit(t, rhs)) for t, rhs in rhs_of.items()]
+    return {t: f.result(timeout=600) for t, f in futs}
+
+
+def fm_memory_probe(farm, watch, rhs, failures):
+    """t-main's operator evicted and readmitted on its own (t-main and
+    t-share submitting, as in the rounds): the allocated bytes fall by at
+    least 90% of the charge the pool released, and after the readmission
+    (its bucket's graph captured again) come back to within 10% of their
+    value before the eviction."""
+    pair = {t: rhs[t] for t in ("t-main", "t-share")}
+    fm_round(farm, pair)
+    uid = farm.tenants["t-main"].entry.uid
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    charge = farm.pool.resident().get(uid, 0)
+    n_evict = len(watch.evictions)
+    farm.evict("t-main")
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    fm_round(farm, pair)
+    torch.cuda.synchronize()
+    back = torch.cuda.memory_allocated()
+    others = len(watch.evictions) - n_evict - 1
+    print("[FM1] probe: allocated %.1f MB before t-main's eviction, %.1f MB "
+          "after (charge released %.1f MB, drop %.1f%% of it), %.1f MB after "
+          "its readmission (%+.2f%%); other evictions meanwhile: %d" % (
+              before / 2**20, after / 2**20, charge / 2**20,
+              100 * (before - after) / max(charge, 1), back / 2**20,
+              100 * (back - before) / before, others))
+    if before - after < 0.9 * charge:
+        failures.append("FM1 probe: the eviction freed %d bytes, under 90%% "
+                        "of the %d charged" % (before - after, charge))
+    if abs(back - before) > 0.1 * before:
+        failures.append("FM1 probe: %d bytes allocated after the readmission "
+                        "against %d before the eviction" % (back, before))
+    return {"before": before, "after": after, "charge": charge,
+            "readmitted": back, "other_evictions": others}
+
+
+def fm1_path(failures):
+    """FM1: SolverFarm(batch=8) on the card with t-main (the main path's
+    system), t-share (the same CSR bit for bit: a hit), t-u1 (U1's system
+    under BiCGStab), t-step (the main system scaled by 1.05: a miss, its
+    pattern's entry having live co-owners; then by 1.10: a rebuild of its
+    own entry), then 0.75 of the used bytes as the budget and two
+    round-robin rounds of one seeded rhs per tenant. (A diagonal scaled
+    by 1.10 stalls smoothed aggregation's coarsening at L1 in both
+    packages, and one scaled by 1.05 declines the device build below L0:
+    a whole-matrix scale keeps the main system's hierarchy, so t-step's
+    time steps are those.) Returns (farm, watch, systems, rhs, counts,
+    summary)."""
+    from amgcl_tpu_torch import (AMGParams, BiCGStab, CG, fe_like_problem,
+                                 poisson3d)
+    from amgcl_tpu_torch.ops.csr import CSR
+    from amgcl_tpu_torch.serve import SolverFarm
+    A, _ = poisson3d(128)
+    Au, _ = fe_like_problem()
+
+    def stepped(s):
+        return CSR(A.ptr, A.col, A.val * s, A.ncols)
+
+    prm = AMGParams(dtype=torch.float32)
+    systems = {"t-main": A, "t-share": CSR(A.ptr, A.col, A.val.copy(),
+                                          A.ncols),
+               "t-u1": Au, "t-step": stepped(1.05)}
+    farm = SolverFarm(batch=FM_B, metrics_port=0)
+    watch = FarmWatch(farm)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps = [("t-main", systems["t-main"], "miss"),
+             ("t-share", systems["t-share"], "hit"),
+             ("t-u1", Au, "miss"), ("t-step", systems["t-step"], "miss"),
+             ("t-step", stepped(1.10), "rebuild")]
+    setup_s = []
+    for tenant, M, want in steps:
+        used0 = farm.pool.used
+        solver = BiCGStab(maxiter=100, tol=1e-6) if tenant == "t-u1" \
+            else CG(maxiter=100, tol=1e-6)
+        t0 = time.perf_counter()
+        out = farm.register(tenant, M, solver=solver, precond=prm)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        entry = farm.tenants[tenant].entry
+        watch.watch(FM_ENTRY[tenant], entry)
+        split = fm_bytes_split(entry.obj)
+        setup_s.append({"tenant": tenant, "outcome": out["outcome"],
+                        "s": secs, "bytes": out["bytes"], **split})
+        print("[FM1] register %s: %s in %.3f s; charge %.1f MB (distinct "
+              "storages: hierarchy %.1f MB, plans' device index arrays %.1f "
+              "MB; Hierarchy.bytes() %.1f MB), pool %.1f MB, allocated %.1f "
+              "MB" % (tenant, out["outcome"], secs, out["bytes"] / 2**20,
+                      split["hierarchy"] / 2**20, split["plans"] / 2**20,
+                      split["leaf_walk"] / 2**20, farm.pool.used / 2**20,
+                      torch.cuda.memory_allocated() / 2**20))
+        if out["outcome"] != want:
+            failures.append("FM1: %s registered as a %s, expected a %s"
+                            % (tenant, out["outcome"], want))
+        if want == "hit" and farm.pool.used != used0:
+            failures.append("FM1: the hit changed the pool's bytes (%d -> "
+                            "%d)" % (used0, farm.pool.used))
+    systems["t-step"] = steps[-1][1]
+    used = farm.pool.used
+    cap = int(0.75 * used)
+    farm.set_max_bytes(cap)
+    print("[FM1] budget 0.75 x %.1f MB = %.1f MB: resident %s, pool %.1f MB,"
+          " allocated %.1f MB" % (
+              used / 2**20, cap / 2**20,
+              sorted(watch.names[u] for u in farm.pool.resident()),
+              farm.pool.used / 2**20, torch.cuda.memory_allocated() / 2**20))
+    rng = np.random.default_rng(FM_SEED)
+    rhs = {t: rng.standard_normal(M.nrows) for t, M in systems.items()}
+    rounds = [fm_round(farm, rhs) for _ in range(2)]
+    probe = fm_memory_probe(farm, watch, rhs, failures)
+    counts, plain_calls = read_counts()
+    replays = watch.replays_since([])
+    st = farm.stats()
+    peak = torch.cuda.max_memory_allocated()
+    # the same bundles' single-rhs solves, every entry resident again
+    farm.set_max_bytes(0)
+    with counts_paused():
+        fm_round(farm, rhs)
+    singles = fm_singles(farm, systems, {t: [rhs[t]] for t in systems})
+    answers = [(t, 0, x, rep) for got in rounds for t, (x, rep) in
+               got.items()]
+    fm_answers("FM1", systems, answers, singles, failures)
+    for t in systems:
+        if not torch.equal(rounds[0][t][0], rounds[1][t][0]):
+            failures.append("FM1: %s's round-2 x differs from round 1's" % t)
+    per_column = fm_per_column("FM1", farm, watch, failures)
+    replayed = fm_replayed(watch, replays, per_column)
+    for row in st["tenants"]:
+        print("[FM1] tenant %s: %s, %d requests, resident %s (%.1f MB), "
+              "latency %s" % (row["tenant"], row["outcome"], row["requests"],
+                              row["resident"], row["bytes"] / 2**20,
+                              json.dumps(row.get("latency_ms"))))
+    reg = st["registry"]
+    print("[FM1] registry hits %d, misses %d, rebuilds %d; evictions %d, "
+          "readmissions %d, batches %d" % (
+              reg["hits"], reg["misses"], reg["rebuilds"], st["evictions"],
+              st["readmissions"], st["batches"]))
+    for ev in watch.evictions:
+        print("[FM1] eviction of %s: allocated %.1f -> %.1f MB, charge "
+              "released %.1f MB (drop %.1f%%)" % (
+                  ev["entry"], ev["before"] / 2**20, ev["after"] / 2**20,
+                  ev["charge"] / 2**20, 100 * (ev["before"] - ev["after"])
+                  / max(ev["charge"], 1)))
+        if ev["before"] - ev["after"] < 0.9 * ev["charge"]:
+            failures.append("FM1: evicting %s freed %d bytes, under 90%% of "
+                            "the %d released" % (ev["entry"], ev["before"]
+                                                 - ev["after"], ev["charge"]))
+    for rd in watch.readmissions:
+        print("[FM1] readmission of %s: %.3f s (rebuild %.3f s), allocated "
+              "%.1f -> %.1f MB, charge %.1f MB" % (
+                  rd["entry"], rd["wall_s"], rd["rebuild_s"] or 0.0,
+                  rd["before"] / 2**20, rd["after"] / 2**20,
+                  rd["charge"] / 2**20))
+    for b in watch.batches:
+        if b["total"] is not None and b["used"] > b["total"]:
+            failures.append("FM1: pool at %d bytes over its %d after a batch"
+                            % (b["used"], b["total"]))
+    print("[FM1] after each batch (entry, requests, pool MB / budget MB, "
+          "allocated MB): %s" % json.dumps(
+              [(b["entry"], b["requests"], round(b["used"] / 2**20, 1),
+                None if b["total"] is None else round(b["total"] / 2**20, 1),
+                round(b["allocated"] / 2**20, 1)) for b in watch.batches]))
+    if st["evictions"] < 1 or st["readmissions"] < 1:
+        failures.append("FM1: %d evictions, %d readmissions"
+                        % (st["evictions"], st["readmissions"]))
+    if reg["misses"] != 3:
+        failures.append("FM1: %d registry misses, expected 3" % reg["misses"])
+    if reg["rebuilds"] < 1 + st["readmissions"]:
+        failures.append("FM1: %d rebuilds < 1 + %d readmissions"
+                        % (reg["rebuilds"], st["readmissions"]))
+    fm_window("FM1", counts, plain_calls, replays, replayed, failures)
+    return farm, watch, systems, rhs, counts, {
+        "setup": setup_s, "budget_bytes": cap,
+        "evictions": [dict(e) for e in watch.evictions],
+        "readmissions": [dict(r) for r in watch.readmissions],
+        "registry": {k: reg[k] for k in ("hits", "misses", "rebuilds")},
+        "batches": st["batches"], "probe": probe,
+        "iters": {t: rounds[0][t][1].iters for t in systems},
+        "replays": replays, "replayed_launches": replayed,
+        "peak_mb": peak / 2**20}
+
+
+def fm_window(label, counts, plain_calls, replays, replayed, failures):
+    """Print a window's launches (by the wrappers; inside replays,
+    derived) and hold it to no plain call and every FM_KERNELS kernel
+    launched."""
+    print("[%s] graph replays in the window by entry and bucket: %s"
+          % (label, json.dumps(replays)))
+    print("[%s] kernels launched by their wrappers (captures not counted): "
+          "%s" % (label, json.dumps({k: v for k, v in counts.items() if v})))
+    print("[%s] kernel launches inside the window's graph replays (derived: "
+          "replays x B x one column's eager apply): %s"
+          % (label, json.dumps(replayed)))
+    print("[%s] plain-version calls: %d" % (label, sum(plain_calls.values())))
+    if any(plain_calls.values()):
+        failures.append("%s: plain versions ran: %s" % (label, {
+            k: v for k, v in plain_calls.items() if v}))
+    for k in FM_KERNELS:
+        if not counts[k] + replayed.get(k, 0):
+            failures.append("%s: kernel %s never launched" % (label, k))
+
+
+def fm_profile(farm, tenant, rhs):
+    """One warm full bucket of ``tenant`` through the farm under
+    torch.profiler (the profiler warms up on one bucket first): the
+    device's busy time over the batch's wall. Counts paused. Returns
+    (busy ms or None, wall ms)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    reqs = {k: rhs for k in range(FM_B)}
+
+    def bucket():
+        futs = [farm.submit(tenant, r) for r in reqs.values()]
+        for f in futs:
+            f.result(timeout=600)
+        torch.cuda.synchronize()
+
+    with counts_paused(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        bucket()
+        prof.step()
+        t0 = time.perf_counter()
+        bucket()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+    busy = sum(e.self_device_time_total for e in rows) / 1e3 if rows \
+        else None
+    print("[ST1] profiled warm bucket of %d %s requests: wall %.3f ms, device "
+          "busy %s" % (FM_B, tenant, wall_ms, "not measured (no device time "
+                       "recorded)" if busy is None else "%.3f ms (%.1f%%)"
+                       % (busy, 100 * busy / wall_ms)))
+    return busy, wall_ms
+
+
+def st1_path(farm, watch, systems, rhs, failures):
+    """ST1: on FM1's farm with the budget lifted, requests alternating
+    between t-main and t-u1: the closed-loop rate R of one warm round of
+    full buckets, then run_storm of Poisson 0.5 R for 8 s and bursts over
+    0.25 R for 6 s (every 2 s, 8 at a time), seed 19, then run_ladder at
+    0.25, 0.5, 1.0 and 1.5 R for 4 s a rung and its knee. No outcome may
+    be an error, every ok answer meets FM1's residual rule, and the
+    scraper reads /metrics with tenant labels and no scrape error.
+    Returns (counts, summary)."""
+    import urllib.request
+    from amgcl_tpu_torch.serve import storm as S
+    from amgcl_tpu_torch.telemetry import load as L
+    tenants = ("t-main", "t-u1")
+    rng = np.random.default_rng(FM_SEED + 1)
+    rhs_sets = {t: [rhs[t], rng.standard_normal(systems[t].nrows)]
+                for t in tenants}
+    singles = fm_singles(farm, systems, rhs_sets)
+    as32 = {t: [torch.as_tensor(r, dtype=torch.float32) for r in rows]
+            for t, rows in rhs_sets.items()}
+    snap = watch.snapshot()
+    reset_counts()
+    # R: one warm round of full buckets (the first round captures them)
+    for timed in (False, True):
+        t0 = time.perf_counter()
+        futs = [farm.submit(t, as32[t][k % 2]) for t in tenants
+                for k in range(FM_B)]
+        for f in futs:
+            f.result(timeout=600)
+        wall = time.perf_counter() - t0
+    R = len(tenants) * FM_B / wall
+    print("[ST1] closed-loop rate R: %.3f solves/s (a warm round of %d full "
+          "buckets in %.2f ms)" % (R, len(tenants), wall * 1e3))
+    answers, last, scrapers = [], [None], []
+    submit = farm.submit
+
+    def rhs_for(tenant, rid):
+        last[0] = (tenant, (rid // 2) % 2)
+        return as32[tenant][last[0][1]]
+
+    def recording_submit(tenant, r, **kw):
+        fut = submit(tenant, r, **kw)
+        t, k = last[0]
+        fut.add_done_callback(lambda f, t=t, k=k: answers.append(
+            (t, k) + f.result()) if f.exception() is None else None)
+        return fut
+
+    class CountedScraper(S._Scraper):
+        def start(self):
+            scrapers.append(self)
+            return super().start()
+
+    farm.submit = recording_submit
+    kept = S._Scraper
+    S._Scraper = CountedScraper
+    try:
+        sched = S.build_schedule(
+            [S.poisson_phase(0.5 * R, 8.0),
+             S.burst_phase(0.25 * R, 6.0, burst_every_s=2.0, burst_len=8)],
+            tenants=tenants, seed=ST_SEED)
+        for row in sched:
+            row["tenant"] = tenants[row["rid"] % 2]
+        storm = S.run_storm(farm, sched, rhs_for, drain_timeout_s=120.0)
+        page = urllib.request.urlopen(farm.metrics_url, timeout=10).read() \
+            .decode()
+        n_storm, same_storm = fm_answers("ST1 storm", systems, answers,
+                                         singles, failures)
+        answers.clear()
+        rungs = S.run_ladder(farm, [f * R for f in ST_LADDER], ST_RUNG_S,
+                             rhs_for, tenants=tenants, seed=ST_SEED,
+                             drain_timeout_s=120.0)
+        n_ladder, same_ladder = fm_answers("ST1 ladder", systems, answers,
+                                           singles, failures)
+        answers.clear()
+    finally:
+        S._Scraper = kept
+        del farm.submit
+    counts, plain_calls = read_counts()
+    replays = watch.replays_since(snap)
+    busy, pwall = fm_profile(farm, "t-main", as32["t-main"][0])
+    per_column = fm_per_column("ST1", farm, watch, failures)
+    replayed = fm_replayed(watch, replays, per_column)
+    summ = storm["summary"]
+    lat = summ.get("latency_ms") or {}
+    print("[ST1] storm: %d requests, offered %.3f, achieved %s, goodput %s "
+          "solves/s; latency from the scheduled arrival p50 %s, p99 %s ms; "
+          "outcomes %s; spans %s ms" % (
+              summ["requests"], summ["offered_rps"], summ["achieved_rps"],
+              summ["goodput_rps"], lat.get("p50"), lat.get("p99"),
+              json.dumps(summ["outcomes"]), json.dumps(summ["spans_ms"])))
+    curve = L.ladder_curve(rungs)
+    knee = L.detect_knee(curve)
+    for row in curve:
+        print("[ST1] rung %.3f solves/s offered: measured %s, achieved %s, "
+              "goodput %s, p50 %s, p99 %s ms, shed %s, timeouts %s, queue "
+              "depth max %s" % (
+                  row["offered_rps"], row["measured_offered_rps"],
+                  row["achieved_rps"], row["goodput_rps"], row["p50_ms"],
+                  row["p99_ms"], row["shed_rate"], row["timeout_rate"],
+                  row["queue_depth_max"]))
+    print("[ST1] knee: %s" % json.dumps(knee))
+    outcomes = dict(summ["outcomes"])
+    for r in rungs:
+        for k, v in r["summary"]["outcomes"].items():
+            outcomes[k] = outcomes.get(k, 0) + v
+    if outcomes.get("error") or outcomes.get("pending"):
+        failures.append("ST1: outcomes %s" % outcomes)
+    errors = sum(s.errors for s in scrapers)
+    rows = len(storm["gauges"]) + sum(len(r["gauges"]) for r in rungs)
+    labelled = 'tenant="t-main"' in page and 'tenant="t-u1"' in page
+    print("[ST1] /metrics over loopback: %d scrapers, %d samples, %d scrape "
+          "errors, tenant labels %s" % (len(scrapers), rows, errors,
+                                        labelled))
+    if not rows or errors or not labelled:
+        failures.append("ST1: %d scraped samples, %d scrape errors, tenant "
+                        "labels %s" % (rows, errors, labelled))
+    fm_window("ST1", counts, plain_calls, replays, replayed, failures)
+    return counts, {
+        "closed_loop_rps": R, "storm": {k: summ.get(k) for k in (
+            "requests", "outcomes", "offered_rps", "achieved_rps",
+            "goodput_rps", "latency_ms", "sched_lag_ms", "spans_ms",
+            "span_share")},
+        "answers": {"storm": [n_storm, same_storm],
+                    "ladder": [n_ladder, same_ladder]},
+        "curve": curve, "knee": knee, "outcomes": outcomes,
+        "scrape": {"samples": rows, "errors": errors},
+        "busy_share": None if busy is None else busy / pwall,
+        "replays": replays, "replayed_launches": replayed}
+
+
+def p15_family(failures, only=None):
+    """Phase 15: FM1, then ST1 on FM1's farm (``only`` names FM1 alone to
+    skip ST1). Returns ({label: counts}, {label: summary})."""
+    t_phase = time.perf_counter()
+    counts, summary = {}, {}
+    farm, watch, systems, rhs, counts["FM1"], summary["FM1"] = \
+        fm1_path(failures)
+    if only is None or "ST1" in only:
+        counts["ST1"], summary["ST1"] = st1_path(farm, watch, systems, rhs,
+                                                 failures)
+    for g in watch.gens:
+        if any(v != 1 for v in g["captures"].values()):
+            failures.append("phase 15: %s's bucket graphs captured %s times"
+                            % (g["entry"], g["captures"]))
+    print("[phase 15] preconditioner generations (a readmission makes one): "
+          "%s" % json.dumps(watch.gens))
+    farm.close()
+    del farm, watch
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print("phase 15: %.1f s" % secs)
+    if secs > P15_LIMIT_S:
+        failures.append("phase 15 took %.1f s, over its %.0f s"
+                        % (secs, P15_LIMIT_S))
+    return counts, summary
+
+
 def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4407,12 +5050,13 @@ def main(argv=()):
           % (time.perf_counter() - t0, " + ".join(cuda_lib.SOURCES)))
     failures = []
     if argv and argv[0] in ("--phase10", "--phase11", "--phase12",
-                            "--phase13", "--phase14"):
-        # phase 10, 11, 12, 13 or 14 alone, for the paths named (all
+                            "--phase13", "--phase14", "--phase15"):
+        # phase 10, 11, 12, 13, 14 or 15 alone, for the paths named (all
         # without names); no result line
         family = {"--phase10": a8_family, "--phase11": a9_family,
                   "--phase12": bf16_family, "--phase13": p13_family,
-                  "--phase14": p14_family}[argv[0]]
+                  "--phase14": p14_family,
+                  "--phase15": p15_family}[argv[0]]
         summary = family(failures, set(argv[1:]) or None)[1]
         print("%s paths: %s" % (argv[0][2:], json.dumps(summary)))
         for f in failures:
@@ -4473,6 +5117,8 @@ def main(argv=()):
     print("phase 13 paths: %s" % json.dumps(p13_summary))
     p14_counts, p14_summary = p14_family(failures)
     print("phase 14 paths: %s" % json.dumps(p14_summary))
+    p15_counts, p15_summary = p15_family(failures)
+    print("phase 15 paths: %s" % json.dumps(p15_summary))
     kernels = []
     for name in REPLACES:
         rec = records.get(name)
@@ -4488,7 +5134,8 @@ def main(argv=()):
                  **{p: c[name] for p, c in a_counts.items()},
                  **{p: c[name] for p, c in n_counts.items()}, **phase12,
                  **{p: c[name] for p, c in p13_counts.items()},
-                 **{p: c[name] for p, c in p14_counts.items()}}
+                 **{p: c[name] for p, c in p14_counts.items()},
+                 **{p: c[name] for p, c in p15_counts.items()}}
         if name.endswith(".bf16"):
             by_path = phase12
         elif name in FRAMED:
@@ -4504,10 +5151,12 @@ def main(argv=()):
             by_path = {"main": counts[name], "B1": b_counts[name], **later}
         # launches on the main path, or over the paths a kernel serves
         launches = by_path.get("main") or sum(by_path.values())
-        # phase 14: launches inside each path's graph replays (derived:
-        # the window's replays x one eager apply's launches, sv_report)
+        # phases 14 and 15: launches inside each path's graph replays
+        # (derived: the window's replays x one eager apply's launches,
+        # sv_report and fm_replayed)
         replayed = {p: sm["replayed_launches"][name]
-                    for p, sm in p14_summary.items()
+                    for p, sm in list(p14_summary.items())
+                    + list(p15_summary.items())
                     if sm["replayed_launches"].get(name)}
         kernels.append({
             "name": name, "route": "cuda",

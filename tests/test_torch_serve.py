@@ -605,10 +605,23 @@ def test_service_timeout_refine_gate_and_close():
         SolverService(ref)
     with pytest.raises(TypeError):
         SolverService(object())
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        svc.release_device()
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        svc.readmit()
+    # eviction and readmission (the farm's): bytes() is 0 while released,
+    # the same rhs gives the same x bit for bit after readmit(), and a
+    # running worker refuses the release
+    x1, _ = svc.solve_batch(rhs)
+    b0 = solve.precond.bytes()
+    svc.release_device()
+    assert solve.precond.bytes() == 0 and solve.A_dev is None
+    svc.readmit()
+    assert solve.precond.bytes() == b0 > 0
+    x2, _ = svc.solve_batch(rhs)
+    assert torch.equal(x1, x2)
+    running = SolverService(solve, batch=2, flush_ms=5).start()
+    try:
+        with pytest.raises(RuntimeError, match="idle"):
+            running.release_device()
+    finally:
+        running.close()
 
 
 def test_service_supervisor_fails_futures_and_restarts():
