@@ -23,6 +23,10 @@ using bf16 = __nv_bfloat16;
 template <typename T>
 constexpr bool kIsBf16 = std::is_same<T, bf16>::value;
 
+// the type a kernel sums in: float32 for bfloat16 data, else the data's
+template <typename T>
+using Acc = std::conditional_t<kIsBf16<T>, float, T>;
+
 __device__ __forceinline__ float bf_load(bf16 v) {
   return __bfloat162float(v);
 }
@@ -41,6 +45,18 @@ __device__ __forceinline__ float bf_add(float a, float b) {
 }
 __device__ __forceinline__ float bf_sub(float a, float b) {
   return bf_round(__fsub_rn(a, b));
+}
+
+// Four consecutive bfloat16 values from an 8-byte boundary (a row of the
+// windowed-ELL and gather kernels, K a multiple of 4), as one 8-byte
+// load through the read-only path, widened to float
+__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
+  const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&a.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&a.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
 }
 
 }  // namespace

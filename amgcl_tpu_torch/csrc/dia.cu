@@ -64,6 +64,16 @@
 //     per (device, stream).
 // Dots accumulate in T: float32 for float32 data, float64 for float64,
 // as the TPU kernels do (pallas_spmv.py:429-430).
+//
+// Their bfloat16 mode (a bfloat16 Krylov loop, the TPU kernels' bfloat16
+// dtype): the row value as dia_kernel's bfloat16 mode forms it, each
+// product and each sum rounded to bfloat16 in diagonal order (a term
+// outside [0, m) skipped), y stored in bfloat16; the products, partials
+// and lane sums in float32 in the order above (a product of two bfloat16
+// values is exact in float32), and each dot rounded once to bfloat16,
+// as the TPU kernel's float32 SMEM sums are cast to the out dtype
+// (pallas_spmv.py:470-474, :527-529): float32 partials, bfloat16 dots.
+// Bound: bytes again, at 2 bytes a value.
 #include <cuda_runtime.h>
 
 #include "bf16.cuh"
@@ -161,45 +171,65 @@ struct DotsArgs {
   const T* f;
   const T* w;
   T* y;
-  T* scratch;             // ndots dots, then ndots × ngroups partials
+  Acc<T>* partials;       // ndots × ngroups, in the sums' type
+  T* dots;                // ndots, in the data type
   unsigned int* ticket;
   int off[kMaxDiag];
 };
 
+// one value of the data, in the dots' type
+template <typename T>
+__device__ __forceinline__ Acc<T> ld(const T* p) {
+  if constexpr (kIsBf16<T>) return bf_load(__ldg(p));
+  else return __ldg(p);
+}
+
+// acc ± d·x: one fma in float32 and float64; in bfloat16 the product
+// and then the sum rounded to bfloat16
+template <typename T, bool SUB, typename A>
+__device__ __forceinline__ A term(A d, A x, A acc) {
+  if constexpr (kIsBf16<T>) {
+    const A v = bf_mul(d, x);
+    return SUB ? bf_sub(acc, v) : bf_add(acc, v);
+  } else {
+    return fma_rn(SUB ? -d : d, x, acc);
+  }
+}
+
 // The row value of row i < n (point 1). Each batch issues its loads of
 // data and x together, then adds them in order. CHECK false: the caller
 // found every column of the row in [0, m), so no term is tested.
-template <typename T, bool SUB, bool CHECK, int ND>
-__device__ __forceinline__ T row_value(const DotsArgs<T>& a, long long i,
-                                       T acc) {
+template <typename T, bool SUB, bool CHECK, int ND, typename A = Acc<T>>
+__device__ __forceinline__ A row_value(const DotsArgs<T>& a, long long i,
+                                       A acc) {
   constexpr int KB = ND > 0 ? ND : kBatch;
   const int nd = ND > 0 ? ND : a.ndiag;
   for (int k0 = 0; k0 < nd; k0 += KB) {
-    T dv[KB], xv[KB];
+    A dv[KB], xv[KB];
     bool in[KB];
 #pragma unroll
     for (int b = 0; b < KB; ++b) {
       const int k = k0 + b;
       const long long j = i + ((ND > 0 || k < nd) ? a.off[k] : 0);
       in[b] = (ND > 0 || k < nd) && (!CHECK || (j >= 0 && j < a.m));
-      dv[b] = in[b] ? __ldg(a.data + static_cast<size_t>(k) * a.n + i)
-                    : T(0);
-      xv[b] = in[b] ? __ldg(a.x + j) : T(0);
+      dv[b] = in[b] ? ld(a.data + static_cast<size_t>(k) * a.n + i) : A(0);
+      xv[b] = in[b] ? ld(a.x + j) : A(0);
     }
 #pragma unroll
     for (int b = 0; b < KB; ++b)
-      if (in[b]) acc = fma_rn(SUB ? -dv[b] : dv[b], xv[b], acc);
+      if (in[b]) acc = term<T, SUB>(dv[b], xv[b], acc);
   }
   return acc;
 }
 
 template <typename T, int MODE, int ND>
 __device__ __forceinline__ void dots_body(const DotsArgs<T>& a) {
+  using A = Acc<T>;
   constexpr bool SUB = MODE == RESIDUAL_DOT;
   constexpr int NDOT = MODE == SPMV_DOTS ? 3 : 1;
-  __shared__ T s_d[2][NDOT][kGroup];
+  __shared__ A s_d[2][NDOT][kGroup];
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  T* partials = a.scratch + a.ndots;
+  A* partials = a.partials;
 
   // groups blockIdx.x, + gridDim.x, …: a thread a row (points 1 and 2,
   // 0 past n), then warp j sums dot j's 256 products (point 3) while the
@@ -208,19 +238,19 @@ __device__ __forceinline__ void dots_body(const DotsArgs<T>& a) {
   for (int g = blockIdx.x; g < a.ngroups; g += gridDim.x, buf ^= 1) {
     const long long i = static_cast<long long>(g) * kGroup + t;
     const bool interior = g >= a.lo && g < a.hi;
-    T d[NDOT];
+    A d[NDOT];
 #pragma unroll
-    for (int j = 0; j < NDOT; ++j) d[j] = T(0);
+    for (int j = 0; j < NDOT; ++j) d[j] = A(0);
     if (interior || i < a.n) {
-      T xi = T(0), wi = T(0);
-      T acc = SUB ? __ldg(a.f + i) : T(0);
+      A xi = A(0), wi = A(0);
+      A acc = SUB ? ld(a.f + i) : A(0);
       if constexpr (MODE == SPMV_DOTS) {
-        xi = __ldg(a.x + i);
-        if (a.ndots == 3) wi = __ldg(a.w + i);
+        xi = ld(a.x + i);
+        if (a.ndots == 3) wi = ld(a.w + i);
       }
       acc = interior ? row_value<T, SUB, false, ND>(a, i, acc)
                      : row_value<T, SUB, true, ND>(a, i, acc);
-      a.y[i] = acc;
+      a.y[i] = narrow<T>(acc);
       d[0] = mul_rn(acc, acc);
       if constexpr (MODE == SPMV_DOTS) {
         d[1] = mul_rn(acc, xi);
@@ -231,7 +261,7 @@ __device__ __forceinline__ void dots_body(const DotsArgs<T>& a) {
     for (int j = 0; j < NDOT; ++j) s_d[buf][j][t] = d[j];
     __syncthreads();
     if (warp < a.ndots) {
-      const T p = tree256(s_d[buf][warp], lane);
+      const A p = tree256(s_d[buf][warp], lane);
       if (lane == 0) partials[static_cast<size_t>(warp) * a.ngroups + g] = p;
     }
   }
@@ -243,23 +273,23 @@ __device__ __forceinline__ void dots_body(const DotsArgs<T>& a) {
   // stencil, one dot's at a time in the batched body, whose registers
   // are capped
   if constexpr (ND > 0) {
-    lane_sums<T, NDOT>(partials, a.ngroups, a.ndots, 0, t, s_d[0]);
+    lane_sums<A, NDOT>(partials, a.ngroups, a.ndots, 0, t, s_d[0]);
   } else {
 #pragma unroll 1
     for (int j = 0; j < a.ndots; ++j)
-      lane_sums<T, 1>(partials, a.ngroups, a.ndots, j, t, s_d[0]);
+      lane_sums<A, 1>(partials, a.ngroups, a.ndots, j, t, s_d[0]);
   }
   __syncthreads();
   if (warp < a.ndots) {
-    const T s = tree256(s_d[0][warp], lane);
-    if (lane == 0) a.scratch[warp] = s;
+    const A s = tree256(s_d[0][warp], lane);
+    if (lane == 0) a.dots[warp] = narrow<T>(s);
   }
 }
 
 // The stencil's instantiation (ND 7) takes the registers ptxas gives it;
-// the batched one (ND 0) is capped at 32 in float32 and 64 in float64, so
-// that a 33-diagonal level's 1,024 groups fit on the card at once
-// (PERF.md §6).
+// the batched one (ND 0) is capped at 32 in float32 and bfloat16 and 64
+// in float64, so that a 33-diagonal level's 1,024 groups fit on the card
+// at once (PERF.md §6).
 template <typename T, int MODE, int ND>
 __global__ void __launch_bounds__(kGroup)
 dots_kernel(const __grid_constant__ DotsArgs<T> a) {
@@ -267,7 +297,7 @@ dots_kernel(const __grid_constant__ DotsArgs<T> a) {
 }
 
 template <typename T, int MODE>
-__global__ void __launch_bounds__(kGroup, sizeof(T) == 4 ? 8 : 4)
+__global__ void __launch_bounds__(kGroup, sizeof(T) == 8 ? 4 : 8)
 dots_kernel_batched(const __grid_constant__ DotsArgs<T> a) {
   dots_body<T, MODE, 0>(a);
 }
@@ -308,11 +338,12 @@ cudaError_t launch_dots(const DotsArgs<T>& a, cudaStream_t s) {
 template <typename T>
 cudaError_t run_dots(int mode, long long n, long long m, int ndiag,
                      const int* offsets, const T* data, const T* x,
-                     const T* f, const T* w, T* y, T* scratch,
-                     unsigned int* ticket, int ngroups, int lo, int hi,
+                     const T* f, const T* w, T* y, Acc<T>* partials,
+                     T* dots, unsigned int* ticket, int ngroups, int lo, int hi,
                      cudaStream_t s) {
   if ((mode != SPMV_DOTS && mode != RESIDUAL_DOT) || ndiag < 0 ||
       ndiag > kMaxDiag || n < 1 || m != n || ticket == nullptr ||
+      partials == nullptr || dots == nullptr ||
       ngroups != (n + kGroup - 1) / kGroup ||
       (mode == RESIDUAL_DOT && f == nullptr) || lo < 0 || hi > ngroups)
     return cudaErrorInvalidValue;
@@ -329,7 +360,8 @@ cudaError_t run_dots(int mode, long long n, long long m, int ndiag,
   a.f = f;
   a.w = w;
   a.y = y;
-  a.scratch = scratch;
+  a.partials = partials;
+  a.dots = dots;
   a.ticket = ticket;
   int omin = 0, omax = 0;
   for (int k = 0; k < ndiag; ++k) {
@@ -388,8 +420,9 @@ extern "C" int amgcl_dia(int dtype, int mode, long long n, long long m,
 }
 
 // Modes SPMV_DOTS (`w` optional: the third dot) and RESIDUAL_DOT (`f`),
-// square operators. `offsets` are host ints. `scratch` holds ndots dots
-// then ndots × ceil(n / 256) partials of the data type (ndots = 3 for
+// square operators; dtype 0, 1 or 2 (bfloat16). `offsets` are host ints.
+// `partials` holds ndots × ceil(n / 256) values of the data type, float32
+// for bfloat16, and `dots` ndots values of the data type (ndots = 3 for
 // SPMV_DOTS with w, 2 without, 1 for RESIDUAL_DOT); `ticket` is a device
 // counter at 0, left at 0. ngroups = ceil(n / 256); groups [lo, hi) run
 // unchecked. Returns the cudaError_t of the launch, or
@@ -397,7 +430,8 @@ extern "C" int amgcl_dia(int dtype, int mode, long long n, long long m,
 extern "C" int amgcl_dia_dots(int dtype, int mode, long long n, long long m,
                               int ndiag, const int* offsets, const void* data,
                               const void* x, const void* f, const void* w,
-                              void* y, void* scratch, void* ticket,
+                              void* y, void* partials, void* dots,
+                              void* ticket,
                               int ngroups, int lo, int hi, void* stream) {
   using namespace amgcl_port;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -409,7 +443,8 @@ extern "C" int amgcl_dia_dots(int dtype, int mode, long long n, long long m,
                            static_cast<const float*>(f),
                            static_cast<const float*>(w),
                            static_cast<float*>(y),
-                           static_cast<float*>(scratch), tk, ngroups, lo, hi,
+                           static_cast<float*>(partials),
+                           static_cast<float*>(dots), tk, ngroups, lo, hi,
                            s);
   if (dtype == 1)
     return run_dots<double>(mode, n, m, ndiag, offsets,
@@ -418,8 +453,17 @@ extern "C" int amgcl_dia_dots(int dtype, int mode, long long n, long long m,
                             static_cast<const double*>(f),
                             static_cast<const double*>(w),
                             static_cast<double*>(y),
-                            static_cast<double*>(scratch), tk, ngroups, lo,
+                            static_cast<double*>(partials),
+                            static_cast<double*>(dots), tk, ngroups, lo,
                             hi, s);
+  if (dtype == 2)
+    return run_dots<bf16>(mode, n, m, ndiag, offsets,
+                          static_cast<const bf16*>(data),
+                          static_cast<const bf16*>(x),
+                          static_cast<const bf16*>(f),
+                          static_cast<const bf16*>(w), static_cast<bf16*>(y),
+                          static_cast<float*>(partials),
+                          static_cast<bf16*>(dots), tk, ngroups, lo, hi, s);
   return cudaErrorInvalidValue;
 }
 

@@ -43,8 +43,18 @@
 // shuffles, were no faster (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W).
 // Offsets are 64-bit; the tile index takes a 32-bit division where n_out
 // allows.
+//
+// The bfloat16 mode (a bfloat16 hierarchy's stored transfers and SPAI-1
+// or ILU products of K <= 16): the TPU kernel accumulates in the values'
+// dtype slot by slot (pallas_gather.py:70-74), so each product and each
+// sum is rounded to bfloat16 (bf16.cuh), acc = 0 then acc = bf(acc +
+// bf(v_k · x_j)) for every slot in order, a slot past ncols adding the
+// product of its value and 0, as the TPU's zero-padded window gives. A
+// row's 4-slot vector of values is one 8-byte load. Bound: bytes, at 2
+// bytes a value.
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "reduce.cuh"
 
 namespace amgcl_port {
@@ -75,13 +85,14 @@ gather_kernel(long long n_out, long long ncols, int tile, bool narrow,
               const int* __restrict__ starts, const int* __restrict__ cols,
               const T* __restrict__ vals, const T* __restrict__ x,
               T* __restrict__ y) {
+  using A = Acc<T>;
   constexpr int NQ = K / 4;                  // 4-slot vectors a row
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (i >= n_out) return;
   // the row's columns and values, every vector issued before any use
   int4 c[NQ];
-  T v[NQ][4], xv[NQ][4];
+  A v[NQ][4], xv[NQ][4];
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
     c[q] = __ldg(reinterpret_cast<const int4*>(cols + i * K) + q);
@@ -101,17 +112,25 @@ gather_kernel(long long n_out, long long ncols, int tile, bool narrow,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       in[q][e] = j[e] < ncols;
-      xv[q][e] = in[q][e] ? __ldg(x + j[e]) : T(0);
+      if constexpr (kIsBf16<T>)
+        xv[q][e] = in[q][e] ? bf_load(__ldg(x + j[e])) : 0.f;
+      else
+        xv[q][e] = in[q][e] ? __ldg(x + j[e]) : T(0);
     }
   }
-  T acc = T(0);
+  A acc = A(0);
 #pragma unroll
   for (int q = 0; q < NQ; ++q) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (in[q][e]) acc = fma_rn(v[q][e], xv[q][e], acc);
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (kIsBf16<T>)
+        acc = bf_add(acc, bf_mul(v[q][e], xv[q][e]));
+      else if (in[q][e])
+        acc = fma_rn(v[q][e], xv[q][e], acc);
+    }
   }
-  y[i] = acc;
+  if constexpr (kIsBf16<T>) y[i] = bf_store(acc);
+  else y[i] = acc;
 }
 
 template <typename T, int K>
@@ -156,7 +175,8 @@ cudaError_t run(int K, int threads, int nblocks, long long n_out,
 }  // namespace
 }  // namespace amgcl_port
 
-// dtype: 0 = float32, 1 = float64; K: the column slots (4, 8, 12 or 16);
+// dtype: 0 = float32, 1 = float64, 2 = bfloat16; K: the column slots (4,
+// 8, 12 or 16);
 // blocks of `threads` threads, a row each, `nblocks` blocks covering
 // n_out rows. cols and vals hold at least n_out * K entries from 16-byte
 // boundaries, x ncols, y n_out. Returns the cudaError_t of the launch, or
@@ -180,5 +200,9 @@ extern "C" int amgcl_gather_spmv(int dtype, int K, int threads,
                        static_cast<const double*>(vals),
                        static_cast<const double*>(x),
                        static_cast<double*>(y), s);
+  if (dtype == 2)
+    return run<bf16>(K, threads, nblocks, n_out, ncols, tile, st, cl,
+                     static_cast<const bf16*>(vals),
+                     static_cast<const bf16*>(x), static_cast<bf16*>(y), s);
   return cudaErrorInvalidValue;
 }

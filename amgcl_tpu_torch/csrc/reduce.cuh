@@ -18,7 +18,10 @@
 // contraction changes a rounding.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace amgcl_port {
 // internal linkage: each source that includes it carries its own copy
@@ -202,10 +205,20 @@ __device__ __forceinline__ A warp_sum(A v) {
   return v;
 }
 
-template <typename A>
+// a sum of type A as an output of type O: bfloat16 rounded once to the
+// nearest, any other type as it is
+template <typename O, typename A>
+__device__ __forceinline__ O narrow(A v) {
+  if constexpr (std::is_same<O, __nv_bfloat16>::value)
+    return __float2bfloat16_rn(v);
+  else
+    return v;
+}
+
+template <typename A, typename O = A>
 __global__ void __launch_bounds__(kBlock)
 reduce_partials(const A* __restrict__ partials, int nblocks, int ndots,
-                A* __restrict__ out) {
+                O* __restrict__ out) {
   __shared__ A s[kBlock];
   const int t = threadIdx.x;
   const int j = blockIdx.x;
@@ -218,14 +231,14 @@ reduce_partials(const A* __restrict__ partials, int nblocks, int ndots,
     if (t < stride) s[t] += s[t + stride];
     __syncthreads();
   }
-  if (t == 0) out[j] = s[0];
+  if (t == 0) out[j] = narrow<O>(s[0]);
 }
 
-template <typename A>
-inline void launch_reduce(const A* partials, int nblocks, int ndots, A* out,
+template <typename A, typename O = A>
+inline void launch_reduce(const A* partials, int nblocks, int ndots, O* out,
                           cudaStream_t stream) {
-  reduce_partials<A><<<ndots, kBlock, 0, stream>>>(partials, nblocks, ndots,
-                                                   out);
+  reduce_partials<A, O><<<ndots, kBlock, 0, stream>>>(partials, nblocks,
+                                                      ndots, out);
 }
 
 }  // namespace

@@ -83,14 +83,20 @@
 // design's. The grid is ceil(n_out / (256/G)) blocks; the C entry point
 // refuses a grid that does not cover n_out.
 //
-// The scalar kernel's bfloat16 mode (SPMV, RESIDUAL, CORRECTION; a
-// bfloat16 hierarchy's levels) loads a 4-slot vector of values as 8
-// bytes and x a bfloat16 at a time, rounds each product to bfloat16 and
-// sums a row's products in float in slot order (__fadd_rn), then rounds
-// the sum, f − A x, w ∘ r and x + w ∘ r each to bfloat16 (bf16.cuh): the
-// TPU kernel's bfloat16 products, its float32 `jnp.sum` and its bfloat16
-// epilogue (unstructured.py:334-336, :389-395), in the plain version's
-// slot order. The float32 and float64 modes are those above, unchanged.
+// The scalar kernel's bfloat16 mode (a bfloat16 hierarchy's levels and a
+// bfloat16 Krylov loop) loads a 4-slot vector of values as 8 bytes and x
+// a bfloat16 at a time, sums a row's products in float in slot order
+// (each product of two bfloat16 values exact in float, then __fadd_rn),
+// then rounds the sum, f − A x, w ∘ r and x + w ∘ r each to bfloat16
+// (bf16.cuh): the TPU kernel's product and float32 `jnp.sum` as the JAX
+// package forms them on the CPU, in its interpret mode and on its XLA
+// path alike (the product kept in float32), and its bfloat16 epilogue
+// (unstructured.py:334-336, :389-395), in the plain version's slot
+// order. Its SPMV_DOTS forms y so, then the dots in float32 over
+// the bfloat16 y, x and w (row_dots_kernel's order) and rounds each once
+// to bfloat16, as the TPU kernel casts its float32 SMEM sums
+// (unstructured.py:451-453, :499-501). The float32 and float64 modes are
+// those above, unchanged.
 //
 // Both: the correction reads x both as the gather source and as x[i]; the
 // output is a separate buffer, so no thread sees another's update. The
@@ -249,16 +255,6 @@ __device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
   const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
-// bfloat16: one 8-byte vector (K a multiple of 4 puts every row's
-// vectors on 8-byte boundaries), widened to float
-__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
-  const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&a.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&a.y));
-  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
-}
 __device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
 __device__ __forceinline__ double load1(const double* p) { return __ldg(p); }
 __device__ __forceinline__ float load1(const bf16* p) {
@@ -320,9 +316,9 @@ well_scalar_kernel(long long n_out, long long ncols, int tile, int K,
         const S* px = sx + (threadIdx.x + l) * 4;
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          // bfloat16: each product rounded, the row sum in float
+          // bfloat16: the exact product, the row sum in float
           if constexpr (kIsBf16<T>)
-            acc = __fadd_rn(acc, bf_mul(pv[e], px[e]));
+            acc = __fadd_rn(acc, __fmul_rn(pv[e], px[e]));
           else
             acc += pv[e] * px[e];
         }
@@ -361,36 +357,46 @@ well_scalar_kernel(long long n_out, long long ncols, int tile, int K,
 // kBlock rows a block, as a thread-per-row kernel forms them: a node's b
 // components in order, the same per-block partials, so the same dots bit
 // for bit.
+// In bfloat16 the sums are float32 (the products of bfloat16 values
+// exact in it) and the reduction rounds each dot once to bfloat16.
 template <typename T, int B>
 __global__ void __launch_bounds__(kBlock)
 row_dots_kernel(long long n_out, const T* __restrict__ y,
                 const T* __restrict__ x, const T* __restrict__ w,
-                T* __restrict__ partials) {
+                Acc<T>* __restrict__ partials) {
+  using A = Acc<T>;
   const long long i = static_cast<long long>(blockIdx.x) * kBlock +
                       threadIdx.x;
-  T d0 = T(0), d1 = T(0), d2 = T(0);
+  A d0 = A(0), d1 = A(0), d2 = A(0);
   if (i < n_out) {
 #pragma unroll
     for (int r = 0; r < B; ++r) {
       const long long o = i * B + r;
-      const T a = y[o];
-      d0 += a * a;
-      d1 += a * x[o];
-      if (w != nullptr) d2 += a * w[o];
+      if constexpr (kIsBf16<T>) {
+        const float a = bf_load(y[o]);
+        d0 = fma_rn(a, a, d0);
+        d1 = fma_rn(a, bf_load(x[o]), d1);
+        if (w != nullptr) d2 = fma_rn(a, bf_load(w[o]), d2);
+      } else {
+        const T a = y[o];
+        d0 += a * a;
+        d1 += a * x[o];
+        if (w != nullptr) d2 += a * w[o];
+      }
     }
   }
-  const T dv[3] = {d0, d1, d2};
-  block_reduce_store<T, 3>(dv, partials);
+  const A dv[3] = {d0, d1, d2};
+  block_reduce_store<A, 3>(dv, partials);
 }
 
 // The dots pass and the reduction of SPMV_DOTS, after its product.
 template <typename T, int B>
 void launch_dots(long long n_out, const T* y, const T* x, const T* w,
-                 T* partials, T* dots, cudaStream_t s) {
+                 Acc<T>* partials, T* dots, cudaStream_t s) {
   const int dot_blocks = static_cast<int>((n_out + kBlock - 1) / kBlock);
   row_dots_kernel<T, B><<<dot_blocks, kBlock, 0, s>>>(n_out, y, x, w,
                                                       partials);
-  launch_reduce<T>(partials, dot_blocks, 3, dots, s);
+  launch_reduce<Acc<T>, T>(partials, dot_blocks, 3, dots, s);
 }
 
 template <typename T, int G>
@@ -472,14 +478,16 @@ cudaError_t launch(int mode, int lanes, long long n_out, long long ncols,
   }
 }
 
-// The bfloat16 modes: SPMV, RESIDUAL and CORRECTION of the scalar kernel
-// (a bfloat16 hierarchy's levels; SPMV_DOTS runs in the Krylov dtype).
+// The bfloat16 modes of the scalar kernel: SPMV, RESIDUAL and CORRECTION
+// (a bfloat16 hierarchy's levels) and SPMV_DOTS (a bfloat16 Krylov loop:
+// y as SPMV forms it, then the dots in float32, each rounded once).
 template <int G>
 cudaError_t launch_scalar_bf16(int mode, long long n_out, long long ncols,
                                int tile, int K, const int* starts,
                                const int* cols, const bf16* vals,
                                const bf16* x, const bf16* f, const bf16* w,
-                               bf16* y, int nblocks, cudaStream_t s) {
+                               bf16* y, float* partials, bf16* dots,
+                               int nblocks, cudaStream_t s) {
   switch (mode) {
     case SPMV:
       well_scalar_kernel<bf16, G, SPMV><<<nblocks, kBlock, 0, s>>>(
@@ -493,6 +501,11 @@ cudaError_t launch_scalar_bf16(int mode, long long n_out, long long ncols,
       well_scalar_kernel<bf16, G, CORRECTION><<<nblocks, kBlock, 0, s>>>(
           n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
       break;
+    case SPMV_DOTS:
+      well_scalar_kernel<bf16, G, SPMV><<<nblocks, kBlock, 0, s>>>(
+          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
+      launch_dots<bf16, 1>(n_out, y, x, w, partials, dots, s);
+      break;
     default:
       return cudaErrorInvalidValue;
   }
@@ -503,21 +516,24 @@ cudaError_t run_scalar_bf16(int mode, int lanes, long long n_out,
                             long long ncols, int tile, int K,
                             const int* starts, const int* cols,
                             const bf16* vals, const bf16* x, const bf16* f,
-                            const bf16* w, bf16* y, int nblocks,
-                            cudaStream_t s) {
+                            const bf16* w, bf16* y, float* partials,
+                            bf16* dots, int nblocks, cudaStream_t s) {
   if (tile <= 0 || K <= 0 || lanes <= 0 || kBlock % lanes ||
       static_cast<long long>(nblocks) * (kBlock / lanes) < n_out || K % 4)
     return cudaErrorInvalidValue;
   switch (lanes) {
     case 1:
       return launch_scalar_bf16<1>(mode, n_out, ncols, tile, K, starts, cols,
-                                   vals, x, f, w, y, nblocks, s);
+                                   vals, x, f, w, y, partials, dots, nblocks,
+                                   s);
     case 2:
       return launch_scalar_bf16<2>(mode, n_out, ncols, tile, K, starts, cols,
-                                   vals, x, f, w, y, nblocks, s);
+                                   vals, x, f, w, y, partials, dots, nblocks,
+                                   s);
     case 4:
       return launch_scalar_bf16<4>(mode, n_out, ncols, tile, K, starts, cols,
-                                   vals, x, f, w, y, nblocks, s);
+                                   vals, x, f, w, y, partials, dots, nblocks,
+                                   s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -568,8 +584,8 @@ cudaError_t run(int mode, int b, int lanes, long long n_out, long long ncols,
 }  // namespace
 }  // namespace amgcl_port
 
-// dtype: 0 = float32, 1 = float64, 2 = bfloat16 (b = 1 and SPMV,
-// RESIDUAL or CORRECTION only); b: the block size (1, 2, 3 or 4);
+// dtype: 0 = float32, 1 = float64, 2 = bfloat16 (b = 1 only, its
+// partials float32); b: the block size (1, 2, 3 or 4);
 // lanes: threads per row, 1, 2 or 4 for b = 1, and per node, 4 or 8 for
 // b > 1; K a multiple of 4 and cols and vals on 16-byte boundaries (the
 // wrapper checks the bases). n_out nodes are
@@ -610,14 +626,16 @@ extern "C" int amgcl_well_block(int dtype, int mode, int b, int lanes,
                        static_cast<double*>(partials),
                        static_cast<double*>(dots), nblocks, s);
   if (dtype == 2) {
-    // bfloat16: the scalar SPMV, RESIDUAL and CORRECTION
-    if (b != 1 || mode == SPMV_DOTS) return cudaErrorInvalidValue;
+    // bfloat16: the scalar kernel's four modes
+    if (b != 1) return cudaErrorInvalidValue;
     return run_scalar_bf16(mode, lanes, n_out, ncols, tile, K, st, cl,
                            static_cast<const bf16*>(vals),
                            static_cast<const bf16*>(x),
                            static_cast<const bf16*>(f),
                            static_cast<const bf16*>(w),
-                           static_cast<bf16*>(y), nblocks, s);
+                           static_cast<bf16*>(y),
+                           static_cast<float*>(partials),
+                           static_cast<bf16*>(dots), nblocks, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -187,8 +187,8 @@ def _human_bytes(n: float) -> str:
 def check_dtype(dtype):
     """Refuse a dtype the port has no kernels for, rather than running in
     another: float16 hierarchies are ROADMAP A.15, complex values the
-    complex-values item of queue A. bfloat16 passes: a hierarchy takes
-    it (a Krylov loop does not, :func:`check_krylov_dtype`)."""
+    complex-values item of queue A. bfloat16 passes: a hierarchy and a
+    Krylov loop take it."""
     dtype = torch.empty((), dtype=dtype).dtype
     if dtype.is_complex:
         raise NotImplementedError(
@@ -198,20 +198,6 @@ def check_dtype(dtype):
         raise NotImplementedError(
             "%s hierarchies are not ported yet (ROADMAP A.15, float16 "
             "hierarchies)" % dtype)
-    return dtype
-
-
-def check_krylov_dtype(dtype):
-    """:func:`check_dtype`, and refuse a bfloat16 Krylov loop: it needs
-    the bfloat16 modes of the Krylov kernels (B.3–B.5, B.10), which are
-    ROADMAP B.17. A bfloat16 hierarchy runs under a float32 loop
-    (``solver_dtype=torch.float32``)."""
-    dtype = check_dtype(dtype)
-    if dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "a bfloat16 Krylov loop is not ported yet (ROADMAP B.17, the "
-            "bfloat16 modes of B.3-B.5 and B.10); keep the hierarchy in "
-            "bfloat16 and pass solver_dtype=torch.float32")
     return dtype
 
 
@@ -491,8 +477,6 @@ class AMG:
                 R_dev = dev.to_device(R, "auto", dtype, device)
             A_dev = self._level_operator(Ai, i, reuse_transfers, budget)
             relax = prm.relax.build(Ai, dtype, device)
-            dev.check_bf16_products(
-                P_dev, R_dev, *dev.smoother_products(A_dev, relax))
             levels.append(Level(A_dev, relax, P_dev, R_dev,
                                 build_fused_down(A_dev, R_dev, relax),
                                 build_fused_up(A_dev, P_dev, relax)))
@@ -507,7 +491,6 @@ class AMG:
         else:
             coarse = None
             relax = prm.relax.build(Alast, dtype, device)
-            dev.check_bf16_products(*dev.smoother_products(A_last, relax))
             levels.append(Level(A_last, relax))
         self.hierarchy = Hierarchy(levels, coarse, prm.npre, prm.npost,
                                    prm.ncycle, prm.pre_cycles)

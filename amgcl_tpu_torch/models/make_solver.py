@@ -18,7 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from amgcl_tpu_torch.models.amg import AMG, AMGParams, check_krylov_dtype
+from amgcl_tpu_torch.models.amg import AMG, AMGParams, check_dtype
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.ops.dfloat import df_add_vec, dia_residual_df
@@ -39,9 +39,9 @@ class make_solver:
     a prebuilt preconditioner: any object with ``.hierarchy`` (``apply``,
     ``system_matrix``), a ``dtype`` (or ``prm.dtype``) and a ``device``,
     which must be the one this bundle resolves. The Krylov loop runs in
-    ``solver_dtype`` (default: the preconditioner's; a bfloat16 hierarchy
-needs ``solver_dtype=torch.float32``, as a bfloat16 Krylov loop is
-ROADMAP B.17) on the hierarchy's own
+    ``solver_dtype`` (default: the preconditioner's, so a bfloat16
+    hierarchy runs a bfloat16 loop, as the JAX package's call does;
+    ``solver_dtype=torch.float32`` keeps it in float32) on the hierarchy's own
     finest-level operator when the hierarchy was built here from A in that
     dtype and ``matrix_format`` is ``"auto"``, else on A converted to
     ``matrix_format``. ``refine > 0`` adds correction-form iterative
@@ -116,10 +116,9 @@ ROADMAP B.17) on the hierarchy's own
                 "precond must be AMGParams or an object with .hierarchy, "
                 "got %r" % type(precond))
         self.device = torch.device(self.precond.device)
-        # a bfloat16 hierarchy runs under a float32 (or float64) loop; a
-        # bfloat16 loop is refused on every device
-        self.solver_dtype = check_krylov_dtype(solver_dtype
-                                               or self.precond_dtype)
+        # the JAX package's default: the loop in the preconditioner's
+        # dtype, bfloat16 for a bfloat16 hierarchy
+        self.solver_dtype = check_dtype(solver_dtype or self.precond_dtype)
         self.solver = solver or CG()
         self.refine = int(refine)
         self.matrix_format = matrix_format

@@ -13,8 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from amgcl_tpu_torch.models.amg import (apply_columns, check_dtype,
-                                        check_krylov_dtype)
+from amgcl_tpu_torch.models.amg import apply_columns, check_dtype
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.utils.devices import resolve_device
@@ -52,7 +51,6 @@ class AsPreconditioner:
         self.device = resolve_device(device)
         A_dev = dev.to_device(A, matrix_format, dtype, self.device)
         state = relax.build(A, dtype, self.device)
-        dev.check_bf16_products(*dev.smoother_products(A_dev, state))
         self.hierarchy = SingleLevelHierarchy(A_dev, state)
 
     def __repr__(self):
@@ -122,13 +120,12 @@ class NestedPreconditioner:
         self.device = torch.device(inner_precond.device)
         inner_dtype = getattr(inner_precond, "dtype", None) \
             or inner_precond.prm.dtype
-        # the inner solve is a Krylov loop: not in bfloat16 (B.17); over
-        # a bfloat16 hierarchy it runs on A in its own dtype
-        self.dtype = check_krylov_dtype(dtype or inner_dtype)
+        # the inner Krylov loop runs on the hierarchy's own operator (a
+        # bfloat16 hierarchy's: a bfloat16 loop, as in the JAX package)
+        self.dtype = check_dtype(dtype or inner_dtype)
         hier_A = getattr(inner_precond.hierarchy, "system_matrix", None)
-        A_dev = hier_A if hier_A is not None \
-            and hier_A.dtype != torch.bfloat16 else dev.to_device(
-                A, matrix_format, self.dtype, self.device)
+        A_dev = hier_A if hier_A is not None else dev.to_device(
+            A, matrix_format, self.dtype, self.device)
         self.hierarchy = NestedHierarchy(
             A_dev, inner_precond.hierarchy, solver, inner_dtype)
 

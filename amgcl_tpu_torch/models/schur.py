@@ -38,7 +38,7 @@ import scipy.sparse as sp
 import torch
 
 from amgcl_tpu_torch.models.amg import (AMG, AMGParams, apply_columns,
-                                        check_dtype, check_krylov_dtype)
+                                        check_dtype)
 from amgcl_tpu_torch.ops import device as dev
 from amgcl_tpu_torch.ops.csr import CSR
 from amgcl_tpu_torch.solver.preonly import PreOnly
@@ -235,10 +235,6 @@ class SchurPressureCorrection:
         self.p_amg = AMG(P_build, pprm, device, device_setup)
         usol = usolver or PreOnly()
         psol = psolver or PreOnly()
-        for sol, hier_dtype in ((usol, self.u_amg.dtype), (psol, dtype)):
-            if not isinstance(sol, PreOnly):
-                # an inner Krylov loop runs in its hierarchy's dtype
-                check_krylov_dtype(hier_dtype)
 
         def put(a):
             return torch.as_tensor(a, device=device).to(dtype)
@@ -248,7 +244,6 @@ class SchurPressureCorrection:
         Kpp_base.sort_indices()
         S_base = dev.to_device(CSR.from_scipy(Kpp_base), "auto", dtype,
                                device)
-        dev.check_bf16_products(S_base)
         S_op = SchurOperator(
             S_base, None if Ldv is None else put(Ldv), Kup_dev, Kpu_dev, put(dinv),
             self.u_amg.hierarchy, usol, approx_schur)

@@ -90,7 +90,7 @@ def _bind(lib) -> None:
         + [i32, vp]
     lib.amgcl_dia.restype = i32
     lib.amgcl_dia_dots.argtypes = [i32, i32, i64, i64, i32, ip] \
-        + [vp] * 7 + [i32, i32, i32, vp]
+        + [vp] * 8 + [i32, i32, i32, vp]
     lib.amgcl_dia_dots.restype = i32
     lib.amgcl_xr.argtypes = [i32, i64] + [vp] * 9 + [i32, vp]
     lib.amgcl_xr.restype = i32

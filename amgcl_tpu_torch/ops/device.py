@@ -251,33 +251,6 @@ def _refuse_bf16(kind, what):
         "is not ported yet" % (kind.__name__, what))
 
 
-def check_bf16_products(*ops):
-    """Refuse a bfloat16 scalar windowed-ELL operator of K up to
-    ``AUTO_MAX_K`` among ``ops``, the operators whose products (``mv``)
-    a hierarchy takes: its products go to the gather kernel, whose
-    bfloat16 mode is ROADMAP B.21. (Residual-shaped uses, such as the
-    smoothed transfers' M and Mᵀ, run the windowed-ELL kernels, which
-    have one.)"""
-    from amgcl_tpu_torch.ops.gather_kernels import AUTO_MAX_K
-    for M in ops:
-        if isinstance(M, WindowedEllMatrix) and M.block == (1, 1) \
-                and M.dtype == torch.bfloat16 and M.K <= AUTO_MAX_K:
-            _refuse_bf16(WindowedEllMatrix, "gather SpMV B.16, which takes "
-                         "the products of a windowed-ELL operator of K <= "
-                         "%d (ROADMAP B.21)" % AUTO_MAX_K)
-
-
-def smoother_products(A, relax):
-    """The operators whose products a smoother state takes on the level
-    operator ``A``: none for a diagonal-scaling smoother (residual-shaped
-    passes only), else ``A`` and the state's own device matrices."""
-    from amgcl_tpu_torch.relaxation.base import ScaledResidualSmoother
-    if relax is None or isinstance(relax, ScaledResidualSmoother):
-        return []
-    return [A] + [v for v in vars(relax).values()
-                  if isinstance(v, WindowedEllMatrix)]
-
-
 def _to_device(A, fmt, dtype, device, budget):
     from amgcl_tpu_torch.ops.stencil import HostDia
     device = resolve_device(device)
@@ -495,8 +468,34 @@ def axpby(a, x, b, y):
 
 
 def inner_product(x, y):
-    """Real dot product as a 0-d tensor on the vectors' device."""
+    """Real dot product as a 0-d tensor on the vectors' device. bfloat16
+    vectors are summed in float32 and rounded once to bfloat16, as the
+    JAX package's ``jnp.vdot`` and its kernels' dots round."""
+    if x.dtype == torch.bfloat16:
+        return torch.dot(x.float(), y.float()).to(torch.bfloat16)
     return torch.dot(x, y)
+
+
+def small_solve(M, b):
+    """``M⁻¹ b`` for the small dense systems of the Krylov solvers (the
+    Gram systems of BiCGStab(L) and block CG, IDR(s)'s shadow system),
+    batched over leading dims. torch has no bfloat16 LU, so a bfloat16
+    system is solved in float32 and the solution rounded once to
+    bfloat16 (the JAX package's ``jnp.linalg.solve`` refuses bfloat16
+    on the CPU)."""
+    if M.dtype == torch.bfloat16:
+        return torch.linalg.solve_ex(M.float(), b.float())[0].to(M.dtype)
+    return torch.linalg.solve_ex(M, b)[0]
+
+
+def small_solve_upper(R, g):
+    """``R⁻¹ g`` for an upper-triangular R (GMRES's least-squares
+    factor), batched over leading dims; a bfloat16 system in float32,
+    rounded once, as :func:`small_solve`."""
+    if R.dtype == torch.bfloat16:
+        return torch.linalg.solve_triangular(
+            R.float(), g.float(), upper=True).to(R.dtype)
+    return torch.linalg.solve_triangular(R, g, upper=True)
 
 
 def spmv_dots(A, x, w=None):

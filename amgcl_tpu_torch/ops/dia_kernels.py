@@ -8,11 +8,14 @@ holds ``A[i, i + offsets[k]]``; ``offsets`` is an int32 tensor on the
 data's device. Entries whose column ``i + offsets[k]`` falls outside
 ``[0, m)`` contribute nothing.
 
-``dia_spmv``, ``dia_residual`` and ``dia_scaled_correction`` also take
-bfloat16 operands (a bfloat16 hierarchy's levels): each product and each
-sum rounded to bfloat16 in diagonal order, as the plain versions' torch
-operations and the TPU kernel's bfloat16 accumulator round. The dot
-kernels run in the Krylov dtype and take float32 or float64.
+Every kernel also takes bfloat16 operands (a bfloat16 hierarchy's levels
+and a bfloat16 Krylov loop): each product and each sum rounded to
+bfloat16 in diagonal order, as the plain versions' torch operations and
+the TPU kernel's bfloat16 accumulator round. The dot kernels' bfloat16
+mode sums its dots in float32 over the bfloat16 y (or r) and rounds each
+once to bfloat16, as the TPU kernels cast their float32 sums; the plain
+versions sum in torch's order, so a dot may differ from the kernel's by
+one bfloat16 ULP, and the vectors are equal bit for bit.
 
 Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it checks device, dtype, shape and contiguity and launches
@@ -44,9 +47,7 @@ _BLOCK = 256
 #: rows of one partial of the dot kernels, and of one block's step
 GROUP = 256
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
-#: the C entries' code of bfloat16, which the kernels of a bfloat16
-#: hierarchy take (SPMV, RESIDUAL, CORRECTION here; not the dot kernels,
-#: which run in the Krylov dtype)
+#: the C entries' code of bfloat16, which every kernel here takes
 BF16_CODE = 2
 
 
@@ -193,14 +194,13 @@ def dtype_code(dtype, what, bf16=True, item=None):
         if item and dtype == torch.bfloat16 else "", dtype))
 
 
-def _check_operands(data, x, f, w, bf16=True):
-    """Validate data, x and the optional f and w (bfloat16 data only
-    where ``bf16``); returns (ndiag, n, m)."""
+def _check_operands(data, x, f, w):
+    """Validate data, x and the optional f and w; returns (ndiag, n,
+    m)."""
     if data.device.type != "cuda":
         raise ValueError("DIA kernels run on CUDA tensors, got data on %s"
                          % data.device)
-    dtype_code(data.dtype, "DIA kernels" if bf16 else "the DIA dot kernels",
-               bf16, "B.17")
+    dtype_code(data.dtype, "DIA kernels")
     if data.dim() != 2 or not data.is_contiguous():
         raise ValueError("data must be a contiguous (ndiag, n) tensor")
     ndiag, n = data.shape
@@ -304,8 +304,9 @@ _TICKETS = {}
 def _launch_dots(mode, offsets, data, x, f=None, w=None):
     """Validate the operands and launch dia.cu's dots_kernel (SPMV_DOTS,
     RESIDUAL_DOT) once; returns (y, dots), dots an (ndots,) tensor of its
-    own allocation (3 with w, 2 without, 1 for RESIDUAL_DOT)."""
-    ndiag, n, m = _check_operands(data, x, f, w, bf16=False)
+    own allocation (3 with w, 2 without, 1 for RESIDUAL_DOT). bfloat16
+    operands sum their partials in float32."""
+    ndiag, n, m = _check_operands(data, x, f, w)
     offs = host_offsets(offsets)
     if len(offs) != ndiag:
         raise ValueError("%d offsets for %d diagonals" % (len(offs), ndiag))
@@ -317,20 +318,22 @@ def _launch_dots(mode, offsets, data, x, f=None, w=None):
     if n == 0:
         return y, torch.zeros(ndots, dtype=data.dtype, device=data.device)
     geo = launch_geometry(n, m, offs)
-    # the dots, then the partials: the kernel writes every entry
-    scratch = torch.empty(ndots * (1 + geo.groups), dtype=data.dtype,
-                          device=data.device)
+    # the kernel writes every dot and partial
+    dots = torch.empty(ndots, dtype=data.dtype, device=data.device)
+    partials = torch.empty(ndots * geo.groups, dtype=_acc_dtype(data.dtype),
+                           device=data.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         ticket = _ticket(data.device, stream)
         rc = cuda_lib.lib().amgcl_dia_dots(
-            _DTYPE_CODE[data.dtype], mode, n, m, ndiag, c_ints(offs),
-            data.data_ptr(), x.data_ptr(), ptr(f), ptr(w), y.data_ptr(),
-            scratch.data_ptr(), ticket.data_ptr(), geo.groups, geo.lo,
-            geo.hi, stream)
+            dtype_code(data.dtype, "DIA kernels"), mode, n, m, ndiag,
+            c_ints(offs), data.data_ptr(), x.data_ptr(), ptr(f), ptr(w),
+            y.data_ptr(),
+            partials.data_ptr(), dots.data_ptr(), ticket.data_ptr(),
+            geo.groups, geo.lo, geo.hi, stream)
     cuda_lib.check(rc, "dia dots mode %d" % mode)
-    return y, scratch[:ndots]
+    return y, dots
 
 
 # -- the dot kernels' order ---------------------------------------------------
@@ -409,7 +412,7 @@ def dia_spmv_dots(offsets, data, x, w=None):
     if x.device.type == "cpu":
         return dia_spmv_dots_plain(offsets, data, x, w)
     y, dots = _launch_dots(_SPMV_DOTS, offsets, data, x, w=w)
-    dia_spmv_dots.launches += 1
+    count_launch(dia_spmv_dots, y.dtype)
     return y, dots[0], dots[1], (None if w is None else dots[2])
 
 
@@ -425,12 +428,11 @@ def dia_residual_dot(offsets, data, f, x):
     if x.device.type == "cpu":
         return dia_residual_dot_plain(offsets, data, f, x)
     r, dots = _launch_dots(_RESIDUAL_DOT, offsets, data, x, f=f)
-    dia_residual_dot.launches += 1
+    count_launch(dia_residual_dot, r.dtype)
     return r, dots[0]
 
 
 for _fn in (dia_spmv, dia_residual, dia_scaled_correction, dia_spmv_dots,
             dia_residual_dot):
     _fn.launches = 0
-for _fn in (dia_spmv, dia_residual, dia_scaled_correction):
     _fn.bf16_launches = 0

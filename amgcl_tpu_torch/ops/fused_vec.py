@@ -36,6 +36,16 @@ The three tails sum their dots in one fixed order over the grid of
 :func:`tail_blocks`: XR in a second launch, the other two in the grid's
 last block (an atomic ticket per (device, stream), as the DIA dot
 kernels keep), which :func:`ordered_tail_dots` emulates in numpy.
+
+Each tail also takes bfloat16 vectors and scalars (a bfloat16 Krylov
+loop): each product and sum rounded to bfloat16 where the JAX body's
+bfloat16 expression rounds (amgcl_tpu/ops/fused_vec.py:216-241; its
+interpret mode on the CPU rounds after each operation too, which the
+parity tests check bit for bit), the dots summed in float32 and rounded
+once to bfloat16, by the same launches as in float32. The plain versions
+are the JAX body's torch expressions; their dots sum in torch's order,
+so a dot may differ from the kernel's by one bfloat16 ULP.
+``<wrapper>.bf16_launches`` counts the bfloat16 launches.
 """
 
 from __future__ import annotations
@@ -45,8 +55,9 @@ import torch
 
 from amgcl_tpu_torch.ops import cuda_lib
 from amgcl_tpu_torch.ops import device as dev
-from amgcl_tpu_torch.ops.dia_kernels import (_BLOCK, _DTYPE_CODE, _acc_dtype,
-                                             _ticket, dia_residual_dot,
+from amgcl_tpu_torch.ops.dia_kernels import (_BLOCK, _acc_dtype,
+                                             _ticket, count_launch,
+                                             dia_residual_dot, dtype_code,
                                              ordered_dot)
 
 #: fixed block count of the grid-stride pass: a constant grid keeps the
@@ -132,13 +143,11 @@ def _scalar(name, v, x):
 
 def _launch_tail(what, entry, scalars, vecs, nout, ndots, ticket):
     """Validate a tail's operands and launch its vec.cu mode through the
-    C entry point named ``entry`` (with the stream's ticket where
-    ``ticket``: the one-launch modes); returns (outs, dots) with ``outs``
+    C entry point named ``entry``, with the stream's ticket where
+    ``ticket`` (the one-launch modes); returns (outs, dots) with ``outs``
     the ``nout`` output vectors and dots an (ndots,) tensor."""
     x = vecs["x"]
-    if x.dtype not in _DTYPE_CODE:
-        raise ValueError("%s takes float32 or float64, got %s"
-                         % (what, x.dtype))
+    code = dtype_code(x.dtype, what)
     n = x.shape[0]
     for name, v in vecs.items():
         if v.device != x.device or v.dtype != x.dtype or v.shape != (n,) \
@@ -151,17 +160,19 @@ def _launch_tail(what, entry, scalars, vecs, nout, ndots, ticket):
     outs = [torch.empty_like(x) for _ in range(nout)]
     if n == 0:
         return outs, torch.zeros(ndots, dtype=x.dtype, device=x.device)
-    # the kernels write every dot and partial
+    # the kernels write every dot and partial; the partials in float32
+    # for bfloat16
     dots = torch.empty(ndots, dtype=x.dtype, device=x.device)
     nblocks = tail_blocks(n)
-    partials = torch.empty(nblocks * ndots, dtype=x.dtype, device=x.device)
+    partials = torch.empty(nblocks * ndots, dtype=_acc_dtype(x.dtype),
+                           device=x.device)
     ptrs = [v.data_ptr() for v in scalars + list(vecs.values())]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        extra = (_ticket(x.device, stream).data_ptr(),) if ticket else ()
+        tk = (_ticket(x.device, stream).data_ptr(),) if ticket else ()
         rc = getattr(cuda_lib.lib(), entry)(
-            _DTYPE_CODE[x.dtype], n, *ptrs, *(o.data_ptr() for o in outs),
-            partials.data_ptr(), dots.data_ptr(), *extra, nblocks, stream)
+            code, n, *ptrs, *(o.data_ptr() for o in outs),
+            partials.data_ptr(), dots.data_ptr(), *tk, nblocks, stream)
     cuda_lib.check(rc, what)
     return outs, dots
 
@@ -208,11 +219,11 @@ def xr_update(alpha, p, q, x, r):
                                   [("alpha", alpha)],
                                   {"p": p, "q": q, "x": x, "r": r}, 2, 1,
                                   False)
-    xr_update.launches += 1
+    count_launch(xr_update, xn.dtype)
     return xn, rn, dots[0]
 
 
-xr_update.launches = 0
+xr_update.launches = xr_update.bf16_launches = 0
 
 
 def bicgstab_tail(alpha, phat, omega, shat, s, t, x, rhat):
@@ -233,11 +244,11 @@ def bicgstab_tail(alpha, phat, omega, shat, s, t, x, rhat):
         [("alpha", alpha), ("omega", omega)],
         {"phat": phat, "shat": shat, "s": s, "t": t, "x": x, "rhat": rhat},
         2, 2, True)
-    bicgstab_tail.launches += 1
+    count_launch(bicgstab_tail, xn.dtype)
     return xn, rn, dots[0], dots[1]
 
 
-bicgstab_tail.launches = 0
+bicgstab_tail.launches = bicgstab_tail.bf16_launches = 0
 
 
 def axpby_dot(a, x, b, y):
@@ -255,11 +266,11 @@ def axpby_dot(a, x, b, y):
     (z,), dots = _launch_tail("axpby_dot", "amgcl_axpby_dot",
                               [("a", a), ("b", b)], {"x": x, "y": y}, 1, 1,
                               True)
-    axpby_dot.launches += 1
+    count_launch(axpby_dot, z.dtype)
     return z, dots[0]
 
 
-axpby_dot.launches = 0
+axpby_dot.launches = axpby_dot.bf16_launches = 0
 
 
 def stack_dots(V, w):

@@ -13,13 +13,21 @@ with scalar values: row ``i`` of tile ``t = i // tile`` holds
 i % tile, k]``. Each row sums its K slots in slot order into an
 accumulator of the values' dtype; an absolute column at or past the end
 of x contributes nothing, as the TPU kernel's zero-padded window gives.
+bfloat16 values and x (a bfloat16 hierarchy's products) round each
+product and each running sum to bfloat16, slot by slot, as the TPU
+kernel's bfloat16 accumulator does (amgcl_tpu/ops/pallas_gather.py:
+70-74; its interpret mode on the CPU rounds so too), and the plain
+version follows the kernel there, not the JAX package's XLA fallback,
+whose einsum sums a row once.
 
 The wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it checks device, dtype, shape, K, contiguity and the
 16-byte alignment of ``cols_local`` and ``vals`` (the kernel loads a
-row's slots in 16-byte vectors) and launches the kernel over the grid of
-:func:`launch_geometry`, or raises. ``gather_spmv.launches`` counts
-kernel launches and ``gather_spmv_plain.calls`` plain-version calls.
+row's slots in 16-byte vectors, 8-byte ones in bfloat16) and launches
+the kernel over the grid of :func:`launch_geometry`, or raises.
+``gather_spmv.launches`` counts kernel launches (``.bf16_launches``
+those in bfloat16) and ``gather_spmv_plain.calls`` plain-version
+calls.
 """
 
 from __future__ import annotations
@@ -29,7 +37,8 @@ from typing import NamedTuple
 import torch
 
 from amgcl_tpu_torch.ops import cuda_lib
-from amgcl_tpu_torch.ops.dia_kernels import _DTYPE_CODE, _check_vec
+from amgcl_tpu_torch.ops.dia_kernels import (_check_vec, count_launch,
+                                             dtype_code)
 from amgcl_tpu_torch.ops.well_kernels import check_geometry
 
 #: the column-slot counts the kernel is instantiated for
@@ -63,16 +72,23 @@ def launch_geometry(n_out, K):
 
 def gather_spmv_plain(window_starts, cols_local, vals, x, n_out):
     """y = A x, the reference's ``gather_spmv_xla``: absolute columns,
-    one gather of x, a sum over the slots. Out-of-range columns read 0
-    (``gather_spmv_xla``'s ``jnp.take`` would fill them with NaN; the
-    Pallas kernel's zero-padded window gives 0)."""
+    one gather of x, a sum over the slots (in bfloat16 the kernel's sum,
+    slot by slot, each product and sum rounded). Out-of-range columns
+    read 0 (``gather_spmv_xla``'s ``jnp.take`` would fill them with NaN;
+    the Pallas kernel's zero-padded window gives 0)."""
     gather_spmv_plain.calls += 1
     m = x.shape[0]
     cols = cols_local.to(torch.int64) \
         + window_starts.to(torch.int64)[:, None, None]
     xg = torch.where(cols < m, x[cols.clamp(max=max(m - 1, 0))],
                      torch.zeros((), dtype=x.dtype, device=x.device))
-    y = (vals * xg.to(vals.dtype)).sum(dim=2)
+    p = vals * xg.to(vals.dtype)
+    if p.dtype == torch.bfloat16:
+        y = torch.zeros(p.shape[:2], dtype=p.dtype, device=p.device)
+        for k in range(p.shape[2]):
+            y = y + p[:, :, k]
+    else:
+        y = p.sum(dim=2)
     return y.reshape(-1)[:n_out].to(torch.promote_types(vals.dtype,
                                                         x.dtype))
 
@@ -86,7 +102,7 @@ def gather_spmv(window_starts, cols_local, vals, x, n_out):
     if x.device.type == "cpu":
         return gather_spmv_plain(window_starts, cols_local, vals, x, n_out)
     _, tile, K, n_out = check_geometry(window_starts, cols_local, vals,
-                                       n_out, block=False, item="B.21")
+                                       n_out, block=False, bf16=True)
     geo = launch_geometry(n_out, K)
     if cols_local.data_ptr() % 16 or vals.data_ptr() % 16:
         raise ValueError("the gather kernel takes cols_local and vals on "
@@ -101,13 +117,14 @@ def gather_spmv(window_starts, cols_local, vals, x, n_out):
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = cuda_lib.lib().amgcl_gather_spmv(
-            _DTYPE_CODE[vals.dtype], K, geo.threads, n_out, x.shape[0],
+            dtype_code(vals.dtype, "the gather kernel"), K, geo.threads,
+            n_out, x.shape[0],
             tile, window_starts.data_ptr(), cols_local.data_ptr(),
             vals.data_ptr(), x.data_ptr(), y.data_ptr(), geo.nblocks,
             stream)
     cuda_lib.check(rc, "gather_spmv K %d" % K)
-    gather_spmv.launches += 1
+    count_launch(gather_spmv, y.dtype)
     return y
 
 
-gather_spmv.launches = 0
+gather_spmv.launches = gather_spmv.bf16_launches = 0

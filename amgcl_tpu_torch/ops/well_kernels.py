@@ -19,12 +19,19 @@ absolute column lies at or past the end of x contributes nothing (a tile
 without entries points its padding there), as the TPU kernel's
 zero-padded x gives.
 
-``windowed_ell_spmv``, ``windowed_ell_residual`` and
-``windowed_ell_scaled_correction`` also take bfloat16 values and vectors
-(a bfloat16 hierarchy's levels): each product rounded to bfloat16, a
-row summed in float32 in slot order and rounded to bfloat16, then the
-residual and correction rounded to bfloat16 at each operation, where the
-TPU kernel rounds. ``windowed_ell_spmv_dots`` runs in the Krylov dtype.
+Every wrapper also takes bfloat16 values and vectors (a bfloat16
+hierarchy's levels and a bfloat16 Krylov loop): a row's products summed
+in float32 in slot order (a product of two bfloat16 values is exact
+there) and rounded to bfloat16, then the residual and correction rounded
+to bfloat16 at each operation, where the TPU kernel rounds;
+``windowed_ell_spmv_dots`` sums its dots in float32 over that y and
+rounds each once to bfloat16 (the plain version in torch's order: within
+one bfloat16 ULP of the kernel's dots). The products are kept in float32
+as the JAX kernels' interpret mode keeps them on the CPU (XLA's excess
+precision; its XLA path does the same). Rounding each product to
+bfloat16 instead left a bfloat16 Krylov loop's counts on U1-like systems
+far from the JAX package's (67 against 19 BiCGStab(L) iterations at
+6,000 rows); this rule gives its counts and true residuals (PERF.md §6).
 
 Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it checks device, dtype, shape and contiguity and launches
@@ -56,24 +63,25 @@ BLOCK_SIZES = (2, 3, 4)
 def _product(window_starts, cols_local, vals, x, n_out):
     """(A x)[:n_out] in the reference's ``_mv_xla`` arithmetic: a gather
     of x at the absolute columns and a row sum over the K slots, in the
-    values' dtype. bfloat16 values round each product to bfloat16 and sum
-    a row in float32, slot by slot, then round the sum to bfloat16, as
-    the TPU kernel's ``jnp.sum`` accumulates (unstructured.py:334-336)
-    and in the kernel's slot order."""
+    values' dtype. bfloat16 values sum a row's products in float32, slot
+    by slot (each product of two bfloat16 values exact there), then round
+    the sum to bfloat16, as the TPU kernel's ``jnp.sum`` accumulates
+    (unstructured.py:334-336) and as the JAX package forms it on the CPU
+    in interpret mode, and in the kernel's slot order."""
     m = x.shape[0]
     cols = cols_local.to(torch.int64) \
         + window_starts.to(torch.int64)[:, None, None]
     inside = cols < m
     xg = torch.where(inside, x[cols.clamp(max=max(m - 1, 0))],
                      torch.zeros((), dtype=x.dtype, device=x.device))
-    p = vals * xg.to(vals.dtype)
-    if p.dtype == torch.bfloat16:
+    if vals.dtype == torch.bfloat16:
+        p = vals.float() * xg.to(vals.dtype).float()
         y = torch.zeros(p.shape[:2], dtype=torch.float32, device=p.device)
         for k in range(p.shape[2]):
             y += p[:, :, k]
         y = y.to(torch.bfloat16)
     else:
-        y = p.sum(dim=2)
+        y = (vals * xg.to(vals.dtype)).sum(dim=2)
     return y.reshape(-1)[:n_out].to(torch.promote_types(vals.dtype,
                                                         x.dtype))
 
@@ -199,11 +207,10 @@ def _launch(mode, window_starts, cols_local, vals, x, n_out, f=None, w=None,
     scalar one for scalar values; returns (y, dots) with dots a (3,)
     tensor or None. For block values ``w`` is the (n_out, b, b) scale of
     the correction, and otherwise a vector."""
-    # the scalar SpMV, residual and correction have a bfloat16 mode
+    # the scalar kernel has a bfloat16 mode
     _, tile, K, n_out = check_geometry(
-        window_starts, cols_local, vals, n_out, block,
-        bf16=not block and mode != _SPMV_DOTS,
-        item="B.19" if block else "B.17")
+        window_starts, cols_local, vals, n_out, block, bf16=not block,
+        item="B.19")
     b = 1
     if block:
         br, bc = vals.shape[3:]
@@ -243,10 +250,10 @@ def _launch(mode, window_starts, cols_local, vals, x, n_out, f=None, w=None,
         return y, (torch.zeros(ndots, dtype=vals.dtype, device=vals.device)
                    if ndots else None)
     geo = launch_geometry(n_out, K, block, ndots)
-    # the reduction kernel writes every dot
+    # the reduction kernel writes every dot; bfloat16 sums in float32
     dots = torch.empty(ndots, dtype=vals.dtype, device=vals.device) \
         if ndots else None
-    partials = torch.empty(geo.partials, dtype=vals.dtype,
+    partials = torch.empty(geo.partials, dtype=_acc_dtype(vals.dtype),
                            device=vals.device) if ndots else None
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(vals.device):
@@ -305,13 +312,11 @@ def windowed_ell_spmv_dots(window_starts, cols_local, vals, x, w, n_out):
                                             x, w, n_out)
     y, dots = _launch(_SPMV_DOTS, window_starts, cols_local, vals, x, n_out,
                       w=w)
-    windowed_ell_spmv_dots.launches += 1
+    count_launch(windowed_ell_spmv_dots, y.dtype)
     return y, dots[0], dots[1], (None if w is None else dots[2])
 
 
 for _fn in (windowed_ell_spmv, windowed_ell_residual,
             windowed_ell_scaled_correction, windowed_ell_spmv_dots):
     _fn.launches = 0
-for _fn in (windowed_ell_spmv, windowed_ell_residual,
-            windowed_ell_scaled_correction):
     _fn.bf16_launches = 0

@@ -261,7 +261,7 @@ def _safe_gram_solve(M, R):
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     eps = torch.finfo(M.dtype).eps
     eye = torch.eye(B, dtype=M.dtype, device=M.device)
-    return torch.linalg.solve_ex(M + (eps * scale) * eye, R)[0]
+    return dev.small_solve(M + (eps * scale) * eye, R)
 
 
 def _mm(P, C):

@@ -216,10 +216,11 @@ class BiCGStabL(HistoryMixin):
     def _minimal_residual(x, R, U, tiny_eye):
         """The MR update of (x, R, U): returns (x', R', U', ω', ‖R'[0]‖)
         with ω' = γ_L, all on the device. The (L, L) system G + 1e-300·I
-        is solved there, in the working dtype, as the JAX package does."""
+        is solved there, in the working dtype, as the JAX package does
+        (a bfloat16 one in float32, ``dev.small_solve``)."""
         Rs = torch.stack(R)
         gram = fv.block_dots(Rs[1:], Rs)          # (L, L+1)
-        gam = torch.linalg.solve_ex(gram[:, 1:] + tiny_eye, gram[:, 0])[0]
+        gam = dev.small_solve(gram[:, 1:] + tiny_eye, gram[:, 0])
         Lp = len(R) - 1
         Us = torch.stack(U)
         R_new = [Rs[0] - gam @ Rs[1:]] + list(R[1:])
@@ -393,8 +394,7 @@ class BiCGStabL(HistoryMixin):
         Lp = len(R) - 1
         Rs, Us = S.stack(R), S.stack(U)
         gram = fv.block_dots(Rs[1:], Rs)          # (B, L, L+1)
-        gam = torch.linalg.solve_ex(gram[:, :, 1:] + tiny_eye,
-                                    gram[:, :, 0])[0]
+        gam = dev.small_solve(gram[:, :, 1:] + tiny_eye, gram[:, :, 0])
         r0 = Rs[0] - S.combine(gam, Rs[1:])
         u0 = Us[0] - S.combine(gam, Us[1:])
         res = torch.sqrt(torch.abs(fv.col_dots(r0, r0)))

@@ -160,7 +160,7 @@ def _arnoldi_cycle(run, apply_op, r0, beta, m, direction=None,
         j += 1
     if j == 0:
         return torch.zeros_like(r0), 0, res
-    y = torch.linalg.solve_triangular(R[:j, :j], g[:j, None], upper=True)
+    y = dev.small_solve_upper(R[:j, :j], g[:j, None])
     return torch.mv(Z[:j].T, y[:, 0]), j, res
 
 
@@ -268,7 +268,7 @@ def _arnoldi_cycle_stacked(cols, apply_op, r0, beta, m, in_cycle,
     taken = torch.tensor(steps, device=device)
     gm = torch.where(torch.arange(m, device=device)[None, :]
                      < taken[:, None], g[:, :m], torch.zeros_like(g[:, :m]))
-    y = torch.linalg.solve_triangular(R, gm[..., None], upper=True)[..., 0]
+    y = dev.small_solve_upper(R, gm[..., None])[..., 0]
     dx = torch.einsum("knb,bk->nb", Z, y)
     return dx, steps, res
 

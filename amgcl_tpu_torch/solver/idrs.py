@@ -126,7 +126,7 @@ class IDRs(HistoryMixin):
                 mask = idx >= k
                 Mk = torch.where(mask[:, None] & mask[None, :], M, eye)
                 fk = torch.where(mask, f, torch.zeros_like(f))
-                c = torch.linalg.solve_ex(Mk, fk)[0]   # zeros for i < k
+                c = dev.small_solve(Mk, fk)   # zeros for i < k
                 v = precond(r - c @ G)
                 u = om * v + c @ U
                 g = dev.spmv(A, u)
@@ -223,7 +223,7 @@ class IDRs(HistoryMixin):
                 mask = idx >= k
                 Mk = torch.where(mask[:, None] & mask[None, :], M, eye)
                 fk = torch.where(mask, f, torch.zeros_like(f))
-                c = torch.linalg.solve_ex(Mk, fk)[0]   # zeros for i < k
+                c = dev.small_solve(Mk, fk)   # zeros for i < k
                 v = precond(r - S.combine(c, G))
                 u = om * v + S.combine(c, U)
                 g = dev.spmv(A, u)

@@ -220,6 +220,27 @@ Run from the root of a checkout, with no arguments:
    with tenant labels and no scrape error. Within 120 s, no plain
    version; the launches of both join the kernels line.
 
+16. The bfloat16 Krylov loop and the bfloat16 gather SpMV (``P16_PATHS``,
+   ``--phase16`` runs it alone): BFK1 (the main path's call with
+   ``AMGParams(dtype=bfloat16)`` and no ``solver_dtype``: a bfloat16 CG
+   on the hierarchy's own L0 under float64 refinement), BFK2 (K1's
+   BiCGStab(L = 2) on U1's system, hierarchy and loop in bfloat16) and
+   BFG1 (R1's Ruge–Stüben hierarchy in bfloat16 under a bfloat16 left
+   BiCGStab, its stored transfers through the gather SpMV). Each is
+   held to its levels (BFK1 the main path's; BFK2 and BFG1 the float32
+   build's of the same call), the count window and true-residual limit
+   of ``P16_ITERS``/``P16_TRUE`` (from the JAX package's full-size
+   counts: BFK1 and BFK2 diverge under refinement in both packages),
+   BFK1's and BFK2's first refinement pass alone to the port's history
+   on the CPU at full size (``P16_FIRST``), its bfloat16 modes launched
+   and zero plain-version calls; it prints its
+   set-up, warm solve, busy share and peak memory beside the float32
+   build's of the same call. Then each new bfloat16 mode (B.3 with and
+   without w, B.4, B.5's three tails, B.10, B.16) is held against its
+   plain version on the paths' operators (vectors bit for bit, dots
+   within one bfloat16 ULP) and timed, its bound in bfloat16 bytes and
+   torch's bfloat16 CSR product beside the products. Within 150 s.
+
 With the device setup as the default, the windows of the paths whose
 host-loop levels it changes come from the JAX package's counts under its
 device setup at full size (note at MAIN_LEVEL_ROWS); D2 and N1 decline
@@ -395,12 +416,15 @@ REPLACES = {
     "fused_down_sweep.framed": "amgcl_tpu/ops/pallas_vcycle.py:187",
     "fused_up_sweep.framed": "amgcl_tpu/ops/pallas_vcycle.py:477",
 }
-#: the kernels with a bfloat16 mode (phase 12): each wrapper's
+#: the kernels with a bfloat16 mode (phases 12 and 16): each wrapper's
 #: ``bf16_launches`` counts its bfloat16 launches, recorded as
 #: ``<name>.bf16``
 BF16_MODES = ("dia_spmv", "dia_residual", "dia_scaled_correction",
               "fused_down_sweep", "fused_up_sweep", "windowed_ell_spmv",
-              "windowed_ell_residual", "windowed_ell_scaled_correction")
+              "windowed_ell_residual", "windowed_ell_scaled_correction",
+              "dia_spmv_dots", "dia_residual_dot", "xr_update",
+              "bicgstab_tail", "axpby_dot", "windowed_ell_spmv_dots",
+              "gather_spmv")
 for _k in BF16_MODES:
     REPLACES[_k + ".bf16"] = REPLACES[_k]
 FUSED = ("fused_down_sweep", "fused_up_sweep")
@@ -5036,6 +5060,408 @@ def p15_family(failures, only=None):
     return counts, summary
 
 
+# -- phase 16: the bfloat16 Krylov loop ---------------------------------------
+
+#: phase 16's paths: (system, call). A bfloat16 hierarchy under the JAX
+#: package's default solver dtype, the preconditioner's: a bfloat16
+#: Krylov loop on the hierarchy's own bfloat16 L0, with float64
+#: refinement (refine=3)
+P16_PATHS = {
+    "BFK1": ("poisson", "make_solver(poisson3d(128), AMGParams(dtype="
+             "bfloat16), CG(maxiter=100, tol=1e-6), refine=3)"),
+    "BFK2": ("fe", "K1's call on U1's system, BiCGStabL(L=2, maxiter=100, "
+             "tol=1e-6), refine=3, AMGParams(dtype=bfloat16)"),
+    "BFG1": ("fe", "R1's call on U1's system, AMGParams(dtype=bfloat16, "
+             "coarsening=RugeStuben()), BiCGStab(maxiter=100, tol=1e-6, "
+             "precond_side='left'), refine=3"),
+}
+#: the bfloat16 modes each phase-16 path must launch
+P16_KERNELS = {
+    "BFK1": ("dia_spmv_dots.bf16", "dia_residual_dot.bf16",
+             "xr_update.bf16", "fused_down_sweep.bf16",
+             "fused_up_sweep.bf16"),
+    "BFK2": ("windowed_ell_spmv_dots.bf16", "axpby_dot.bf16"),
+    "BFG1": ("gather_spmv.bf16", "bicgstab_tail.bf16"),
+}
+#: each path's count window (lo, hi), summed over the refinement's 1 + 3
+#: solves, and its true relative residual limit (host float64), from the
+#: JAX package's counts and true residuals of the same calls at full size
+#: on the CPU (``reference_counts.py --b17 --full``; PERF.md §4). A
+#: bfloat16 loop under refinement diverges in both packages on BFK1
+#: (JAX: 181 iterations and 7.6e6 under its device setup, 53 and 8.4e5
+#: under its host setup) and on BFK2 (JAX: 370 and 2.5e4): how far turns
+#: on the last bits, so their windows run from the JAX package's count at
+#: a reduced size (BFK1: 28 at poisson3d(32)) or 0.8 of its full-size
+#: count (BFK2: 296) to the cap (1 + refine)·maxiter, and their residual
+#: limits are 10x the JAX package's, which a blow-up past it or to
+#: non-finite values fails. BFG1 stays bounded (JAX: 23, 2.1e-2): ±25% of
+#: its count (its six counts under 1e-6 perturbations do not move, and
+#: at 12,000 rows the port's 17 stand against its 16, ``reference_counts.py
+#: --b17``; a refinement restart more adds a few) and twice its residual.
+P16_ITERS = {"BFK1": (28, 400), "BFK2": (296, 400), "BFG1": (17, 29)}
+P16_TRUE = {"BFK1": 7.6e7, "BFK2": 2.5e5, "BFG1": 4.2e-2}
+#: BFK1's and BFK2's first refinement pass alone, which the windows above
+#: cannot hold (a loop that runs out its iterations passes them): the
+#: same bundle's bfloat16 solve from x = 0 with refine 0 and its history
+#: recorded (``p16_first_pass``), no float64 restart perturbing it. Its
+#: first history entries must lie within the relative tolerance of the
+#: port's own on the CPU at full size, on the card's route
+#: (``reference_counts.py --b17 --full --first``; PERF.md §4): the
+#: card's kernels equal their plain versions bit for bit but for a dot's
+#: last bit, and a wrong scalar or dot moves the history from its first
+#: entries. (The JAX package on the CPU takes its XLA path, whose
+#: bfloat16 arithmetic is not its TPU kernels'; at full size its history
+#: parts from the port's from the first entry, so it holds the port
+#: at reduced sizes, tests/test_torch_bf16_krylov.py.) The tolerance,
+#: 0.05, is what the two packages' different bfloat16 arithmetic leaves
+#: at reduced sizes (at most 4.9e-2 over BFK1's first 8 entries, 3.0e-3
+#: over BFK2's, ``reference_counts.py --b17 --first``); the card and the
+#: CPU differ only in the order of a dot's float32 sum. BFK2 keeps 3
+#: entries (its fifth parts from the JAX package's at full size).
+P16_FIRST = {
+    "BFK1": ([16.70718232044199, 13.082872928176796, 6.762430939226519,
+              5.834254143646409, 5.524861878453039, 5.104972375690608],
+             0.05),
+    "BFK2": ([97.75342465753425, 2.9178082191780823, 1.9863013698630136],
+             0.05),
+}
+#: phase-16 paths whose busy share is read over a window of this many
+#: iterations without refinement (``windowed_busy``)
+P16_PROFILE_WINDOW = {"BFK1": 30, "BFK2": 20, "BFG1": 30}
+P16_LIMIT_S = 150.0
+
+
+def p16_make(label, A, dtype=torch.bfloat16):
+    """Phase 16's bundle ``label`` on ``A`` through make_solver, the
+    hierarchy in ``dtype`` (bfloat16; float32 for the comparison build)
+    and the Krylov loop in the same dtype (no ``solver_dtype``)."""
+    import amgcl_tpu_torch as T
+    kw = dict(maxiter=100, tol=1e-6)
+    if label == "BFK1":
+        prm, solver = T.AMGParams(dtype=dtype), T.CG(**kw)
+    elif label == "BFK2":
+        prm, solver = T.AMGParams(dtype=dtype), T.BiCGStabL(L=2, **kw)
+    else:
+        prm = T.AMGParams(dtype=dtype, coarsening=T.RugeStuben())
+        solver = T.BiCGStab(precond_side="left", **kw)
+    return T.make_solver(A, prm, solver, refine=3)
+
+
+def p16_levels(label, solve):
+    """Each level's rows, format, dtype and the transfers' formats, printed;
+    returns the rows."""
+    rows = []
+    for i, lv in enumerate(solve.precond.hierarchy.levels):
+        A = lv.A
+        rows.append(A.shape[0])
+        extra = ", K %d" % A.K if hasattr(A, "K") else ""
+        if lv.P is not None:
+            P = getattr(lv.P, "M", lv.P)
+            extra += "; P %s%s" % (type(P).__name__, " K %d" % P.K
+                                   if hasattr(P, "K") else "")
+        print("[%s] level %d: %d rows, %s %s%s" % (
+            label, i, A.shape[0], type(A).__name__,
+            str(A.dtype).split(".")[-1], extra))
+    return rows
+
+
+def p16_run(label, A, rhs, dtype):
+    """Build and solve (cold, then warm) phase 16's bundle in ``dtype``;
+    returns (solve, x, warm info, setup s, cold s, peak bytes)."""
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    solve = p16_make(label, A, dtype)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    _, info = solve(rhs)
+    cold = info.wall_time_s
+    x, info = solve(rhs)
+    return (solve, x, info, t_setup, cold,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def p16_path(label, A, rhs, failures):
+    """One phase-16 path: set-up, a cold and a warm solve with the counts
+    set to 0 just before the setup and read just after, the float32
+    hierarchy and loop of the same call built and solved with the counts
+    paused, and each warm solve profiled. Returns (counts by dtype,
+    summary, solve)."""
+    faults = []
+    reset_counts()
+    solve, x, info, t_setup, cold, peak = p16_run(label, A, rhs,
+                                                  torch.bfloat16)
+    counts, plain_calls = read_counts()
+    rows = p16_levels(label, solve)
+    hier = solve.precond.hierarchy
+    if any(lv.A.dtype != torch.bfloat16 for lv in hier.levels) \
+            or solve.A_dev.dtype != torch.bfloat16 \
+            or solve.solver_dtype != torch.bfloat16:
+        faults.append("a level operator, the Krylov operator or the loop is "
+                      "not bfloat16")
+    if label == "BFK1" and solve.A_dev is not hier.levels[0].A:
+        faults.append("the Krylov loop does not run on the hierarchy's L0")
+    true_res = true_residual(A, rhs, x)
+    print("[%s] %s: setup %.3f s, %d iterations, reported resid %.3e, true "
+          "%.3e; cold %.4f s, warm %.4f s; peak device memory %.1f MB"
+          % (label, P16_PATHS[label][1], t_setup, info.iters, info.resid,
+             true_res, cold, info.wall_time_s, peak / 2**20))
+    window = P16_PROFILE_WINDOW.get(label)
+    busy = windowed_busy(label, solve, rhs, info.wall_time_s, window)
+    with counts_paused():
+        s32, x32, info32, setup32, cold32, peak32 = p16_run(
+            label, A, rhs, torch.float32)
+        rows32 = [lv.A.shape[0] for lv in s32.precond.hierarchy.levels]
+        busy32 = windowed_busy(label + " float32", s32, rhs,
+                               info32.wall_time_s, window)
+        true32 = true_residual(A, rhs, x32)
+        del s32
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("[%s] float32 hierarchy and loop, the same call: setup %.3f s, "
+          "%d iterations, true resid %.3e, warm %.4f s, peak %.1f MB, busy "
+          "share %s; levels %s" % (
+              label, setup32, info32.iters, true32, info32.wall_time_s,
+              peak32 / 2**20, "not measured" if busy32 is None
+              else "%.3f" % busy32, rows32))
+    want_rows = MAIN_LEVEL_ROWS if label == "BFK1" else rows32
+    check_levels(label, rows, [], want_rows, [], faults)
+    lo, hi = P16_ITERS[label]
+    print("[%s] iterations: %d (window %d..%d from the JAX package's "
+          "counts); true residual %.3e (limit %.1e)"
+          % (label, info.iters, lo, hi, true_res, P16_TRUE[label]))
+    if not lo <= info.iters <= hi:
+        faults.append("%d iterations, outside %d..%d" % (info.iters, lo, hi))
+    if not true_res <= P16_TRUE[label]:
+        faults.append("true residual %.3e over %.1e" % (true_res,
+                                                        P16_TRUE[label]))
+    first = None
+    if label in P16_FIRST:
+        first = p16_check_first(label, solve, rhs, faults)
+    split = by_dtype(counts)
+    print("[%s] launches by kernel and dtype (setup + 2 solves): %s"
+          % (label, json.dumps({k: v for k, v in split.items() if v})))
+    print("[%s] plain-version calls: %s" % (label, sum(plain_calls.values())))
+    if any(plain_calls.values()):
+        faults.append("plain versions ran: %s" % plain_calls)
+    for k in P16_KERNELS[label]:
+        if counts[k] == 0:
+            faults.append("bfloat16 mode %s never launched" % k)
+    for f in faults:
+        failures.append("%s: %s" % (label, f))
+    return split, {"setup_s": t_setup, "cold_solve_s": cold,
+                   "warm_solve_s": info.wall_time_s, "iters": info.iters,
+                   "resid": info.resid, "true_resid": true_res,
+                   "peak_mb": peak / 2**20, "busy": busy, "levels": rows,
+                   "first_pass": first,
+                   "float32": {"setup_s": setup32, "iters": info32.iters,
+                               "warm_solve_s": info32.wall_time_s,
+                               "true_resid": true32,
+                               "peak_mb": peak32 / 2**20, "busy": busy32}
+                   }, solve
+
+
+def p16_first_pass(solve, rhs):
+    """The bundle's first refinement pass alone, its history recorded:
+    one call with refine 0 and the solver's record_history on."""
+    saved = solve.refine, solve.solver.record_history
+    solve.refine, solve.solver.record_history = 0, True
+    try:
+        return solve(rhs)
+    finally:
+        solve.refine, solve.solver.record_history = saved
+
+
+def p16_check_first(label, solve, rhs, faults):
+    """Hold the first refinement pass (P16_FIRST), its launches not
+    counted; returns its summary."""
+    want, rel = P16_FIRST[label]
+    with counts_paused():
+        _, info = p16_first_pass(solve, rhs)
+    got = [float(v) for v in info.history[:len(want)]]
+    apart = max(abs(g / w - 1) for g, w in zip(got, want)) \
+        if len(got) == len(want) and np.all(np.isfinite(got)) \
+        else float("inf")
+    print("[%s] first pass: %d iterations, reported resid %.3e, health %s;"
+          " history %s against the port's on the CPU %s: %.3e apart "
+          "(tolerance %.2f)" % (label, info.iters, info.resid, info.health,
+                                ["%.6g" % v for v in got],
+                                ["%.6g" % v for v in want], apart, rel))
+    if not apart <= rel:
+        faults.append("first pass: history %.3e from the port's on the "
+                      "CPU, over %.2f" % (apart, rel))
+    return {"iters": info.iters, "resid": info.resid, "history": got,
+            "apart": apart}
+
+
+def check_p16_kernels(keep, failures):
+    """Each new bfloat16 mode against its plain version on the paths' own
+    operators (BFK1's L0 and L1 DIA A, BFK2's L0 windowed-ELL A, BFG1's L0
+    and L1 stored transfers) with random bfloat16 operands: the vectors
+    bit for bit, the dots within one bfloat16 ULP; timed as in
+    check_kernels, the bound in bfloat16 bytes, and torch's bfloat16 CSR
+    product as the yardstick of the products. Returns the records, keyed
+    ``<name>.bf16``."""
+    W = wrappers()
+    rng = np.random.RandomState(20261020)
+    bf = torch.bfloat16
+    records = {}
+
+    def vec(n):
+        return torch.as_tensor(rng.standard_normal(n)).to(device="cuda",
+                                                           dtype=bf)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=bf, device="cuda")
+
+    def lib_time(name, fn):
+        try:
+            return time_ms(fn)
+        except RuntimeError as e:          # a yardstick, not the port
+            print("library call for %s.bf16 unavailable: %s"
+                  % (name, str(e).splitlines()[0]))
+            return None
+
+    def run(name, label, args, nvec, nbytes, ops, lib, shape):
+        kern, plain = W[name]
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        same = all(torch.equal(g, p_) for g, p_ in
+                   zip(got[:nvec], want[:nvec]))
+        pairs = [(g, p_) for g, p_ in zip(got[nvec:], want[nvec:])
+                 if g is not None]
+        ulps = max([bf16_ulps(g.reshape(1), p_.reshape(1))
+                    for g, p_ in pairs] or [0])
+        err = max(float((g.float() - p_.float()).abs().max())
+                  for g, p_ in zip(got, want) if g is not None)
+        ok = same and ulps <= 1
+        r = {"max_abs_err": err, "ms": time_ms(lambda: kern(*args)),
+             "plain_ms": time_ms(lambda: plain(*args)),
+             "library_ms": None if lib is None else lib_time(name, lib)}
+        r["bound_ms"], r["bound_by"] = bound(nbytes, ops, bf)
+        key = name + ".bf16"
+        print("%-30s %-12s vectors %s, dots %d ulps, err %.3e  ms %.4f  "
+              "plain %.4f  library %s  bound %.4f (%s)  %s" % (
+                  key, label, "bit for bit" if same else "DIFFER", ulps,
+                  err, r["ms"], r["plain_ms"], "%.4f" % r["library_ms"]
+                  if r["library_ms"] is not None else "none", r["bound_ms"],
+                  r["bound_by"], "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("%s %s disagrees with its plain version"
+                            % (key, label))
+        if key not in records:           # the first case: the path's L0
+            records[key] = {k: r[k] for k in RECORD_KEYS}
+            records[key].update(ulps=ulps, shape=shape)
+        else:
+            records[key].setdefault("more", {})[label] = {
+                "ms": r["ms"], "ulps": ulps, "bound_ms": r["bound_ms"]}
+
+    L = keep["BFK1"].precond.hierarchy.levels
+    for i in (0, 1):
+        M = L[i].A
+        n = M.shape[0]
+        x, f, w = vec(n), vec(n), vec(n)
+        nnz, data = live_entries(M), M.data.numel() * 2
+        C = library_csr(M)
+        label = "BFK1 L%d A" % i
+        shape = "%s %dx%d, %d diagonals, bfloat16" % (label, n, n,
+                                                     len(M.offsets))
+        run("dia_spmv_dots", label, (M.offsets, M.data, x), 1,
+            data + 2 * n * 2, 2 * nnz + 4 * n, lambda: torch.mv(C, x),
+            shape)
+        run("dia_spmv_dots", label + " w", (M.offsets, M.data, x, w), 1,
+            data + 3 * n * 2, 2 * nnz + 6 * n, None, shape)
+        run("dia_residual_dot", label, (M.offsets, M.data, f, x), 1,
+            data + 3 * n * 2, 2 * nnz + 3 * n,
+            lambda: torch.addmv(f, C, x, alpha=-1.0), shape)
+        if i == 0:
+            p, q, xv, r = vec(n), vec(n), vec(n), vec(n)
+            run("xr_update", "BFK1 L0 n", (scalar(0.37), p, q, xv, r), 2,
+                6 * n * 2, 6 * n, None, "%d elements, bfloat16" % n)
+    U = keep["BFK2"].precond.hierarchy.levels
+    M = U[0].A
+    n = M.shape[0]
+    x, w = vec(n), vec(n)
+    geo = (M.window_starts, M.cols_local, M.vals)
+    nnz = int((M.vals != 0).sum())
+    fmt = n * M.K * (2 + 4) + M.window_starts.numel() * 4
+    C = library_csr(M)
+    shape = "BFK2 L0 A %dx%d, K %d, window %d, bfloat16" % (n, n, M.K, M.win)
+    run("windowed_ell_spmv_dots", "BFK2 L0 A", geo + (x, None, n), 1,
+        fmt + 2 * n * 2, 2 * nnz + 4 * n, lambda: torch.mv(C, x), shape)
+    run("windowed_ell_spmv_dots", "BFK2 L0 A w", geo + (x, w, n), 1,
+        fmt + 3 * n * 2, 2 * nnz + 6 * n, None, shape)
+    run("axpby_dot", "BFK2 L0 n", (scalar(0.37), x, scalar(-1.25), w), 1,
+        3 * n * 2, 5 * n, None, "%d elements, bfloat16" % n)
+    G = keep["BFG1"].precond.hierarchy.levels
+    v = [vec(G[0].A.shape[0]) for _ in range(6)]
+    run("bicgstab_tail", "BFG1 L0 n",
+        (scalar(0.37), v[0], scalar(-1.25), v[1], v[2], v[3], v[4], v[5]),
+        2, 8 * len(v[0]) * 2, 10 * len(v[0]), None,
+        "%d elements, bfloat16" % len(v[0]))
+    for i in (0, 1):
+        for side, T in (("P", G[i].P), ("R", G[i].R)):
+            if not (hasattr(T, "K") and T.K <= 16):
+                print("BFG1 L%d %s: %s%s, not a gather operator" % (
+                    i, side, type(T).__name__, " K %d" % T.K
+                    if hasattr(T, "K") else ""))
+                continue
+            n, m = T.shape
+            x = vec(m)
+            nnz = int((T.vals != 0).sum())
+            fmt = n * T.K * (2 + 4) + T.window_starts.numel() * 4
+            C = library_csr(T)
+            label = "BFG1 L%d %s" % (i, side)
+            run("gather_spmv", label,
+                (T.window_starts, T.cols_local, T.vals, x, n), 1,
+                fmt + (m + n) * 2, 2 * nnz, lambda: torch.mv(C, x),
+                "%s %dx%d, K %d, bfloat16" % (label, n, m, T.K))
+    return records
+
+
+def p16_family(failures, only=None):
+    """Phase 16: the paths of P16_PATHS, each system made once, then every
+    new bfloat16 mode held against its plain version on the paths'
+    operators (all three paths run). Returns ({label: counts},
+    {label: summary}, records)."""
+    from amgcl_tpu_torch import fe_like_problem, poisson3d
+    t_phase = time.perf_counter()
+    counts, summary, keep = {}, {}, {}
+    for system, make in (("poisson", lambda: poisson3d(128)),
+                         ("fe", fe_like_problem)):
+        labels = [p for p, v in P16_PATHS.items() if v[0] == system
+                  and (only is None or p in only)]
+        if not labels:
+            continue
+        A, rhs = make()
+        for label in labels:
+            t0 = time.perf_counter()
+            counts[label], summary[label], keep[label] = p16_path(
+                label, A, rhs, failures)
+            summary[label]["path_s"] = time.perf_counter() - t0
+            print("[%s] path: %.1f s" % (label, summary[label]["path_s"]))
+        del A
+        gc.collect()
+    records = {}
+    if set(keep) == set(P16_PATHS):
+        records = check_p16_kernels(keep, failures)
+        missing = [k + ".bf16" for k in BF16_MODES[8:]
+                   if k + ".bf16" not in records]
+        if missing:
+            failures.append("phase 16: no record of %s" % missing)
+    del keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print("phase 16: %.1f s" % secs)
+    if only is None and secs > P16_LIMIT_S:
+        failures.append("phase 16 took %.1f s, over its %.0f s"
+                        % (secs, P16_LIMIT_S))
+    return counts, summary, records
+
+
 def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5050,13 +5476,14 @@ def main(argv=()):
           % (time.perf_counter() - t0, " + ".join(cuda_lib.SOURCES)))
     failures = []
     if argv and argv[0] in ("--phase10", "--phase11", "--phase12",
-                            "--phase13", "--phase14", "--phase15"):
-        # phase 10, 11, 12, 13, 14 or 15 alone, for the paths named (all
-        # without names); no result line
+                            "--phase13", "--phase14", "--phase15",
+                            "--phase16"):
+        # phase 10 to 16 alone, for the paths named (all without names);
+        # no result line
         family = {"--phase10": a8_family, "--phase11": a9_family,
                   "--phase12": bf16_family, "--phase13": p13_family,
-                  "--phase14": p14_family,
-                  "--phase15": p15_family}[argv[0]]
+                  "--phase14": p14_family, "--phase15": p15_family,
+                  "--phase16": p16_family}[argv[0]]
         summary = family(failures, set(argv[1:]) or None)[1]
         print("%s paths: %s" % (argv[0][2:], json.dumps(summary)))
         for f in failures:
@@ -5119,15 +5546,20 @@ def main(argv=()):
     print("phase 14 paths: %s" % json.dumps(p14_summary))
     p15_counts, p15_summary = p15_family(failures)
     print("phase 15 paths: %s" % json.dumps(p15_summary))
+    p16_counts, p16_summary, p16_records = p16_family(failures)
+    records.update(p16_records)
+    print("phase 16 paths: %s" % json.dumps(p16_summary))
     kernels = []
     for name in REPLACES:
         rec = records.get(name)
         if rec is None:
             failures.append("kernel %s has no record" % name)
             continue
-        # phase 12's counts split by dtype (by_dtype): a kernel's float32
-        # and float64 launches there, or its bfloat16 ones
+        # phases 12's and 16's counts split by dtype (by_dtype): a
+        # kernel's float32 and float64 launches there, or its bfloat16
+        # ones
         phase12 = {p: c[name] for p, c in bf_counts.items()}
+        phase16 = {p: c[name] for p, c in p16_counts.items()}
         later = {"D2": d_counts[name], "K1": k_counts[name],
                  **{p: c[name] for p, c in g_counts.items()},
                  "S1": s_counts[name],
@@ -5135,9 +5567,10 @@ def main(argv=()):
                  **{p: c[name] for p, c in n_counts.items()}, **phase12,
                  **{p: c[name] for p, c in p13_counts.items()},
                  **{p: c[name] for p, c in p14_counts.items()},
-                 **{p: c[name] for p, c in p15_counts.items()}}
+                 **{p: c[name] for p, c in p15_counts.items()},
+                 **phase16}
         if name.endswith(".bf16"):
-            by_path = phase12
+            by_path = {**phase12, **phase16}
         elif name in FRAMED:
             by_path = {"S1": s_counts[name], "S1j": a_counts["S1j"][name]}
         elif name in UNSTRUCTURED:

@@ -8,6 +8,7 @@ compositions of chip_smoke.py's phase 11.
     JAX_PLATFORMS=cpu python reference_counts.py --a10-full [LABEL ...]
     JAX_PLATFORMS=cpu python reference_counts.py --a14
     JAX_PLATFORMS=cpu python reference_counts.py --a14-sides
+    JAX_PLATFORMS=cpu python reference_counts.py --b17 [--full] [--first] [LABEL ...]
 
 ``fe_like_problem(ROWS)`` (12,000 rows by default, U1's nonzeros a row)
 with each of ILU(0), ILU(k=1) and ILU(p=1) under
@@ -74,6 +75,42 @@ BiCGStab right- and left-preconditioned, without and with refine=3, on
 the rhs and five rhs perturbed by 1e-6 relative: one line of both
 packages' counts per case (the spread of a count under such a
 perturbation).
+
+``--b17`` runs chip_smoke.py's phase-16 calls, a bfloat16 hierarchy under
+the JAX package's default bfloat16 Krylov loop (no ``solver_dtype``), at
+reduced sizes in both packages: BFK1 (``CG(maxiter=100, tol=1e-6)``,
+refine=3) on poisson3d(32) and poisson3d(48), BFK2
+(``BiCGStabL(L=2, maxiter=100, tol=1e-6)``, refine=3) and BFG1
+(``coarsening=RugeStuben()``, ``BiCGStab(maxiter=100, tol=1e-6,
+precond_side="left")``, refine=3) on U1's system cut to 12,000 rows (U1's
+nonzeros a row). Each call runs on the rhs and on five rhs perturbed by
+1e-6 relative (:func:`perturbed`): one line per case with both packages'
+six counts (summed over the refinement), their true relative residuals
+(host float64) and the port's level rows. The JAX package's bfloat16
+``jnp.linalg.solve`` is refused on the CPU, so BiCGStab(L)'s Gram
+system runs there in float32 with its solution rounded once to bfloat16,
+the port's rule (``ops/device.small_solve``). ``--full`` runs the JAX
+package alone at the paths' full sizes (poisson3d(128),
+``fe_like_problem()``) on the rhs: its count, true residual, level rows
+and seconds; LABELs pick paths. ``--first`` runs the same calls with
+refine=0: the first refinement pass alone, a bfloat16 solve from x = 0
+that no float64 restart perturbs. Set ``AMGCL_TPU_DEVICE_SETUP=1`` for
+the JAX package's device setup of BFK1 at full size, whose coarsest
+level (1,006 rows) is the port's. With ``--first`` each line also gives
+the first :data:`B17_HISTORY` entries of the residual history (the
+solvers' ``record_history``) of the first rhs, in both packages, and
+the relative difference between the two, entry by entry; there the
+five other rhs are perturbed by 2⁻⁸ relative (a 1e-6 perturbation
+vanishes when the rhs is rounded to bfloat16), and each package's
+spread is, entry by entry, the largest relative difference of a
+perturbed rhs's history from the first rhs's. ``--full --first`` then
+runs the port's same call on the CPU on the card's route (device
+setup, the default on a CUDA device) and prints its history too:
+chip_smoke.py's P16_FIRST holds the card's first pass to it. The
+JAX package on the CPU takes its XLA path (composed V-cycle legs,
+bfloat16 products and sums as XLA rounds them, the CPU's format
+thresholds), not the arithmetic of its TPU kernels, which the port's
+kernels follow; at full size its history parts from the port's.
 """
 
 import sys
@@ -379,11 +416,11 @@ def a10_full(labels):
     return 0
 
 
-def perturbed(rhs, k=6):
-    """rhs, then k - 1 copies perturbed by 1e-6 relative (seed 0)."""
+def perturbed(rhs, k=6, eps=1e-6):
+    """rhs, then k - 1 copies perturbed by ``eps`` relative (seed 0)."""
     import numpy as np
     rng = np.random.RandomState(0)
-    return [rhs * (1 + (1e-6 * rng.standard_normal(len(rhs)) if i else 0))
+    return [rhs * (1 + (eps * rng.standard_normal(len(rhs)) if i else 0))
             for i in range(k)]
 
 
@@ -517,6 +554,150 @@ def a14_sides():
     return 0
 
 
+def b17_solve_shim():
+    """Let the JAX package's ``jnp.linalg.solve`` take bfloat16 on the
+    CPU, as the port does (module docstring)."""
+    solve = jnp.linalg.solve
+    if getattr(solve, "b17_shim", False):
+        return
+
+    def shim(a, b):
+        if a.dtype == jnp.bfloat16:
+            return solve(a.astype(jnp.float32),
+                         b.astype(jnp.float32)).astype(jnp.bfloat16)
+        return solve(a, b)
+    shim.b17_shim = True
+    jnp.linalg.solve = shim
+
+
+#: history entries that ``--b17 --first`` prints
+B17_HISTORY = 8
+
+
+def b17_cases(full=False, refine=3):
+    """(label, config, system maker, JAX bundle maker, port bundle maker)
+    of phase 16's calls (module docstring), with ``refine`` restarts."""
+    from amgcl_tpu.coarsening.ruge_stuben import RugeStuben as RefRS
+    from amgcl_tpu.solver.bicgstabl import BiCGStabL as RefBiCGStabL
+    from amgcl_tpu.solver.cg import CG as RefCG
+    bf = torch.bfloat16
+    kw = dict(maxiter=100, tol=1e-6, record_history=refine == 0)
+    left = dict(kw, precond_side="left")
+    if full:
+        poisson = [("poisson3d(128)", lambda: T.poisson3d(128))]
+        fe = ("fe_like_problem()", T.fe_like_problem)
+    else:
+        poisson = [("poisson3d(%d)" % n, lambda n=n: T.poisson3d(n))
+                   for n in (32, 48)]
+        fe = ("U1's system cut to 12,000 rows", lambda: T.fe_like_problem(
+            12000, nnz_target=int(U1_NNZ_PER_ROW * 12000)))
+    rf = dict(refine=refine)
+    # the card's route at full size: the port's device setup (the
+    # default on a CUDA device), here on the CPU
+    cpu = dict(device="cpu", device_setup=True) if full else dict(device="cpu")
+    cases = [("BFK1", name + ", CG(maxiter=100, tol=1e-6), refine=%d"
+              % refine, make,
+              lambda Ar: ref_make_solver(Ar, RefParams(dtype=jnp.bfloat16),
+                                         RefCG(**kw), **rf),
+              lambda A: T.make_solver(A, T.AMGParams(dtype=bf), T.CG(**kw),
+                                      **cpu, **rf))
+             for name, make in poisson]
+    cases.append((
+        "BFK2", fe[0] + ", BiCGStabL(L=2, maxiter=100, tol=1e-6), "
+        "refine=%d" % refine, fe[1],
+        lambda Ar: ref_make_solver(Ar, RefParams(dtype=jnp.bfloat16),
+                                   RefBiCGStabL(L=2, **kw), **rf),
+        lambda A: T.make_solver(A, T.AMGParams(dtype=bf),
+                                T.BiCGStabL(L=2, **kw), **cpu, **rf)))
+    cases.append((
+        "BFG1", fe[0] + ", coarsening=RugeStuben(), BiCGStab(maxiter=100, "
+        "tol=1e-6, precond_side='left'), refine=%d" % refine, fe[1],
+        lambda Ar: ref_make_solver(
+            Ar, RefParams(dtype=jnp.bfloat16, coarsening=RefRS()),
+            RefBiCGStab(**left), **rf),
+        lambda A: T.make_solver(
+            A, T.AMGParams(dtype=bf, coarsening=T.RugeStuben()),
+            T.BiCGStab(**left), **cpu, **rf)))
+    return cases
+
+
+def b17(args):
+    """The phase-16 lines (module docstring)."""
+    import time
+    import numpy as np
+    b17_solve_shim()
+    full = "--full" in args
+    refine = 0 if "--first" in args else 3
+    labels = [a for a in args if a not in ("--full", "--first")]
+
+    def true(A, rhs, x):
+        x = np.asarray(x, dtype=np.float64) if not torch.is_tensor(x) \
+            else x.double().numpy()
+        return np.linalg.norm(rhs - A.spmv(x)) / np.linalg.norm(rhs)
+    def head(info):
+        h = info.history
+        return [] if h is None else [float(v) for v in h[:B17_HISTORY]]
+    for label, config, make, ref, port in b17_cases(full, refine):
+        if labels and label not in labels:
+            continue
+        A, rhs = make()
+        Ar = RefCSR(A.ptr, A.col, A.val, A.ncols)
+        t0 = time.perf_counter()
+        rsolve = ref(Ar)
+        if full:
+            x, info = rsolve(rhs)
+            print("%-4s %s: JAX %d iterations, resid %.3e, true %.3e, "
+                  "levels %s, %.0f s%s" % (
+                      label, config, info.iters, info.resid, true(A, rhs, x),
+                      [h[0].nrows for h in rsolve.precond.host_levels],
+                      time.perf_counter() - t0,
+                      "; history %r" % head(info) if refine == 0 else ""),
+                  flush=True)
+            if refine == 0:
+                # the port's first pass on the card's route, the
+                # reference of chip_smoke.P16_FIRST
+                t0 = time.perf_counter()
+                psolve = port(A)
+                x, info = psolve(rhs)
+                print("     port on the CPU (device setup): %d iterations, "
+                      "resid %.3e, true %.3e, health %s, levels %s, %.0f s;"
+                      " history %r" % (
+                          info.iters, info.resid, true(A, rhs, x),
+                          info.health, [lv.A.shape[0] for lv in
+                                        psolve.precond.hierarchy.levels],
+                          time.perf_counter() - t0, head(info)), flush=True)
+            continue
+        psolve = port(A)
+        got = {"JAX": [], "port": []}
+        hist = {"JAX": [], "port": []}
+        for b in perturbed(rhs, eps=2.0**-8 if refine == 0 else 1e-6):
+            for who, solve in (("JAX", rsolve), ("port", psolve)):
+                x, info = solve(b)
+                got[who].append((info.iters, true(A, b, x)))
+                hist[who].append(head(info))
+        print("%-4s %s: JAX %s (true resid max %.2e), port %s (true resid "
+              "max %.2e), port levels %s" % (
+                  label, config, [c for c, _ in got["JAX"]],
+                  max(r for _, r in got["JAX"]),
+                  [c for c, _ in got["port"]],
+                  max(r for _, r in got["port"]),
+                  [h[0].nrows for h in psolve.precond.host_levels]),
+              flush=True)
+        def apart(a, *others):
+            # entry by entry, the largest relative difference from a
+            return ["%.1e" % max(abs(o[k] / a[k] - 1) for o in others)
+                    for k in range(min(len(a), *map(len, others)))]
+        if refine == 0:
+            print("     history JAX %r\n     history port %r\n     port "
+                  "against JAX by entry %s\n     spread by entry: JAX %s, "
+                  "port %s" % (
+                      hist["JAX"][0], hist["port"][0],
+                      apart(hist["JAX"][0], hist["port"][0]),
+                      apart(*hist["JAX"]), apart(*hist["port"])),
+                  flush=True)
+    return 0
+
+
 def main(rows=12000):
     jax.config.update("jax_enable_x64", True)
     A, rhs = T.fe_like_problem(rows, nnz_target=int(U1_NNZ_PER_ROW * rows))
@@ -556,4 +737,7 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--a14-sides"]:
         jax.config.update("jax_enable_x64", True)
         sys.exit(a14_sides())
+    if sys.argv[1:2] == ["--b17"]:
+        jax.config.update("jax_enable_x64", True)
+        sys.exit(b17(sys.argv[2:]))
     sys.exit(main(*(int(a) for a in sys.argv[1:])))

@@ -10,8 +10,11 @@ with ``solver_dtype=float32``) against the JAX package on the CPU:
   windowed-ELL SpMV, residual and correction, the DIA SpMV, residual and
   correction;
 - iteration counts at reduced sizes of chip_smoke.py's phase 12;
-- the refusals: a bfloat16 Krylov loop, float16, and the formats and
-  compositions whose kernels have no bfloat16 mode.
+- the refusals: float16, and the formats and compositions whose kernels
+  have no bfloat16 mode; and the calls refused before the bfloat16
+  Krylov loop and gather SpMV were ported, which now build and solve
+  (tests/test_torch_bf16_krylov.py holds those modes and loops to the
+  JAX package).
 """
 
 import numpy as np
@@ -31,7 +34,7 @@ from tests.test_unstructured import _windowed_fixture
 
 import amgcl_tpu_torch as T
 from amgcl_tpu_torch.convert import hierarchy_from_arrays
-from amgcl_tpu_torch.models.amg import check_dtype, check_krylov_dtype
+from amgcl_tpu_torch.models.amg import check_dtype
 from amgcl_tpu_torch.ops import dia_kernels as dk
 from amgcl_tpu_torch.ops import vcycle_kernels as vk
 from amgcl_tpu_torch.ops import well_kernels as wk
@@ -146,10 +149,12 @@ def _same_levels(port, ref, ulps=0):
 # -- the dtype gates ----------------------------------------------------------
 
 def test_dtype_gates():
+    """bfloat16 passes the dtype gate of a hierarchy and of a Krylov loop
+    (make_solver's default loop over a bfloat16 hierarchy is bfloat16,
+    as the JAX package's); float16 and complex values raise."""
     assert check_dtype(BF) == BF
-    assert check_krylov_dtype(torch.float32) == torch.float32
-    with pytest.raises(NotImplementedError, match="B.17"):
-        check_krylov_dtype(BF)
+    assert T.make_solver(T.poisson3d(6)[0], T.AMGParams(dtype=BF), T.CG(),
+                         **CPU).solver_dtype == BF
     with pytest.raises(NotImplementedError, match="A.15"):
         check_dtype(torch.float16)
     with pytest.raises(NotImplementedError, match="complex"):
@@ -263,8 +268,9 @@ def test_windowed_ell_matches_jax_kernels():
     """tests/test_unstructured.py:258-275's operator in bfloat16: the
     port's SpMV, residual and correction plain versions against the JAX
     kernels in interpret mode on the same bfloat16 values and vectors,
-    within the JAX test's 3e-2 of the largest product, and both within
-    it of the float64 product."""
+    equal bit for bit (each product kept exact in float32, the row summed
+    in float32 and rounded once, as interpret mode forms it), and both
+    within the JAX test's 3e-2 of the largest float64 product."""
     Ap, _, x, f, _ = _windowed_fixture(seed=17)
     w = np.random.RandomState(18).rand(Ap.nrows).astype(np.float32)
     W = ref_un.csr_to_windowed_ell(Ap, jnp.bfloat16)
@@ -291,6 +297,7 @@ def test_windowed_ell_matches_jax_kernels():
     for want, got, exact in cases:
         assert got.dtype == BF
         want, got = _f32(want), _f32(got)
+        assert np.array_equal(got, want)
         assert np.abs(got - want).max() / denom < 3e-2
         assert np.abs(got - exact).max() / denom < 3e-2
         assert np.abs(want - exact).max() / denom < 3e-2
@@ -417,13 +424,7 @@ def test_runtime_configuration_takes_bfloat16():
 # -- refusals -----------------------------------------------------------------
 
 def _refusal(what):
-    if what == "krylov_default":
-        T.make_solver(T.poisson3d(6)[0], T.AMGParams(dtype=BF), T.CG(),
-                      **CPU)
-    elif what == "krylov_explicit":
-        T.make_solver(T.poisson3d(6)[0], T.AMGParams(), T.CG(),
-                      solver_dtype=BF, **CPU)
-    elif what == "float16":
+    if what == "float16":
         T.AMG(T.poisson3d(6)[0], T.AMGParams(dtype=torch.float16), **CPU)
     elif what == "dwin":
         T.AMG(T.poisson3d(6)[0], T.AMGParams(dtype=BF, matrix_format="dwin"),
@@ -431,31 +432,13 @@ def _refusal(what):
     elif what == "block":
         T.make_solver(T.poisson3d_block(6, 3)[0], T.AMGParams(dtype=BF),
                       T.BiCGStab(), solver_dtype=torch.float32, **CPU)
-    elif what == "gather":
-        # Ruge–Stüben's stored transfers are windowed ELL of narrow K:
-        # their products go to the gather kernel
-        A, _ = T.fe_like_problem(3000, nnz_target=8 * 3000)
-        T.AMG(A, T.AMGParams(dtype=BF, coarsening=T.RugeStuben(),
-                             coarse_enough=500), **CPU)
-    elif what == "nested":
-        A, _ = T.poisson3d(8)
-        T.NestedPreconditioner(A, T.AMG(A, T.AMGParams(dtype=BF), **CPU),
-                               T.CG(maxiter=4))
-    elif what == "schur_krylov":
-        A, pmask = T.stokes_like(10)
-        T.SchurPressureCorrection(A, pmask, dtype=BF,
-                                  usolver_prm=T.AMGParams(dtype=BF),
-                                  psolver_prm=T.AMGParams(dtype=BF),
-                                  psolver=T.CG(maxiter=4), **CPU)
     else:                                   # sharded
         T.DistStencilSolver(T.poisson3d(8)[0], T.make_mesh(2, "cpu"),
                             T.AMGParams(dtype=BF), T.CG())
 
 
 @pytest.mark.parametrize("what,item", [
-    ("krylov_default", "B.17"), ("krylov_explicit", "B.17"),
     ("float16", "A.15"), ("dwin", "B.20"), ("block", "B.19"),
-    ("gather", "B.21"), ("nested", "B.17"), ("schur_krylov", "B.17"),
     ("sharded", "B.18")])
 def test_refusals_name_their_roadmap_item(what, item):
     """What a bfloat16 hierarchy cannot run yet raises NotImplementedError
@@ -464,3 +447,58 @@ def test_refusals_name_their_roadmap_item(what, item):
     solve time."""
     with pytest.raises(NotImplementedError, match=item):
         _refusal(what)
+
+
+@pytest.mark.parametrize("what", ["krylov_default", "krylov_explicit",
+                                  "gather", "nested", "schur_krylov"])
+def test_lifted_refusals_build_and_solve(what):
+    """The calls that raised before the bfloat16 Krylov loop (ROADMAP
+    B.17) and gather SpMV (B.21) were ported build and solve: the Krylov
+    ones in bfloat16 as the JAX package's same calls do (its count
+    within one), the Ruge–Stüben hierarchy with its stored transfers
+    through the gather SpMV's bfloat16 mode."""
+    from amgcl_tpu_torch.ops import gather_kernels as gk
+    if what in ("krylov_default", "krylov_explicit"):
+        A, rhs = T.poisson3d(6)
+        hier = BF if what == "krylov_default" else torch.float32
+        kw = {} if what == "krylov_default" else dict(solver_dtype=BF)
+        solve = T.make_solver(A, T.AMGParams(dtype=hier), T.CG(), **kw,
+                              **CPU)
+        assert solve.solver_dtype == BF and solve.A_dev.dtype == BF
+        _, info_r = ref_make_solver(
+            _ref(A), RefParams(dtype=jnp.bfloat16 if hier == BF
+                               else jnp.float32), RefCG(),
+            **({} if hier == BF else dict(solver_dtype=jnp.bfloat16)))(rhs)
+        x, info = solve(rhs)
+        assert x.dtype == BF and torch.isfinite(x).all()
+        assert abs(info.iters - info_r.iters) <= 1
+        return
+    rng = np.random.RandomState(8)
+    if what == "gather":
+        A, _ = T.fe_like_problem(3000, nnz_target=8 * 3000)
+        amg = T.AMG(A, T.AMGParams(dtype=BF, coarsening=T.RugeStuben(),
+                                   coarse_enough=500), **CPU)
+        P = amg.hierarchy.levels[0].P
+        assert P.dtype == BF and P.K <= gk.AUTO_MAX_K
+        calls = gk.gather_spmv_plain.calls
+        z = amg.hierarchy.apply(torch.as_tensor(
+            rng.standard_normal(A.nrows)).to(BF))
+        assert gk.gather_spmv_plain.calls > calls
+    elif what == "nested":
+        A, _ = T.poisson3d(8)
+        pre = T.NestedPreconditioner(A, T.AMG(A, T.AMGParams(dtype=BF),
+                                              **CPU), T.CG(maxiter=4))
+        assert pre.dtype == BF and pre.hierarchy.A.dtype == BF
+        z = pre.hierarchy.apply(torch.as_tensor(
+            rng.standard_normal(A.nrows)).to(BF))
+    else:
+        A, pmask = T.stokes_like(10)
+        pre = T.SchurPressureCorrection(A, pmask, dtype=BF,
+                                        usolver_prm=T.AMGParams(dtype=BF),
+                                        psolver_prm=T.AMGParams(dtype=BF),
+                                        psolver=T.CG(maxiter=4), **CPU)
+        x, info = T.make_solver(A, pre, T.FGMRES(maxiter=100, tol=1e-2),
+                                **CPU)(np.ones(A.nrows))
+        assert info.resid <= 1e-2
+        z = x
+    assert z.dtype == BF and torch.isfinite(z).all()

@@ -121,7 +121,7 @@ def test_prebuilt_amg_gives_the_same_count():
     (dict(batch=-1), ValueError, "batch"),
     (dict(recovery=True), NotImplementedError, "A.13"),
     (dict(refine_dtype="float16"), ValueError, "refine_dtype"),
-    (dict(solver_dtype=torch.bfloat16), NotImplementedError, "B.17"),
+    (dict(solver_dtype=torch.float16), NotImplementedError, "A.15"),
     (dict(solver_dtype=torch.complex64), NotImplementedError, "complex"),
 ])
 def test_make_solver_refusals(kw, exc, match):

@@ -38,10 +38,13 @@ frames whose halos hold values on both sides, a halo wider than the
 operators reach, a halo of two coarse planes and one-sided offsets,
 bit-identical to the base legs on a zero frame, their refusals, and a
 solve over four shards of one card against the same on the CPU. The
-bfloat16 modes of the DIA, fused-leg and scalar windowed-ELL kernels bit
-for bit with their plain versions at the same edges, the leg tiles
+bfloat16 modes of the DIA, fused-leg, scalar windowed-ELL and gather
+kernels and of the Krylov tails bit for bit with their plain versions at
+the same edges (the dots of the dot modes within one bfloat16 ULP, and
+bit for bit with the float32 sums of the kernels' order), the leg tiles
 planned in bfloat16 bytes, the refusals of the kernels without one, and
-a bfloat16 hierarchy's solve on the card against the CPU. The serving
+bfloat16 hierarchies' solves, under a float32 and under a bfloat16 loop,
+on the card against the CPU. The serving
 slice: each bucket's CUDA graph replay equal bit for bit to the eager
 per-column apply, the dot kernels' ticket of the capture stream made once
 outside the capture and reused, a capture refused by name on a
@@ -2489,24 +2492,13 @@ def test_bf16_well_modes_equal_plain(cuda, n, m, K, empty):
                 (st, cl, v, w, f, x, n))
 
 
-@pytest.mark.parametrize("which", ["dia_dots", "well_dots", "well_block",
-                                   "gather", "dwin", "framed_down",
+@pytest.mark.parametrize("which", ["well_block", "dwin", "framed_down",
                                    "framed_up"])
 def test_bf16_kernels_without_a_mode_refuse(cuda, which):
     """A kernel with no bfloat16 mode raises on bfloat16 operands: it
     neither launches nor runs its plain version."""
     with pytest.raises(ValueError, match="float32"):
-        if which == "dia_dots":
-            off, data, x, _, _ = _to_bf16(*_dia(300, 300, (-1, 0, 1),
-                                                torch.float32, cuda))
-            dk.dia_spmv_dots((-1, 0, 1), data, x)
-        elif which in ("well_dots", "gather"):
-            st, cl, v, x, _, _ = _well(3000, 3000, 8, _BF, cuda)
-            if which == "gather":
-                gk.gather_spmv(st, cl, v, x, 3000)
-            else:
-                wk.windowed_ell_spmv_dots(st, cl, v, x, None, 3000)
-        elif which == "well_block":
+        if which == "well_block":
             st, cl, v, _, _, _ = _well(300, 300, 4, _BF, cuda)
             vb = v[..., None, None].expand(*v.shape, 2, 2).contiguous()
             wbk.windowed_ell_block_spmv(st, cl, vb, torch.zeros(
@@ -2567,6 +2559,160 @@ def test_bf16_solve_on_card_matches_cpu(cuda):
     assert abs(runs["cuda"][0] - runs["cpu"][0]) <= 1
     x = runs["cuda"][1]
     assert np.linalg.norm(rhs - A.spmv(x)) / np.linalg.norm(rhs) <= 1e-6
+
+
+# -- the bfloat16 Krylov modes (B.3, B.4, B.5, B.10) and gather (B.16) -------
+
+def _bf_ulps(a, b):
+    """The largest distance of two bfloat16 tensors in bfloat16 ULPs."""
+    def key(t):
+        i = t.detach().float().cpu().numpy().view(np.int32) >> 16
+        i = i.astype(np.int64)
+        return np.where(i < 0, -32768 - i, i)
+    return int(np.abs(key(a) - key(b)).max()) if a.numel() else 0
+
+
+def _bf_ordered(a, b, order=dk.ordered_dot):
+    """The kernels' bfloat16 dot: float32 sums of a·b in the kernels'
+    order (``order``), rounded once to bfloat16."""
+    got = order(a.float().cpu().numpy(), b.float().cpu().numpy())
+    return torch.tensor(float(np.float32(got))).to(_BF)
+
+
+def _dots_agree(got, want, exact):
+    """Each kernel dot equal, bit for bit, to ``exact`` (its order on its
+    own vectors) and within one bfloat16 ULP of the plain version's
+    (torch's order)."""
+    for g, w, e in zip(got, want, exact):
+        assert g.dtype == _BF and g.dim() == 0 and g.device.type == "cuda"
+        assert torch.equal(g.cpu(), e), (float(g), float(e))
+        assert _bf_ulps(g, w) <= 1, (float(g), float(w))
+
+
+@pytest.mark.parametrize("n,offsets", _DOTS_CASES)
+def test_bf16_dia_dots_equal_plain(cuda, n, offsets):
+    """dia_spmv_dots (with and without w) and dia_residual_dot in
+    bfloat16: y and r bit for bit with the plain versions and with the
+    bfloat16 dia_spmv and dia_residual, the dots the float32 sums of the
+    kernels' order rounded once, within one ULP of the plain version's."""
+    off, data, x, f, w = _to_bf16(*_dia(n, n, offsets, torch.float32, cuda,
+                                        seed=n))
+    host = tuple(offsets)
+    launches = (dk.dia_spmv_dots.bf16_launches,
+                dk.dia_residual_dot.bf16_launches)
+    for ww in (w, None):
+        got = dk.dia_spmv_dots(host, data, x, ww)
+        want = dk.dia_spmv_dots_plain(off, data, x, ww)
+        y = got[0]
+        assert torch.equal(y, want[0])
+        assert torch.equal(y, dk.dia_spmv(off, data, x))
+        vecs = (y, x) + (() if ww is None else (ww,))
+        _dots_agree([d for d in got[1:] if d is not None],
+                    [d for d in want[1:] if d is not None],
+                    [_bf_ordered(y, v) for v in vecs])
+    r, rr = dk.dia_residual_dot(host, data, f, x)
+    want = dk.dia_residual_dot_plain(off, data, f, x)
+    assert torch.equal(r, want[0])
+    assert torch.equal(r, dk.dia_residual(off, data, f, x))
+    _dots_agree([rr], [want[1]], [_bf_ordered(r, r)])
+    assert (dk.dia_spmv_dots.bf16_launches,
+            dk.dia_residual_dot.bf16_launches) == (launches[0] + 2,
+                                                   launches[1] + 1)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 85623, 1056 * 256 * 3 + 7])
+def test_bf16_tails_equal_plain(cuda, n):
+    """xr_update, bicgstab_tail and axpby_dot in bfloat16: the vectors bit
+    for bit with the plain versions, the dots within one ULP of theirs
+    and, up to 270,336 elements (one a thread), the float32 sums of the
+    kernels' order (``ordered_tail_dots``) rounded once; n above that runs
+    the grid-stride loop more than once a thread."""
+    rng = np.random.RandomState(n)
+    v = [torch.as_tensor(rng.standard_normal(n)).to(device=cuda, dtype=_BF)
+         for _ in range(6)]
+    a = torch.tensor(0.37, dtype=_BF, device=cuda)
+    b = torch.tensor(-1.25, dtype=_BF, device=cuda)
+    f32 = lambda t: t.float().cpu().numpy()
+    cases = [(fv.xr_update, fv.xr_update_plain, (a, *v[:4]), 2, None),
+             (fv.bicgstab_tail, fv.bicgstab_tail_plain,
+              (a, v[0], b, v[1], v[2], v[3], v[4], v[5]), 2, v[5]),
+             (fv.axpby_dot, fv.axpby_dot_plain, (a, v[0], b, v[1]), 1, None)]
+    for kern, plain, args, nvec, rhat in cases:
+        launches = kern.bf16_launches
+        got, want = kern(*args), plain(*args)
+        assert kern.bf16_launches == launches + 1
+        for g, p in zip(got[:nvec], want[:nvec]):
+            assert g.dtype == _BF and torch.equal(g, p)
+        for g, p in zip(got[nvec:], want[nvec:]):
+            assert g.dtype == _BF and _bf_ulps(g, p) <= 1, (float(g),
+                                                            float(p))
+        if n <= 256 * 1056:
+            exact = fv.ordered_tail_dots(
+                f32(got[nvec - 1]), None if rhat is None else f32(rhat))
+            for g, e in zip(got[nvec:], exact):
+                assert torch.equal(g.cpu(), torch.tensor(float(e)).to(_BF))
+
+
+@pytest.mark.parametrize("n,m,K,empty", [c for c in _WELL_CASES
+                                         if c[0] == c[1]])
+def test_bf16_well_dots_equal_plain(cuda, n, m, K, empty):
+    """windowed_ell_spmv_dots in bfloat16: y bit for bit with the plain
+    version and the bfloat16 windowed_ell_spmv, the dots within one ULP of
+    the plain version's."""
+    st, cl, v, x, f, w = _well(n, m, K, _BF, cuda, seed=K, empty=empty)
+    launches = wk.windowed_ell_spmv_dots.bf16_launches
+    for ww in (w, None):
+        got = wk.windowed_ell_spmv_dots(st, cl, v, x, ww, n)
+        want = wk.windowed_ell_spmv_dots_plain(st, cl, v, x, ww, n)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[0], wk.windowed_ell_spmv(st, cl, v, x, n))
+        for g, p in zip(got[1:], want[1:]):
+            assert (g is None) == (p is None)
+            if g is not None:
+                assert g.dtype == _BF and _bf_ulps(g, p) <= 1, (float(g),
+                                                                float(p))
+    assert wk.windowed_ell_spmv_dots.bf16_launches == launches + 2
+
+
+@pytest.mark.parametrize("n,m,K,empty", _GATHER_CASES)
+def test_bf16_gather_equals_plain(cuda, n, m, K, empty):
+    """gather_spmv in bfloat16 bit for bit with its plain version: each
+    product and running sum rounded, slot by slot, by both."""
+    st, cl, v, x, _, _ = _well(n, m, K, _BF, cuda, seed=100 + K,
+                               empty=empty)
+    _equal_bf16(gk.gather_spmv, gk.gather_spmv_plain, (st, cl, v, x, n))
+
+
+def test_bf16_krylov_solve_on_card_matches_cpu(cuda):
+    """poisson3d(24) with a bfloat16 hierarchy and the default, bfloat16,
+    CG loop, built on the card and on the CPU: the vectors of every mode
+    round as their plain versions and a dot moves by at most one ULP, so
+    the counts agree within two; the bfloat16 Krylov modes launch and no
+    plain version runs on the card."""
+    from amgcl_tpu_torch import AMGParams, CG, make_solver, poisson3d
+    A, rhs = poisson3d(24)
+    kerns = (dk.dia_spmv_dots, dk.dia_residual_dot, fv.xr_update)
+    plains = (dk.dia_spmv_dots_plain, dk.dia_residual_dot_plain,
+              fv.xr_update_plain, dk.dia_residual_plain,
+              vk.fused_down_sweep_plain, vk.fused_up_sweep_plain)
+    runs = {}
+    for device in ("cpu", cuda):
+        solve = make_solver(A, AMGParams(dtype=_BF),
+                            CG(maxiter=100, tol=1e-6), refine=3,
+                            device=device, device_setup=True)
+        assert solve.solver_dtype == _BF and solve.A_dev.dtype == _BF
+        launches = [k.bf16_launches for k in kerns]
+        calls = [p.calls for p in plains]
+        x, info = solve(rhs)
+        if device != "cpu":
+            assert [p.calls for p in plains] == calls
+            assert all(k.bf16_launches > n
+                       for k, n in zip(kerns, launches))
+        runs[torch.device(device).type] = (info.iters,
+                                           x.double().cpu().numpy())
+    assert abs(runs["cuda"][0] - runs["cpu"][0]) <= 2
+    for _, x in runs.values():
+        assert np.linalg.norm(rhs - A.spmv(x)) / np.linalg.norm(rhs) <= 1e-5
 
 
 # -- the accelerator setup: device MIS, segment-sum plans, rebuild ------------

@@ -146,20 +146,25 @@ def test_parse_pmask_patterns(pattern, expected):
     assert np.array_equal(m, R._parse_pmask({"pmask_pattern": pattern}, 8))
 
 
-@pytest.mark.parametrize("what", ["bfloat16", "complex64", "complex128",
-                                  "AMG bfloat16"])
+@pytest.mark.parametrize("what", ["dwin bfloat16", "complex64",
+                                  "complex128", "AMG bfloat16"])
 def test_what_is_not_ported_raises(what):
     """A request the port has no kernels for raises NotImplementedError
     naming its ROADMAP item; it does not run in another dtype or
     solver."""
     A, _ = T.poisson3d(6)
-    # "bfloat16": a bfloat16 hierarchy with its default, bfloat16, Krylov
-    # loop (B.17); "AMG bfloat16": one on block values (B.19)
-    item = {"bfloat16": "B.17", "AMG bfloat16": "B.19"}.get(what, "complex")
+    # "dwin bfloat16": a bfloat16 hierarchy in the dense-window format
+    # (B.20); "AMG bfloat16": one on block values (B.19)
+    item = {"dwin bfloat16": "B.20",
+            "AMG bfloat16": "B.19"}.get(what, "complex")
     with pytest.raises(NotImplementedError, match=item):
         if what == "AMG bfloat16":
             T.AMG(T.poisson3d_block(6, 3)[0],
                   T.AMGParams(dtype=torch.bfloat16), device="cpu")
+        elif what == "dwin bfloat16":
+            P.make_solver_from_config(
+                A, {"precond.dtype": "bfloat16",
+                    "precond.matrix_format": "dwin"}, device="cpu")
         else:
             P.make_solver_from_config(A, {"precond.dtype": what},
                                       device="cpu")
