@@ -58,8 +58,20 @@
 // the last tile are summed (their entries are zero) and not written.
 // Offsets are 64-bit: the blocks of the FE level hold 964,558,848
 // entries, whose byte offsets pass 2^32.
+//
+// The bfloat16 mode (a bfloat16 hierarchy in the dense-window format):
+// the blocks read as 16-byte vectors of eight values, the x window
+// staged in bfloat16 (2,048-4,096 columns a chunk, a multiple of 256 so
+// that a lane keeps the vectors lane, lane + 32, ... across chunks), each
+// product of two bfloat16 values exact in float, the lane and warp sums
+// in float in the order above, the row sum rounded once to bfloat16,
+// then f − A x, w ∘ r and x + w ∘ r each rounded: the TPU kernel's
+// bfloat16 product and `jnp.sum` (densewin.py:231-233, :270-277) as the
+// JAX package forms them on the CPU, in interpret mode and on its XLA
+// path alike (the product kept in float32), and its bfloat16 epilogue.
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
 #include "reduce.cuh"
 
 namespace amgcl_port {
@@ -90,21 +102,38 @@ struct Vec16<double> {
     return k == 0 ? v.x : v.y;
   }
 };
+// eight bfloat16 values, each widened to float (exact)
+template <>
+struct Vec16<bf16> {
+  using type = uint4;
+  static constexpr int N = 8;
+  __device__ static float get(const uint4& v, int k) {
+    const unsigned u = k < 2 ? v.x : k < 4 ? v.y : k < 6 ? v.z : v.w;
+    return __uint_as_float((k & 1) ? (u & 0xffff0000u) : (u << 16));
+  }
+};
 
 // Copy `len` entries of x from column c0 on into shared memory, one entry
 // a thread a step; entries at or past ncols are zero-filled (src-size 0).
+// bfloat16 entries (2 bytes, under cp.async's least size of 4) are loaded
+// and stored; a group is committed all the same.
 template <typename T>
 __device__ __forceinline__ void stage(T* dst, const T* __restrict__ x,
                                       long long c0, int len,
                                       long long ncols) {
-  for (int e = threadIdx.x; e < len; e += kBlock) {
-    const long long j = c0 + e;
-    const bool in = j < ncols;
-    const unsigned d =
-        static_cast<unsigned>(__cvta_generic_to_shared(dst + e));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-                 "l"(in ? x + j : x), "n"(sizeof(T)),
-                 "r"(in ? static_cast<int>(sizeof(T)) : 0));
+  if constexpr (kIsBf16<T>) {
+    for (int e = threadIdx.x; e < len; e += kBlock)
+      dst[e] = c0 + e < ncols ? __ldg(x + c0 + e) : T(0);
+  } else {
+    for (int e = threadIdx.x; e < len; e += kBlock) {
+      const long long j = c0 + e;
+      const bool in = j < ncols;
+      const unsigned d =
+          static_cast<unsigned>(__cvta_generic_to_shared(dst + e));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                   ::"r"(d), "l"(in ? x + j : x), "n"(sizeof(T)),
+                   "r"(in ? static_cast<int>(sizeof(T)) : 0));
+    }
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -126,9 +155,9 @@ densewin_kernel(long long n_out, long long ncols, int win, int chunk,
   const long long row0 = t * kTile + warp;   // rows row0 + 8 r
   const T* b0 = blocks + row0 * win;
   const long long rstride = static_cast<long long>(kWarps) * win;
-  T acc[kRowsPerWarp];
+  Acc<T> acc[kRowsPerWarp];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) acc[r] = T(0);
+  for (int r = 0; r < kRowsPerWarp; ++r) acc[r] = Acc<T>(0);
   const int nchunks = (win + chunk - 1) / chunk;
   stage(xs, x, s, min(chunk, win), ncols);
   for (int c = 0; c < nchunks; ++c) {
@@ -152,8 +181,14 @@ densewin_kernel(long long n_out, long long ncols, int win, int chunk,
         const V bv = __ldg(br + v);
         const V xv = xc[v];
 #pragma unroll
-        for (int k = 0; k < N; ++k)
-          acc[r] += Vec16<T>::get(bv, k) * Vec16<T>::get(xv, k);
+        for (int k = 0; k < N; ++k) {
+          // bfloat16: the exact product, the sum in float
+          if constexpr (kIsBf16<T>)
+            acc[r] = __fadd_rn(acc[r], __fmul_rn(Vec16<T>::get(bv, k),
+                                                 Vec16<T>::get(xv, k)));
+          else
+            acc[r] += Vec16<T>::get(bv, k) * Vec16<T>::get(xv, k);
+        }
       }
     }
     // the buffer read here is refilled at step c + 1
@@ -161,9 +196,21 @@ densewin_kernel(long long n_out, long long ncols, int win, int chunk,
   }
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
-    const T a = warp_sum(acc[r]);
+    const Acc<T> a = warp_sum(acc[r]);
     const long long row = row0 + r * kWarps;
-    if (lane == 0 && row < n_out) {
+    if constexpr (kIsBf16<T>) {
+      // the row sum rounded once, then each operation of the epilogue
+      if (lane == 0 && row < n_out) {
+        float out = bf_round(a);
+        if constexpr (MODE == RESIDUAL) {
+          out = bf_sub(bf_load(f[row]), out);
+        } else if constexpr (MODE == CORRECTION) {
+          out = bf_add(bf_load(x[row]),
+                       bf_mul(bf_load(w[row]), bf_sub(bf_load(f[row]), out)));
+        }
+        y[row] = bf_store(out);
+      }
+    } else if (lane == 0 && row < n_out) {
       if constexpr (MODE == SPMV) {
         y[row] = a;
       } else if constexpr (MODE == RESIDUAL) {
@@ -193,7 +240,7 @@ cudaError_t run(int mode, long long n_out, long long ncols, int n_tiles,
   // the two chunk buffers stay within the default 48 KB of dynamic
   // shared memory
   if (n_tiles <= 0 || tile != kTile || win <= 0 || win % Vec16<T>::N ||
-      chunk <= 0 || chunk % 128 ||
+      chunk <= 0 || chunk % 128 || chunk % (32 * Vec16<T>::N) ||
       2 * static_cast<long long>(chunk) * sizeof(T) > 48 * 1024 ||
       static_cast<long long>(n_tiles) * kTile < n_out)
     return cudaErrorInvalidValue;
@@ -215,9 +262,10 @@ cudaError_t run(int mode, long long n_out, long long ncols, int n_tiles,
 }  // namespace
 }  // namespace amgcl_port
 
-// dtype: 0 = float32, 1 = float64. One thread block per tile of 64 rows
-// (`tile` must be 64), 2 · chunk · sizeof(T) bytes of dynamic shared
-// memory, at most 48 KB (chunk a multiple of 128 columns); `blocks` holds
+// dtype: 0 = float32, 1 = float64, 2 = bfloat16. One thread block per
+// tile of 64 rows (`tile` must be 64), 2 · chunk · sizeof(T) bytes of
+// dynamic shared memory, at most 48 KB (chunk a multiple of 128 columns,
+// and of 256 in bfloat16: 32 vectors of 8); `blocks` holds
 // n_tiles * 64 * win values starting on a 16-byte boundary, `starts`
 // n_tiles ints; x has ncols entries, f, w and y n_out. `f` is read by
 // RESIDUAL and CORRECTION, `w` by CORRECTION. Returns the cudaError_t of
@@ -245,5 +293,11 @@ extern "C" int amgcl_densewin(int dtype, int mode, long long n_out,
                        static_cast<const double*>(f),
                        static_cast<const double*>(w),
                        static_cast<double*>(y), s);
+  if (dtype == 2)
+    return run<bf16>(mode, n_out, ncols, n_tiles, tile, win, chunk, st,
+                     static_cast<const bf16*>(blocks),
+                     static_cast<const bf16*>(x),
+                     static_cast<const bf16*>(f),
+                     static_cast<const bf16*>(w), static_cast<bf16*>(y), s);
   return cudaErrorInvalidValue;
 }

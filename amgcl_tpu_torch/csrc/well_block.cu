@@ -95,8 +95,17 @@
 // order. Its SPMV_DOTS forms y so, then the dots in float32 over
 // the bfloat16 y, x and w (row_dots_kernel's order) and rounds each once
 // to bfloat16, as the TPU kernel casts its float32 SMEM sums
-// (unstructured.py:451-453, :499-501). The float32 and float64 modes are
-// those above, unchanged.
+// (unstructured.py:451-453, :499-501). The block kernel's bfloat16 mode
+// keeps the float design's staging and order with the values read as
+// 8-byte vectors of four (a 3×3 node's run of K·18 bytes starts on an
+// 8-byte boundary, not always on a 16-byte one), stages x and the values
+// in bfloat16 and sums in float: lane r adds each exact product of its
+// row in slot, then c order, rounds the sum once, and then f − A x, the
+// correction's S r (b exact products summed in c order, rounded once)
+// and x + S r are each rounded, as the TPU kernel's bfloat16 einsums form
+// them (unstructured.py:563-565, :611-621); its SPMV_DOTS takes the dots
+// as the scalar mode does. The float32 and float64 modes are those above,
+// unchanged.
 //
 // Both: the correction reads x both as the gather source and as x[i]; the
 // output is a separate buffer, so no thread sees another's update. The
@@ -113,14 +122,27 @@ namespace {
 
 enum Mode { SPMV = 0, RESIDUAL = 1, CORRECTION = 2, SPMV_DOTS = 3 };
 
+// One vector of values, as the block kernel loads a node's run: a float4
+// or a double2 (16 bytes), and for bfloat16 four values in 8 bytes (a
+// 3x3 node's run is a multiple of 8 bytes, not of 16).
+template <typename T> struct Vec16;
+template <> struct Vec16<float> { using type = float4; };
+template <> struct Vec16<double> { using type = double2; };
+template <> struct Vec16<bf16> { using type = uint2; };
+template <typename T>
+constexpr int kVecN = sizeof(typename Vec16<T>::type) / sizeof(T);
+
+// The type a thread holds a value of T in: T, and float for bfloat16.
+template <typename T> struct Reg { using type = T; };
+template <> struct Reg<bf16> { using type = float; };
+
 // Shared memory of a block-kernel block that stages Q slots a step (the
 // layout of well_block_kernel), and the Q it takes: 16, or 8 or 4 where
 // more would pass the 48 KB of static shared memory a block may have.
 template <typename T, int B, int G>
 __host__ __device__ constexpr int block_stage_bytes(int Q) {
   return (kBlock / G) *
-         ((Q * B * B + 16 / static_cast<int>(sizeof(T)) + Q * B + 1) *
-              static_cast<int>(sizeof(T)) +
+         ((Q * B * B + kVecN<T> + Q * B + 1) * static_cast<int>(sizeof(T)) +
           (Q + 4) * 4);
 }
 template <typename T, int B, int G>
@@ -130,11 +152,6 @@ __host__ __device__ constexpr int block_chunk() {
                                                       : 4;
 }
 
-// One 16-byte vector of values: a float4 or a double2.
-template <typename T> struct Vec16;
-template <> struct Vec16<float> { using type = float4; };
-template <> struct Vec16<double> { using type = double2; };
-
 template <typename T, int B, int G, int MODE>
 __global__ void __launch_bounds__(kBlock)
 well_block_kernel(long long n_out, long long ncols, int tile, int K,
@@ -143,9 +160,10 @@ well_block_kernel(long long n_out, long long ncols, int tile, int K,
                   const T* __restrict__ x, const T* __restrict__ f,
                   const T* __restrict__ w, T* __restrict__ y) {
   using V = typename Vec16<T>::type;
+  using R = typename Reg<T>::type;
   constexpr int kNodes = kBlock / G;           // nodes per block
   constexpr int Q = block_chunk<T, B, G>();    // slots per step
-  constexpr int kV = 16 / sizeof(T);           // values per vector
+  constexpr int kV = kVecN<T>;                 // values per vector
   constexpr int kNV = Q * B * B / kV;          // value vectors per step
   constexpr int kPer = (kNV + G - 1) / G;      // ... per lane
   constexpr int kSlots = (Q + G - 1) / G;      // x gathers per lane
@@ -165,7 +183,7 @@ well_block_kernel(long long n_out, long long ncols, int tile, int K,
   T* mv = sv + node * SV;
   T* mx = sx + node * SX;
   int* mc = sc + node * SC;
-  T acc = T(0);
+  R acc = R(0);
   // the trip count is K's, the same for every lane of the block
   for (int k0 = 0; k0 < K; k0 += Q) {
     const int nq = min(Q, K - k0);             // a multiple of 4
@@ -215,13 +233,47 @@ well_block_kernel(long long n_out, long long ncols, int tile, int K,
         const T* v = mv + k * (B * B) + sub * B;
         const T* xk = mx + k * B;
 #pragma unroll
-        for (int c = 0; c < B; ++c) acc += v[c] * xk[c];
+        for (int c = 0; c < B; ++c) {
+          // bfloat16: the exact product, the sum in float
+          if constexpr (kIsBf16<T>)
+            acc = __fadd_rn(acc, __fmul_rn(bf_load(v[c]), bf_load(xk[c])));
+          else
+            acc += v[c] * xk[c];
+        }
       }
     }
     __syncwarp();
   }
   const long long o = i * B + sub;
-  if constexpr (MODE == SPMV || MODE == SPMV_DOTS) {
+  if constexpr (kIsBf16<T>) {
+    // the row sum rounded to bfloat16 once, then f − A x rounded; the
+    // correction's b products of S and the rounded residual exact in
+    // float, summed in c order and rounded, then x + S r rounded: the
+    // TPU kernel's bfloat16 einsums and epilogue (unstructured.py:
+    // 563-565, :611-621) as the JAX package forms them
+    const float ax = bf_round(acc);
+    if constexpr (MODE == SPMV || MODE == SPMV_DOTS) {
+      if (live && sub < B) y[o] = bf_store(ax);
+    } else if constexpr (MODE == RESIDUAL) {
+      if (live && sub < B) y[o] = bf_store(bf_sub(bf_load(f[o]), ax));
+    } else {
+      const float r_own =
+          (live && sub < B) ? bf_sub(bf_load(f[o]), ax) : 0.0f;
+      const int first = (threadIdx.x & 31) - sub;  // the node's lane 0
+      float res[B];
+#pragma unroll
+      for (int c = 0; c < B; ++c)
+        res[c] = __shfl_sync(0xffffffffu, r_own, first + c);
+      if (live && sub < B) {
+        const bf16* S = w + i * (B * B);
+        float c_r = __fmul_rn(bf_load(S[sub * B]), res[0]);
+#pragma unroll
+        for (int c = 1; c < B; ++c)
+          c_r = __fadd_rn(c_r, __fmul_rn(bf_load(S[sub * B + c]), res[c]));
+        y[o] = bf_store(bf_add(bf_load(x[o]), bf_round(c_r)));
+      }
+    }
+  } else if constexpr (MODE == SPMV || MODE == SPMV_DOTS) {
     if (live && sub < B) y[o] = acc;
   } else if constexpr (MODE == RESIDUAL) {
     if (live && sub < B) y[o] = f[o] - acc;
@@ -260,10 +312,6 @@ __device__ __forceinline__ double load1(const double* p) { return __ldg(p); }
 __device__ __forceinline__ float load1(const bf16* p) {
   return bf_load(__ldg(p));
 }
-
-// The type a thread holds a value of T in: T, and float for bfloat16.
-template <typename T> struct Reg { using type = T; };
-template <> struct Reg<bf16> { using type = float; };
 
 template <typename T, int G, int MODE>
 __global__ void __launch_bounds__(kBlock)
@@ -403,8 +451,8 @@ template <typename T, int G>
 cudaError_t launch_scalar(int mode, long long n_out, long long ncols,
                           int tile, int K, const int* starts,
                           const int* cols, const T* vals, const T* x,
-                          const T* f, const T* w, T* y, T* partials, T* dots,
-                          int nblocks, cudaStream_t s) {
+                          const T* f, const T* w, T* y, Acc<T>* partials,
+                          T* dots, int nblocks, cudaStream_t s) {
   switch (mode) {
     case SPMV:
       well_scalar_kernel<T, G, SPMV><<<nblocks, kBlock, 0, s>>>(
@@ -433,7 +481,7 @@ template <typename T, int B, int G>
 cudaError_t launch_block(int mode, long long n_out, long long ncols,
                          int tile, int K, const int* starts, const int* cols,
                          const T* vals, const T* x, const T* f, const T* w,
-                         T* y, T* partials, T* dots, int nblocks,
+                         T* y, Acc<T>* partials, T* dots, int nblocks,
                          cudaStream_t s) {
   switch (mode) {
     case SPMV:
@@ -463,7 +511,7 @@ template <typename T, int B>
 cudaError_t launch(int mode, int lanes, long long n_out, long long ncols,
                    int tile, int K, const int* starts, const int* cols,
                    const T* vals, const T* x, const T* f, const T* w, T* y,
-                   T* partials, T* dots, int nblocks, cudaStream_t s) {
+                   Acc<T>* partials, T* dots, int nblocks, cudaStream_t s) {
   switch (lanes) {
     case 4:
       return launch_block<T, B, 4>(mode, n_out, ncols, tile, K, starts,
@@ -478,72 +526,11 @@ cudaError_t launch(int mode, int lanes, long long n_out, long long ncols,
   }
 }
 
-// The bfloat16 modes of the scalar kernel: SPMV, RESIDUAL and CORRECTION
-// (a bfloat16 hierarchy's levels) and SPMV_DOTS (a bfloat16 Krylov loop:
-// y as SPMV forms it, then the dots in float32, each rounded once).
-template <int G>
-cudaError_t launch_scalar_bf16(int mode, long long n_out, long long ncols,
-                               int tile, int K, const int* starts,
-                               const int* cols, const bf16* vals,
-                               const bf16* x, const bf16* f, const bf16* w,
-                               bf16* y, float* partials, bf16* dots,
-                               int nblocks, cudaStream_t s) {
-  switch (mode) {
-    case SPMV:
-      well_scalar_kernel<bf16, G, SPMV><<<nblocks, kBlock, 0, s>>>(
-          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
-      break;
-    case RESIDUAL:
-      well_scalar_kernel<bf16, G, RESIDUAL><<<nblocks, kBlock, 0, s>>>(
-          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
-      break;
-    case CORRECTION:
-      well_scalar_kernel<bf16, G, CORRECTION><<<nblocks, kBlock, 0, s>>>(
-          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
-      break;
-    case SPMV_DOTS:
-      well_scalar_kernel<bf16, G, SPMV><<<nblocks, kBlock, 0, s>>>(
-          n_out, ncols, tile, K, starts, cols, vals, x, f, w, y);
-      launch_dots<bf16, 1>(n_out, y, x, w, partials, dots, s);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-cudaError_t run_scalar_bf16(int mode, int lanes, long long n_out,
-                            long long ncols, int tile, int K,
-                            const int* starts, const int* cols,
-                            const bf16* vals, const bf16* x, const bf16* f,
-                            const bf16* w, bf16* y, float* partials,
-                            bf16* dots, int nblocks, cudaStream_t s) {
-  if (tile <= 0 || K <= 0 || lanes <= 0 || kBlock % lanes ||
-      static_cast<long long>(nblocks) * (kBlock / lanes) < n_out || K % 4)
-    return cudaErrorInvalidValue;
-  switch (lanes) {
-    case 1:
-      return launch_scalar_bf16<1>(mode, n_out, ncols, tile, K, starts, cols,
-                                   vals, x, f, w, y, partials, dots, nblocks,
-                                   s);
-    case 2:
-      return launch_scalar_bf16<2>(mode, n_out, ncols, tile, K, starts, cols,
-                                   vals, x, f, w, y, partials, dots, nblocks,
-                                   s);
-    case 4:
-      return launch_scalar_bf16<4>(mode, n_out, ncols, tile, K, starts, cols,
-                                   vals, x, f, w, y, partials, dots, nblocks,
-                                   s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 template <typename T>
 cudaError_t run(int mode, int b, int lanes, long long n_out, long long ncols,
                 int tile, int K, const int* starts, const int* cols,
                 const T* vals, const T* x, const T* f, const T* w, T* y,
-                T* partials, T* dots, int nblocks, cudaStream_t s) {
+                Acc<T>* partials, T* dots, int nblocks, cudaStream_t s) {
   if (tile <= 0 || K <= 0 || lanes <= 0 || kBlock % lanes ||
       static_cast<long long>(nblocks) * (kBlock / lanes) < n_out ||
       K % 4)
@@ -584,8 +571,8 @@ cudaError_t run(int mode, int b, int lanes, long long n_out, long long ncols,
 }  // namespace
 }  // namespace amgcl_port
 
-// dtype: 0 = float32, 1 = float64, 2 = bfloat16 (b = 1 only, its
-// partials float32); b: the block size (1, 2, 3 or 4);
+// dtype: 0 = float32, 1 = float64, 2 = bfloat16 (its partials
+// float32); b: the block size (1, 2, 3 or 4);
 // lanes: threads per row, 1, 2 or 4 for b = 1, and per node, 4 or 8 for
 // b > 1; K a multiple of 4 and cols and vals on 16-byte boundaries (the
 // wrapper checks the bases). n_out nodes are
@@ -625,17 +612,13 @@ extern "C" int amgcl_well_block(int dtype, int mode, int b, int lanes,
                        static_cast<double*>(y),
                        static_cast<double*>(partials),
                        static_cast<double*>(dots), nblocks, s);
-  if (dtype == 2) {
-    // bfloat16: the scalar kernel's four modes
-    if (b != 1) return cudaErrorInvalidValue;
-    return run_scalar_bf16(mode, lanes, n_out, ncols, tile, K, st, cl,
-                           static_cast<const bf16*>(vals),
-                           static_cast<const bf16*>(x),
-                           static_cast<const bf16*>(f),
-                           static_cast<const bf16*>(w),
-                           static_cast<bf16*>(y),
-                           static_cast<float*>(partials),
-                           static_cast<bf16*>(dots), nblocks, s);
-  }
+  if (dtype == 2)
+    return run<bf16>(mode, b, lanes, n_out, ncols, tile, K, st, cl,
+                     static_cast<const bf16*>(vals),
+                     static_cast<const bf16*>(x),
+                     static_cast<const bf16*>(f),
+                     static_cast<const bf16*>(w), static_cast<bf16*>(y),
+                     static_cast<float*>(partials),
+                     static_cast<bf16*>(dots), nblocks, s);
   return cudaErrorInvalidValue;
 }

@@ -109,14 +109,38 @@ def csr_to_dense_window(A: CSR, dtype=torch.float32, budget=None, why=None,
     device = resolve_device(device)
     flat = rows * win + (A.col.astype(np.int64) - starts[tiles])
     blocks = torch.zeros(n_tiles * _TILE * win, dtype=dtype, device=device)
-    # accumulate: a duplicated (row, col) entry sums, as the reference's
-    # one-hot build adds it
-    blocks.index_put_(
-        (torch.as_tensor(flat, device=device),),
-        torch.as_tensor(A.val, device=device).to(dtype), accumulate=True)
+    if dtype == torch.bfloat16:
+        _add_in_slot_order(blocks, flat, A.val)
+    else:
+        # accumulate: a duplicated (row, col) entry sums, as the
+        # reference's one-hot build adds it
+        blocks.index_put_(
+            (torch.as_tensor(flat, device=device),),
+            torch.as_tensor(A.val, device=device).to(dtype),
+            accumulate=True)
     if budget is not None:
         # cannot fail: `need` was checked against remaining() above
         budget.try_charge(need)
     return DenseWindowMatrix(
         torch.as_tensor(starts.astype(np.int32), device=device),
         blocks.reshape(n_tiles, _TILE, win), A.shape, win)
+
+
+def _add_in_slot_order(blocks, flat, val):
+    """Add the CSR values ``val`` into bfloat16 ``blocks`` at ``flat`` as
+    the reference's one-hot build does (amgcl_tpu/ops/densewin.py:370-381):
+    each value rounded to bfloat16 through float32 on the host, and the
+    duplicates of one (row, column) added in their CSR order, each sum
+    rounded to bfloat16, on any device (an accumulating index_put_ sums
+    duplicates in float32 on CUDA and so rounds once)."""
+    v = torch.as_tensor(np.asarray(val, np.float32)).to(torch.bfloat16)
+    order = np.argsort(flat, kind="stable")
+    fs = flat[order]
+    first = np.r_[True, fs[1:] != fs[:-1]]
+    start = np.maximum.accumulate(np.where(first, np.arange(len(fs)), 0))
+    rank = np.empty(len(fs), np.int64)
+    rank[order] = np.arange(len(fs)) - start
+    for r in range(int(rank.max()) + 1 if len(rank) else 0):
+        sel = np.flatnonzero(rank == r)
+        idx = torch.as_tensor(flat[sel], device=blocks.device)
+        blocks[idx] = blocks[idx] + v[sel].to(blocks.device)

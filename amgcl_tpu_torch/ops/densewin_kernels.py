@@ -13,10 +13,17 @@ window_starts[t] + j]``. A window may reach past the end of x; the
 entries there are zero, and the TPU kernel reads them against x padded
 with ``win`` zeros.
 
+Every wrapper also takes bfloat16 blocks and vectors (a bfloat16
+hierarchy in the dense-window format) in the JAX package's bfloat16
+arithmetic: each product exact in float32, a row's sum in float32 and
+rounded once, then f − A x, w ∘ r and x + w ∘ r each rounded. The plain
+version sums a row in the kernel's order, so the two agree bit for bit.
+
 Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it checks device, dtype, shape and contiguity and launches
-the kernel, or raises. ``<wrapper>.launches`` counts kernel launches and
-``<plain>.calls`` counts plain-version calls.
+the kernel, or raises. ``<wrapper>.launches`` counts kernel launches
+(``<wrapper>.bf16_launches`` those in bfloat16) and ``<plain>.calls``
+counts plain-version calls.
 """
 
 from __future__ import annotations
@@ -26,7 +33,8 @@ from typing import NamedTuple
 import torch
 
 from amgcl_tpu_torch.ops import cuda_lib
-from amgcl_tpu_torch.ops.dia_kernels import _DTYPE_CODE, _check_vec
+from amgcl_tpu_torch.ops.dia_kernels import (_check_vec, count_launch,
+                                             dtype_code)
 
 _SPMV, _RESIDUAL, _CORRECTION = range(3)
 
@@ -34,6 +42,8 @@ _TILE = 64                 # rows per tile: the kernel's block
 _WARPS = 8                 # warps of a block
 #: bytes of one buffer of the staged x window
 _CHUNK_BYTES = 8192
+#: bfloat16 values in one 16-byte vector of the kernel
+_VEC_BF16 = 8
 
 
 # -- plain versions -----------------------------------------------------------
@@ -48,13 +58,46 @@ def _promoted(*tensors):
 def _product(window_starts, blocks, x, n_out, out):
     """(A x)[:n_out] in the reference's ``_mv_xla`` arithmetic: each tile's
     window of x (x padded with ``win`` zeros) times its block, summed over
-    the window, at the dtype ``out``."""
+    the window, at the dtype ``out``; in bfloat16 in the kernel's order
+    (:func:`_bf16_row_sums`)."""
     n_tiles, tile, win = blocks.shape
     xp = torch.cat([x, x.new_zeros(win)])
     cols = window_starts.to(torch.int64)[:, None] \
         + torch.arange(win, device=x.device)
+    if out == torch.bfloat16:
+        return _bf16_row_sums(blocks, xp[cols]).reshape(-1)[:n_out]
     y = (blocks.to(out) * xp[cols].to(out)[:, None, :]).sum(dim=2)
     return y.reshape(-1)[:n_out]
+
+
+def _bf16_row_sums(blocks, xw):
+    """The bfloat16 row sums of (n_tiles, tile, win) blocks against each
+    tile's (win,) window ``xw``: each product exact in float32, as the JAX
+    package forms the TPU kernel's bfloat16 product and ``jnp.sum`` on the
+    CPU (densewin.py:231-233), summed in float32 in the kernel's order
+    (lane l of a warp adds the 8-value vectors l, l + 32, ... of the row
+    in column order, then an xor tree over the 32 lanes) and rounded
+    once, so that the kernel's bfloat16 mode is bit for bit with it."""
+    n_tiles, tile, win = blocks.shape
+    steps = -(-win // (_VEC_BF16 * 32))
+    p = blocks.float() * xw.float()[:, None, :]
+    pad = steps * 32 * _VEC_BF16 - win
+    if pad:
+        # padding columns add +0, which leaves a sum that started at +0 as
+        # it is
+        p = torch.nn.functional.pad(p, (0, pad))
+    # (step, value of the vector, tile, row, lane), the order of the adds
+    p = p.reshape(n_tiles, tile, steps, 32, _VEC_BF16) \
+        .permute(2, 4, 0, 1, 3).reshape(steps * _VEC_BF16, n_tiles, tile,
+                                        32).contiguous()
+    acc = torch.zeros((n_tiles, tile, 32), dtype=torch.float32,
+                      device=blocks.device)
+    for q in range(p.shape[0]):
+        acc += p[q]
+    lanes = torch.arange(32, device=blocks.device)
+    for m in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, :, lanes ^ m]
+    return acc[:, :, 0].to(torch.bfloat16)
 
 
 def dense_window_spmv_plain(window_starts, blocks, x, n_out):
@@ -97,9 +140,11 @@ class Geometry(NamedTuple):
 def launch_geometry(n_tiles, win, itemsize):
     """A block of 8 warps per 64-row tile, 8 rows a warp, and the x window
     staged in chunks: ``_CHUNK_BYTES`` of columns (2,048 float32, 1,024
-    float64), or the window rounded up to 128 columns where it is
-    narrower, double-buffered."""
-    chunk = min(-(-int(win) // 128) * 128, _CHUNK_BYTES // itemsize)
+    float64, 4,096 bfloat16), or the window rounded up to 128 columns (256
+    in bfloat16: a chunk holds a multiple of 32 of the lanes' 16-byte
+    vectors) where it is narrower, double-buffered."""
+    align = 32 * max(4, 16 // int(itemsize))
+    chunk = min(-(-int(win) // align) * align, _CHUNK_BYTES // itemsize)
     return Geometry(_TILE // _WARPS, int(n_tiles), chunk,
                     2 * chunk * itemsize)
 
@@ -110,9 +155,7 @@ def _launch(mode, window_starts, blocks, x, n_out, f=None, w=None):
     if blocks.device.type != "cuda":
         raise ValueError("dense-window kernels run on CUDA tensors, got "
                          "blocks on %s" % blocks.device)
-    if blocks.dtype not in _DTYPE_CODE:
-        raise ValueError("dense-window kernels take float32 or float64, "
-                         "got %s" % blocks.dtype)
+    code = dtype_code(blocks.dtype, "dense-window kernels")
     if blocks.dim() != 3 or not blocks.is_contiguous():
         raise ValueError("blocks must be a contiguous (n_tiles, tile, win) "
                          "tensor")
@@ -157,7 +200,7 @@ def _launch(mode, window_starts, blocks, x, n_out, f=None, w=None):
     with torch.cuda.device(blocks.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = cuda_lib.lib().amgcl_densewin(
-            _DTYPE_CODE[blocks.dtype], mode, n_out, ncols, geo.nblocks,
+            code, mode, n_out, ncols, geo.nblocks,
             tile, win, geo.chunk, window_starts.data_ptr(),
             blocks.data_ptr(), x.data_ptr(), ptr(f), ptr(w), y.data_ptr(),
             stream)
@@ -172,7 +215,7 @@ def dense_window_spmv(window_starts, blocks, x, n_out):
     if x.device.type == "cpu":
         return dense_window_spmv_plain(window_starts, blocks, x, n_out)
     y = _launch(_SPMV, window_starts, blocks, x, n_out)
-    dense_window_spmv.launches += 1
+    count_launch(dense_window_spmv, y.dtype)
     return y
 
 
@@ -182,7 +225,7 @@ def dense_window_residual(window_starts, blocks, f, x, n_out):
         return dense_window_residual_plain(window_starts, blocks, f, x,
                                            n_out)
     r = _launch(_RESIDUAL, window_starts, blocks, x, n_out, f=f)
-    dense_window_residual.launches += 1
+    count_launch(dense_window_residual, r.dtype)
     return r
 
 
@@ -192,10 +235,11 @@ def dense_window_scaled_correction(window_starts, blocks, w, f, x, n_out):
         return dense_window_scaled_correction_plain(window_starts, blocks,
                                                     w, f, x, n_out)
     y = _launch(_CORRECTION, window_starts, blocks, x, n_out, f=f, w=w)
-    dense_window_scaled_correction.launches += 1
+    count_launch(dense_window_scaled_correction, y.dtype)
     return y
 
 
 for _fn in (dense_window_spmv, dense_window_residual,
             dense_window_scaled_correction):
     _fn.launches = 0
+    _fn.bf16_launches = 0

@@ -229,29 +229,7 @@ def to_device(A, fmt: str = "auto", dtype=torch.float32, device=None,
     takes ELL where both decline. The JAX package's dense-window format,
     which it tries only on a TPU, is never picked here. A block matrix
     (BCSR) is never made dense or DIA by auto (amgcl_tpu/ops/device.py:
-    472, 510): windowed ELL, else ELL. In
-    bfloat16, dense window and block windowed ELL raise
-    NotImplementedError (ROADMAP B.20, B.19)."""
-    # a bfloat16 format whose kernels have no bfloat16 mode is refused
-    # when it is built, not when a wrapper meets it
-    if dtype == torch.bfloat16 and fmt == "dwin":
-        _refuse_bf16(DenseWindowMatrix, "dense-window kernels B.14/B.15 "
-                     "(ROADMAP B.20)")
-    M = _to_device(A, fmt, dtype, device, budget)
-    if M.dtype == torch.bfloat16 and isinstance(M, WindowedEllMatrix) \
-            and M.block != (1, 1):
-        _refuse_bf16(WindowedEllMatrix, "block windowed-ELL kernels "
-                     "B.11-B.13 (ROADMAP B.19)")
-    return M
-
-
-def _refuse_bf16(kind, what):
-    raise NotImplementedError(
-        "a bfloat16 %s operator needs the bfloat16 mode of the %s, which "
-        "is not ported yet" % (kind.__name__, what))
-
-
-def _to_device(A, fmt, dtype, device, budget):
+    472, 510): windowed ELL, else ELL."""
     from amgcl_tpu_torch.ops.stencil import HostDia
     device = resolve_device(device)
     if isinstance(A, HostDia):

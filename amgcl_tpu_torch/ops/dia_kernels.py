@@ -180,18 +180,15 @@ def _check_vec(name, v, n, ref):
                        v.dtype, v.device))
 
 
-def dtype_code(dtype, what, bf16=True, item=None):
-    """The C entries' code of ``dtype``; bfloat16 only where ``bf16``
-    (a kernel with a bfloat16 mode), else a ValueError naming ``what``
-    and, for bfloat16, the ROADMAP ``item`` of its bfloat16 mode."""
+def dtype_code(dtype, what):
+    """The C entries' code of ``dtype``, else a ValueError naming
+    ``what``."""
     if dtype in _DTYPE_CODE:
         return _DTYPE_CODE[dtype]
-    if dtype == torch.bfloat16 and bf16:
+    if dtype == torch.bfloat16:
         return BF16_CODE
-    raise ValueError("%s take float32 or float64%s, got %s" % (
-        what, " or bfloat16" if bf16 else
-        " (their bfloat16 mode is ROADMAP %s)" % item
-        if item and dtype == torch.bfloat16 else "", dtype))
+    raise ValueError("%s take float32, float64 or bfloat16, got %s"
+                     % (what, dtype))
 
 
 def _check_operands(data, x, f, w):

@@ -102,7 +102,7 @@ def gather_spmv(window_starts, cols_local, vals, x, n_out):
     if x.device.type == "cpu":
         return gather_spmv_plain(window_starts, cols_local, vals, x, n_out)
     _, tile, K, n_out = check_geometry(window_starts, cols_local, vals,
-                                       n_out, block=False, bf16=True)
+                                       n_out, block=False)
     geo = launch_geometry(n_out, K)
     if cols_local.data_ptr() % 16 or vals.data_ptr() % 16:
         raise ValueError("the gather kernel takes cols_local and vals on "

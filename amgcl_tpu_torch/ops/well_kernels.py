@@ -133,20 +133,17 @@ for _fn in (windowed_ell_spmv_plain, windowed_ell_residual_plain,
 
 # -- kernel launch ------------------------------------------------------------
 
-def check_geometry(window_starts, cols_local, vals, n_out, block,
-                   bf16=False, item=None):
-    """Validate the windowed-ELL storage a kernel is handed: CUDA float32
-    or float64 ``vals`` (or bfloat16 where ``bf16``: a kernel with a
-    bfloat16 mode) of shape (n_tiles, tile, K), with trailing (b, b)
-    dims when ``block``, and the int32 ``cols_local`` and
+def check_geometry(window_starts, cols_local, vals, n_out, block):
+    """Validate the windowed-ELL storage a kernel is handed: CUDA float32,
+    float64 or bfloat16 ``vals`` of shape (n_tiles, tile, K), with
+    trailing (b, b) dims when ``block``, and the int32 ``cols_local`` and
     ``window_starts`` beside it on the same device; ``n_out`` rows (or
-    nodes) in the last tile. Returns (n_tiles, tile, K, n_out); a
-    refused bfloat16 names the ROADMAP ``item`` of its mode."""
+    nodes) in the last tile. Returns (n_tiles, tile, K, n_out)."""
     what = "block windowed-ELL" if block else "windowed-ELL"
     if vals.device.type != "cuda":
         raise ValueError("%s kernels run on CUDA tensors, got vals on %s"
                          % (what, vals.device))
-    dtype_code(vals.dtype, "these %s kernels" % what, bf16, item)
+    dtype_code(vals.dtype, "these %s kernels" % what)
     if vals.dim() != (5 if block else 3) or not vals.is_contiguous():
         raise ValueError("vals must be a contiguous (n_tiles, tile, K%s) "
                          "tensor" % (", br, bc" if block else ""))
@@ -207,10 +204,8 @@ def _launch(mode, window_starts, cols_local, vals, x, n_out, f=None, w=None,
     scalar one for scalar values; returns (y, dots) with dots a (3,)
     tensor or None. For block values ``w`` is the (n_out, b, b) scale of
     the correction, and otherwise a vector."""
-    # the scalar kernel has a bfloat16 mode
-    _, tile, K, n_out = check_geometry(
-        window_starts, cols_local, vals, n_out, block, bf16=not block,
-        item="B.19")
+    _, tile, K, n_out = check_geometry(window_starts, cols_local, vals,
+                                       n_out, block)
     b = 1
     if block:
         br, bc = vals.shape[3:]

@@ -381,35 +381,29 @@ class DistStencilHierarchy:
 def dist_stencil_build(A: CSR, mesh: Mesh, prm, rep_coarse_enough=3000):
     """Sharded hierarchy construction. Returns ``(DistStencilHierarchy,
     per-level row counts)``, or None when the system or configuration
-    lies outside the sharded stencil path: no grid, a z extent that does
-    not split into even slabs, block or complex values, a dtype other than
-    float32, a coarsening other than smoothed aggregation or one with a
-    field the device builds decline (``stencil_device.sa_fields_allow``).
-    A smoother other than SPAI-0 and damped Jacobi raises
-    NotImplementedError: the JAX package sends those to its ``DistAMG``,
-    which is not ported yet (ROADMAP A.12); so does a bfloat16 hierarchy
-    (its framed legs are ROADMAP B.18)."""
+    lies outside the sharded stencil path, as the reference's declines
+    (amgcl_tpu/parallel/dist_stencil.py:707-732), in its order: a
+    coarsening other than smoothed aggregation or one with a field the
+    device builds decline (``stencil_device.sa_fields_allow``), block or
+    complex values, a dtype other than float32 (bfloat16 too), a smoother
+    other than SPAI-0 and damped Jacobi, no grid, a z extent that does not
+    split into even slabs, a stencil of too many diagonals. The JAX
+    package sends no such call elsewhere: its DistStencilSolver raises
+    ValueError, as the port's does; a caller builds a distributed AMG
+    solver itself (ROADMAP A.12)."""
     from amgcl_tpu_torch.coarsening.smoothed_aggregation import \
         SmoothedAggregation
     from amgcl_tpu_torch.models.amg import AMG
     from amgcl_tpu_torch.ops.structured import detect_grid_csr
 
     c = prm.coarsening
-    if prm.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "a bfloat16 sharded hierarchy needs the bfloat16 mode of the "
-            "framed legs, which is not ported yet (ROADMAP B.18, with the "
-            "bfloat16 distributed hierarchy of A.12)")
     if type(c) is not SmoothedAggregation or not sa_fields_allow(c):
         return None
     if A.is_block or np.iscomplexobj(A.val) or prm.dtype != torch.float32:
         return None
     damping = smoother_damping(prm.relax)
     if damping is False:
-        raise NotImplementedError(
-            "the sharded stencil path smooths with SPAI-0 or damped Jacobi; "
-            "the JAX package sends %s to its DistAMG, which is not ported "
-            "yet (ROADMAP A.12)" % type(prm.relax).__name__)
+        return None
     grid = detect_grid_csr(A)
     if grid is None:
         return None

@@ -241,6 +241,27 @@ Run from the root of a checkout, with no arguments:
    within one bfloat16 ULP) and timed, its bound in bfloat16 bytes and
    torch's bfloat16 CSR product beside the products. Within 150 s.
 
+17. bfloat16 block and dense-window hierarchies (``P17_PATHS``,
+   ``--phase17`` runs it alone): BFB1 (B1's system and call,
+   ``poisson3d_block(48, 3)``, BiCGStab, refine=3, under
+   ``AMGParams(dtype=bfloat16)``: every A, P and R a bfloat16 3×3 block
+   windowed ELL, the bfloat16 BiCGStab on L0) and BFD2 (D2's system and
+   call under ``AMGParams(dtype=bfloat16, matrix_format="dwin")``: every
+   A, M and Mᵀ a bfloat16 dense window), B1's hierarchies freed before
+   D2's system is built. Each is held to the float32 build's levels
+   (B1_LEVELS, D2_LEVELS), the count window and true-residual limit of
+   ``P17_ITERS``/``P17_TRUE`` (from the JAX package's counts at reduced
+   sizes, ``reference_counts.py --b19``), its bfloat16 modes launched and
+   zero plain-version calls, and prints its set-up, warm solve, busy
+   share and peak memory beside the float32 build's. Then each new
+   bfloat16 mode is held against its plain version on the path's
+   operators (B.11–B.13 at L0 P, L0 R, L0 A, L1 A and on L0 A's
+   structure with random blocks and a random non-symmetric scale;
+   B.14/B.15 at L0 and L1; vectors bit for bit, dots within one
+   bfloat16 ULP) and timed beside its bound in bfloat16 bytes and
+   torch's bfloat16 BSR or CSR product, ``torch.bmm`` or
+   ``torch.baddbmm``. Within 120 s.
+
 With the device setup as the default, the windows of the paths whose
 host-loop levels it changes come from the JAX package's counts under its
 device setup at full size (note at MAIN_LEVEL_ROWS); D2 and N1 decline
@@ -424,7 +445,13 @@ BF16_MODES = ("dia_spmv", "dia_residual", "dia_scaled_correction",
               "windowed_ell_residual", "windowed_ell_scaled_correction",
               "dia_spmv_dots", "dia_residual_dot", "xr_update",
               "bicgstab_tail", "axpby_dot", "windowed_ell_spmv_dots",
-              "gather_spmv")
+              "gather_spmv", "windowed_ell_block_spmv",
+              "windowed_ell_block_residual",
+              "windowed_ell_block_scaled_correction",
+              "windowed_ell_block_spmv_dots", "dense_window_spmv",
+              "dense_window_residual", "dense_window_scaled_correction")
+#: the bfloat16 modes phase 16 holds against their plain versions
+P16_MODES = BF16_MODES[8:15]
 for _k in BF16_MODES:
     REPLACES[_k + ".bf16"] = REPLACES[_k]
 FUSED = ("fused_down_sweep", "fused_up_sweep")
@@ -1482,7 +1509,8 @@ def library_block(M):
     b, K = M.block[0], M.K
     cols = (M.cols_local.long() + M.window_starts.long()[:, None, None]
             ).reshape(-1, K)[:n].cpu().numpy()
-    vals = M.vals.reshape(-1, K, b, b)[:n].cpu().numpy()
+    # through float64 (exact for every dtype): numpy has no bfloat16
+    vals = M.vals.reshape(-1, K, b, b)[:n].double().cpu().numpy()
     keep = (cols < m) & np.any(vals != 0, axis=(2, 3))
     rows = np.repeat(np.arange(n), K).reshape(n, K)[keep]
     order = np.lexsort((cols[keep], rows))
@@ -1490,7 +1518,7 @@ def library_block(M):
     ptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
     idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device="cuda")
     bsr = torch.sparse_bsr_tensor(
-        idx(ptr), idx(cols), torch.as_tensor(vals, device="cuda"),
+        idx(ptr), idx(cols), torch.as_tensor(vals, device="cuda").to(M.dtype),
         size=(n * b, m * b))
     try:
         x = torch.ones(m * b, dtype=M.dtype, device="cuda")
@@ -1505,7 +1533,8 @@ def library_block(M):
     C = sp.bsr_matrix((vals, cols, ptr), shape=(n * b, m * b)).tocsr()
     C.sort_indices()
     return torch.sparse_csr_tensor(
-        idx(C.indptr), idx(C.indices), torch.as_tensor(C.data, device="cuda"),
+        idx(C.indptr), idx(C.indices),
+        torch.as_tensor(C.data, device="cuda").to(M.dtype),
         size=C.shape), "CSR"
 
 
@@ -5165,13 +5194,14 @@ def p16_levels(label, solve):
     return rows
 
 
-def p16_run(label, A, rhs, dtype):
-    """Build and solve (cold, then warm) phase 16's bundle in ``dtype``;
-    returns (solve, x, warm info, setup s, cold s, peak bytes)."""
+def p16_run(label, A, rhs, dtype, make=p16_make):
+    """Build (``make``: phase 16's bundles, or phase 17's) and solve (cold,
+    then warm) the bundle ``label`` in ``dtype``; returns (solve, x, warm
+    info, setup s, cold s, peak bytes)."""
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    solve = p16_make(label, A, dtype)
+    solve = make(label, A, dtype)
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
     _, info = solve(rhs)
@@ -5272,10 +5302,11 @@ def p16_first_pass(solve, rhs):
         solve.refine, solve.solver.record_history = saved
 
 
-def p16_check_first(label, solve, rhs, faults):
-    """Hold the first refinement pass (P16_FIRST), its launches not
-    counted; returns its summary."""
-    want, rel = P16_FIRST[label]
+def p16_check_first(label, solve, rhs, faults, first=None):
+    """Hold the first refinement pass to ``first`` ((history, relative
+    tolerance); P16_FIRST's by default), its launches not counted;
+    returns its summary."""
+    want, rel = first or P16_FIRST[label]
     with counts_paused():
         _, info = p16_first_pass(solve, rhs)
     got = [float(v) for v in info.history[:len(want)]]
@@ -5294,6 +5325,58 @@ def p16_check_first(label, solve, rhs, faults):
             "apart": apart}
 
 
+def hold_bf16_mode(records, failures, name, label, args, nvec, nbytes,
+                   ops, lib, shape):
+    """One bfloat16 mode of kernel ``name`` against its plain version on
+    ``args``: the first ``nvec`` outputs (vectors) bit for bit, the rest
+    (dots) within one bfloat16 ULP; kernel, plain version and the library
+    call ``lib`` (or None) timed as in check_kernels, the bound from
+    ``nbytes`` and ``ops`` in bfloat16. The first case of a mode is its
+    record in ``records`` (``<name>.bf16``), the later ones its
+    ``more``."""
+    kern, plain = wrappers()[name]
+    got, want = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    same = all(torch.equal(g, p_) for g, p_ in zip(got[:nvec], want[:nvec]))
+    pairs = [(g, p_) for g, p_ in zip(got[nvec:], want[nvec:])
+             if g is not None]
+    ulps = max([bf16_ulps(g.reshape(1), p_.reshape(1)) for g, p_ in pairs]
+               or [0])
+    err = max(float((g.float() - p_.float()).abs().max())
+              for g, p_ in zip(got, want) if g is not None)
+    ok = same and ulps <= 1
+    del got, want
+    lib_ms = None
+    if lib is not None:
+        try:
+            lib_ms = time_ms(lib)
+        except RuntimeError as e:          # a yardstick, not the port
+            print("library call for %s.bf16 unavailable: %s"
+                  % (name, str(e).splitlines()[0]))
+    r = {"max_abs_err": err, "ms": time_ms(lambda: kern(*args)),
+         "plain_ms": time_ms(lambda: plain(*args)), "library_ms": lib_ms}
+    r["bound_ms"], r["bound_by"] = bound(nbytes, ops, torch.bfloat16)
+    key = name + ".bf16"
+    print("%-30s %-12s vectors %s, dots %d ulps, err %.3e  ms %.4f  "
+          "plain %.4f  library %s  bound %.4f (%s)  %s" % (
+              key, label, "bit for bit" if same else "DIFFER", ulps,
+              err, r["ms"], r["plain_ms"], "%.4f" % r["library_ms"]
+              if r["library_ms"] is not None else "none", r["bound_ms"],
+              r["bound_by"], "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("%s %s disagrees with its plain version"
+                        % (key, label))
+    if key not in records:           # the first case: the path's L0
+        records[key] = {k: r[k] for k in RECORD_KEYS}
+        records[key].update(ulps=ulps, shape=shape)
+    else:
+        records[key].setdefault("more", {})[label] = {
+            "ms": r["ms"], "ulps": ulps, "bound_ms": r["bound_ms"],
+            "plain_ms": r["plain_ms"], "library_ms": r["library_ms"]}
+
+
 def check_p16_kernels(keep, failures):
     """Each new bfloat16 mode against its plain version on the paths' own
     operators (BFK1's L0 and L1 DIA A, BFK2's L0 windowed-ELL A, BFG1's L0
@@ -5302,7 +5385,6 @@ def check_p16_kernels(keep, failures):
     check_kernels, the bound in bfloat16 bytes, and torch's bfloat16 CSR
     product as the yardstick of the products. Returns the records, keyed
     ``<name>.bf16``."""
-    W = wrappers()
     rng = np.random.RandomState(20261020)
     bf = torch.bfloat16
     records = {}
@@ -5314,49 +5396,9 @@ def check_p16_kernels(keep, failures):
     def scalar(v):
         return torch.tensor(v, dtype=bf, device="cuda")
 
-    def lib_time(name, fn):
-        try:
-            return time_ms(fn)
-        except RuntimeError as e:          # a yardstick, not the port
-            print("library call for %s.bf16 unavailable: %s"
-                  % (name, str(e).splitlines()[0]))
-            return None
-
     def run(name, label, args, nvec, nbytes, ops, lib, shape):
-        kern, plain = W[name]
-        got, want = kern(*args), plain(*args)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        same = all(torch.equal(g, p_) for g, p_ in
-                   zip(got[:nvec], want[:nvec]))
-        pairs = [(g, p_) for g, p_ in zip(got[nvec:], want[nvec:])
-                 if g is not None]
-        ulps = max([bf16_ulps(g.reshape(1), p_.reshape(1))
-                    for g, p_ in pairs] or [0])
-        err = max(float((g.float() - p_.float()).abs().max())
-                  for g, p_ in zip(got, want) if g is not None)
-        ok = same and ulps <= 1
-        r = {"max_abs_err": err, "ms": time_ms(lambda: kern(*args)),
-             "plain_ms": time_ms(lambda: plain(*args)),
-             "library_ms": None if lib is None else lib_time(name, lib)}
-        r["bound_ms"], r["bound_by"] = bound(nbytes, ops, bf)
-        key = name + ".bf16"
-        print("%-30s %-12s vectors %s, dots %d ulps, err %.3e  ms %.4f  "
-              "plain %.4f  library %s  bound %.4f (%s)  %s" % (
-                  key, label, "bit for bit" if same else "DIFFER", ulps,
-                  err, r["ms"], r["plain_ms"], "%.4f" % r["library_ms"]
-                  if r["library_ms"] is not None else "none", r["bound_ms"],
-                  r["bound_by"], "ok" if ok else "FAIL"))
-        if not ok:
-            failures.append("%s %s disagrees with its plain version"
-                            % (key, label))
-        if key not in records:           # the first case: the path's L0
-            records[key] = {k: r[k] for k in RECORD_KEYS}
-            records[key].update(ulps=ulps, shape=shape)
-        else:
-            records[key].setdefault("more", {})[label] = {
-                "ms": r["ms"], "ulps": ulps, "bound_ms": r["bound_ms"]}
+        hold_bf16_mode(records, failures, name, label, args, nvec, nbytes,
+                       ops, lib, shape)
 
     L = keep["BFK1"].precond.hierarchy.levels
     for i in (0, 1):
@@ -5447,7 +5489,7 @@ def p16_family(failures, only=None):
     records = {}
     if set(keep) == set(P16_PATHS):
         records = check_p16_kernels(keep, failures)
-        missing = [k + ".bf16" for k in BF16_MODES[8:]
+        missing = [k + ".bf16" for k in P16_MODES
                    if k + ".bf16" not in records]
         if missing:
             failures.append("phase 16: no record of %s" % missing)
@@ -5459,6 +5501,380 @@ def p16_family(failures, only=None):
     if only is None and secs > P16_LIMIT_S:
         failures.append("phase 16 took %.1f s, over its %.0f s"
                         % (secs, P16_LIMIT_S))
+    return counts, summary, records
+
+# -- phase 17: bfloat16 block and dense-window hierarchies -------------------
+
+P17_PATHS = {
+    "BFB1": ("block", "B1's call, poisson3d_block(48, 3), BiCGStab("
+             "maxiter=200, tol=1e-6), refine=3, AMGParams(dtype=bfloat16)"),
+    "BFD2": ("fe", "D2's call, U2's system (RCM order), BiCGStab(maxiter="
+             "100, tol=1e-6, precond_side='left'), refine=3, AMGParams("
+             "dtype=bfloat16, matrix_format='dwin')"),
+}
+#: the bfloat16 modes each phase-17 path must launch
+P17_KERNELS = {
+    "BFB1": ("windowed_ell_block_spmv.bf16",
+             "windowed_ell_block_residual.bf16",
+             "windowed_ell_block_scaled_correction.bf16",
+             "windowed_ell_block_spmv_dots.bf16"),
+    "BFD2": ("dense_window_spmv.bf16", "dense_window_residual.bf16",
+             "dense_window_scaled_correction.bf16"),
+}
+#: each path's count window (lo, hi), summed over the refinement's 1 + 3
+#: solves, and its true relative residual limit (host float64), from the
+#: JAX package's counts of the same calls at reduced sizes
+#: (``reference_counts.py --b19``; PERF.md §4: no full-size JAX run).
+#: Both packages gave the same count on all six rhs: BFB1 23 at 16³ with
+#: coarse_enough=300 and 21 at 24³ (float32 11 at both; at full size the
+#: float32 count is 23, B1_ITERS_REFINED), true residual at most 8.1e-5;
+#: BFD2 67 (port 68) at 6,000 rows (float32 25-29; D2 at full size 50),
+#: true residual 0.27 (port 0.17): its bfloat16 loop stalls under
+#: refinement. Counts grow with the size as the float32 ones do, so each
+#: window runs from the reduced count to about twice that count scaled
+#: by the float32 growth (BFB1 21 · 23/11 ≈ 44; BFD2 67 · 50/27 ≈ 124),
+#: under the cap (1 + refine)·maxiter (800, 400); each residual limit is
+#: 10x the JAX package's largest. BFD2's, which passes any stalled loop,
+#: is held by its first pass (P17_FIRST) as well.
+P17_ITERS = {"BFB1": (21, 100), "BFD2": (67, 300)}
+P17_TRUE = {"BFB1": 8.1e-4, "BFD2": 2.65}
+#: BFD2's first refinement pass at a reduced size, which its full-size
+#: windows cannot hold: D2's call on U2's system cut to P17_FIRST_ROWS
+#: rows (``reference_counts.py --b19``'s BFD2 system) with refine 0, its
+#: first history entries within the tolerance of the port's own on the
+#: CPU (``reference_counts.py --b19 --first BFD2``), the card's kernels
+#: in the loop. At full size the CPU's bfloat16 dense windows are too
+#: slow to give the reference. Three entries: under a 2⁻⁸ rhs
+#: perturbation the first three move by at most 5.3e-3 and the fourth by
+#: 24x in both packages; the JAX package's lie within 3.7e-3 of the
+#: port's there. The tolerance, 0.05, is P16_FIRST's.
+P17_FIRST_ROWS = 6000
+P17_FIRST = ([0.3467741935483871, 0.3741935483870968, 0.30483870967741933],
+             0.05)
+P17_PROFILE_WINDOW = {"BFB1": None, "BFD2": 20}
+P17_LIMIT_S = 120.0
+
+
+def p17_make(label, A, dtype=torch.bfloat16):
+    """Phase 17's bundle ``label`` on ``A`` through make_solver: B1's or
+    D2's call, the hierarchy and the Krylov loop in ``dtype``."""
+    import amgcl_tpu_torch as T
+    if label == "BFB1":
+        return T.make_solver(A, T.AMGParams(dtype=dtype),
+                             T.BiCGStab(maxiter=200, tol=1e-6), refine=3)
+    return T.make_solver(A, T.AMGParams(dtype=dtype, matrix_format="dwin"),
+                         T.BiCGStab(maxiter=100, tol=1e-6,
+                                    precond_side="left"), refine=3)
+
+
+def p17_operators(label, solve):
+    """Each level's operators as (level, tag, matrix): A, P and R on BFB1;
+    A, M and Mᵀ on BFD2."""
+    out = []
+    for i, lv in enumerate(solve.precond.hierarchy.levels):
+        if label == "BFB1":
+            parts = (("A", lv.A), ("P", lv.P), ("R", lv.R))
+        else:
+            parts = (("A", lv.A), ("M", getattr(lv.P, "M", None)),
+                     ("Mt", getattr(lv.R, "Mt", None)))
+        out += [(i, tag, M) for tag, M in parts if M is not None]
+    return out
+
+
+def p17_formats_hold(label, solve):
+    """Print every level operator; True when each is in the path's format
+    (BFB1: a 3×3 block windowed ELL; BFD2: a dense window) and dtype."""
+    from amgcl_tpu_torch.ops.densewin import DenseWindowMatrix
+    from amgcl_tpu_torch.ops.unstructured import WindowedEllMatrix
+    ok = True
+    for i, tag, M in p17_operators(label, solve):
+        if label == "BFB1":
+            good = isinstance(M, WindowedEllMatrix) and M.block == (3, 3)
+            what = "block %s K %d window %d" % (M.block, M.K, M.win) \
+                if hasattr(M, "K") else ""
+        else:
+            good = isinstance(M, DenseWindowMatrix)
+            what = "window %d, %d bytes" % (M.win, M.bytes()) if good \
+                else ""
+        dtype = getattr(M, "dtype", None)
+        ok = ok and good and dtype == torch.bfloat16
+        print("[%s] level %d %s: %s %dx%d %s %s" % (
+            label, i, tag, type(M).__name__, M.shape[0], M.shape[1],
+            str(dtype).split(".")[-1], what))
+    return ok
+
+
+def p17_path(label, A, rhs, failures):
+    """One phase-17 path: set-up, a cold and a warm solve with the counts
+    set to 0 just before the setup and read just after, every level
+    operator checked for its format, the float32 build of the same call
+    built and solved with the counts paused, the warm solve profiled.
+    Returns (counts by dtype, summary, solve)."""
+    faults = []
+    reset_counts()
+    solve, x, info, t_setup, cold, peak = p16_run(
+        label, A, rhs, torch.bfloat16, p17_make)
+    counts, plain_calls = read_counts()
+    rows = [lv.A.shape[0] for lv in solve.precond.hierarchy.levels]
+    if not p17_formats_hold(label, solve):
+        faults.append("a level operator is not a bfloat16 %s"
+                      % ("3x3 block windowed ELL" if label == "BFB1"
+                         else "dense window"))
+    if solve.A_dev is not solve.precond.hierarchy.levels[0].A \
+            or solve.solver_dtype != torch.bfloat16:
+        faults.append("the Krylov loop does not run in bfloat16 on the "
+                      "hierarchy's L0")
+    true_res = true_residual(A, rhs, x)
+    print("[%s] %s: setup %.3f s, %d iterations, reported resid %.3e, true "
+          "%.3e; cold %.4f s, warm %.4f s; peak device memory %.1f MB"
+          % (label, P17_PATHS[label][1], t_setup, info.iters, info.resid,
+             true_res, cold, info.wall_time_s, peak / 2**20))
+    window = P17_PROFILE_WINDOW[label]
+    busy = windowed_busy(label, solve, rhs, info.wall_time_s, window)
+    with counts_paused():
+        s32, x32, info32, setup32, cold32, peak32 = p16_run(
+            label, A, rhs, torch.float32, p17_make)
+        rows32 = [lv.A.shape[0] for lv in s32.precond.hierarchy.levels]
+        busy32 = windowed_busy(label + " float32", s32, rhs,
+                               info32.wall_time_s, window)
+        true32 = true_residual(A, rhs, x32)
+        del s32
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("[%s] float32 hierarchy and loop, the same call: setup %.3f s, "
+          "%d iterations, true resid %.3e, warm %.4f s, peak %.1f MB, busy "
+          "share %s; levels %s" % (
+              label, setup32, info32.iters, true32, info32.wall_time_s,
+              peak32 / 2**20, "not measured" if busy32 is None
+              else "%.3f" % busy32, rows32))
+    want_rows = B1_LEVELS if label == "BFB1" else D2_LEVELS
+    check_levels(label, rows, [], want_rows, [], faults)
+    check_levels(label + " float32", rows32, [], want_rows, [], faults)
+    lo, hi = P17_ITERS[label]
+    print("[%s] iterations: %d (window %d..%d from the JAX package's "
+          "counts); true residual %.3e (limit %.1e)"
+          % (label, info.iters, lo, hi, true_res, P17_TRUE[label]))
+    if not lo <= info.iters <= hi:
+        faults.append("%d iterations, outside %d..%d" % (info.iters, lo, hi))
+    if not true_res <= P17_TRUE[label]:
+        faults.append("true residual %.3e over %.1e" % (true_res,
+                                                        P17_TRUE[label]))
+    split = by_dtype(counts)
+    print("[%s] launches by kernel and dtype (setup + 2 solves): %s"
+          % (label, json.dumps({k: v for k, v in split.items() if v})))
+    print("[%s] plain-version calls: %s" % (label, sum(plain_calls.values())))
+    if any(plain_calls.values()):
+        faults.append("plain versions ran: %s" % plain_calls)
+    for k in P17_KERNELS[label]:
+        if counts[k] == 0:
+            faults.append("bfloat16 mode %s never launched" % k)
+    for f in faults:
+        failures.append("%s: %s" % (label, f))
+    return split, {"setup_s": t_setup, "cold_solve_s": cold,
+                   "warm_solve_s": info.wall_time_s, "iters": info.iters,
+                   "resid": info.resid, "true_resid": true_res,
+                   "peak_mb": peak / 2**20, "busy": busy, "levels": rows,
+                   "float32": {"setup_s": setup32, "iters": info32.iters,
+                               "warm_solve_s": info32.wall_time_s,
+                               "true_resid": true32,
+                               "peak_mb": peak32 / 2**20, "busy": busy32}
+                   }, solve
+
+
+def p17_first_pass(failures):
+    """BFD2's call on the cut system of P17_FIRST, its first pass held to
+    the port's history on the CPU (``p16_check_first``); nothing counted.
+    Returns its summary."""
+    from amgcl_tpu_torch import fe_like_problem
+    from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
+    n = P17_FIRST_ROWS
+    A, rhs = fe_like_problem(n, nnz_target=int(2634905 / 85623 * n))
+    perm = cuthill_mckee(A)
+    A, rhs = permute(A, perm), rhs[perm]
+    faults = []
+    with counts_paused():
+        solve = p17_make("BFD2", A)
+        got = p16_check_first("BFD2 at %d rows" % n, solve, rhs, faults,
+                              P17_FIRST)
+    for f in faults:
+        failures.append("BFD2: %s" % f)
+    return got
+
+
+def check_p17_block_kernels(solve, records, failures):
+    """B.11–B.13 in bfloat16 on BFB1's operators: L0 P, L0 R, L0 A and L1
+    A, and L0 A's structure with random blocks and a random non-symmetric
+    scale (B1's blocks and scales are symmetric, so a kernel that read
+    one transposed would agree on them); the first case of a mode is the
+    float32 record's operator."""
+    rng = np.random.RandomState(20261021)
+    bf = torch.bfloat16
+    L = solve.precond.hierarchy.levels
+    A0 = L[0].A
+    rand_vals = torch.as_tensor(rng.standard_normal(tuple(A0.vals.shape))
+                                ).to(A0.vals) * (A0.vals != 0)
+    A0_rand = type(A0)(A0.window_starts, A0.cols_local, rand_vals, A0.shape,
+                       A0.win, A0.block)
+    S_rand = torch.as_tensor(rng.standard_normal((A0.shape[0], 3, 3))
+                             ).to(device="cuda", dtype=bf)
+    cases = [
+        ("windowed_ell_block_spmv", "BFB1 L0 P", L[0].P, None),
+        ("windowed_ell_block_spmv", "L0 A random", A0_rand, None),
+        ("windowed_ell_block_spmv", "BFB1 L0 R", L[0].R, None),
+        ("windowed_ell_block_spmv", "BFB1 L0 A", A0, None),
+        ("windowed_ell_block_spmv", "BFB1 L1 A", L[1].A, None),
+        ("windowed_ell_block_residual", "BFB1 L0 A", A0, None),
+        ("windowed_ell_block_residual", "L0 A random", A0_rand, None),
+        ("windowed_ell_block_residual", "BFB1 L0 P", L[0].P, None),
+        ("windowed_ell_block_residual", "BFB1 L0 R", L[0].R, None),
+        ("windowed_ell_block_residual", "BFB1 L1 A", L[1].A, None),
+        ("windowed_ell_block_scaled_correction", "BFB1 L0 A", A0,
+         L[0].relax.scale),
+        ("windowed_ell_block_scaled_correction", "L0 A random", A0_rand,
+         S_rand),
+        ("windowed_ell_block_scaled_correction", "BFB1 L1 A", L[1].A,
+         L[1].relax.scale),
+        ("windowed_ell_block_spmv_dots", "BFB1 L0 A w", A0, None),
+        ("windowed_ell_block_spmv_dots", "L0 A random w", A0_rand, None),
+        ("windowed_ell_block_spmv_dots", "BFB1 L0 A", A0, None),
+        ("windowed_ell_block_spmv_dots", "BFB1 L1 A w", L[1].A, None),
+    ]
+    for name, label, M, S in cases:
+        n, m = M.shape
+        b = M.block[0]
+
+        def vec(k):
+            return torch.as_tensor(rng.standard_normal(k)).to(
+                device="cuda", dtype=bf)
+        x, f = vec(m * b), vec(n * b)
+        geo = (M.window_starts, M.cols_local, M.vals)
+        fmt = n * M.K * (4 + b * b * 2) + M.window_starts.numel() * 4
+        nnz = int(((M.vals != 0).flatten(3).any(-1)
+                   & (M.cols_local.long() + M.window_starts.long()[
+                       :, None, None] < m)).sum())
+        mv = 2 * nnz * b * b
+        lib = None
+        if name == "windowed_ell_block_spmv":
+            args, nbytes, ops = geo + (x, n), fmt + (m + n) * b * 2, mv
+            C, kind = library_block(M)
+            lib = lambda: torch.mv(C, x)
+        elif name == "windowed_ell_block_residual":
+            args = geo + (f, x, n)
+            nbytes, ops = fmt + (m + 2 * n) * b * 2, mv + n * b
+            C, kind = library_block(M)
+            lib = lambda: torch.addmv(f, C, x, alpha=-1.0)
+        elif name == "windowed_ell_block_scaled_correction":
+            args = geo + (S, f, x, n)
+            nbytes = fmt + (m + 2 * n) * b * 2 + n * b * b * 2
+            ops = mv + n * b + 2 * n * b * b + n * b
+        else:
+            w = vec(n * b) if label.endswith(" w") else None
+            args = geo + (x, w, n)
+            nbytes = fmt + (m + n + (n if w is not None else 0)) * b * 2
+            ops = mv + (6 if w is not None else 4) * n * b
+        shape = "%s %dx%d nodes of 3x3, K %d, window %d, bfloat16%s" % (
+            label, n, m, M.K, M.win, "; library: torch %s" % kind
+            if lib is not None else "")
+        hold_bf16_mode(records, failures, name, label, args, 1, nbytes,
+                       ops, lib, shape)
+        C = lib = None
+
+
+def check_p17_densewin_kernels(solve, records, failures):
+    """B.14/B.15 in bfloat16 on BFD2's L0 and L1 operators with their own
+    SPAI-0 scales, the SpMV beside torch.bmm and the residual beside
+    torch.baddbmm over the tiles' x windows gathered before the timed
+    call, as check_densewin_kernels times the float32 modes."""
+    rng = np.random.RandomState(20261022)
+    bf = torch.bfloat16
+    L = solve.precond.hierarchy.levels
+    for name in DENSEWIN:
+        for i in (0, 1):
+            M, w = L[i].A, L[i].relax.scale
+            n, m = M.shape
+            nt, tile, win = M.blocks.shape
+
+            def vec(k):
+                return torch.as_tensor(rng.standard_normal(k)).to(
+                    device="cuda", dtype=bf)
+            x, f = vec(m), vec(n)
+            geo = (M.window_starts, M.blocks)
+            fmt = M.blocks.numel() * 2 + 4 * nt
+            ops = 2 * M.blocks.numel()
+            lib = xw = ft = None
+            if name != "dense_window_scaled_correction":
+                xp = torch.cat([x, x.new_zeros(win)])
+                xw = xp[M.window_starts.long()[:, None]
+                        + torch.arange(win, device="cuda")].unsqueeze(-1)
+            if name == "dense_window_spmv":
+                args, nbytes = geo + (x, n), fmt + (m + n) * 2
+                lib = lambda: torch.bmm(M.blocks, xw)
+            elif name == "dense_window_residual":
+                args, nbytes, ops = geo + (f, x, n), fmt + (m + 2 * n) * 2, \
+                    ops + n
+                ft = torch.cat([f, f.new_zeros(nt * tile - n)]).reshape(
+                    nt, tile, 1)
+                lib = lambda: torch.baddbmm(ft, M.blocks, xw, alpha=-1)
+            else:
+                args = geo + (w, f, x, n)
+                nbytes, ops = fmt + (m + 3 * n) * 2, ops + 3 * n
+            label = "BFD2 L%d A" % i
+            shape = "%s %dx%d, %d tiles of %d x %d, bfloat16%s" % (
+                label, n, m, nt, tile, win, "; library: %s over x windows "
+                "gathered before the timed call" % ("torch.bmm"
+                                                    if name.endswith("spmv")
+                                                    else "torch.baddbmm")
+                if lib is not None else "")
+            hold_bf16_mode(records, failures, name, label, args, 1, nbytes,
+                           ops, lib, shape)
+            lib = xw = ft = None
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def p17_family(failures, only=None):
+    """Phase 17: BFB1 and BFD2 (P17_PATHS), each system made once and
+    B1's hierarchies freed before D2's system is built, each path's new
+    bfloat16 modes held against their plain versions on its operators.
+    Returns ({label: counts}, {label: summary}, records)."""
+    from amgcl_tpu_torch import fe_like_problem, poisson3d_block
+    from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
+    t_phase = time.perf_counter()
+    counts, summary, records = {}, {}, {}
+
+    def u2():
+        A, rhs = fe_like_problem()
+        perm = cuthill_mckee(A)
+        return permute(A, perm), rhs[perm]
+    for label, make, check in (
+            ("BFB1", lambda: poisson3d_block(48, 3),
+             check_p17_block_kernels),
+            ("BFD2", u2, check_p17_densewin_kernels)):
+        if only is not None and label not in only:
+            continue
+        t0 = time.perf_counter()
+        A, rhs = make()
+        counts[label], summary[label], solve = p17_path(label, A, rhs,
+                                                        failures)
+        check(solve, records, failures)
+        if label == "BFD2":
+            summary[label]["first_pass"] = p17_first_pass(failures)
+        summary[label]["path_s"] = time.perf_counter() - t0
+        print("[%s] path: %.1f s" % (label, summary[label]["path_s"]))
+        # free this path's hierarchies, so that the next one's peak
+        # device memory is its own
+        del solve, A
+        gc.collect()
+        torch.cuda.empty_cache()
+    missing = [k for label in counts for k in P17_KERNELS[label]
+               if k not in records]
+    if missing:
+        failures.append("phase 17: no record of %s" % missing)
+    secs = time.perf_counter() - t_phase
+    print("phase 17: %.1f s" % secs)
+    if only is None and secs > P17_LIMIT_S:
+        failures.append("phase 17 took %.1f s, over its %.0f s"
+                        % (secs, P17_LIMIT_S))
     return counts, summary, records
 
 
@@ -5477,13 +5893,14 @@ def main(argv=()):
     failures = []
     if argv and argv[0] in ("--phase10", "--phase11", "--phase12",
                             "--phase13", "--phase14", "--phase15",
-                            "--phase16"):
-        # phase 10 to 16 alone, for the paths named (all without names);
+                            "--phase16", "--phase17"):
+        # phase 10 to 17 alone, for the paths named (all without names);
         # no result line
         family = {"--phase10": a8_family, "--phase11": a9_family,
                   "--phase12": bf16_family, "--phase13": p13_family,
                   "--phase14": p14_family, "--phase15": p15_family,
-                  "--phase16": p16_family}[argv[0]]
+                  "--phase16": p16_family,
+                  "--phase17": p17_family}[argv[0]]
         summary = family(failures, set(argv[1:]) or None)[1]
         print("%s paths: %s" % (argv[0][2:], json.dumps(summary)))
         for f in failures:
@@ -5549,17 +5966,21 @@ def main(argv=()):
     p16_counts, p16_summary, p16_records = p16_family(failures)
     records.update(p16_records)
     print("phase 16 paths: %s" % json.dumps(p16_summary))
+    p17_counts, p17_summary, p17_records = p17_family(failures)
+    records.update(p17_records)
+    print("phase 17 paths: %s" % json.dumps(p17_summary))
     kernels = []
     for name in REPLACES:
         rec = records.get(name)
         if rec is None:
             failures.append("kernel %s has no record" % name)
             continue
-        # phases 12's and 16's counts split by dtype (by_dtype): a
+        # phases 12's, 16's and 17's counts split by dtype (by_dtype): a
         # kernel's float32 and float64 launches there, or its bfloat16
         # ones
         phase12 = {p: c[name] for p, c in bf_counts.items()}
         phase16 = {p: c[name] for p, c in p16_counts.items()}
+        phase17 = {p: c[name] for p, c in p17_counts.items()}
         later = {"D2": d_counts[name], "K1": k_counts[name],
                  **{p: c[name] for p, c in g_counts.items()},
                  "S1": s_counts[name],
@@ -5568,9 +5989,9 @@ def main(argv=()):
                  **{p: c[name] for p, c in p13_counts.items()},
                  **{p: c[name] for p, c in p14_counts.items()},
                  **{p: c[name] for p, c in p15_counts.items()},
-                 **phase16}
+                 **phase16, **phase17}
         if name.endswith(".bf16"):
-            by_path = {**phase12, **phase16}
+            by_path = {**phase12, **phase16, **phase17}
         elif name in FRAMED:
             by_path = {"S1": s_counts[name], "S1j": a_counts["S1j"][name]}
         elif name in UNSTRUCTURED:

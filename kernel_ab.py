@@ -15,7 +15,8 @@ one line ``AB {json}``: the median device time in ms (chip_smoke.py's
 w) at U1's L0 (each with its output's digest, and digested again on U1's
 L0 in float64), and ``dense_window_spmv``, ``dense_window_residual`` and
 ``dense_window_scaled_correction`` at D2's L0, with ``torch.bmm`` over
-the gathered x windows beside them; every mode of the block windowed ELL
+the gathered x windows beside them (each mode's output digested there in
+float32 and on the same blocks in float64); every mode of the block windowed ELL
 at B1's L0 A, L0 R and L1 A in float32 and L0 A in float64 (the
 square-only modes where the operator is square), with torch's BSR
 product (``chip_smoke.library_block``) beside SPMV and RESIDUAL; and
@@ -479,7 +480,20 @@ def other_cases(out):
         lambda: dwk.dense_window_residual(st, B, f, x, n))
     out["D2 L0 correction"] = time_ms(
         lambda: dwk.dense_window_scaled_correction(st, B, w, f, x, n))
-    del D, B, xw
+    del xw
+    # each mode's output digested on the float32 blocks and on the same
+    # blocks widened to float64
+    for tag, dt in (("", torch.float32), (" f64", torch.float64)):
+        Bd, xd, fd, wd = (v.to(dt) for v in (B, x, f, w))
+        for mode, fn in (
+                ("spmv", lambda: dwk.dense_window_spmv(st, Bd, xd, n)),
+                ("residual", lambda: dwk.dense_window_residual(
+                    st, Bd, fd, xd, n)),
+                ("correction", lambda: dwk.dense_window_scaled_correction(
+                    st, Bd, wd, fd, xd, n))):
+            out["D2 L0%s %s digest" % (tag, mode)] = digest(fn())
+        del Bd
+    del D, B
     block_cases(out, np.random.RandomState(10))
 
 

@@ -9,6 +9,7 @@ compositions of chip_smoke.py's phase 11.
     JAX_PLATFORMS=cpu python reference_counts.py --a14
     JAX_PLATFORMS=cpu python reference_counts.py --a14-sides
     JAX_PLATFORMS=cpu python reference_counts.py --b17 [--full] [--first] [LABEL ...]
+    JAX_PLATFORMS=cpu python reference_counts.py --b19 [--first] [LABEL ...]
 
 ``fe_like_problem(ROWS)`` (12,000 rows by default, U1's nonzeros a row)
 with each of ILU(0), ILU(k=1) and ILU(p=1) under
@@ -111,6 +112,18 @@ JAX package on the CPU takes its XLA path (composed V-cycle legs,
 bfloat16 products and sums as XLA rounds them, the CPU's format
 thresholds), not the arithmetic of its TPU kernels, which the port's
 kernels follow; at full size its history parts from the port's.
+
+``--b19`` runs chip_smoke.py's phase-17 calls as ``--b17`` runs phase
+16's, at reduced sizes only, in both packages: BFB1, B1's call
+(``BiCGStab(maxiter=200, tol=1e-6)``, refine=3) under
+``AMGParams(dtype=bfloat16)`` on poisson3d_block(16, 3) with
+``coarse_enough=300`` (four levels, as ``--a10`` cuts B1) and on
+poisson3d_block(24, 3), and BFD2, D2's call (U2's system in RCM order,
+``matrix_format="dwin"``, left ``BiCGStab(maxiter=100, tol=1e-6)``,
+refine=3) in bfloat16 on U2's system cut to 6,000 rows; each beside
+its float32 hierarchy's six counts. ``--first`` as for ``--b17``. The
+full sizes (331,776 unknowns; 85,623 rows on about 2 GB of bfloat16
+dense windows) are chip-sized jobs this script is not meant for.
 """
 
 import sys
@@ -621,8 +634,49 @@ def b17_cases(full=False, refine=3):
     return cases
 
 
-def b17(args):
-    """The phase-16 lines (module docstring)."""
+def b19_cases(full=False, refine=3):
+    """(label, config, system maker, JAX bundle maker, port bundle maker)
+    of phase 17's calls (module docstring), with ``refine`` restarts, in
+    bfloat16 and, labelled ``<label> float32``, with float32 hierarchies
+    and loops."""
+    from amgcl_tpu_torch.utils.adapters import cuthill_mckee, permute
+    kw = dict(tol=1e-6, record_history=refine == 0)
+    rf = dict(refine=refine)
+
+    def u2():
+        A, rhs = T.fe_like_problem(6000,
+                                   nnz_target=int(U1_NNZ_PER_ROW * 6000))
+        p = cuthill_mckee(A)
+        return permute(A, p), rhs[p]
+    systems = [
+        ("BFB1", "poisson3d_block(16, 3), coarse_enough=300",
+         lambda: T.poisson3d_block(16, 3), dict(coarse_enough=300),
+         dict(maxiter=200)),
+        ("BFB1", "poisson3d_block(24, 3)", lambda: T.poisson3d_block(24, 3),
+         {}, dict(maxiter=200)),
+        ("BFD2", "U2's system cut to 6,000 rows (RCM order), "
+         "matrix_format='dwin'", u2, dict(matrix_format="dwin"),
+         dict(maxiter=100, precond_side="left"))]
+    cases = []
+    for label, name, make, fields, skw in systems:
+        for dt, rdt, tag in ((torch.bfloat16, jnp.bfloat16, ""),
+                             (torch.float32, jnp.float32, " float32")):
+            cases.append((
+                label + tag, "%s, BiCGStab(%s, tol=1e-6), refine=%d, %s"
+                % (name, ", ".join("%s=%r" % i for i in skw.items()), refine,
+                   str(dt).split(".")[-1]), make,
+                lambda Ar, f=fields, k=skw, d=rdt: ref_make_solver(
+                    Ar, RefParams(dtype=d, **f), RefBiCGStab(**k, **kw),
+                    **rf),
+                lambda A, f=fields, k=skw, d=dt: T.make_solver(
+                    A, T.AMGParams(dtype=d, **f), T.BiCGStab(**k, **kw),
+                    device="cpu", **rf)))
+    return cases
+
+
+def b17(args, cases=b17_cases):
+    """The phase-16 lines, or with ``cases=b19_cases`` phase 17's (module
+    docstring)."""
     import time
     import numpy as np
     b17_solve_shim()
@@ -637,8 +691,8 @@ def b17(args):
     def head(info):
         h = info.history
         return [] if h is None else [float(v) for v in h[:B17_HISTORY]]
-    for label, config, make, ref, port in b17_cases(full, refine):
-        if labels and label not in labels:
+    for label, config, make, ref, port in cases(full, refine):
+        if labels and label.split()[0] not in labels:
             continue
         A, rhs = make()
         Ar = RefCSR(A.ptr, A.col, A.val, A.ncols)
@@ -740,4 +794,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--b17"]:
         jax.config.update("jax_enable_x64", True)
         sys.exit(b17(sys.argv[2:]))
+    if sys.argv[1:2] == ["--b19"] and "--full" not in sys.argv:
+        jax.config.update("jax_enable_x64", True)
+        sys.exit(b17(sys.argv[2:], b19_cases))
     sys.exit(main(*(int(a) for a in sys.argv[1:])))

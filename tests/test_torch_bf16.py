@@ -10,11 +10,11 @@ with ``solver_dtype=float32``) against the JAX package on the CPU:
   windowed-ELL SpMV, residual and correction, the DIA SpMV, residual and
   correction;
 - iteration counts at reduced sizes of chip_smoke.py's phase 12;
-- the refusals: float16, and the formats and compositions whose kernels
-  have no bfloat16 mode; and the calls refused before the bfloat16
-  Krylov loop and gather SpMV were ported, which now build and solve
-  (tests/test_torch_bf16_krylov.py holds those modes and loops to the
-  JAX package).
+- the refusals: float16 and the sharded path; and the calls refused
+  before the bfloat16 Krylov loop, gather SpMV, block windowed ELL and
+  dense window were ported, which now build and solve
+  (tests/test_torch_bf16_krylov.py and tests/test_torch_bf16_formats.py
+  hold those modes and loops to the JAX package).
 """
 
 import numpy as np
@@ -426,38 +426,77 @@ def test_runtime_configuration_takes_bfloat16():
 def _refusal(what):
     if what == "float16":
         T.AMG(T.poisson3d(6)[0], T.AMGParams(dtype=torch.float16), **CPU)
-    elif what == "dwin":
-        T.AMG(T.poisson3d(6)[0], T.AMGParams(dtype=BF, matrix_format="dwin"),
-              **CPU)
-    elif what == "block":
-        T.make_solver(T.poisson3d_block(6, 3)[0], T.AMGParams(dtype=BF),
-                      T.BiCGStab(), solver_dtype=torch.float32, **CPU)
     else:                                   # sharded
         T.DistStencilSolver(T.poisson3d(8)[0], T.make_mesh(2, "cpu"),
                             T.AMGParams(dtype=BF), T.CG())
 
 
-@pytest.mark.parametrize("what,item", [
-    ("float16", "A.15"), ("dwin", "B.20"), ("block", "B.19"),
-    ("sharded", "B.18")])
+@pytest.mark.parametrize("what,item", [("float16", "A.15"),
+                                       ("sharded", "B.18")])
 def test_refusals_name_their_roadmap_item(what, item):
-    """What a bfloat16 hierarchy cannot run yet raises NotImplementedError
-    naming its ROADMAP item when it is built, on the CPU as on the card:
-    it neither runs in another dtype nor fails inside a kernel wrapper at
-    solve time."""
-    with pytest.raises(NotImplementedError, match=item):
+    """What a bfloat16 hierarchy cannot run yet raises when it is built,
+    on the CPU as on the card: it neither runs in another dtype nor fails
+    inside a kernel wrapper at solve time. A float16 hierarchy raises
+    NotImplementedError naming its ROADMAP item; a bfloat16 sharded call
+    (whose framed legs' bfloat16 mode, B.18, is not ported) declines with
+    the ValueError of the JAX package's same call, which declines it on
+    its own devices."""
+    if what != "sharded":
+        with pytest.raises(NotImplementedError, match=item):
+            _refusal(what)
+        return
+    from amgcl_tpu.parallel.dist_stencil import \
+        DistStencilSolver as RefDistStencilSolver
+    from amgcl_tpu.parallel.mesh import make_mesh as ref_mesh
+    with pytest.raises(ValueError, match="sharded stencil path"):
         _refusal(what)
+    with pytest.raises(ValueError, match="sharded stencil fast path"):
+        RefDistStencilSolver(_ref(T.poisson3d(8)[0]), ref_mesh(2),
+                             RefParams(dtype=jnp.bfloat16), RefCG())
 
 
 @pytest.mark.parametrize("what", ["krylov_default", "krylov_explicit",
-                                  "gather", "nested", "schur_krylov"])
+                                  "gather", "nested", "schur_krylov",
+                                  "block", "dwin"])
 def test_lifted_refusals_build_and_solve(what):
     """The calls that raised before the bfloat16 Krylov loop (ROADMAP
-    B.17) and gather SpMV (B.21) were ported build and solve: the Krylov
-    ones in bfloat16 as the JAX package's same calls do (its count
-    within one), the Ruge–Stüben hierarchy with its stored transfers
-    through the gather SpMV's bfloat16 mode."""
+    B.17), gather SpMV (B.21), block windowed ELL (B.19) and dense window
+    (B.20) were ported build and solve: the Krylov ones in bfloat16 as
+    the JAX package's same calls do (its count within one), the
+    Ruge–Stüben hierarchy with its stored transfers through the gather
+    SpMV's bfloat16 mode, and a bfloat16 block hierarchy and a bfloat16
+    dense-window one under the JAX package's default call (a bfloat16 CG
+    on the hierarchy's L0) at a size and seeded rhs that take the
+    float32 hierarchy 8 iterations: every level in the format, in
+    bfloat16, and the count within one of the JAX package's."""
     from amgcl_tpu_torch.ops import gather_kernels as gk
+    if what in ("block", "dwin"):
+        from amgcl_tpu_torch.ops.densewin import DenseWindowMatrix
+        from amgcl_tpu_torch.ops.unstructured import WindowedEllMatrix
+        if what == "block":
+            A, _ = T.poisson3d_block(12, 3)
+            fmt, kind = {}, WindowedEllMatrix
+        else:
+            A, _ = T.poisson3d(16)
+            fmt, kind = dict(matrix_format="dwin"), DenseWindowMatrix
+        rhs = np.random.RandomState(5).standard_normal(
+            A.nrows * A.block_size[0])
+        f32 = T.make_solver(A, T.AMGParams(**fmt), T.CG(tol=1e-6), **CPU)
+        assert f32(rhs)[1].iters >= 6
+        solve = T.make_solver(A, T.AMGParams(dtype=BF, **fmt),
+                              T.CG(tol=1e-6), **CPU)
+        levels = solve.precond.hierarchy.levels
+        assert len(levels) >= 2 and solve.solver_dtype == BF
+        assert all(type(lv.A) is kind and lv.A.dtype == BF
+                   for lv in levels)
+        _, info_r = ref_make_solver(
+            _ref(A), RefParams(dtype=jnp.bfloat16, **fmt),
+            RefCG(tol=1e-6))(rhs)
+        x, info = solve(rhs)
+        assert x.dtype == BF and torch.isfinite(x).all()
+        assert abs(info.iters - info_r.iters) <= 1
+        assert info.resid <= 1e-6
+        return
     if what in ("krylov_default", "krylov_explicit"):
         A, rhs = T.poisson3d(6)
         hier = BF if what == "krylov_default" else torch.float32

@@ -2492,42 +2492,30 @@ def test_bf16_well_modes_equal_plain(cuda, n, m, K, empty):
                 (st, cl, v, w, f, x, n))
 
 
-@pytest.mark.parametrize("which", ["well_block", "dwin", "framed_down",
-                                   "framed_up"])
+@pytest.mark.parametrize("which", ["framed_down", "framed_up"])
 def test_bf16_kernels_without_a_mode_refuse(cuda, which):
-    """A kernel with no bfloat16 mode raises on bfloat16 operands: it
-    neither launches nor runs its plain version."""
+    """A kernel with no bfloat16 mode (the framed legs, ROADMAP B.18)
+    raises on bfloat16 operands: it neither launches nor runs its plain
+    version."""
     with pytest.raises(ValueError, match="float32"):
-        if which == "well_block":
-            st, cl, v, _, _, _ = _well(300, 300, 4, _BF, cuda)
-            vb = v[..., None, None].expand(*v.shape, 2, 2).contiguous()
-            wbk.windowed_ell_block_spmv(st, cl, vb, torch.zeros(
-                600, dtype=_BF, device=cuda), 300)
-        elif which == "dwin":
-            blocks = torch.zeros((1, 64, 1024), dtype=_BF, device=cuda)
-            dwk.dense_window_spmv(torch.zeros(1, dtype=torch.int32,
-                                              device=cuda), blocks,
-                                  torch.zeros(1024, dtype=_BF, device=cuda),
-                                  64)
+        dims = (4, 4, 8)
+        offs = _plane_offsets(dims)
+        n, H = 128, 64
+        fr = torch.zeros((len(offs), n + 2 * H), dtype=_BF, device=cuda)
+        v = torch.zeros(n + 2 * H, dtype=_BF, device=cuda)
+        if which == "framed_down":
+            vk.fused_down_sweep_framed(offs, fr, offs, fr, v, v, dims, H)
         else:
-            dims = (4, 4, 8)
-            offs = _plane_offsets(dims)
-            n, H = 128, 64
-            fr = torch.zeros((len(offs), n + 2 * H), dtype=_BF, device=cuda)
-            v = torch.zeros(n + 2 * H, dtype=_BF, device=cuda)
-            if which == "framed_down":
-                vk.fused_down_sweep_framed(offs, fr, offs, fr, v, v, dims, H)
-            else:
-                hp = 2
-                Lm = n + 2 * hp * 2 * 32
-                a = torch.zeros((len(offs), n), dtype=_BF, device=cuda)
-                mf = torch.zeros((len(offs), Lm), dtype=_BF, device=cuda)
-                vn = torch.zeros(n, dtype=_BF, device=cuda)
-                vk.fused_up_sweep_framed(
-                    offs, a, offs, mf, vn, vn,
-                    torch.zeros(Lm, dtype=_BF, device=cuda),
-                    torch.zeros((2 + 2 * hp) * 2 * 4, dtype=_BF,
-                                device=cuda), dims, hp)
+            hp = 2
+            Lm = n + 2 * hp * 2 * 32
+            a = torch.zeros((len(offs), n), dtype=_BF, device=cuda)
+            mf = torch.zeros((len(offs), Lm), dtype=_BF, device=cuda)
+            vn = torch.zeros(n, dtype=_BF, device=cuda)
+            vk.fused_up_sweep_framed(
+                offs, a, offs, mf, vn, vn,
+                torch.zeros(Lm, dtype=_BF, device=cuda),
+                torch.zeros((2 + 2 * hp) * 2 * 4, dtype=_BF,
+                            device=cuda), dims, hp)
 
 
 def test_bf16_solve_on_card_matches_cpu(cuda):
@@ -2923,3 +2911,111 @@ def test_stacked_solve_on_card_matches_cpu(cuda, solver):
     assert out["cpu"][1] == out["cuda"][1]
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-9,
                                atol=1e-12)
+
+
+# -- the bfloat16 block windowed ELL (B.11-B.13) and dense window (B.14/B.15) -
+
+def _bf16_block_modes(st, cl, v, x, f, S, w, n):
+    """Every block mode in bfloat16 against its plain version: the
+    vectors bit for bit, the dots within one ULP, one bfloat16 launch
+    each."""
+    _equal_bf16(wbk.windowed_ell_block_spmv,
+                wbk.windowed_ell_block_spmv_plain, (st, cl, v, x, n))
+    _equal_bf16(wbk.windowed_ell_block_residual,
+                wbk.windowed_ell_block_residual_plain, (st, cl, v, f, x, n))
+    _equal_bf16(wbk.windowed_ell_block_scaled_correction,
+                wbk.windowed_ell_block_scaled_correction_plain,
+                (st, cl, v, S, f, x, n))
+    for ww in (None, w):
+        launches = wbk.windowed_ell_block_spmv_dots.bf16_launches
+        got = wbk.windowed_ell_block_spmv_dots(st, cl, v, x, ww, n)
+        want = wbk.windowed_ell_block_spmv_dots_plain(st, cl, v, x, ww, n)
+        assert wbk.windowed_ell_block_spmv_dots.bf16_launches == launches + 1
+        assert torch.equal(got[0], want[0])
+        for g, p in zip(got[1:], want[1:]):
+            assert (g is None) == (p is None)
+            if g is not None:
+                assert g.dtype == _BF and _bf_ulps(g, p) <= 1, (float(g),
+                                                                float(p))
+
+
+@pytest.mark.parametrize("n,m,K,b,empty", _WELL_BLOCK_CASES)
+def test_bf16_well_block_modes_equal_plain(cuda, n, m, K, b, empty):
+    """The block kernel's bfloat16 mode (each product exact in float, a
+    row's sum in slot, then column order, rounded once, then every
+    operation rounded) bit for bit with its plain version, on random
+    blocks and a random non-symmetric scale."""
+    _bf16_block_modes(*_well_block(n, m, K, b, _BF, cuda, seed=K,
+                                   empty=empty), n)
+
+
+@pytest.mark.parametrize("n,K,b", _WELL_BLOCK_EDGE_CASES)
+def test_bf16_well_block_geometry_edges(cuda, n, K, b):
+    """The bfloat16 block modes at the kernel's edges (K 4-100, so that
+    3×3 nodes start 8 bytes off a 16-byte boundary where K / 4 is odd;
+    an empty tile; slots past the end of x), every node written."""
+    st, cl, v, x, f, S, w = _well_block_edges(n, n, K, b, _BF, cuda,
+                                              seed=K + b)
+    _poisoned(n * b, _BF, cuda)
+    _bf16_block_modes(st, cl, v, x, f, S, w, n)
+
+
+@pytest.mark.parametrize("n,m,K", [(13310, 110592, 48), (110592, 13310, 8),
+                                   (1049, 13310, 112)])
+def test_bf16_well_block_rectangular_equal_plain(cuda, n, m, K):
+    """The block path's transfer shapes in bfloat16."""
+    st, cl, v, x, f, _, _ = _well_block(n, m, K, 3, _BF, cuda, seed=n)
+    _equal_bf16(wbk.windowed_ell_block_spmv,
+                wbk.windowed_ell_block_spmv_plain, (st, cl, v, x, n))
+    _equal_bf16(wbk.windowed_ell_block_residual,
+                wbk.windowed_ell_block_residual_plain, (st, cl, v, f, x, n))
+
+
+@pytest.mark.parametrize("n,m,win,empty", _DWIN_CASES
+                         + [(1000, 1000, 128, None), (700, 1500, 192, 3),
+                            (5000, 5000, 4608, None), (640, 9000, 8200, 2)])
+def test_bf16_dwin_modes_equal_plain(cuda, n, m, win, empty):
+    """The dense window's bfloat16 mode (each product exact in float, the
+    lanes' sums and the warp's xor tree in float, the row sum rounded
+    once, then every operation rounded) bit for bit with its plain
+    version, which sums in the kernel's order: windows narrower than 256
+    columns, chunks of 4,096 with a ragged last one, windows past ncols,
+    an empty tile; every row written."""
+    st, B, x, f, w = _dwin(n, m, win, _BF, cuda, seed=n + win, empty=empty)
+    _poisoned(n, _BF, cuda)
+    _equal_bf16(dwk.dense_window_spmv, dwk.dense_window_spmv_plain,
+                (st, B, x, n))
+    _equal_bf16(dwk.dense_window_residual, dwk.dense_window_residual_plain,
+                (st, B, f, x, n))
+    if n == m:
+        _equal_bf16(dwk.dense_window_scaled_correction,
+                    dwk.dense_window_scaled_correction_plain,
+                    (st, B, w, f, x, n))
+
+
+def test_bf16_block_and_dwin_solves_on_card_match_cpu(cuda):
+    """A bfloat16 block hierarchy and a bfloat16 dense-window one under
+    the default bfloat16 CG, on the card and on the CPU: every level in
+    its format, the counts within one (the dots sum in another order),
+    and no plain version on the card."""
+    from amgcl_tpu_torch import AMGParams, CG, make_solver, poisson3d, \
+        poisson3d_block
+    for A, fmt in ((poisson3d_block(12, 3)[0], {}),
+                   (poisson3d(16)[0], dict(matrix_format="dwin"))):
+        rhs = np.random.RandomState(5).standard_normal(
+            A.nrows * A.block_size[0])
+        runs = {}
+        for device in ("cpu", cuda):
+            solve = make_solver(A, AMGParams(dtype=_BF, **fmt),
+                                CG(tol=1e-6), device=device)
+            plains = _PLAIN + (dwk.dense_window_spmv_plain,
+                               dwk.dense_window_residual_plain,
+                               dwk.dense_window_scaled_correction_plain)
+            calls = [p.calls for p in plains]
+            x, info = solve(rhs)
+            if device != "cpu":
+                assert [p.calls for p in plains] == calls
+            assert all(lv.A.dtype == _BF
+                       for lv in solve.precond.hierarchy.levels)
+            runs[torch.device(device).type] = info.iters
+        assert abs(runs["cpu"] - runs["cuda"]) <= 1, runs

@@ -512,11 +512,23 @@ def test_refusals():
     A32, _ = T.poisson3d(32)
     with pytest.raises(ValueError, match="float32"):
         DistStencilSolver(A32, mesh, T.AMGParams(dtype=torch.float64))
-    # damped Jacobi is the port's since its smoothers were ported; the
-    # JAX package sends any other smoother to its DistAMG (A.12)
-    for relax in (T.GaussSeidel(), DampedJacobi()):
-        with pytest.raises(NotImplementedError, match="A.12"):
-            DistStencilSolver(A32, mesh, T.AMGParams(relax=relax))
+    # Gauss-Seidel and bfloat16 decline as the JAX package's same calls
+    # do; so does an object the port does not know as a smoother (the
+    # JAX package's damped Jacobi)
+    from amgcl_tpu.relaxation.gauss_seidel import GaussSeidel as RefGS
+    A32_r = RefCSR(A32.ptr, A32.col, A32.val, A32.ncols)
+    for prm, prm_r in ((T.AMGParams(relax=T.GaussSeidel()),
+                        RefParams(relax=RefGS())),
+                       (T.AMGParams(dtype=torch.bfloat16),
+                        RefParams(dtype=jnp.bfloat16)),
+                       (T.AMGParams(relax=DampedJacobi()), None)):
+        assert dist_stencil_build(A32, mesh, prm, 600) is None
+        with pytest.raises(ValueError, match="sharded stencil path"):
+            DistStencilSolver(A32, mesh, prm)
+        if prm_r is not None:
+            with pytest.raises(ValueError,
+                               match="sharded stencil fast path"):
+                RefSolver(A32_r, ref_mesh(_NSH), prm_r)
 
 
 def test_mesh():

@@ -438,8 +438,22 @@ def test_sharded_jacobi_build_and_solve_match_jax():
 
 
 def test_sharded_path_refuses_other_smoothers():
+    """A smoother other than SPAI-0 and damped Jacobi lies outside the
+    sharded stencil path: the build declines and DistStencilSolver
+    raises ValueError, as the JAX package's do for the same smoothers."""
+    from amgcl_tpu.parallel.dist_stencil import \
+        dist_stencil_build as ref_build
+    from amgcl_tpu.parallel.mesh import make_mesh as ref_mesh
     A, _ = T.poisson3d(16)
+    A_r = RefCSR(A.ptr, A.col, A.val, A.ncols)
     mesh = T.make_mesh(2, device="cpu")
-    for relax in (T.Chebyshev(), T.GaussSeidel(), T.Spai1(), T.ILU0()):
-        with pytest.raises(NotImplementedError, match="A.12"):
-            T.dist_stencil_build(A, mesh, T.AMGParams(relax=relax))
+    for relax, relax_r in ((T.Chebyshev(), r_ch.Chebyshev()),
+                           (T.GaussSeidel(), r_gs.GaussSeidel()),
+                           (T.Spai1(), r_s1.Spai1()),
+                           (T.ILU0(), r_ilu.ILU0())):
+        assert T.dist_stencil_build(A, mesh,
+                                    T.AMGParams(relax=relax)) is None
+        assert ref_build(A_r, ref_mesh(2),
+                         RefParams(relax=relax_r)) is None
+        with pytest.raises(ValueError, match="sharded stencil path"):
+            T.DistStencilSolver(A, mesh, T.AMGParams(relax=relax))

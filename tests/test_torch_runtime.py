@@ -151,21 +151,26 @@ def test_parse_pmask_patterns(pattern, expected):
 def test_what_is_not_ported_raises(what):
     """A request the port has no kernels for raises NotImplementedError
     naming its ROADMAP item; it does not run in another dtype or
-    solver."""
+    solver. The two bfloat16 requests that raised so before their
+    kernels' bfloat16 modes were ported (ROADMAP B.20: a dense-window
+    hierarchy; B.19: one on block values) now build in bfloat16, every
+    level in its format."""
     A, _ = T.poisson3d(6)
-    # "dwin bfloat16": a bfloat16 hierarchy in the dense-window format
-    # (B.20); "AMG bfloat16": one on block values (B.19)
-    item = {"dwin bfloat16": "B.20",
-            "AMG bfloat16": "B.19"}.get(what, "complex")
-    with pytest.raises(NotImplementedError, match=item):
-        if what == "AMG bfloat16":
-            T.AMG(T.poisson3d_block(6, 3)[0],
-                  T.AMGParams(dtype=torch.bfloat16), device="cpu")
-        elif what == "dwin bfloat16":
-            P.make_solver_from_config(
-                A, {"precond.dtype": "bfloat16",
-                    "precond.matrix_format": "dwin"}, device="cpu")
-        else:
+    if what == "AMG bfloat16":
+        amg = T.AMG(T.poisson3d_block(6, 3)[0],
+                    T.AMGParams(dtype=torch.bfloat16), device="cpu")
+        assert [(type(lv.A).__name__, lv.A.dtype, lv.A.block)
+                for lv in amg.hierarchy.levels] \
+            == [("WindowedEllMatrix", torch.bfloat16, (3, 3))]
+    elif what == "dwin bfloat16":
+        solve = P.make_solver_from_config(
+            A, {"precond.dtype": "bfloat16",
+                "precond.matrix_format": "dwin"}, device="cpu")
+        assert [(type(lv.A).__name__, lv.A.dtype)
+                for lv in solve.precond.hierarchy.levels] \
+            == [("DenseWindowMatrix", torch.bfloat16)]
+    else:
+        with pytest.raises(NotImplementedError, match="complex"):
             P.make_solver_from_config(A, {"precond.dtype": what},
                                       device="cpu")
 
