@@ -6,12 +6,14 @@ MIS rounds of :mod:`~amgcl_tpu_torch.coarsening.device_mis`, as the JAX
 package does on an accelerator; a host build takes the greedy pass
 below.
 
-The JAX package's host route aggregates with a greedy distance-2 pass —
-the reference's own algorithm (amgcl/coarsening/plain_aggregates.hpp:
-63-213), run there by the native setup library
-(``csrc/setup_kernels.cpp::aggregate_d2``). This is the same pass in
-numpy: the scan over candidate roots is sequential, and each root's
-claims are vectorized over its neighbourhood.
+The host route aggregates with a greedy distance-2 pass — the
+reference's own algorithm (amgcl/coarsening/plain_aggregates.hpp:
+63-213) — in the native set-up library
+(``csrc/setup_kernels.cpp::aggregate_d2``, through
+:func:`amgcl_tpu_torch.native.native_aggregates`), as the JAX package's
+does. :func:`greedy_aggregates` is the same pass in numpy, for a machine
+without ``g++``: the scan over candidate roots is sequential, and each
+root's claims are vectorized over its neighbourhood.
 
 The distance-2 maximal-independent-set formulation of the JAX package's
 numpy route (:func:`mis_aggregates`, reference:
@@ -180,11 +182,16 @@ def plain_aggregates(A: CSR, eps_strong: float = 0.08, device=None):
     :mod:`~amgcl_tpu_torch.coarsening.device_mis` on ``device`` when the
     build's setup runs there (the JAX package's default on an
     accelerator, amgcl_tpu/coarsening/aggregates.py:160-182), else the
-    greedy pass on the host (``device=None``)."""
+    greedy pass on the host (``device=None``): native, or numpy without
+    the library."""
     if device is not None:
         from amgcl_tpu_torch.coarsening.device_mis import \
             aggregates_on_device
         return aggregates_on_device(A, eps_strong, device)
+    from amgcl_tpu_torch.native import native_aggregates
+    got = native_aggregates(A, eps_strong)
+    if got is not None:
+        return got
     return greedy_aggregates(strength_graph(A, eps_strong))
 
 

@@ -85,6 +85,7 @@ class Aggregation:
         from amgcl_tpu_torch.ops.stencil import (StencilTransfer,
                                                  stencil_coarse_operator)
         if isinstance(P, StencilTransfer):
-            return stencil_coarse_operator(A, P, 1.0 / self.over_interp)
+            return stencil_coarse_operator(A, P, 1.0 / self.over_interp,
+                                           ctx.get("setup_device"))
         return scaled_galerkin(A, P, R, 1.0 / self.over_interp,
                                ctx.get("setup_device"))

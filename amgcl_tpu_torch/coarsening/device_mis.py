@@ -93,15 +93,19 @@ def aggregates_on_device(A: CSR, eps_strong: float = 0.08, device="cpu",
     host ``_priority(n)`` values."""
     from amgcl_tpu_torch.coarsening.aggregates import (_priority,
                                                        strength_graph)
-    S = strength_graph(A, eps_strong)
+    from amgcl_tpu_torch.telemetry.tracing import setup_substage
+    with setup_substage("strength_graph"):
+        S = strength_graph(A, eps_strong)
     n = S.shape[0]
-    cols, valid = strength_ell(S)
-    prio = _priority(n).astype(np.int32)
-    key, _ = device_aggregates(
-        torch.as_tensor(cols, dtype=torch.int64, device=device),
-        torch.as_tensor(valid, device=device),
-        torch.as_tensor(prio, device=device), rounds)
-    key = key.cpu().numpy()
+    with setup_substage("mis_pack"):
+        cols, valid = strength_ell(S)
+        prio = _priority(n).astype(np.int32)
+    with setup_substage("device_mis"):
+        key, _ = device_aggregates(
+            torch.as_tensor(cols, dtype=torch.int64, device=device),
+            torch.as_tensor(valid, device=device),
+            torch.as_tensor(prio, device=device), rounds)
+        key = key.cpu().numpy()
     agg = np.full(n, -1, dtype=np.int64)
     live = key > 0
     uniq, inv = np.unique(key[live], return_inverse=True)

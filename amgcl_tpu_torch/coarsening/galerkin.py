@@ -17,12 +17,14 @@ from __future__ import annotations
 
 from amgcl_tpu_torch.ops import segment_spgemm as seg
 from amgcl_tpu_torch.ops.csr import CSR
+from amgcl_tpu_torch.telemetry.tracing import setup_substage
 
 
 def galerkin(A: CSR, P: CSR, R: CSR, device=None) -> CSR:
     plan = seg.ensure_plan(A, P, R, device=device)
     if plan is not None:
-        return plan.coarse(A, device=device)
+        with setup_substage("galerkin_numeric"):
+            return plan.coarse(A, device=device)
     return R @ (A @ P)
 
 
@@ -30,6 +32,7 @@ def scaled_galerkin(A: CSR, P: CSR, R: CSR, scale: float,
                     device=None) -> CSR:
     plan = seg.ensure_plan(A, P, R, device=device)
     if plan is not None:
-        return plan.coarse(A, scale, device)
+        with setup_substage("galerkin_numeric"):
+            return plan.coarse(A, scale, device)
     Ac = R @ (A @ P)
     return CSR(Ac.ptr, Ac.col, Ac.val * Ac.val.dtype.type(scale), Ac.ncols)

@@ -9,8 +9,9 @@ do_trunc=true, eps_trunc=0.2). Two splittings are provided:
   dynamic-measure pass (cfsplit, ruge_stuben.hpp:316-446: pick
   max-lambda point as C, its dependents become F, lambdas resync) with
   the reference's exact direct interpolation incl. its truncation
-  compensation (ruge_stuben.hpp:120-248), run as the JAX package's
-  Python heap pass (which its tests hold equal to its native pass).
+  compensation (ruge_stuben.hpp:120-248). The split runs in the native
+  set-up library (``rs_cfsplit``), as the JAX package's does, else as
+  the same lazy-heap pass in Python, which gives the same split.
 - ``splitting='pmis'``: De Sterck & Yang's parallel modified
   independent set — the same deterministic-priority MIS machinery as
   the aggregation path — with sign-split direct interpolation. The
@@ -93,7 +94,8 @@ def cf_splitting_classic(A: CSR, strong: np.ndarray, rows: np.ndarray):
     with the largest lambda (number of points strongly depending on it,
     F-dependents counted twice) to C, demote its undecided dependents to
     F, and resync lambdas. Ties break by heap order rather than the
-    C++ bucket arrangement."""
+    C++ bucket arrangement: the smaller index first, in the native pass
+    and the Python one alike."""
     import heapq
 
     n = A.nrows
@@ -111,7 +113,13 @@ def cf_splitting_classic(A: CSR, strong: np.ndarray, rows: np.ndarray):
     np.logical_or.at(has_strong, rows, strong)
     cf[~has_strong] = 2
 
-    # the lazy-heap pass; lambda_i = sum over dependents (U -> 1, decided -> 2)
+    from amgcl_tpu_torch.native import native_rs_cfsplit
+    got = native_rs_cfsplit(ptr, col, strong, stp, stc, cf)
+    if got is not None:
+        return got == 1
+
+    # the lazy-heap pass without the library;
+    # lambda_i = sum over dependents (U -> 1, decided -> 2)
     dep_count = np.diff(stp)
     dep_f = np.asarray(
         ST @ (cf != 0).astype(np.int64)).ravel()

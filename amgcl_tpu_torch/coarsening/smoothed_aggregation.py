@@ -129,8 +129,10 @@ class SmoothedAggregation:
             # the tentative P is a selection over ``agg``: the smoothing
             # product is one segment pass over A_f keyed by
             # (row, agg[col])
-            P = SmoothPlan(Af, agg, n_agg).prolongation(
-                Af, Df_inv, omega, setup_device)
+            from amgcl_tpu_torch.telemetry.tracing import setup_substage
+            with setup_substage("transfer_smooth"):
+                P = SmoothPlan(Af, agg, n_agg).prolongation(
+                    Af, Df_inv, omega, setup_device)
             Bc = None
         else:
             P_tent, Bc = tentative_prolongation(n_pt, agg, n_agg,
@@ -159,7 +161,8 @@ class SmoothedAggregation:
         from amgcl_tpu_torch.ops.stencil import (StencilTransfer,
                                                  stencil_coarse_operator)
         if isinstance(P, StencilTransfer):
-            return stencil_coarse_operator(A, P)
+            return stencil_coarse_operator(A, P,
+                                           device=ctx.get("setup_device"))
         Ac = galerkin(A, P, R, ctx.get("setup_device"))
         g = ctx.pop("next_grid", None)
         if g is not None:
@@ -170,7 +173,13 @@ class SmoothedAggregation:
 
 def _filtered(A: CSR, eps_strong: float):
     """(A_f, D_f⁻¹): strength-filtered matrix and its inverted diagonal.
-    Weak off-diagonal entries are removed and added to the diagonal."""
+    Weak off-diagonal entries are removed and added to the diagonal: in
+    the native library for float64 and float32 values, else in numpy."""
+    if A.dtype in (np.float64, np.float32):
+        from amgcl_tpu_torch.native import native_filtered
+        got = native_filtered(A, eps_strong)
+        if got is not None:
+            return CSR(got[0], got[1], got[2], A.ncols), got[3]
     d = np.abs(A.diagonal())
     rows = A.expanded_rows()
     strong = (np.abs(A.val) ** 2 > eps_strong ** 2 * d[rows] * d[A.col]) \

@@ -35,9 +35,11 @@ from amgcl_tpu_torch.relaxation.spai0 import Spai0
 from amgcl_tpu_torch.solver.direct import DenseDirectSolver
 from amgcl_tpu_torch.telemetry.ledger import dense_window_budget
 from amgcl_tpu_torch.telemetry.structure import fingerprint, reorder_plan
+from amgcl_tpu_torch.telemetry.tracing import setup_scope
 from amgcl_tpu_torch.utils.adapters import permute
 from amgcl_tpu_torch.utils.devices import (held_tensors, resolve_device,
                                            storage_bytes)
+from amgcl_tpu_torch.utils.profiler import Profiler
 
 
 @dataclass
@@ -266,7 +268,15 @@ class AMG:
     variant; the hierarchy then lives in the permuted frame
     (``make_solver`` permutes in and out). ``device_inv``
     (``AMGCL_TPU_DEVICE_INV``) inverts a float32 or bfloat16 coarsest
-    level on the device (``solver/direct.py``). Usage::
+    level on the device (``solver/direct.py``). ``setup_profile`` (a
+    :class:`~amgcl_tpu_torch.utils.profiler.Profiler`, synced with the
+    device) holds the last build's or rebuild's set-up by stage, in the
+    JAX package's scopes (``device_build``, ``reorder``,
+    ``level<i>/coarsening``, ``level<i>/galerkin``,
+    ``level<i>/transfer``, ``level<i>/relax_setup``,
+    ``level<i>/fused_kernels``, ``coarse_solver``) and their stages,
+    among them a ``native/<function>`` stage for each call of the native
+    set-up library. Usage::
 
         P = AMG(A, AMGParams(...), device="cuda")
         z = P.hierarchy.apply(r)
@@ -290,6 +300,9 @@ class AMG:
         prefix of amgcl_tpu/models/amg.py:235-267"""
         prm = self.prm
         t0 = time.perf_counter()
+        # the set-up by stage (amgcl_tpu/models/amg.py:225-553): scopes
+        # synced with the device, and the stages nested in them
+        prof = self.setup_profile = Profiler.device(self.device)
         self.device_built = False
         self._dev_prefix = []
         self._level_ctx = []
@@ -306,9 +319,13 @@ class AMG:
         t_dev = 0.0            # seconds of the device build that was kept
         # the device build takes scalar stencils; block systems build on
         # the host
-        if self.device_setup and not A.is_block:
+        got = None
+        if self.device_setup:
             from amgcl_tpu_torch.ops import stencil_device as sdev
-            got = sdev.device_build(A, prm, self.device, self.device_inv)
+            with setup_scope(prof, "device_build"):
+                if not A.is_block:
+                    got = sdev.device_build(A, prm, self.device,
+                                            self.device_inv)
             if got is not None:
                 self.device_built = True
                 t_dev = time.perf_counter() - t0
@@ -332,10 +349,11 @@ class AMG:
         if not self.device_built and not A.is_block:
             # the executed reorder (amgcl_tpu/models/amg.py:268-295): the
             # whole hierarchy is built in the permuted frame
-            plan = reorder_plan(A, self.reorder, prm.dtype.itemsize)
-            if plan is not None:
-                A = permute(A, plan["perm"])
-                self._reorder = plan
+            with setup_scope(prof, "reorder"):
+                plan = reorder_plan(A, self.reorder, prm.dtype.itemsize)
+                if plan is not None:
+                    A = permute(A, plan["perm"])
+                    self._reorder = plan
         coarsening = prm.coarsening
         if prm.dtype.itemsize <= 4 \
                 and getattr(coarsening, "setup_dtype", False) is None:
@@ -347,8 +365,10 @@ class AMG:
         # coarse_enough counts scalar unknowns (amgcl_tpu/models/amg.py:314)
         while (Acur.nrows * Acur.block_size[0] > prm.coarse_enough
                and len(meta_prefix) + len(host) + 1 < prm.max_levels):
+            lvl = "level%d" % (len(meta_prefix) + len(host))
             try:
-                P, R = coarsening.transfer_operators(Acur, ctx)
+                with setup_scope(prof, lvl + "/coarsening"):
+                    P, R = coarsening.transfer_operators(Acur, ctx)
             except CoarseningStall:
                 break     # expected terminal condition: close here
             if P.ncols == 0 or P.ncols >= Acur.ncols:
@@ -356,7 +376,8 @@ class AMG:
             # the context the Galerkin product saw (the coarse grid dims
             # among it), kept for a numeric rebuild to match this build
             self._level_ctx.append(dict(ctx))
-            Ac = coarsening.coarse_operator(Acur, P, R, ctx)
+            with setup_scope(prof, lvl + "/galerkin"):
+                Ac = coarsening.coarse_operator(Acur, P, R, ctx)
             host.append((Acur, P, R))
             Acur = Ac
         host.append((Acur, None, None))
@@ -427,10 +448,12 @@ class AMG:
             self._build(A)
             return
         t0 = time.perf_counter()
+        prof = self.setup_profile = Profiler.device(self.device)
         coarse_operator = self.prm.coarsening.coarse_operator
         host = []
         Acur = A
-        for (Ai, P, R), ctx in zip(self.host_levels[:-1], self._level_ctx):
+        for i, ((Ai, P, R), ctx) in enumerate(zip(self.host_levels[:-1],
+                                                  self._level_ctx)):
             if isinstance(P, CSR):
                 # a first rebuild pays each level's symbolic pass once
                 # where the setup runs on the device (amgcl_tpu/models/
@@ -438,7 +461,8 @@ class AMG:
                 ensure_plan(Ai, P, R, force=ctx["setup_device"] is not None,
                             device=ctx["setup_device"])
             host.append((Acur, P, R))
-            Acur = coarse_operator(Acur, P, R, dict(ctx))
+            with setup_scope(prof, "level%d/galerkin" % i):
+                Acur = coarse_operator(Acur, P, R, dict(ctx))
         host.append((Acur, None, None))
         # a released hierarchy (release_device) has no device levels to
         # reuse: its transfers are converted again, the numeric pass on
@@ -457,41 +481,49 @@ class AMG:
         prm = self.prm
         host = self.host_levels
         dtype, device = prm.dtype, self.device
+        prof = self.setup_profile
         # one dense-window budget for the whole hierarchy: every level
         # conversion draws on it (amgcl_tpu/models/amg.py:465)
         budget = self._dwin_budget = dense_window_budget()
         levels = list(self._dev_prefix)    # device-built levels come first
         for i, (Ai, P, R) in enumerate(host[len(levels):-1],
                                        start=len(levels)):
+            lvl = "level%d" % i
             spec = getattr(P, "_implicit_spec", None)
-            if reuse_transfers is not None:
-                P_dev, R_dev = reuse_transfers[i].P, reuse_transfers[i].R
-            elif spec is not None:
-                # matrix-free smoothed transfers (ops/structured.py)
-                P_dev, R_dev = build_implicit_transfers(
-                    spec, dtype, device, prm.matrix_format)
-            else:
-                # stored transfers (block systems): banded block
-                # operators take windowed ELL, as the level operators do
-                P_dev = dev.to_device(P, "auto", dtype, device)
-                R_dev = dev.to_device(R, "auto", dtype, device)
-            A_dev = self._level_operator(Ai, i, reuse_transfers, budget)
-            relax = prm.relax.build(Ai, dtype, device)
-            levels.append(Level(A_dev, relax, P_dev, R_dev,
-                                build_fused_down(A_dev, R_dev, relax),
-                                build_fused_up(A_dev, P_dev, relax)))
+            with setup_scope(prof, lvl + "/transfer"):
+                if reuse_transfers is not None:
+                    P_dev = reuse_transfers[i].P
+                    R_dev = reuse_transfers[i].R
+                elif spec is not None:
+                    # matrix-free smoothed transfers (ops/structured.py)
+                    P_dev, R_dev = build_implicit_transfers(
+                        spec, dtype, device, prm.matrix_format)
+                else:
+                    # stored transfers (block systems): banded block
+                    # operators take windowed ELL, as the level operators
+                    # do
+                    P_dev = dev.to_device(P, "auto", dtype, device)
+                    R_dev = dev.to_device(R, "auto", dtype, device)
+                A_dev = self._level_operator(Ai, i, reuse_transfers, budget)
+            with setup_scope(prof, lvl + "/relax_setup"):
+                relax = prm.relax.build(Ai, dtype, device)
+            with setup_scope(prof, lvl + "/fused_kernels"):
+                fd = build_fused_down(A_dev, R_dev, relax)
+                fu = build_fused_up(A_dev, P_dev, relax)
+            levels.append(Level(A_dev, relax, P_dev, R_dev, fd, fu))
         Alast = host[-1][0]
         check_coarse_size(Alast.nrows * Alast.block_size[0], prm)
-        A_last = self._level_operator(Alast, len(host) - 1,
-                                      reuse_transfers, budget)
-        if prm.direct_coarse:
-            coarse = DenseDirectSolver.build(Alast, dtype, device,
-                                             self.device_inv)
-            levels.append(Level(A_last, None))
-        else:
-            coarse = None
-            relax = prm.relax.build(Alast, dtype, device)
-            levels.append(Level(A_last, relax))
+        with setup_scope(prof, "coarse_solver"):
+            A_last = self._level_operator(Alast, len(host) - 1,
+                                          reuse_transfers, budget)
+            if prm.direct_coarse:
+                coarse = DenseDirectSolver.build(Alast, dtype, device,
+                                                 self.device_inv)
+                levels.append(Level(A_last, None))
+            else:
+                coarse = None
+                relax = prm.relax.build(Alast, dtype, device)
+                levels.append(Level(A_last, relax))
         self.hierarchy = Hierarchy(levels, coarse, prm.npre, prm.npost,
                                    prm.ncycle, prm.pre_cycles)
 

@@ -2,15 +2,16 @@
 
 Counterpart of ``amgcl_tpu/ops/csr.py`` (the reference's *builtin*
 backend matrix, amgcl/backend/builtin.hpp:55-909). Everything here runs
-on the host in numpy, with scipy.sparse for the products; the device
+on the host in numpy, the products in the native set-up library
+(:mod:`amgcl_tpu_torch.native`) or scipy.sparse; the device
 never sees this class — hierarchies are converted to device formats by
 :mod:`amgcl_tpu_torch.ops.device`.
 
 Block (BCSR) values are a trailing ``(br, bc)`` on ``val``, the
 reference's ``static_matrix`` value type
 (amgcl/value_type/static_matrix.hpp:43-342) without a class of its own.
-Block products and sums go through the scalar matrix (``unblock`` →
-scipy → ``to_block``).
+Block sums, and block products without the native library, go through
+the scalar matrix (``unblock`` → scipy → ``to_block``).
 """
 
 from __future__ import annotations
@@ -145,9 +146,20 @@ class CSR:
         return CSR(m.indptr, m.indices, m.data, self.nrows)
 
     def __matmul__(self, other: "CSR") -> "CSR":
-        """SpGEMM through scipy (builtin.hpp:378-397); block operands are
-        unblocked, and the product is blocked again by self's block rows
-        unless both block sizes it would take are 1."""
+        """SpGEMM (builtin.hpp:378-397): the native library's OpenMP hash
+        product where it takes the operands (``native.native_spgemm``:
+        float32 or float64, scalar or block values, at least two
+        threads), else scipy's, block operands unblocked and the product
+        blocked again by self's block rows unless both block sizes it
+        would take are 1."""
+        from amgcl_tpu_torch.native import native_spgemm
+        got = native_spgemm(self, other)
+        if got is not None:
+            cval = got[2]
+            want = np.result_type(self.val.dtype, other.val.dtype)
+            if cval.dtype != want:
+                cval = cval.astype(want)
+            return CSR(got[0], got[1], cval, other.ncols)
         c = CSR.from_scipy(self.to_scipy() @ other.to_scipy())
         if (self.block_size[0], other.block_size[1]) != (1, 1):
             return c.to_block(self.block_size[0])

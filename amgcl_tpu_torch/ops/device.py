@@ -128,8 +128,12 @@ class DenseMatrix:
 # -- conversion -------------------------------------------------------------
 
 def dia_offsets(A: CSR) -> np.ndarray:
-    """Distinct diagonals of A (cached on the matrix)."""
+    """Distinct diagonals of A (cached on the matrix): the native mark
+    pass, else a bincount over the diagonal range."""
     off = getattr(A, "_dia_offsets_cache", None)
+    if off is None:
+        from amgcl_tpu_torch.native import native_dia_offsets
+        off = native_dia_offsets(A)
     if off is None:
         d = A.col.astype(np.int64) - A.expanded_rows()
         # bincount over the [-(m-1), n-1] diagonal range beats
@@ -137,16 +141,26 @@ def dia_offsets(A: CSR) -> np.ndarray:
         base = A.nrows - 1
         hits = np.bincount(d + base, minlength=base + A.ncols)
         off = np.flatnonzero(hits) - base
-        A._dia_offsets_cache = off
+    A._dia_offsets_cache = off
     return off
 
 
 def csr_to_ell(A: CSR, dtype=torch.float32, device="cpu") -> EllMatrix:
-    """Pack a host CSR or BCSR into ELL format on ``device``."""
+    """Pack a host CSR or BCSR into ELL format on ``device``: the native
+    pack, with the cast to a float32 or float64 ``dtype`` fused in, else
+    one flat numpy scatter."""
     nnz_row = A.row_nnz()
     K = int(nnz_row.max()) if A.nrows and A.nnz else 1
     K = max(_ELL_PAD, -(-K // _ELL_PAD) * _ELL_PAD)
     n = A.nrows
+    if dtype in (torch.float32, torch.float64):
+        from amgcl_tpu_torch.native import native_ell_pack
+        got = native_ell_pack(A, K, np_dtype(dtype))
+        if got is not None:
+            return EllMatrix(
+                torch.as_tensor(got[0], device=device).long(),
+                torch.as_tensor(got[1], device=device), A.shape,
+                A.block_size)
     rows = A.expanded_rows()
     flat_idx = rows * K + (np.arange(A.nnz) - A.ptr[rows])
     cols = np.zeros(n * K, dtype=np.int64)
@@ -170,6 +184,13 @@ def csr_to_dia(A: CSR, dtype=torch.float32, device="cpu") -> DiaMatrix:
         return DiaMatrix(list(offs), host_tensor(data, dtype, device),
                          A.shape)
     offsets = dia_offsets(A)
+    if dtype in (torch.float32, torch.float64):
+        # the native scatter fuses the cast to the device dtype
+        from amgcl_tpu_torch.native import native_dia_pack
+        data = native_dia_pack(A, offsets, np_dtype(dtype))
+        if data is not None:
+            return DiaMatrix(offsets.tolist(),
+                             torch.as_tensor(data, device=device), A.shape)
     rows = A.expanded_rows()
     d = A.col.astype(np.int64) - rows
     base = A.nrows - 1

@@ -354,8 +354,10 @@ def ensure_plan(A: CSR, P, R, force: bool = False,
     selection = selection_aggregates(P) is not None
     if not (force or selection or device is not None):
         return None          # a first host build: scipy's product
+    from amgcl_tpu_torch.telemetry.tracing import setup_substage
     try:
-        plan = GalerkinPlan(A, P, R)
+        with setup_substage("galerkin_plan"):
+            plan = GalerkinPlan(A, P, R)
     except _PlanTooLarge:
         P._seg_plan_oversize = _pattern_tag(A)
         return None

@@ -14,14 +14,23 @@ operations on diagonal data vectors:
   onto the coarse grid.
 
 Diagonal offsets are tracked as 3-D grid tuples, so product offsets
-combine exactly. Scalar real dtypes only; the numerics run in numpy.
+combine exactly. Scalar real dtypes only; the numerics run in numpy and
+the native set-up library, and the Galerkin plan's numeric pass also in
+torch on the build's set-up device.
 """
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 
 from amgcl_tpu_torch.ops.csr import CSR
+from amgcl_tpu_torch.telemetry.tracing import setup_substage
+
+#: numeric passes of :class:`StencilGalerkinPlan` by route ("host",
+#: "device") since the process started
+calls = collections.Counter()
 
 
 def _flat(off3, dims):
@@ -141,8 +150,9 @@ class HostDia:
 
 def host_dia_from_csr(A: CSR, dims, dtype=None) -> HostDia:
     """Pack a grid-structured scalar CSR into HostDia (optionally casting
-    to ``dtype``). Returns None when an offset does not decompose onto
-    the grid (caller falls back)."""
+    to ``dtype``, fused into the native scatter where the library takes
+    the pair of dtypes). Returns None when an offset does not decompose
+    onto the grid (caller falls back)."""
     dt = np.dtype(dtype) if dtype is not None else np.dtype(A.val.dtype)
     fp = _val_fingerprint(A)
     cached = getattr(A, "_host_dia", None)
@@ -155,7 +165,10 @@ def host_dia_from_csr(A: CSR, dims, dtype=None) -> HostDia:
     offs3 = _decompose_offsets(flat, dims)
     if offs3 is None:
         return None
-    data = _numpy_dia_pack(A, flat).astype(dt, copy=False)
+    from amgcl_tpu_torch.native import native_dia_pack
+    data = native_dia_pack(A, flat, dt)
+    if data is None:
+        data = _numpy_dia_pack(A, flat).astype(dt, copy=False)
     H = HostDia([offs3[int(o)] for o in flat], data, dims)
     A._host_dia = H
     A._host_dia_fp = fp
@@ -303,7 +316,11 @@ class StencilGalerkinPlan:
     Everything value-independent — the pair multiply lists for
     X = A − A·M and S = X − Mᵀ·X, the Mᵀ shift table, and the parity→
     coarse-diagonal collapse keys — is computed once from the stencil
-    offsets and cached on the transfer spec."""
+    offsets and cached on the transfer spec. The numeric pass runs on
+    the host (the native batched multiply-add, else numpy) or, given a
+    device, in torch there (the JAX package's jitted device route,
+    amgcl_tpu/ops/stencil.py:523-600), in the same order of operations
+    either way."""
 
     def __init__(self, a_offs3, m_offs3, dims, blocks, coarse_dims, dtype):
         self.a_offs = [tuple(int(c) for c in o) for o in a_offs3]
@@ -389,10 +406,17 @@ class StencilGalerkinPlan:
         n, dt = self.n, self.dtype
         if self.m_offs is None:
             return a_data
+        from amgcl_tpu_torch.native import native_dia_fnma_batch
         scratch = np.empty(n, dtype=dt)
 
         def apply_pairs(abase, bbase, pairs, obase):
-            """obase[o] -= abase[a] * shift(bbase[b], s) per pair."""
+            """obase[o] -= abase[a] * shift(bbase[b], s) per pair: one
+            native call for all of them, else numpy pair by pair (the
+            same operations in the same order)."""
+            if not pairs[0] or native_dia_fnma_batch(
+                    abase, pairs[0], bbase, pairs[1], pairs[2], obase,
+                    pairs[3]):
+                return
             for a, b, s, o in zip(*pairs):
                 _shift_into(bbase[b], s, scratch)
                 np.multiply(abase[a], scratch, out=scratch)
@@ -437,13 +461,81 @@ class StencilGalerkinPlan:
                        out.reshape(len(self.coarse_offs), -1),
                        self.coarse)
 
-    def apply(self, a_data, m_data) -> HostDia:
+    def _s_device(self, a, m):
+        """S = (I − Mᵀ)A(I − M) as (nS, n) rows of a tensor on a's
+        device: the host pass's pairs in its order, each product rounded
+        before its subtraction as on the host (``stencil_device.
+        _fnma_scan``'s ``addcmul_`` may fuse the two), so that the two
+        routes agree bit for bit."""
+        import torch
+        from amgcl_tpu_torch.ops.stencil_device import _shift
+        if self.m_offs is None:
+            return a
+        n = self.n
+
+        def fnma(out, src, dst, pairs):
+            for ka, kb, s, ko in zip(*pairs):
+                lo, hi = max(0, -s), min(n, n - s)
+                if hi > lo:
+                    out[ko, lo:hi] -= src[ka, lo:hi] * dst[kb, lo + s:hi + s]
+            return out
+
+        def embed(src, base, rows):
+            out = torch.zeros((rows, self.n), dtype=a.dtype, device=a.device)
+            keep = [(k, j) for k, j in enumerate(base) if j is not None]
+            if keep:
+                out[[k for k, _ in keep]] = src[[j for _, j in keep]]
+            return out
+
+        X = fnma(embed(a, self.x_base, len(self.x_offs)), a, m,
+                 self.pairs_x)
+        Mt = torch.stack([_shift(m[k], s)
+                          for k, s in enumerate(self.mt_shifts)])
+        return fnma(embed(X, self.s_base, len(self.s_offs)), Mt, X,
+                    self.pairs_s)
+
+    def _collapse_device(self, S) -> np.ndarray:
+        """The parity collapse of S's rows into the coarse diagonals, on
+        S's device; the (ndiagC, nc) result fetched to the host."""
+        import torch
+        b2, b1, b0 = self.blocks
+        c2, c1, c0 = self.coarse
+        f2, f1, f0 = self.dims
+        p2, p1, p0 = self.dims_p
+        out = torch.zeros((len(self.coarse_offs), c2, c1, c0),
+                          dtype=S.dtype, device=S.device)
+        for ks in range(len(self.s_offs)):
+            v3 = S[ks].reshape(self.dims)
+            if self.dims_p != self.dims:
+                v3 = torch.nn.functional.pad(
+                    v3, (0, p0 - f0, 0, p1 - f1, 0, p2 - f2))
+            v6 = v3.reshape(c2, b2, c1, b1, c0, b0)
+            p = 0
+            for pz in range(b2):
+                for py in range(b1):
+                    for px in range(b0):
+                        out[self.collapse_keys[ks, p]] += \
+                            v6[:, pz, :, py, :, px]
+                        p += 1
+        return out.reshape(len(self.coarse_offs), -1).cpu().numpy()
+
+    def apply(self, a_data, m_data, device=None) -> HostDia:
         """Numeric Galerkin product; returns the full (pre-drop_empty)
-        coarse HostDia in the plan's static diagonal order."""
-        S = self._s_diagonals(np.asarray(a_data, dtype=self.dtype),
-                              None if m_data is None
-                              else np.asarray(m_data, dtype=self.dtype))
-        return self._collapse(S)
+        coarse HostDia in the plan's static diagonal order. ``device``
+        None runs it on the host; a torch device runs it there and
+        fetches the result. ``calls`` counts each route."""
+        a = np.asarray(a_data, dtype=self.dtype)
+        m = None if m_data is None else np.asarray(m_data, dtype=self.dtype)
+        with setup_substage("stencil_galerkin"):
+            if device is None:
+                calls["host"] += 1
+                return self._collapse(self._s_diagonals(a, m))
+            import torch
+            calls["device"] += 1
+            t = lambda v: torch.as_tensor(v, device=device)
+            data = self._collapse_device(
+                self._s_device(t(a), None if m is None else t(m)))
+            return HostDia(self.coarse_offs, data, self.coarse)
 
 
 # -- transfer-operator proxies ----------------------------------------------
@@ -535,12 +627,15 @@ def stencil_plain_transfer_operators(A: CSR, grid, eps_strong,
             StencilTransfer(spec, (nc, A.nrows)))
 
 
-def stencil_coarse_operator(A: CSR, P: StencilTransfer, scale=None) -> CSR:
+def stencil_coarse_operator(A: CSR, P: StencilTransfer, scale=None,
+                            device=None) -> CSR:
     """Galerkin product for the stencil path; the result CSR carries its
     grid dims and prepacked DIA data for a transfer-only device move.
     ``spec["M"] is None`` is plain aggregation (P = T): the product is
     the parity collapse of A itself. ``scale`` multiplies the product
-    (plain aggregation's over-interpolation correction).
+    (plain aggregation's over-interpolation correction). ``device``, the
+    build's set-up device (None: the host), runs the plan's numeric pass
+    there.
     The pair/collapse plan and the coarse DIA→CSR index map cache on the
     transfer spec, so a second product through the same transfer pays
     only the numeric passes."""
@@ -558,7 +653,7 @@ def stencil_coarse_operator(A: CSR, P: StencilTransfer, scale=None) -> CSR:
             spec["block"], spec["coarse"], Ad.dtype)
         spec["_gplan"] = plan
         spec.pop("_csr_cache", None)
-    Ac = plan.apply(Ad.data, None if M is None else M.data)
+    Ac = plan.apply(Ad.data, None if M is None else M.data, device)
     if scale is not None and scale != 1.0:
         Ac = HostDia(Ac.offsets3, Ac.data * Ac.dtype.type(scale), Ac.dims)
     cache = spec.get("_csr_cache")

@@ -3,11 +3,14 @@
 
 Construction: Chow–Patel fixed-point sweeps (reference:
 amgcl/relaxation/ilu0_chow_patel.hpp:86-593, 5 sweeps). Each sweep forms
-(L + I)·U once and reads it on the factor pattern, so every entry of L
-and U updates at once: with scipy on the host (the JAX package's route
-without its native library), or, for a hierarchy on a CUDA device, with
+(L + I)·U on the factor pattern, so every entry of L and U updates at
+once: on the host with the native set-up library's masked product
+(``spgemm_masked``, the JAX package's route) or, without it, scipy's
+full product read on the pattern; for a hierarchy on a CUDA device with
 torch's sparse product on that device, which takes the ILU(p) and ILUT
-set-ups at 85,623 rows from minutes of host time to seconds. Application: the triangular solves are
+set-ups at 85,623 rows from minutes of host time to seconds. ILU(k)'s
+level-of-fill pattern comes from the library's ``iluk_symbolic``, else
+from the same row merge in Python. Application: the triangular solves are
 replaced by a fixed number of Jacobi iterations, the reference's
 approximate ``ilu_solve`` for GPU backends
 (amgcl/relaxation/detail/ilu_solve.hpp:44-129, 2 iterations): products
@@ -123,7 +126,9 @@ def _chow_patel_build(ptr, col, val, n, sweeps, on=None):
     diagonal) and its upper part alone (the pattern's other slots hold
     zeros, which would add only exact zeros to each sum), with scipy or,
     ``on`` a torch device, there (:func:`_pattern_product`), and reads
-    it on the pattern."""
+    it on the pattern; on the host with the native library, its masked
+    product forms (L + I)·U on the pattern alone (the JAX package's
+    route, amgcl_tpu/relaxation/ilu0.py:92-110)."""
     rows = np.repeat(np.arange(n), np.diff(ptr))
     cols = col
     lower = rows > cols
@@ -150,12 +155,28 @@ def _chow_patel_build(ptr, col, val, n, sweeps, on=None):
                               np.ones(len(no_diag), bool)])[li_order]
     up_ptr = np.concatenate([[0], np.cumsum(np.bincount(rows[upper],
                                                         minlength=n))])
-    product = _pattern_product(
+    from amgcl_tpu_torch.native import available, native_spgemm_masked
+    masked = on is None and available()
+    product = None if masked else _pattern_product(
         n, li_ptr, li_cols, up_ptr, cols[upper].astype(np.int32),
         rows.astype(np.int64) * n + cols, on)
+    # (I·U)[i, :] = U[i, :] for a row without a structural diagonal,
+    # which the masked product over the pattern cannot carry
+    no_diag_row = np.zeros(n, dtype=bool)
+    no_diag_row[no_diag] = True
+    p64 = np.ascontiguousarray(ptr, dtype=np.int64)
+    c32 = np.ascontiguousarray(cols, dtype=np.int32)
     for _ in range(sweeps):
-        lv = np.concatenate([lval[li], np.zeros(len(no_diag))])[li_order]
-        lu_on_a = product(np.where(li_diag, 1.0, lv), uval[upper])
+        if masked:
+            lu_on_a = native_spgemm_masked(
+                n, p64, c32, np.where(dmask, 1.0, lval), p64, c32, uval,
+                p64, c32)
+            if len(no_diag):
+                lu_on_a = lu_on_a + np.where(no_diag_row[rows], uval, 0.0)
+        else:
+            lv = np.concatenate([lval[li],
+                                 np.zeros(len(no_diag))])[li_order]
+            lu_on_a = product(np.where(li_diag, 1.0, lv), uval[upper])
         udia = np.zeros(n)
         udia[cols[dmask]] = uval[dmask]
         udia = np.where(udia != 0, udia, 1.0)
@@ -217,9 +238,15 @@ def iluk_pattern(ptr, col, n, k):
     keeping the minimum; entries above k are dropped. Returns (ptr, col)
     with sorted rows.
 
-    For k ≤ 1 only A's own entries (level 0) propagate, so the pattern
-    is A's joined with that of (strict lower A)·(strict upper A): one
-    sparse product in place of the row loop."""
+    The native library's ``iluk_symbolic`` runs this merge where it is
+    built. Without it, for k ≤ 1 only A's own entries (level 0)
+    propagate, so the pattern is A's joined with that of (strict lower
+    A)·(strict upper A): one sparse product in place of the row loop."""
+    from amgcl_tpu_torch.native import native_iluk_pattern
+    got = native_iluk_pattern(
+        CSR(ptr, col, np.zeros(len(col)), n), k)
+    if got is not None:
+        return got
     if k <= 1:
         m = sp.csr_matrix((np.ones(len(col), np.int8), col, ptr),
                           shape=(n, n))

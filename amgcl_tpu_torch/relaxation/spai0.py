@@ -38,9 +38,10 @@ def _block_scale(A: CSR) -> np.ndarray:
 @dataclass
 class Spai0:
     def build(self, A: CSR, dtype, device) -> ScaledResidualSmoother:
+        from amgcl_tpu_torch.native import native_spai0_diag
         if A.is_block:
             m = _block_scale(A)
-        else:
+        elif (m := native_spai0_diag(A)) is None:
             sq = (np.abs(A.val) ** 2).astype(np.float64)
             denom = np.bincount(A.expanded_rows(), weights=sq,
                                 minlength=A.nrows)

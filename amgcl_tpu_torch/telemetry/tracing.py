@@ -1,17 +1,84 @@
-"""Per-request span recorder of the serving path (counterpart of
-:class:`RequestSpans` in ``amgcl_tpu/telemetry/tracing.py``; the JAX
-package's named scopes and host annotations have no counterpart here).
+"""Named scopes of the set-up and the solve, and the per-request span
+recorder of the serving path (counterpart of
+``amgcl_tpu/telemetry/tracing.py``).
 
-The service worker records each request's queue wait and each batch's
-padding, capture, device solve and sync intervals; the export is a
-Chrome/Perfetto trace-event track.
+``phase(name)`` and ``annotate(name)`` mark a span ``amgcl/<name>`` with
+``torch.profiler.record_function``: a ``torch.profiler`` capture then
+groups the host ops and the device kernels launched inside it under the
+name (the JAX package's ``jax.named_scope`` and ``TraceAnnotation``; one
+torch API serves both, since torch code is not traced).
+
+``setup_scope(prof, name)`` opens a scope of the hierarchy build on a
+:class:`~amgcl_tpu_torch.utils.profiler.Profiler` and publishes the
+profiler thread-locally, so that :func:`setup_substage` attaches nested
+stages (the device MIS, the Galerkin plans, the native passes) from code
+that never sees the AMG object: ``AMG.setup_profile`` reads the whole
+tree.
+
+:class:`RequestSpans` records each request's queue wait and each batch's
+padding, capture, device solve and sync intervals in the service worker;
+the export is a Chrome/Perfetto trace-event track.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Tuple
+
+PREFIX = "amgcl/"
+
+
+def annotate(name: str):
+    """Host-side span ``amgcl/<name>`` for work outside a traced region
+    (set-up stages, host packing, dispatch)."""
+    import torch
+    return torch.profiler.record_function(PREFIX + name)
+
+
+def phase(name: str):
+    """Span ``amgcl/<name>`` around device code (a V-cycle's stages): a
+    ``torch.profiler`` capture files the kernels launched inside under
+    it."""
+    return annotate(name)
+
+
+#: the profiler the build running on this thread records into, and the
+#: name of its open set-up scope
+_setup_tls = threading.local()
+
+
+@contextmanager
+def setup_scope(prof, name: str):
+    """A scope ``name`` of the set-up on ``prof`` (a
+    :class:`~amgcl_tpu_torch.utils.profiler.Profiler`; None records
+    nothing but the span) and a span ``amgcl/setup/<name>``. While it is
+    open, :func:`setup_substage` nests under it."""
+    prev = getattr(_setup_tls, "scope", None)
+    _setup_tls.scope = (prof, name)
+    try:
+        with annotate("setup/" + name):
+            if prof is None:
+                yield
+            else:
+                with prof.scope(name):
+                    yield
+    finally:
+        _setup_tls.scope = prev
+
+
+@contextmanager
+def setup_substage(name: str):
+    """A stage nested in the open :func:`setup_scope` of this thread,
+    ``<scope>/<name>`` in the profile; outside a build only the span."""
+    cur = getattr(_setup_tls, "scope", None)
+    with annotate("setup/" + (cur[1] + "/" if cur else "") + name):
+        if cur is None or cur[0] is None:
+            yield
+        else:
+            with cur[0].scope(name):
+                yield
 
 
 class RequestSpans:

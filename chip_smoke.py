@@ -262,6 +262,27 @@ Run from the root of a checkout, with no arguments:
    torch's bfloat16 BSR or CSR product, ``torch.bmm`` or
    ``torch.baddbmm``. Within 120 s.
 
+18. The native set-up library (``P18_PASSES``, ``--phase18`` runs it
+   alone): prints ``g++ --version``, the build's seconds and OpenMP's
+   threads beside torch's, then builds main, earlier, U1 and B1 (both
+   on the host set-up: greedy aggregates and the SpGEMM), R1 and ILK
+   (``ILUK(k=1)`` on ``fe_like_problem(P18_ILK_ROWS)``) once with the
+   native passes and once with the numpy passes (``numpy_route``):
+   equal level rows and patterns, values within the CPU tests'
+   tolerances, each native pass of P18_PASSES run, U1's and B1's L0 as
+   ELL packed equal by both, ILK's host Chow–Patel factors equal. Then
+   C1 and A1 with the stencil Galerkin plan's device route (the card's
+   set-up) and its host route (``device_setup=False``): each stencil
+   level's coarse operator within 1e-5 of the largest entry in float32
+   (1e-12 absolute in float64, also the JAX package's 8³ float64 plan),
+   the device route taken. Each build's set-up by stage
+   (``AMG.setup_profile``, top two levels of scopes) is printed, and the
+   native passes' counts over the whole smoke. Within 120 s.
+
+Each path of phases 10–12, 16 and 17 and each other phase prints the
+stencil Galerkin plan's passes by route where it ran any
+(``galerkin_routes``).
+
 With the device setup as the default, the windows of the paths whose
 host-loop levels it changes come from the JAX package's counts under its
 device setup at full size (note at MAIN_LEVEL_ROWS); D2 and N1 decline
@@ -2832,6 +2853,7 @@ def a8_family(failures, only=None):
                                                     failures)
             summary[label]["path_s"] = time.perf_counter() - t0
             print("[%s] path: %.1f s" % (label, summary[label]["path_s"]))
+            galerkin_routes(label)
         del A
         gc.collect()
     print("phase 10: %.1f s" % (time.perf_counter() - t_phase))
@@ -3244,6 +3266,7 @@ def a9_family(failures, only=None):
                                                     failures)
             summary[label]["path_s"] = time.perf_counter() - t0
             print("[%s] path: %.1f s" % (label, summary[label]["path_s"]))
+            galerkin_routes(label)
         del A
         gc.collect()
     print("phase 11: %.1f s" % (time.perf_counter() - t_phase))
@@ -3648,6 +3671,7 @@ def bf16_family(failures, only=None):
                                                            failures)
             summary[label]["path_s"] = time.perf_counter() - t0
             print("[%s] path: %.1f s" % (label, summary[label]["path_s"]))
+            galerkin_routes(label)
             if label in ("BF1", "BF2"):
                 keep[label] = solve
             del solve
@@ -5484,6 +5508,7 @@ def p16_family(failures, only=None):
                 label, A, rhs, failures)
             summary[label]["path_s"] = time.perf_counter() - t0
             print("[%s] path: %.1f s" % (label, summary[label]["path_s"]))
+            galerkin_routes(label)
         del A
         gc.collect()
     records = {}
@@ -5861,6 +5886,7 @@ def p17_family(failures, only=None):
             summary[label]["first_pass"] = p17_first_pass(failures)
         summary[label]["path_s"] = time.perf_counter() - t0
         print("[%s] path: %.1f s" % (label, summary[label]["path_s"]))
+        galerkin_routes(label)
         # free this path's hierarchies, so that the next one's peak
         # device memory is its own
         del solve, A
@@ -5878,6 +5904,381 @@ def p17_family(failures, only=None):
     return counts, summary, records
 
 
+#: phase 18 (the native set-up library): its time limit, the rows of
+#: ILK's reduced system (ILU(k)'s whole set-up at 85,623 rows took 25-35
+#: s on the card's host, twice over the limit), and the native passes
+#: each path must run (one C function may serve several passes: the
+#: scalar and the block ELL pack are both ``ell_pack_f32``)
+P18_LIMIT_S = 120.0
+P18_ILK_ROWS = 20000
+P18_PASSES = {
+    "main": ("dia_mark", "dia_pack_f64_f32"),
+    "earlier": ("dia_mark", "dia_pack_f64_f32", "dia_fnma_batch_f32",
+                "spai0_diag"),
+    "U1": ("filter_count", "filter_fill", "strength_mask",
+           "symmetrize_mask", "aggregate_d2", "spgemm_symbolic",
+           "spgemm_numeric", "ell_pack_f32"),
+    "B1": ("spgemm_numeric_block", "ell_pack_f32"),
+    "R1": ("rs_cfsplit",),
+    "ILK": ("iluk_symbolic", "spgemm_masked"),
+}
+
+
+@contextlib.contextmanager
+def numpy_route():
+    """The set-up's numpy passes, as on a machine without ``g++``: the
+    native library reads as absent inside the block."""
+    from amgcl_tpu_torch import native
+    saved = native.lib
+    native.lib = lambda: None
+    try:
+        yield
+    finally:
+        native.lib = saved
+
+
+def native_since(before):
+    """The native calls made since ``before`` (a copy of
+    ``native.calls``), by C function."""
+    from amgcl_tpu_torch import native
+    return {k: v - before.get(k, 0) for k, v in native.calls.items()
+            if v > before.get(k, 0)}
+
+
+#: ``ops.stencil.calls`` as galerkin_routes last read it
+_GALERKIN_SEEN = {}
+
+
+def galerkin_routes(label):
+    """Prints the stencil Galerkin plan's numeric passes by route (host,
+    device) since the last call, where there were any: which paths reach
+    the device route."""
+    from amgcl_tpu_torch.ops import stencil as st
+    delta = {k: v - _GALERKIN_SEEN.get(k, 0) for k, v in st.calls.items()
+             if v > _GALERKIN_SEEN.get(k, 0)}
+    _GALERKIN_SEEN.update(st.calls)
+    if delta:
+        print("[%s] stencil Galerkin passes by route: %s"
+              % (label, json.dumps(delta)))
+
+
+def fresh(A):
+    """A without the caches a build leaves on it (DIA packing, offsets,
+    expanded rows), so that each route packs it anew."""
+    from amgcl_tpu_torch.ops.csr import CSR
+    return CSR(A.ptr, A.col, A.val, A.ncols)
+
+
+def profile_top(prof):
+    """The profile's top two levels of scopes: {scope: [s, {child: s}]}."""
+    tree = prof.to_dict()["scopes"]
+    return {k: [round(v["total_s"], 4),
+                {c: round(w["total_s"], 4)
+                 for c, w in v.get("children", {}).items()}]
+            for k, v in tree.items()}
+
+
+def p18_build(label, route, make, failures):
+    """One build under ``route`` ("native", "numpy", "device galerkin",
+    "host galerkin"): (AMG or result, seconds, native calls), its set-up
+    profile printed."""
+    from amgcl_tpu_torch import native
+    before = dict(native.calls)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if route == "numpy":
+        with numpy_route():
+            got = make()
+    else:
+        got = make()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    calls = native_since(before)
+    if route == "numpy" and calls:
+        failures.append("%s: native calls on the numpy route: %s"
+                        % (label, calls))
+    prof = getattr(got, "setup_profile", None)
+    print("[%s] %s route: %.3f s; native calls %s" % (label, route, secs,
+                                                      json.dumps(calls)))
+    if prof is not None:
+        print("[%s] %s route set-up by stage: %s"
+              % (label, route, json.dumps(profile_top(prof))))
+    return got, secs, calls
+
+
+def rel_err(a, b):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return float("inf")
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)) \
+        if a.size else 0.0
+
+
+def same_host_levels(label, got, want, failures):
+    """Two builds' host levels: the same rows, patterns and (within the
+    CPU tests' tolerances of the largest entry: 1e-13 where every level
+    down to this one holds float64 values, else 1e-5, since the native
+    float32 filter rounds its lumped sums once where numpy's sum in
+    float64) values. Returns the largest relative difference."""
+    from amgcl_tpu_torch.ops.csr import CSR
+    worst = 0.0
+    upstream32 = False
+    la, lb = got.host_levels, want.host_levels
+    if [h[0].nrows for h in la] != [h[0].nrows for h in lb]:
+        failures.append("%s: levels %s against %s" % (
+            label, [h[0].nrows for h in la], [h[0].nrows for h in lb]))
+        return float("inf")
+    for i, ((Aa, _, _), (Ab, _, _)) in enumerate(zip(la, lb)):
+        if not (isinstance(Aa, CSR) and isinstance(Ab, CSR)):
+            continue
+        upstream32 |= Ab.val.dtype == np.float32
+        if not (np.array_equal(Aa.ptr, Ab.ptr)
+                and np.array_equal(Aa.col, Ab.col)):
+            failures.append("%s: level %d's patterns differ (nnz %d / %d)"
+                            % (label, i, Aa.nnz, Ab.nnz))
+            continue
+        err = rel_err(Aa.val, Ab.val)
+        tol = 1e-5 if upstream32 else 1e-13
+        if Aa.val.dtype != Ab.val.dtype or err > tol:
+            failures.append("%s: level %d's values %s / %s differ by %.3e "
+                            "of the largest" % (label, i, Aa.val.dtype,
+                                                Ab.val.dtype, err))
+        worst = max(worst, err)
+    return worst
+
+
+def same_ell(label, A, failures):
+    """A's ELL pack (float32) by the native pass and by numpy: equal
+    columns and values. Returns the native calls it made."""
+    from amgcl_tpu_torch import native
+    from amgcl_tpu_torch.ops import device as dev
+    before = dict(native.calls)
+    got = dev.to_device(fresh(A), "ell", torch.float32, "cuda")
+    calls = native_since(before)
+    with numpy_route():
+        want = dev.to_device(fresh(A), "ell", torch.float32, "cuda")
+    ok = torch.equal(got.cols, want.cols) and torch.equal(got.vals,
+                                                          want.vals)
+    print("[%s] L0 as ELL (%s, K %d): native pack equal to numpy's: %s"
+          % (label, "block %dx%d" % A.block_size if A.is_block else "scalar",
+             got.cols.shape[1], ok))
+    if not ok:
+        failures.append("%s: the native ELL pack differs from numpy's"
+                        % label)
+    return calls
+
+
+def p18_library(failures):
+    """The library on the card's host: compiler, build seconds, OpenMP's
+    threads beside torch's (two OpenMP runtimes in one process)."""
+    import os
+    from amgcl_tpu_torch import native
+    gxx = native.compiler()
+    ver = subprocess.run([gxx, "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0] if gxx else None
+    ok = native.available()
+    print("native set-up library: %s; g++: %s; built in %s s this run; "
+          "OpenMP threads %s" % (
+              "loaded" if ok else "MISSING", ver,
+              "%.2f" % native.build_seconds
+              if native.build_seconds is not None else "no build (cached)",
+              native.omp_max_threads() if ok else None))
+    if not ok:
+        failures.append("phase 18: the native set-up library is not "
+                        "available (no g++)")
+        return {}
+    threads = torch.get_num_threads()
+    tasks = lambda: len(os.listdir("/proc/self/task"))
+    omp = {"torch_threads": threads, "omp": native.omp_max_threads(),
+           "tasks_before": tasks()}
+    torch.set_num_threads(2)
+    omp["omp_after_torch_2"] = native.omp_max_threads()
+    torch.set_num_threads(threads)
+    from amgcl_tpu_torch import fe_like_problem
+    A, _ = fe_like_problem(20000, nnz_target=28 * 20000, seed=3)
+    native.force_spgemm = True
+    try:
+        native.native_spgemm(A, A)
+    finally:
+        native.force_spgemm = False
+    omp["tasks_after_spgemm"] = tasks()
+    print("OpenMP beside torch: %s" % json.dumps(omp))
+    return {"gxx": ver, "build_s": native.build_seconds, **omp}
+
+
+def p18_family(failures, only=None):
+    """Phase 18: the native set-up library (P18_PASSES) and the stencil
+    Galerkin plan's device route. Returns ({}, {label: summary})."""
+    import amgcl_tpu_torch as T
+    from amgcl_tpu_torch import native
+    from amgcl_tpu_torch.ops import stencil as st
+    t_phase = time.perf_counter()
+    summary = {"library": p18_library(failures)}
+    if not summary["library"]:
+        return {}, summary
+    ran = {}
+    f32 = dict(dtype=torch.float32)
+
+    def amg(A, **kw):
+        return T.AMG(fresh(A), T.AMGParams(**{**f32, **kw.pop("prm", {})}),
+                     device="cuda", **kw)
+
+    def routes(label, make, compare):
+        got, t_n, calls = p18_build(label, "native", make, failures)
+        want, t_p, _ = p18_build(label, "numpy", make, failures)
+        err = compare(label, got, want)
+        ran[label] = set(calls)
+        summary[label] = {"native_s": t_n, "numpy_s": t_p,
+                          "max_rel_diff": err, "native_calls": calls}
+        return got, want
+
+    def levels(label, a, b):
+        return same_host_levels(label, a, b, failures)
+
+    def main_levels(label, a, b):
+        ok = all(la.A.shape == lb.A.shape and (
+            not hasattr(la.A, "data") or torch.equal(la.A.data, lb.A.data))
+            for la, lb in zip(a.hierarchy.levels, b.hierarchy.levels))
+        ok = ok and len(a.hierarchy.levels) == len(b.hierarchy.levels)
+        if not ok:
+            failures.append("main: the two routes' device levels differ")
+        return 0.0 if ok else float("inf")
+
+    want_paths = [p for p in ("main", "earlier", "U1", "B1", "R1", "ILK",
+                              "C1", "A1") if only is None or p in only]
+    poisson = fe = None
+    if {"main", "earlier", "C1", "A1"} & set(want_paths):
+        poisson, _ = T.poisson3d(128)
+    if {"U1", "R1"} & set(want_paths):
+        fe, _ = T.fe_like_problem()
+    if "main" in want_paths:
+        routes("main", lambda: amg(poisson), main_levels)
+    if "earlier" in want_paths:
+        routes("earlier", lambda: amg(poisson, device_setup=False), levels)
+    if "U1" in want_paths:
+        a, _ = routes("U1", lambda: amg(fe, device_setup=False), levels)
+        ran["U1"] |= set(same_ell("U1", a.host_levels[0][0], failures))
+        del a
+    if "B1" in want_paths:
+        Ab, _ = T.poisson3d_block(48, 3)
+        a, _ = routes("B1", lambda: amg(Ab, device_setup=False), levels)
+        ran["B1"] |= set(same_ell("B1", a.host_levels[0][0], failures))
+        del a, Ab
+    if "R1" in want_paths:
+        routes("R1", lambda: amg(fe, device_setup=False,
+                                 prm=dict(coarsening=T.RugeStuben())),
+               levels)
+    if "ILK" in want_paths:
+        Ak, _ = T.fe_like_problem(P18_ILK_ROWS, nnz_target=28 * P18_ILK_ROWS,
+                                   seed=1)
+        ilk = dict(relax=T.ILUK(k=1), dtype=torch.float64)
+        routes("ILK", lambda: amg(Ak, prm=ilk), levels)
+        # the host Chow-Patel sweeps (a hierarchy on the CPU), with the
+        # masked product
+        got, _, calls = p18_build("ILK host sweeps", "native",
+                                  lambda: T.ILUK(k=1).build_host(Ak),
+                                  failures)
+        want, _, _ = p18_build("ILK host sweeps", "numpy",
+                               lambda: T.ILUK(k=1).build_host(Ak), failures)
+        ran["ILK"] |= set(calls)
+        for part, (g, w) in zip("LU", zip(got[:2], want[:2])):
+            if not (np.array_equal(g.ptr, w.ptr)
+                    and np.array_equal(g.col, w.col)):
+                failures.append("ILK: host %s patterns differ" % part)
+                continue
+            err = rel_err(g.val, w.val)
+            print("[ILK] host %s factor: %d entries, native / numpy differ "
+                  "by %.3e of the largest" % (part, g.nnz, err))
+            if err > 1e-12:
+                failures.append("ILK: host %s factor differs by %.3e"
+                                % (part, err))
+        del Ak
+    for label, passes in P18_PASSES.items():
+        if label in ran:
+            missing = [p for p in passes if p not in ran[label]]
+            if missing:
+                failures.append("%s: native passes %s did not run"
+                                % (label, missing))
+    # the stencil Galerkin plan's two routes on C1 and A1
+    for label, prm in (("C1", dict(relax=T.Chebyshev())),
+                       ("A1", dict(coarsening=T.Aggregation()))):
+        if label not in want_paths:
+            continue
+        before = dict(st.calls)
+        dev_amg, t_d, _ = p18_build(label, "device galerkin",
+                                    lambda: amg(poisson, device_setup=True,
+                                                   prm=prm), failures)
+        n_dev = st.calls["device"] - before.get("device", 0)
+        host_amg, t_h, _ = p18_build(
+            label, "host galerkin",
+            lambda: amg(poisson, device_setup=False, prm=prm), failures)
+        lv = [i for i, (_, P, _) in enumerate(dev_amg.host_levels[:-1])
+              if isinstance(P, st.StencilTransfer)]
+        errs = []
+        for i in lv:
+            Ad, Ah = dev_amg.host_levels[i + 1][0], \
+                host_amg.host_levels[i + 1][0]
+            same = np.array_equal(Ad.ptr, Ah.ptr) \
+                and np.array_equal(Ad.col, Ah.col)
+            err = rel_err(Ad.val, Ah.val) if same else float("inf")
+            abs_err = float(np.abs(Ad.val.astype(np.float64)
+                                   - Ah.val.astype(np.float64)).max()) \
+                if same else float("inf")
+            tol = 1e-5 if Ah.val.dtype == np.float32 else None
+            print("[%s] level %d's stencil Galerkin product, device / host "
+                  "route: %s, patterns equal %s, max abs diff %.3e, %.3e of "
+                  "the largest" % (label, i + 1, Ah.val.dtype, same,
+                                   abs_err, err))
+            if not same or (tol is not None and err > tol) \
+                    or (tol is None and abs_err > 1e-12):
+                failures.append("%s: level %d's Galerkin routes differ"
+                                % (label, i + 1))
+            errs.append(err)
+        if n_dev == 0 or not lv:
+            failures.append("%s: the device Galerkin route ran %d times on "
+                            "%d stencil levels" % (label, n_dev, len(lv)))
+        summary[label] = {"device_galerkin_s": t_d, "host_galerkin_s": t_h,
+                          "device_route_calls": n_dev,
+                          "stencil_levels": lv, "max_rel_diff": max(errs)
+                          if errs else None}
+        del dev_amg, host_amg
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the float64 plan of the JAX package's own test (8³, atol 1e-12)
+    (plan, a, m) = p18_plan64()
+    host, dev_ = plan.apply(a, m), plan.apply(a, m, torch.device("cuda"))
+    err64 = float(np.abs(dev_.data - host.data).max())
+    print("float64 plan at 8^3: device / host max abs diff %.3e" % err64)
+    if dev_.offsets3 != host.offsets3 or err64 > 1e-12:
+        failures.append("the float64 Galerkin plan's routes differ by %.3e"
+                        % err64)
+    summary["plan64_abs_diff"] = err64
+    secs = time.perf_counter() - t_phase
+    summary["phase_s"] = secs
+    print("phase 18: %.1f s" % secs)
+    if only is None and secs > P18_LIMIT_S:
+        failures.append("phase 18 took %.1f s, over its %.0f s"
+                        % (secs, P18_LIMIT_S))
+    return {}, summary
+
+
+def p18_plan64():
+    """poisson3d(8)'s SA plan in float64 with M = 0.57 D_f⁻¹ A_f
+    (tests/test_device_setup.py:369-393): (plan, a, m)."""
+    import amgcl_tpu_torch as T
+    from amgcl_tpu_torch.ops import stencil as st
+    A, _ = T.poisson3d(8)
+    Ad = st.host_dia_from_csr(A, (8, 8, 8), np.float64)
+    Af, Dinv = st.filtered_dia(Ad, 0.08)
+    M = st.scale_rows(Af, Dinv)
+    M.data = M.data * 0.57
+    M = M.drop_empty()
+    plan = st.StencilGalerkinPlan(Ad.offsets3, M.offsets3, Ad.dims,
+                                  (2, 2, 2), (4, 4, 4), np.float64)
+    return plan, Ad.data, M.data
+
+
 def main(argv=()):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5890,23 +6291,30 @@ def main(argv=()):
     cuda_lib.lib()
     print("kernel build: %.2f s (nvcc, %s)"
           % (time.perf_counter() - t0, " + ".join(cuda_lib.SOURCES)))
+    # the native set-up library, which every host set-up below calls
+    from amgcl_tpu_torch import native
+    t0 = time.perf_counter()
+    print("native set-up library: %s in %.2f s (g++ %s)" % (
+        "built or loaded" if native.available() else "absent (no g++)",
+        time.perf_counter() - t0, " ".join(native.FLAGS)))
     failures = []
     if argv and argv[0] in ("--phase10", "--phase11", "--phase12",
                             "--phase13", "--phase14", "--phase15",
-                            "--phase16", "--phase17"):
-        # phase 10 to 17 alone, for the paths named (all without names);
+                            "--phase16", "--phase17", "--phase18"):
+        # phase 10 to 18 alone, for the paths named (all without names);
         # no result line
         family = {"--phase10": a8_family, "--phase11": a9_family,
                   "--phase12": bf16_family, "--phase13": p13_family,
                   "--phase14": p14_family, "--phase15": p15_family,
-                  "--phase16": p16_family,
-                  "--phase17": p17_family}[argv[0]]
+                  "--phase16": p16_family, "--phase17": p17_family,
+                  "--phase18": p18_family}[argv[0]]
         summary = family(failures, set(argv[1:]) or None)[1]
         print("%s paths: %s" % (argv[0][2:], json.dumps(summary)))
         for f in failures:
             print("FAIL: %s" % f, file=sys.stderr)
         return 1 if failures else 0
     solve, counts, summary = main_path(failures)
+    galerkin_routes("main and earlier paths")
     records = check_kernels(solve, failures)
     records.update(check_fused(solve, failures))
     print("main path: %s" % json.dumps(summary))
@@ -5950,6 +6358,7 @@ def main(argv=()):
     s_counts, s_summary, s_records = sharded_stencil(failures)
     records.update(s_records)
     print("sharded stencil path: %s" % json.dumps(s_summary))
+    galerkin_routes("phase 4-9")
     a_counts, a_summary = a8_family(failures)
     print("phase 10 paths: %s" % json.dumps(a_summary))
     n_counts, n_summary = a9_family(failures)
@@ -5959,16 +6368,25 @@ def main(argv=()):
     print("phase 12 paths: %s" % json.dumps(bf_summary))
     p13_counts, p13_summary = p13_family(failures)
     print("phase 13 paths: %s" % json.dumps(p13_summary))
+    galerkin_routes("phase 13")
     p14_counts, p14_summary = p14_family(failures)
     print("phase 14 paths: %s" % json.dumps(p14_summary))
+    galerkin_routes("phase 14")
     p15_counts, p15_summary = p15_family(failures)
     print("phase 15 paths: %s" % json.dumps(p15_summary))
+    galerkin_routes("phase 15")
     p16_counts, p16_summary, p16_records = p16_family(failures)
     records.update(p16_records)
     print("phase 16 paths: %s" % json.dumps(p16_summary))
     p17_counts, p17_summary, p17_records = p17_family(failures)
     records.update(p17_records)
     print("phase 17 paths: %s" % json.dumps(p17_summary))
+    print("native passes over phases 2-17: %s"
+          % json.dumps(dict(sorted(native.calls.items()))))
+    _, p18_summary = p18_family(failures)
+    print("phase 18 paths: %s" % json.dumps(p18_summary))
+    print("native passes over the whole smoke: %s"
+          % json.dumps(dict(sorted(native.calls.items()))))
     kernels = []
     for name in REPLACES:
         rec = records.get(name)

@@ -43,7 +43,12 @@ refine=3, and RO1: U1's cut system under chip_smoke.py's random
 symmetric permutation, reordered by RCM (``AMGCL_TPU_REORDER=rcm``,
 ``reorder="rcm"``). One line per path: the JAX package's count under
 the host setup, then both packages' counts (summed over the refinement)
-and reported residuals under the device setup, and the coarse rows.
+and reported residuals under the device setup, and the coarse rows. The
+JAX package's host setup runs its native set-up library's passes
+(``amgcl_tpu/native.py``) where ``g++`` is present, as it is here; since
+the port has its own copy of that library (``amgcl_tpu_torch/native.py``)
+its host setup takes the same passes, so the host-setup counts quoted
+from this script are both packages' native route.
 
 ``--a10-full [LABEL ...]`` runs the JAX package alone, under
 ``AMGCL_TPU_DEVICE_SETUP=1`` and ``AMGCL_TPU_REORDER=off`` (``rcm`` for

@@ -49,7 +49,8 @@ slice: each bucket's CUDA graph replay equal bit for bit to the eager
 per-column apply, the dot kernels' ticket of the capture stream made once
 outside the capture and reused, a capture refused by name on a
 preconditioner that syncs with the host, and a stacked solve through the
-graphs against the same solve on the CPU.
+graphs against the same solve on the CPU. The stencil Galerkin plan's
+device route on the card bit for bit with its host route.
 
 Every test needs an NVIDIA card and skips without one. On the card, from
 the repo root (the suite's conftest imports JAX, which the port's machine
@@ -3019,3 +3020,32 @@ def test_bf16_block_and_dwin_solves_on_card_match_cpu(cuda):
                        for lv in solve.precond.hierarchy.levels)
             runs[torch.device(device).type] = info.iters
         assert abs(runs["cpu"] - runs["cuda"]) <= 1, runs
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("with_m", [True, False])
+def test_stencil_galerkin_device_route_on_card_equals_host(cuda, with_m,
+                                                          dtype):
+    """The stencil Galerkin plan's numeric pass on the card, bit for bit
+    with its host route (the native multiply-add batch): each product is
+    rounded before its subtraction on both, in the same order."""
+    from amgcl_tpu_torch import poisson3d
+    from amgcl_tpu_torch.ops import stencil as st
+    A, _ = poisson3d(17)
+    grid = (17, 17, 17)
+    Ad = st.host_dia_from_csr(A, grid, dtype)
+    M = None
+    if with_m:
+        Af, Dinv = st.filtered_dia(Ad, 0.08)
+        M = st.scale_rows(Af, Dinv)
+        M.data = M.data * dtype(0.57)
+        M = M.drop_empty()
+    plan = st.StencilGalerkinPlan(
+        Ad.offsets3, None if M is None else M.offsets3, Ad.dims,
+        (2, 2, 2), (9, 9, 9), dtype)
+    m = None if M is None else M.data
+    host = plan.apply(Ad.data, m)
+    got = plan.apply(Ad.data, m, torch.device("cuda"))
+    assert got.offsets3 == host.offsets3
+    assert got.data.dtype == host.data.dtype
+    assert np.array_equal(got.data, host.data)
